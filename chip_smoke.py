@@ -21,8 +21,9 @@ Phases (each raises on failure; the script then exits non-zero):
 4. scale: a 2^21-node random ELL graph (Cd = 32, ~256 MB of nbr): static
    coreness and a 64-update intra-block stream, held the same way.
 5. timing: each kernel and its plain version at the main path's shapes
-   (CUDA events between 20 back-to-back calls after warm-up, the median),
-   beside the bytes bound at 3.35 TB/s.
+   (`ell_hindex` at both: the stream's K = Cd and the static fixpoint's
+   degree bound), by CUDA events between 20 back-to-back calls after
+   warm-up, the median, beside the bytes bound at 3.35 TB/s.
 
 Earlier lines are JSON objects; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -77,9 +78,9 @@ def main() -> int:
     g, core_plain = ds1_graph(dev)
     parity = kernel_parity(g, core_plain, dev)
     ups = sample_stream(g, DS1_UPDATES // 4, seed0=2)
-    launches = _drive(g, ups, "main_path_ds1")
+    launches, hindex_split = _drive(g, ups, "main_path_ds1")
     scale_phase(dev)
-    kernels = timing(g, core_plain, ups[:R], parity, launches)
+    kernels = timing(g, core_plain, ups[:R], parity, launches, hindex_split)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -203,6 +204,7 @@ def _drive(g, ups, what):
     on its own copy of `g`.  Returns the kernels' launch counts."""
     import torch
     from repro_torch.core import coreness, coreness_with_stats
+    from repro_torch.kernels.ell_hindex import hindex_ell
     from repro_torch.runtime import run_stream
 
     def path(backend):
@@ -210,12 +212,13 @@ def _drive(g, ups, what):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         core, steps = coreness_with_stats(gc, backend=backend)
+        static = hindex_ell.launches  # the rest are the stream's (K = Cd)
         res = run_stream(gc, core, ups, R=R, backend=backend)
         torch.cuda.synchronize()
-        return core, steps, res, time.perf_counter() - t0
+        return core, steps, res, time.perf_counter() - t0, static
 
-    (core, steps, res, secs), counts = _counted(lambda: path("ell"))
-    core_p, steps_p, res_p, secs_p = path("torch")
+    (core, steps, res, secs, static), counts = _counted(lambda: path("ell"))
+    core_p, steps_p, res_p, secs_p, _ = path("torch")
     if steps != steps_p or not torch.equal(core, core_p):
         raise AssertionError(f"{what}: ell coreness differs from plain "
                              f"({steps} vs {steps_p} supersteps)")
@@ -223,10 +226,12 @@ def _drive(g, ups, what):
     fresh = coreness(res.g, backend="torch")
     if not torch.equal(fresh, res.core):
         raise AssertionError(f"{what}: maintained coreness != recompute")
+    hindex_split = {"static": static, "stream": counts["ell_hindex"] - static}
     emit(phase=what, static_steps=steps, max_core=int(core.max()),
          stream_stats=res.stats._asdict(), launches=counts,
+         ell_hindex_launches=hindex_split,
          path_seconds=secs, plain_path_seconds=secs_p)
-    return counts
+    return counts, hindex_split
 
 
 def scale_phase(dev):
@@ -264,10 +269,30 @@ def _time_ms(fn, reps=20, warmup=3) -> float:
                              for i in range(reps))
 
 
-def timing(g, core, window, parity, launches):
+def _bound_ms(nbytes: int) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _time_pair(kernel, plain):
+    """(kernel ms, plain ms) on one card, timed plain, kernel, kernel,
+    plain; each is the smaller of its two medians."""
+    p1, k1, k2, p2 = (_time_ms(fn) for fn in (plain, kernel, kernel, plain))
+    return min(k1, k2), min(p1, p2)
+
+
+def timing(g, core, window, parity, launches, hindex_split):
     """The kernel line: each kernel and its plain version at the main
-    path's shapes — h-index of the first static superstep (est = degrees,
-    K = degree bound) and the first hop of the stream's first window."""
+    path's shapes.
+
+    `ell_hindex` runs at two shapes.  The stream's clamped recompute
+    (most launches) passes K = None: C = Cd columns, exact for any slot
+    order, so every column must be read; timed with est = the coreness.
+    The static fixpoint passes K = the degree bound (est = degrees there):
+    its bound counts, besides the first C columns the kernel reads, what a
+    left-filled row needs — its valid slots and the first PAD after them.
+    The entry's own numbers are the recompute shape's.  `ell_frontier` is
+    timed at the first hop of the stream's first window.  Bounds count
+    every input read once and the output written once."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.ell_frontier import (
@@ -275,12 +300,27 @@ def timing(g, core, window, parity, launches):
     from repro_torch.kernels.ell_hindex import (
         columns, hindex_ell, hindex_ell_plain)
 
-    N, nbr = g.N, g.nbr
-    K = ops.degree_bound(g)
-    C = columns(g.Cd, K)
-    est = g.deg
-    valid = int((nbr[:, :C] >= 0).sum())
-    h_bytes = N * C * 4 + valid * 4 + N * 4  # nbr, gathered est, out
+    N, Cd, nbr = g.N, g.Cd, g.nbr
+    io = N * 4 + N * 4  # est read once, out written once
+    shapes = []
+    for shape, est, K, n in (
+            ("stream recompute: K=None, est=coreness", core, None,
+             hindex_split["stream"]),
+            ("static fixpoint: K=degree_bound, est=degrees", g.deg,
+             ops.degree_bound(g), hindex_split["static"])):
+        C = columns(Cd, K)
+        ms, plain_ms = _time_pair(lambda: hindex_ell(nbr, est, K=K),
+                                  lambda: hindex_ell_plain(nbr, est, K))
+        row_valid = (nbr[:, :C] >= 0).sum(dim=1)
+        s = {"shape": shape, "C": C, "launches": n, "ms": ms,
+             "plain_ms": plain_ms, "valid_slots": int(row_valid.sum()),
+             "bound_bytes": N * C * 4 + io}
+        s["bound_ms"] = _bound_ms(s["bound_bytes"])
+        if C < Cd:
+            left = int((row_valid + 1).clamp(max=C).sum()) * 4 + io
+            s["bound_bytes_left_filled"] = left
+            s["bound_ms_left_filled"] = _bound_ms(left)
+        shapes.append(s)
 
     us = torch.tensor([u for u, _, _ in window], device=g.device)
     vs = torch.tensor([v for _, v, _ in window], device=g.device)
@@ -291,41 +331,39 @@ def timing(g, core, window, parity, launches):
     roots[vs, torch.arange(R, device=g.device)] = True
     f = (roots & elig).contiguous()
     vis = f.clone()
-    need = (elig & ~vis).any(dim=1)
-    need_rows = int(need.sum())
-    # eligible + visited + frontier read once, out written once, plus the
-    # nbr slots of rows that still need a column
-    f_bytes = 4 * N * R + need_rows * g.Cd * 4
+    # nbr slots this data needs, in slot order: none for a row that needs
+    # no column; up to the slot where its last needed column is first hit;
+    # all Cd when a needed column is never hit (PAD may sit anywhere)
+    need = elig & ~vis
+    hits = f[nbr.clamp(min=0).long()] & (nbr >= 0)[:, :, None]  # (N, Cd, R)
+    first = hits.to(torch.int32).argmax(dim=1) + 1
+    stop = torch.where(hits.any(dim=1), first, torch.full_like(first, Cd))
+    slots = int(torch.where(need, stop, 0).amax(dim=1).sum())
+    f_bytes = 4 * N * R + slots * 4  # eligible, visited, f, out; nbr slots
+    del hits
+    fk, fp = _time_pair(lambda: frontier_step_ell(nbr, f, elig, vis),
+                        lambda: frontier_step_ell_plain(nbr, f, elig, vis))
+    emit(phase="timing", order="plain,kernel,kernel,plain",
+         hindex_shapes=shapes,
+         frontier_shape=dict(N=N, Cd=Cd, R=R,
+                             rows_needing=int(need.any(dim=1).sum()),
+                             nbr_slots_needed=slots, ms=fk, plain_ms=fp))
 
-    def entry(name, src, replaces, ms, plain_ms, nbytes):
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        return {"name": name, "route": "cuda", "source": src,
-                "replaces": replaces, "tpu_kernel": replaces,
-                "launches": launches[name], "parity": "bit-equal",
-                "max_abs_err": parity[name], "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": "bytes",
-                "bound_bytes": nbytes, "library_ms": None}
+    def entry(name, replaces, ms, plain_ms, nbytes, **extra):
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "replaces": replaces, "launches": launches[name],
+                "parity": "bit-equal", "max_abs_err": parity[name],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": _bound_ms(nbytes),
+                "bound_by": "bytes", "bound_bytes": nbytes,
+                "library_ms": None, **extra}
 
-    # plain first, then kernel, then kernel again, then plain: one card
-    hp1 = _time_ms(lambda: hindex_ell_plain(nbr, est, K))
-    hk1 = _time_ms(lambda: hindex_ell(nbr, est, K=K))
-    hk2 = _time_ms(lambda: hindex_ell(nbr, est, K=K))
-    hp2 = _time_ms(lambda: hindex_ell_plain(nbr, est, K))
-    fp1 = _time_ms(lambda: frontier_step_ell_plain(nbr, f, elig, vis))
-    fk1 = _time_ms(lambda: frontier_step_ell(nbr, f, elig, vis))
-    fk2 = _time_ms(lambda: frontier_step_ell(nbr, f, elig, vis))
-    fp2 = _time_ms(lambda: frontier_step_ell_plain(nbr, f, elig, vis))
-    emit(phase="timing", hindex_ms=[hp1, hk1, hk2, hp2],
-         frontier_ms=[fp1, fk1, fk2, fp2], order="plain,kernel,kernel,plain",
-         hindex_shape=dict(N=N, Cd=g.Cd, C=C, valid_slots=valid),
-         frontier_shape=dict(N=N, Cd=g.Cd, R=R, rows_needing=need_rows))
+    h = shapes[0]
     return [
-        entry("ell_hindex", "src/repro_torch/kernels/csrc/ell_hindex.cu",
-              "src/repro/kernels/ell_hindex.py:117", min(hk1, hk2),
-              min(hp1, hp2), h_bytes),
-        entry("ell_frontier", "src/repro_torch/kernels/csrc/ell_frontier.cu",
-              "src/repro/kernels/ell_frontier.py:107", min(fk1, fk2),
-              min(fp1, fp2), f_bytes),
+        entry("ell_hindex", "src/repro/kernels/ell_hindex.py:117", h["ms"],
+              h["plain_ms"], h["bound_bytes"], shapes=shapes),
+        entry("ell_frontier", "src/repro/kernels/ell_frontier.py:107", fk, fp,
+              f_bytes),
     ]
 
 

@@ -102,27 +102,22 @@ def hindex_blocks(g, est: torch.Tensor, backend: str = "auto",
     return hindex_ell(g.nbr, est, K=K)
 
 
-def _eligible_cols(eligible: torch.Tensor, R: int) -> torch.Tensor:
-    """Broadcast a shared (N,) eligibility mask to the (N, R) column form."""
-    if eligible.dim() == 1:
-        return eligible[:, None].expand(eligible.shape[0], R)
-    return eligible
-
-
 def frontier_blocks(g, f: torch.Tensor, eligible: torch.Tensor,
                     visited: torch.Tensor, backend: str = "auto",
                     K: Optional[int] = None) -> torch.Tensor:
     """One masked BFS hop for R stacked frontiers, via the chosen backend.
 
-    f, visited: (N, R) bool; eligible: (N,) shared or (N, R) per-column.
+    f, eligible, visited: (N, R) bool (eligibility is per column; the
+    shared (N,) form of the reference's dense backend is not ported).
     Returns the next frontier as (N, R) bool.
     """
-    R = f.shape[1]
-    elig = _eligible_cols(eligible, R)
+    if eligible.shape != f.shape:
+        raise ValueError(f"eligible must be (N, R) like f {tuple(f.shape)}, "
+                         f"got {tuple(eligible.shape)}")
     b = resolve_backend(backend, g.device)
     if b == "torch":
-        return ref.ell_frontier_hop_ref(g.nbr, f, elig, visited)
-    return frontier_step_ell(g.nbr, f.contiguous(), elig.contiguous(),
+        return ref.ell_frontier_hop_ref(g.nbr, f, eligible, visited)
+    return frontier_step_ell(g.nbr, f.contiguous(), eligible.contiguous(),
                              visited.contiguous(), K=K)
 
 

@@ -12,8 +12,9 @@ versions) runs the main path — static coreness plus `run_stream` — once
 to warm up, once timed on the host clock, and once under
 `torch.profiler`.  Prints one JSON line per backend: the wall seconds
 without and with the profiler, the device time summed over every kernel,
-memcpy and memset, the device's busy share of the unprofiled wall time,
-the number of device operations, and the top kernels by device time.
+memcpy and memset of the profiled run, the device's busy share of that
+same run's wall time, the number of device operations, and the top
+kernels by device time.
 """
 from __future__ import annotations
 
@@ -73,7 +74,7 @@ def main() -> int:
         print(json.dumps({
             "backend": backend, "card": card, "wall_s": wall,
             "wall_profiled_s": wall_prof, "device_s": device_s,
-            "device_busy_share": device_s / wall, "device_ops": count,
+            "device_busy_share": device_s / wall_prof, "device_ops": count,
             "top_kernels_ms": {k[:80]: v / 1e3
                                for k, v in by_name.most_common(8)},
         }), flush=True)
