@@ -7,23 +7,38 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc:
 
 Phases (each raises on failure; the script then exits non-zero):
 
-1. card: the `nvidia-smi` name and power limit; build both CUDA kernels
-   from `src/repro_torch/kernels/csrc` (one nvcc per source, in parallel).
+1. card: the `nvidia-smi` name and power limit; build all six CUDA
+   kernels from `src/repro_torch/kernels/csrc` (one nvcc per source, in
+   parallel).
 2. kernel parity: each kernel against its plain PyTorch version on the
-   card, bit-equal, on the DS1 graph's adjacency — `ell_hindex` with est =
-   degrees, random ints and the final coreness, at K = Cd and at the
-   degree bound, and on shuffled rows; `ell_frontier` at R = 1, 8, 13.
+   card, on the DS1 graph's adjacency and on its rows shuffled, at K = Cd
+   and at the degree bound — `ell_hindex` with est = degrees, random ints
+   and the coreness; `ell_frontier` at R = 1, 8, 13; `ell_cc` with random
+   ints and CC labels; `ell_pagerank` with PageRank contributions and
+   random floats; `ell_multi` with ("hindex", "min", "sum") and each alone,
+   also bit-equal to the standalone kernels; `ell_triangles` with
+   rows = nbr.  Bit-equal, except the float sum: allclose(rtol=1e-5,
+   atol=1e-9) against `torch.sum`'s order.
 3. main path at the paper's DS1 size (`snap_like("DS1", 1.0, seed=7)`,
    BFS-partitioned into 8 blocks): static coreness and a 200-update
    `run_stream` (R = 8) through the kernels, held against the plain
    backend (same coreness, same superstep counts, same `StreamStats`) and
-   a fresh recompute; each kernel's launch count must be > 0.
-4. scale: a 2^21-node random ELL graph (Cd = 32, ~256 MB of nbr): static
-   coreness and a 64-update intra-block stream, held the same way.
-5. timing: each kernel and its plain version at the main path's shapes
+   a fresh recompute; both kernels' launch counts must be > 0.
+4. analytics_ds1, the BlockProgram path on the same graph, through the
+   kernels and held against the plain backend: connected components,
+   PageRank (30 fixed supersteps; and tol = 1e-6), triangle counts, the
+   coreness program, `fused_analytics` warm-started from them, and the
+   same 200-update stream with CC labels maintained; CC and triangles
+   also against scipy on the host.  All six kernels must launch.
+5. scale: a 2^21-node random ELL graph (Cd = 32, ~256 MB of nbr): static
+   coreness and a 64-update intra-block stream, then CC, PageRank and
+   triangle counts, held the same way.
+6. timing: each kernel and its plain version at the main path's shapes
    (`ell_hindex` at both: the stream's K = Cd and the static fixpoint's
-   degree bound), by CUDA events between 20 back-to-back calls after
-   warm-up, the median, beside the bytes bound at 3.35 TB/s.
+   degree bound; the four combines at the analytics shapes, and
+   `torch.sparse.mm` beside the sum), by CUDA events between 20
+   back-to-back calls after warm-up, the median, beside the bytes bound
+   at 3.35 TB/s.
 
 Earlier lines are JSON objects; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -44,6 +59,28 @@ SRC = ROOT / "src"
 
 #: published HBM3 rate of one H100 SXM (bytes/s)
 HBM_BYTES_PER_S = 3.35e12
+#: published float32 rate of one H100 SXM outside the tensor cores (op/s),
+#: the rate the integer compares of the triangle probes are counted at
+SCALAR_OPS_PER_S = 67e12
+#: the six kernels: name -> the wrapper's module under repro_torch.kernels
+#: and the TPU kernel it replaces
+KERNELS = {
+    "ell_hindex": ("ell_hindex.hindex_ell",
+                   "src/repro/kernels/ell_hindex.py:117"),
+    "ell_frontier": ("ell_frontier.frontier_step_ell",
+                     "src/repro/kernels/ell_frontier.py:107"),
+    "ell_cc": ("ell_cc.neighbor_min_ell", "src/repro/kernels/ell_cc.py:102"),
+    "ell_pagerank": ("ell_pagerank.neighbor_sum_ell",
+                     "src/repro/kernels/ell_pagerank.py:66"),
+    "ell_multi": ("ell_multi.neighbor_multi_ell",
+                  "src/repro/kernels/ell_multi.py:100"),
+    "ell_triangles": ("ell_triangles.neighbor_common_ell",
+                      "src/repro/kernels/ell_triangles.py:167"),
+}
+#: the float sum's tolerance against the plain version (torch.sum adds in
+#: another order); the ranks', after 30 supersteps of such sums
+SUM_TOL = dict(rtol=1e-5, atol=1e-9)
+RANK_TOL = dict(rtol=1e-4, atol=1e-9)
 DS1_UPDATES = 200   # 50 each: inter/intra inserts, inter/intra deletes
 SCALE_LOG2_N = 21   # the scale phase's node count, 2**21
 SCALE_UPDATES = 64  # intra-block updates of the scale stream
@@ -77,10 +114,13 @@ def main() -> int:
 
     g, core_plain = ds1_graph(dev)
     parity = kernel_parity(g, core_plain, dev)
+    parity.update(combine_parity(g, core_plain, dev))
     ups = sample_stream(g, DS1_UPDATES // 4, seed0=2)
     launches, hindex_split = _drive(g, ups, "main_path_ds1")
+    launches_an, fields = _analytics(g, "analytics_ds1", core_plain, ups)
     scale_phase(dev)
     kernels = timing(g, core_plain, ups[:R], parity, launches, hindex_split)
+    kernels += combine_timing(g, fields, parity, launches_an)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -172,6 +212,88 @@ def kernel_parity(g, core, dev):
     return err
 
 
+def combine_parity(g, core, dev):
+    """The four combine kernels against their plain versions on the card,
+    on the DS1 adjacency and its rows shuffled, at K = Cd and at the degree
+    bound.  Returns {kernel name: max |kernel - plain| over all cases}."""
+    import torch
+    from repro_torch.core import connected_components, pagerank
+    from repro_torch.core.algorithms import PageRankProgram
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ell_cc import (
+        neighbor_min_ell, neighbor_min_ell_plain)
+    from repro_torch.kernels.ell_hindex import hindex_ell
+    from repro_torch.kernels.ell_multi import (
+        neighbor_multi_ell, neighbor_multi_ell_plain)
+    from repro_torch.kernels.ell_pagerank import (
+        neighbor_sum_ell, neighbor_sum_ell_plain)
+    from repro_torch.kernels.ell_triangles import (
+        neighbor_common_ell, neighbor_common_ell_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    nbr, N, Cd = g.nbr, g.N, g.Cd
+    shuffled = nbr.gather(
+        1, torch.rand((N, Cd), generator=gen, device=dev).argsort(dim=1))
+    labels = connected_components(g, backend="torch")
+    rank = pagerank(g, tol=None, max_steps=30, backend="torch")
+    ints = {"random": torch.randint(-5, N + 5, (N,), generator=gen,
+                                    device=dev, dtype=torch.int32),
+            "cc_labels": torch.where(g.node_mask, labels,
+                                     torch.iinfo(torch.int32).max)}
+    floats = {"pagerank_contrib": PageRankProgram._contrib(g.deg, rank),
+              "random": torch.rand(N, generator=gen, device=dev)}
+    adj = {"sorted": nbr, "shuffled": shuffled}
+    Ks = {"K=Cd": None, "K=degree_bound": ops.degree_bound(g)}
+    err = dict.fromkeys(("ell_cc", "ell_pagerank", "ell_multi",
+                         "ell_triangles"), 0.0)
+    alone = {"min": neighbor_min_ell, "sum": neighbor_sum_ell,
+             "hindex": hindex_ell}
+    cases = []
+    for (an, nb), (kn, K) in ((a, k) for a in adj.items() for k in Ks.items()):
+        for fn, f in ints.items():
+            got, want = neighbor_min_ell(nb, f, K), neighbor_min_ell_plain(
+                nb, f, K)
+            if not torch.equal(got, want):
+                raise AssertionError(f"ell_cc differs from plain: {an} {kn} "
+                                     f"{fn}")
+        for fn, f in floats.items():
+            got, want = neighbor_sum_ell(nb, f, K), neighbor_sum_ell_plain(
+                nb, f, K)
+            err["ell_pagerank"] = max(err["ell_pagerank"],
+                                      float((got - want).abs().max()))
+            if not torch.allclose(got, want, **SUM_TOL):
+                raise AssertionError(f"ell_pagerank not close to plain: {an} "
+                                     f"{kn} {fn}")
+        host = {"hindex": core, "min": ints["cc_labels"],
+                "sum": floats["pagerank_contrib"]}
+        for combines in (("hindex", "min", "sum"), ("hindex",), ("min",),
+                         ("sum",)):
+            fields = [host[c] for c in combines]
+            got = neighbor_multi_ell(nb, fields, combines, K)
+            want = neighbor_multi_ell_plain(nb, fields, combines, K)
+            for c, f, g_, w in zip(combines, fields, got, want):
+                if not torch.equal(g_, alone[c](nb, f, K)):
+                    raise AssertionError(f"ell_multi {c} != standalone kernel:"
+                                         f" {an} {kn} {combines}")
+                ok = torch.allclose(g_, w, **SUM_TOL) if c == "sum" \
+                    else torch.equal(g_, w)
+                if not ok:
+                    raise AssertionError(f"ell_multi {c} differs from plain: "
+                                         f"{an} {kn} {combines}")
+                if c == "sum":
+                    err["ell_multi"] = max(err["ell_multi"],
+                                           float((g_ - w).abs().max()))
+        got = neighbor_common_ell(nb, nb, K)
+        if not torch.equal(got, neighbor_common_ell_plain(nb, nb, K)):
+            raise AssertionError(
+                f"ell_triangles differs from plain: {an} {kn}")
+        cases.append(f"{an}/{kn}")
+    torch.cuda.synchronize()
+    emit(phase="combine_parity", cases=cases, ints=sorted(ints),
+         floats=sorted(floats), sum_tol=SUM_TOL, max_abs_err=err)
+    return err
+
+
 def _check_same_stream(a, b, what):
     import torch
 
@@ -181,18 +303,25 @@ def _check_same_stream(a, b, what):
                              f"{a.stats} vs {b.stats}")
 
 
-def _counted(fn):
-    """Run fn with both kernels' launch counts set to 0 just before and
-    read just after; returns (fn's result, {kernel: launches})."""
-    import torch
-    from repro_torch.kernels.ell_frontier import frontier_step_ell
-    from repro_torch.kernels.ell_hindex import hindex_ell
+def _wrapper(name):
+    """The wrapper function of kernel `name` (it carries `.launches`)."""
+    import importlib
 
-    hindex_ell.launches = frontier_step_ell.launches = 0
+    mod, fn = KERNELS[name][0].split(".")
+    return getattr(importlib.import_module(f"repro_torch.kernels.{mod}"), fn)
+
+
+def _counted(fn, names=("ell_hindex", "ell_frontier")):
+    """Run fn with every kernel's launch count set to 0 just before and
+    read just after; returns (fn's result, {kernel: launches}).  Raises if
+    a kernel of `names` never launched."""
+    import torch
+
+    for name in KERNELS:
+        _wrapper(name).launches = 0
     out = fn()
     torch.cuda.synchronize()
-    counts = {"ell_hindex": hindex_ell.launches,
-              "ell_frontier": frontier_step_ell.launches}
+    counts = {name: _wrapper(name).launches for name in names}
     if min(counts.values()) < 1:
         raise AssertionError(f"a kernel of the path never launched: {counts}")
     return out, counts
@@ -244,6 +373,138 @@ def scale_phase(dev):
     emit(phase="scale_graph", N=g.N, Cd=g.Cd, nbr_bytes=g.nbr.numel() * 4,
          max_degree=int(g.deg.max()), host_seconds=time.perf_counter() - t0)
     _drive(g, ups, "scale_random_2^%d" % SCALE_LOG2_N)
+    _analytics(g, "analytics_scale_2^%d" % SCALE_LOG2_N)
+
+
+def _close(a, b, what, tol=RANK_TOL):
+    import torch
+
+    if not torch.allclose(a, b, **tol):
+        err = float((a - b).abs().max())
+        raise AssertionError(f"{what}: ell and plain differ by {err}")
+
+
+def analytics_path(gc, backend, core=None, ups=None):
+    """The BlockProgram workloads on graph `gc` through one backend:
+    connected components, PageRank (30 fixed supersteps) and triangle
+    counts; with `core` (the coreness of `gc`) and `ups` also PageRank with
+    tol = 1e-6, the coreness program, `fused_analytics` warm-started from
+    it and the labels, and `run_stream` with CC maintenance, which updates
+    `gc` in place, last.  Returns {result name: value, "seconds": host
+    seconds of the whole path, ending in a synchronize}."""
+    import torch
+    from repro_torch.core import (
+        connected_components, fused_analytics, pagerank, triangle_counts)
+    from repro_torch.core.algorithms import CorenessBlockProgram
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import run_stream
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = {}
+    r["labels"], r["cc_steps"] = connected_components(
+        gc, backend=backend, with_steps=True)
+    r["rank"], r["pr_steps"] = pagerank(gc, tol=None, max_steps=30,
+                                        backend=backend, with_steps=True)
+    r["tri"] = triangle_counts(gc, backend=backend)
+    if core is not None:
+        r["rank_tol"], r["pr_tol_steps"] = pagerank(
+            gc, tol=1e-6, backend=backend, with_steps=True)
+        r["core"], r["core_steps"] = ops.run_block_program(
+            gc, CorenessBlockProgram(), backend=backend, with_steps=True)
+        r["fused"] = fused_analytics(gc, steps=30, backend=backend,
+                                     init=(r["core"], r["labels"]))
+        r["stream"] = run_stream(gc, core.clone(), ups, R=R,
+                                 backend=backend, cc_labels=r["labels"])
+    torch.cuda.synchronize()
+    r["seconds"] = time.perf_counter() - t0
+    return r
+
+
+def _analytics(g, what, core=None, ups=None):
+    """The BlockProgram workloads through the kernels, held against the
+    same programs on the plain backend; each path runs on its own copy of
+    `g`.  With `core` and `ups` (the DS1 phase) also the coreness program,
+    `fused_analytics` warm-started from it and the CC labels, PageRank
+    with a tolerance, the stream with CC maintenance, and scipy's host
+    check.  Returns ({kernel: launches} of the ell run, {field name:
+    tensor} for the timing phase)."""
+    import torch
+    from repro_torch.core import connected_components
+
+    full = core is not None
+    names = (tuple(KERNELS) if full
+             else ("ell_cc", "ell_pagerank", "ell_triangles"))
+    e, launches = _counted(
+        lambda: analytics_path(g.clone(), "ell", core, ups), names)
+    p = analytics_path(g.clone(), "torch", core, ups)
+    for k in ("labels", "tri") + (("core",) if full else ()):
+        if not torch.equal(e[k], p[k]):
+            raise AssertionError(f"{what}: ell and plain {k} differ")
+    for k in ("cc_steps", "pr_steps") + (("core_steps",) if full else ()):
+        if e[k] != p[k]:
+            raise AssertionError(f"{what}: {k} {e[k]} (ell) vs {p[k]}")
+    if e["pr_steps"] != 30:
+        raise AssertionError(f"{what}: {e['pr_steps']} PageRank supersteps")
+    _close(e["rank"], p["rank"], f"{what} pagerank(tol=None)")
+    line = dict(phase=what, cc_steps=e["cc_steps"],
+                components=int(torch.unique(e["labels"][g.node_mask]).numel()),
+                pr_steps=e["pr_steps"],
+                triangles=int(e["tri"].sum()) // 3, launches=launches,
+                path_seconds=e["seconds"], plain_path_seconds=p["seconds"])
+    if full:
+        _close(e["rank_tol"], p["rank_tol"], f"{what} pagerank(tol=1e-6)")
+        mask = g.node_mask
+        if not torch.equal(torch.where(mask, e["core"], 0), core):
+            raise AssertionError(f"{what}: coreness program != coreness")
+        for r in (e, p):  # fused == standalone, bit for bit, per backend
+            fc, fl, fr = r["fused"]
+            if not (torch.equal(fc, r["core"]) and torch.equal(fl, r["labels"])
+                    and torch.equal(fr, r["rank"])):
+                raise AssertionError(f"{what}: fused != standalone")
+        _check_same_stream(e["stream"], p["stream"], what)
+        st = e["stream"].stats
+        if not (torch.equal(e["stream"].labels, p["stream"].labels)
+                and st.cc_merges > 0 and st.cc_recomputes > 0):
+            raise AssertionError(f"{what}: stream CC labels or counts: {st}")
+        fresh = connected_components(e["stream"].g, backend="ell")
+        if not torch.equal(fresh, e["stream"].labels):
+            raise AssertionError(f"{what}: maintained labels != recompute")
+        line.update(pr_tol_steps={"ell": e["pr_tol_steps"],
+                                  "torch": p["pr_tol_steps"]},
+                    core_steps=e["core_steps"],
+                    stream_stats=st._asdict(),
+                    host_check=_scipy_check(g, e["labels"], e["tri"], what))
+    emit(**line)
+    fields = {"labels": e["labels"], "rank": e["rank"],
+              "core": e.get("core")}
+    return launches, fields
+
+
+def _scipy_check(g, labels, tri, what):
+    """CC and triangles against scipy on the host, from the edge list:
+    the same partition of the real nodes; per-node triangles diag(A^3)/2
+    and the total trace(A^3)/6."""
+    import numpy as np
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import connected_components as sp_cc
+
+    nbr = g.nbr.cpu().numpy()
+    rows, cols = np.nonzero(nbr >= 0)
+    A = sp.csr_matrix((np.ones(len(rows)), (rows, nbr[rows, cols])),
+                      shape=(g.N, g.N))
+    _, sp_lab = sp_cc(A, directed=False)
+    mask = g.node_mask.cpu().numpy()
+    ours = labels.cpu().numpy()[mask]
+    theirs = sp_lab[mask]
+    pairs = len(set(zip(ours.tolist(), theirs.tolist())))
+    if not pairs == len(set(ours.tolist())) == len(set(theirs.tolist())):
+        raise AssertionError(f"{what}: CC partition differs from scipy")
+    closed = np.asarray(A.multiply(A @ A).sum(axis=1)).ravel()  # diag(A^3)
+    if not (np.array_equal(closed / 2, tri.cpu().numpy())
+            and closed.sum() / 6 == int(tri.sum()) // 3):
+        raise AssertionError(f"{what}: triangles differ from scipy")
+    return {"components": pairs, "triangles": int(closed.sum() / 6)}
 
 
 def _time_ms(fn, reps=20, warmup=3) -> float:
@@ -365,6 +626,91 @@ def timing(g, core, window, parity, launches, hindex_split):
         entry("ell_frontier", "src/repro/kernels/ell_frontier.py:107", fk, fp,
               f_bytes),
     ]
+
+
+def combine_timing(g, fields, parity, launches):
+    """The four combine kernels at the analytics shapes the runner gives
+    them (K = None: every one of the Cd columns, PAD may sit anywhere),
+    each beside its plain version and a bytes bound that counts every input
+    once and every output once; `ell_pagerank` also beside
+    `torch.sparse.mm` of the CSR adjacency by the field (the CSR is built
+    outside the timed region).  `ell_triangles` also gets an operations
+    bound: each element of a row probed into each neighbour's row by two
+    binary searches over C entries, counted at the scalar float32 rate."""
+    import math
+    import warnings
+
+    import torch
+    from repro_torch.core.algorithms import INT32_MAX, PageRankProgram
+    from repro_torch.kernels.ell_cc import (
+        neighbor_min_ell, neighbor_min_ell_plain)
+    from repro_torch.kernels.ell_multi import (
+        neighbor_multi_ell, neighbor_multi_ell_plain)
+    from repro_torch.kernels.ell_pagerank import (
+        neighbor_sum_ell, neighbor_sum_ell_plain)
+    from repro_torch.kernels.ell_triangles import (
+        neighbor_common_ell, neighbor_common_ell_plain)
+
+    N, Cd, nbr = g.N, g.Cd, g.nbr
+    lab = torch.where(g.node_mask, fields["labels"], INT32_MAX)
+    contrib = PageRankProgram._contrib(g.deg, fields["rank"])
+    core = fields["core"]
+    combines = ("hindex", "min", "sum")
+    valid = nbr >= 0
+    rows, cols = torch.nonzero(valid, as_tuple=True)
+    with warnings.catch_warnings():  # CSR support is "beta" in PyTorch
+        warnings.simplefilter("ignore", UserWarning)
+        csr = torch.sparse_coo_tensor(
+            torch.stack([rows, nbr[rows, cols].long()]),
+            torch.ones(rows.numel(), device=nbr.device),
+            (N, N)).to_sparse_csr()
+    x = contrib[:, None]
+    lib_ms = _time_ms(lambda: torch.sparse.mm(csr, x))
+    sp_err = float((torch.sparse.mm(csr, x)[:, 0]
+                    - neighbor_sum_ell(nbr, contrib)).abs().max())
+    deg = valid.sum(dim=1)
+    probes = int((deg * deg).sum()) * 2 * max(1, math.ceil(math.log2(Cd + 1)))
+    nbr_b, vec = N * Cd * 4, N * 4
+    runs = {
+        "ell_cc": (lambda: neighbor_min_ell(nbr, lab),
+                   lambda: neighbor_min_ell_plain(nbr, lab),
+                   nbr_b + 2 * vec, 0),
+        "ell_pagerank": (lambda: neighbor_sum_ell(nbr, contrib),
+                         lambda: neighbor_sum_ell_plain(nbr, contrib),
+                         nbr_b + 2 * vec, 0),
+        "ell_multi": (
+            lambda: neighbor_multi_ell(nbr, (core, lab, contrib), combines),
+            lambda: neighbor_multi_ell_plain(nbr, (core, lab, contrib),
+                                             combines),
+            nbr_b + 6 * vec, 0),
+        "ell_triangles": (lambda: neighbor_common_ell(nbr, nbr),
+                          lambda: neighbor_common_ell_plain(nbr, nbr),
+                          nbr_b + vec, probes),
+    }
+    out, shapes = [], {}
+    for name, (kern, plain, nbytes, ops_) in runs.items():
+        ms, plain_ms = _time_pair(kern, plain)
+        bytes_ms = _bound_ms(nbytes)
+        ops_ms = ops_ / SCALAR_OPS_PER_S * 1e3
+        shapes[name] = dict(ms=ms, plain_ms=plain_ms, bound_bytes=nbytes,
+                            bound_ops=ops_)
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": KERNELS[name][1], "launches": launches[name],
+            "parity": "allclose" if name == "ell_pagerank" else "bit-equal",
+            **({"parity_detail": "every output bit-equal to its standalone "
+                "kernel; min and hindex bit-equal to plain; max_abs_err is "
+                "the sum's against plain"} if name == "ell_multi" else {}),
+            "max_abs_err": parity[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_bytes": nbytes, "bound_ops": ops_,
+            "library_ms": lib_ms if name == "ell_pagerank" else None})
+    emit(phase="combine_timing", order="plain,kernel,kernel,plain", N=N,
+         Cd=Cd, K=None, valid_slots=int(valid.sum()), shapes=shapes,
+         sparse_mm_ms=lib_ms, sparse_mm_max_abs_err_vs_kernel=sp_err)
+    return out
 
 
 if __name__ == "__main__":

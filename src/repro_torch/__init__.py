@@ -1,13 +1,16 @@
-"""BLADYG on PyTorch and CUDA: dynamic k-core maintenance on one NVIDIA GPU.
+"""BLADYG on PyTorch and CUDA: dynamic graph analytics on one NVIDIA GPU.
 
 A port of the JAX package `repro` (which stays the reference) to PyTorch,
-with the two kernels of the main path written by hand in CUDA C++ for
-Hopper (`kernels/csrc/`).  The main path is the paper's first
-application: build the block-partitioned ELL graph (`core.graph`),
-compute static coreness with the min-H fixpoint (`core.kcore`), keep it
-exact under edge inserts and deletes with Theorem-1 maintenance
-(`core.kcore_dynamic`), and drive that from an update stream
-(`runtime.stream`).
+with the kernels of its paths written by hand in CUDA C++ for Hopper
+(`kernels/csrc/`).  The main path is the paper's first application:
+build the block-partitioned ELL graph (`core.graph`), compute static
+coreness with the min-H fixpoint (`core.kcore`), keep it exact under edge
+inserts and deletes with Theorem-1 maintenance (`core.kcore_dynamic`),
+and drive that from an update stream (`runtime.stream`).  The framework
+path runs any `BlockProgram` (`core.engine`) — connected components,
+PageRank, triangle counting, their fused form (`core.algorithms`) —
+through one runner (`kernels.ops.run_block_program`), and keeps CC labels
+exact in the stream.
 
 This package carries a seed_fixtures note for the JAX package's dead-seed
 import audit: it is not seed substrate but a separate port, which the

@@ -1,9 +1,23 @@
-"""BLADYG core on PyTorch: the block graph, static and dynamic coreness."""
+"""BLADYG core on PyTorch: the block graph, static and dynamic coreness,
+the superstep engine and the BlockProgram workloads."""
 from .graph import (
     PAD, CapacityError, GraphBlocks, build_blocks, build_ell_random,
-    delete_edge, insert_edge, sort_nbr_rows,
+    delete_edge, halo_pair_counts, halo_slot_counts, insert_edge,
+    sort_nbr_rows,
 )
-from .kcore import coreness, coreness_step, coreness_with_stats, max_coreness
+from .engine import (
+    BladygEngine, BladygProgram, BlockCtx, BlockProgram, MessageStats, Mode,
+    MultiProgram,
+)
+from .algorithms import (
+    ConnectedComponentsProgram, CorenessBlockProgram, PageRankProgram,
+    TriangleCountProgram, connected_components, fused_analytics,
+    merge_labels, pagerank, triangle_counts, triangle_total,
+)
+from .kcore import (
+    CorenessProgram, coreness, coreness_step, coreness_via_engine,
+    coreness_with_stats, max_coreness,
+)
 from .kcore_dynamic import (
     BatchMaintenanceStats, MaintenanceStats, delete_edge_maintain,
     insert_edge_maintain, k_reachable, k_reachable_batch, maintain_batch,
@@ -14,7 +28,14 @@ from . import partition, updates
 __all__ = [
     "PAD", "CapacityError", "GraphBlocks", "build_blocks",
     "build_ell_random", "delete_edge", "insert_edge", "sort_nbr_rows",
-    "coreness", "coreness_step", "coreness_with_stats", "max_coreness",
+    "halo_slot_counts", "halo_pair_counts",
+    "BladygEngine", "BladygProgram", "BlockCtx", "BlockProgram",
+    "MessageStats", "Mode", "MultiProgram",
+    "ConnectedComponentsProgram", "CorenessBlockProgram", "PageRankProgram",
+    "TriangleCountProgram", "connected_components", "fused_analytics",
+    "merge_labels", "pagerank", "triangle_counts", "triangle_total",
+    "CorenessProgram", "coreness", "coreness_step", "coreness_via_engine",
+    "coreness_with_stats", "max_coreness",
     "BatchMaintenanceStats", "MaintenanceStats", "delete_edge_maintain",
     "insert_edge_maintain", "k_reachable", "k_reachable_batch",
     "maintain_batch", "maintain_batch_host", "partition", "updates",

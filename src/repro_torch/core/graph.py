@@ -135,6 +135,33 @@ class GraphBlocks:
         return {f: getattr(self, f).cpu().numpy() for f in FIELDS}
 
 
+def halo_slot_counts(g: GraphBlocks) -> Tuple[int, int]:
+    """(intra, inter) valid neighbor-slot counts — the W2W halo payload.
+
+    A superstep that gathers one value per neighbor slot (e.g. the min-H
+    estimate exchange) moves exactly `intra` values inside blocks and
+    `inter` values across block boundaries.  Host ints (one read).
+    """
+    valid = g.nbr >= 0
+    own = (torch.arange(g.N, device=g.device) // g.Cn)[:, None]
+    cross = valid & (torch.div(g.nbr, g.Cn, rounding_mode="floor") != own)
+    total, inter = torch.stack([valid.sum(), cross.sum()]).tolist()
+    return int(total) - int(inter), int(inter)
+
+
+def halo_pair_counts(g: GraphBlocks) -> np.ndarray:
+    """(P, P) int64 matrix: valid neighbor slots in block-row b reading
+    block b'.  The diagonal is the intra-block traffic; `halo_slot_counts`
+    is (trace, off-diagonal sum)."""
+    valid = g.nbr >= 0
+    own = (torch.arange(g.N, device=g.device) // g.Cn)[:, None].expand_as(
+        g.nbr)
+    dst = torch.div(g.nbr, g.Cn, rounding_mode="floor")
+    pair = own[valid].long() * g.P + dst[valid].long()
+    return torch.bincount(pair, minlength=g.P * g.P).reshape(
+        g.P, g.P).cpu().numpy()
+
+
 def _relabel(
     n: int, assign: np.ndarray, P: int, Cn: int
 ) -> Tuple[np.ndarray, np.ndarray]:

@@ -15,7 +15,12 @@ maintenance in `kcore_dynamic.py` exact.
 
 The H(est) primitive comes only through the kernel backend registry
 (`repro_torch.kernels.ops`): ``backend="torch"|"ell"|"auto"``, all exact
-and bit-identical; see `ops` for the sync policy of the fixpoint loop.
+and bit-identical, "auto" (the default) picking the CUDA kernels on a CUDA
+graph; see `ops` for the sync policy of the fixpoint loop.
+
+`CorenessProgram` runs the same superstep through `BladygEngine` with the
+halo payload declared, so the engine's per-mode message metering gives
+the paper's inter- vs intra-partition accounting.
 """
 from __future__ import annotations
 
@@ -24,12 +29,13 @@ from typing import Tuple
 import torch
 
 from ..kernels import ops
-from .graph import GraphBlocks
+from .engine import BladygEngine, BladygProgram, Mode
+from .graph import GraphBlocks, halo_slot_counts
 
 
 def coreness_step(
     g: GraphBlocks, est: torch.Tensor, active: torch.Tensor,
-    backend: str = "torch",
+    backend: str = "auto",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One BLADYG superstep on an `active` node mask; returns (est', changed)
     with `changed` a 0-dim bool tensor on the graph's device."""
@@ -47,7 +53,7 @@ def coreness(
 
 
 def coreness_with_stats(
-    g: GraphBlocks, max_steps: int = 10_000, backend: str = "torch",
+    g: GraphBlocks, max_steps: int = 10_000, backend: str = "auto",
 ) -> Tuple[torch.Tensor, int]:
     """Coreness plus the superstep count (a host int)."""
     return ops.coreness_blocks(g, backend=backend, max_steps=max_steps,
@@ -56,3 +62,39 @@ def coreness_with_stats(
 
 def max_coreness(g: GraphBlocks) -> int:
     return int(coreness(g).max())
+
+
+class CorenessProgram(BladygProgram):
+    """min-H coreness as an engine program (paper §4.1 step 1).
+
+    Worker state is the estimate vector; each superstep gathers the neighbor
+    halo (W2W — one estimate per valid neighbor slot, intra or inter by the
+    slot's block), applies min-H, and reports the changed flag (W2M).  The
+    master broadcasts continue/halt (M2W).
+    """
+
+    modes = Mode.LOCAL | Mode.M2W | Mode.W2M | Mode.W2W
+
+    def __init__(self, backend: str = "auto"):
+        self.backend = backend
+
+    def worker_compute(self, g: GraphBlocks, est, directive):
+        return coreness_step(g, est, g.node_mask, backend=self.backend)
+
+    def master_compute(self, mstate, summary):
+        return mstate, None, torch.logical_not(summary)
+
+    def w2w_payload(self, g: GraphBlocks) -> Tuple[int, int]:
+        # one estimate flows across every valid neighbor slot per superstep
+        return halo_slot_counts(g)
+
+
+def coreness_via_engine(g: GraphBlocks, backend: str = "auto"):
+    """Run CorenessProgram through BladygEngine; returns (core, engine).
+
+    The engine's traces carry the metered message counts per superstep.
+    """
+    est0 = torch.where(g.node_mask, g.deg, 0).to(torch.int32)
+    eng = BladygEngine(g)
+    est, _ = eng.run(CorenessProgram(backend=backend), est0, None)
+    return torch.where(g.node_mask, est, 0), eng

@@ -68,7 +68,7 @@ class BatchMaintenanceStats(NamedTuple):
 
 def k_reachable(
     g: GraphBlocks, core: torch.Tensor, roots: torch.Tensor, k: torch.Tensor,
-    max_steps: int = 10_000, backend: str = "torch",
+    max_steps: int = 10_000, backend: str = "auto",
 ) -> Tuple[torch.Tensor, int]:
     """Mask of nodes k-reachable from `roots` (incl. roots with core==k).
 
@@ -82,7 +82,7 @@ def k_reachable(
 
 def k_reachable_batch(
     g: GraphBlocks, core: torch.Tensor, roots: torch.Tensor, ks: torch.Tensor,
-    max_steps: int = 10_000, backend: str = "torch",
+    max_steps: int = 10_000, backend: str = "auto",
 ) -> Tuple[torch.Tensor, int]:
     """R stacked k-reachability searches sharing one superstep sequence.
 
@@ -112,7 +112,7 @@ def k_reachable_batch(
 
 def _restricted_recompute(
     g: GraphBlocks, est0: torch.Tensor, cand: torch.Tensor,
-    max_steps: int = 10_000, backend: str = "torch",
+    max_steps: int = 10_000, backend: str = "auto",
 ) -> Tuple[torch.Tensor, int]:
     """Clamped min-H iteration: only `cand` nodes move; returns (core', steps)."""
     return ops.minh_fixpoint(
@@ -153,7 +153,7 @@ def _maintain_edge(g: GraphBlocks, core: torch.Tensor, u: int, v: int,
 
 
 def insert_edge_maintain(
-    g: GraphBlocks, core: torch.Tensor, u: int, v: int, backend: str = "torch",
+    g: GraphBlocks, core: torch.Tensor, u: int, v: int, backend: str = "auto",
 ) -> Tuple[GraphBlocks, torch.Tensor, MaintenanceStats]:
     """Insert (u, v) and maintain coreness.  u, v are global padded ids.
     Updates `g` in place and returns it."""
@@ -161,13 +161,13 @@ def insert_edge_maintain(
 
 
 def delete_edge_maintain(
-    g: GraphBlocks, core: torch.Tensor, u: int, v: int, backend: str = "torch",
+    g: GraphBlocks, core: torch.Tensor, u: int, v: int, backend: str = "auto",
 ) -> Tuple[GraphBlocks, torch.Tensor, MaintenanceStats]:
     """Delete (u, v) and maintain coreness.  Updates `g` in place."""
     return _maintain_edge(g, core, u, v, -1, backend)
 
 
-def maintain_batch_host(g, core, updates, backend: str = "torch"):
+def maintain_batch_host(g, core, updates, backend: str = "auto"):
     """Host loop applying a sequence of (u, v, op) updates (op: +1 ins, -1 del).
 
     Returns (g, core, list_of_stats): per-edge maintenance, as in the
@@ -190,7 +190,7 @@ def maintain_batch_host(g, core, updates, backend: str = "torch"):
 
 def _batch_candidates(
     g: GraphBlocks, core: torch.Tensor, us: torch.Tensor, vs: torch.Tensor,
-    valid: torch.Tensor, backend: str = "torch",
+    valid: torch.Tensor, backend: str = "auto",
 ) -> Tuple[torch.Tensor, int]:
     """Candidate sets for up to R updates via one batched frontier search.
 
@@ -246,7 +246,7 @@ def _apply_edges(g: GraphBlocks, us, vs, ops_) -> GraphBlocks:
 
 def _apply_and_recompute(
     g: GraphBlocks, core: torch.Tensor, us, vs, ops_,
-    cand_ins: torch.Tensor, cand_del: torch.Tensor, backend: str = "torch",
+    cand_ins: torch.Tensor, cand_del: torch.Tensor, backend: str = "auto",
 ) -> Tuple[GraphBlocks, torch.Tensor, int]:
     """Apply accepted edges and run ONE joint clamped recompute.
 
@@ -269,7 +269,7 @@ def maintain_batch(
     core: torch.Tensor,
     updates: Sequence[Tuple[int, int, int]],
     R: int = 8,
-    backend: str = "torch",
+    backend: str = "auto",
 ) -> Tuple[GraphBlocks, torch.Tensor, BatchMaintenanceStats]:
     """Maintain coreness over a stream of updates, R at a time.
 

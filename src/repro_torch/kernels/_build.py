@@ -6,8 +6,9 @@ compiled on first use into its own shared library,
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o build/repro_torch_kernels/<name>-<hash>.so
 
-named by a hash of the sources and flags, so an edit rebuilds and an
-unchanged tree reuses what is there.  `build_all` starts one nvcc per
+named by a hash of the source, every shared header ``csrc/*.cuh`` and the
+flags, so an edit to a source or a header rebuilds and an unchanged tree
+reuses what is there.  `build_all` starts one nvcc per
 source, all at once, and waits for them together.  Libraries are loaded
 with ctypes; every pointer and the CUDA stream are passed as
 ``c_void_p``.  Nothing here includes PyTorch's headers, which keeps a
@@ -27,6 +28,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: the checkout's build directory (listed in .gitignore)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -42,6 +45,13 @@ SOURCES = {
     "ell_hindex": (_P, _P, _P, _L, _I, _I, _P),
     # nbr, f, eligible, visited, out, n_rows, ld, C, R, stream
     "ell_frontier": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
+    # nbr, field, out, n_rows, ld, C, stream
+    "ell_cc": (_P, _P, _P, _L, _I, _I, _P),
+    "ell_pagerank": (_P, _P, _P, _L, _I, _I, _P),
+    # nbr, in0..in2, out0..out2, code0..code2, k, n_rows, ld, C, stream
+    "ell_multi": (_P,) + (_P,) * 6 + (_I,) * 4 + (_L, _I, _I, _P),
+    # nbr, keyed sorted rows, out, n_rows, ld, C, stream
+    "ell_triangles": (_P, _P, _P, _L, _I, _I, _P),
 }
 
 
@@ -57,8 +67,10 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # any source may include any
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -101,3 +113,13 @@ def launcher(name: str):
     fn.argtypes = list(SOURCES[name])
     fn.restype = ctypes.c_int
     return fn
+
+
+def launch(name: str, device, *args) -> None:
+    """Call ``<name>_launch(*args, stream)`` on `device`'s current stream
+    and raise if the launch was refused (a refused launch never runs, and
+    no later synchronize reports it)."""
+    with torch.cuda.device(device):  # launch on the tensors' card
+        err = launcher(name)(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")

@@ -10,12 +10,10 @@
 // reading only the first C columns (C = min(Cd, K)) and skipping PAD
 // wherever it sits, so the result is exact for any slot order when C = Cd.
 //
-// Design: one warp per row and no sort.  h <= number of valid slots <= C,
-// so each gathered value is clamped into [0, C] and counted into a
-// (C+1)-bin histogram in shared memory (values <= 0 count for nothing).
-// The h-index is then the largest k whose suffix count reaches k, found by
-// scanning the bins from the top, 32 bins per step, with a warp prefix sum
-// and a ballot.  Integers only, so the result is deterministic.
+// Design: one warp per row and no sort.  Each lane counts its slots'
+// estimates into the warp's (C+1)-bin histogram in shared memory, and the
+// warp scans it from the top (`ell::hist_*` in ell_reduce.cuh, shared with
+// the fused ell_multi.cu).  Integers only, so the result is deterministic.
 //
 // What bounds it on the card: bytes.  A launch must read the first C
 // columns of nbr (N*C*4 bytes), one est value per valid slot, and write
@@ -26,6 +24,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "ell_reduce.cuh"
 
 namespace {
 
@@ -45,39 +45,15 @@ __global__ void ell_hindex_kernel(const int32_t* __restrict__ nbr,
   if (row >= n_rows) return;  // the whole warp leaves; no block-wide sync
 
   int32_t* bins = smem + (size_t)warp * (C + 1);
-  for (int b = lane; b <= C; b += 32) bins[b] = 0;
+  ell::hist_clear(bins, C, lane);
   __syncwarp();
-
   const int32_t* r = nbr + row * (long long)ld;
   for (int j = lane; j < C; j += 32) {
     const int32_t v = r[j];
-    if (v >= 0) {
-      const int32_t e = __ldg(est + v);
-      if (e > 0) atomicAdd(&bins[e < C ? e : C], 1);
-    }
+    if (v >= 0) ell::hist_add(bins, C, __ldg(est + v));
   }
   __syncwarp();
-
-  // largest k in [1, C] with sum_{b >= k} bins[b] >= k; lane l of a step
-  // holds threshold k = top - l, so an inclusive prefix sum over the lanes
-  // is the count of bins[k..top]
-  int above = 0;  // sum of the bins above this step's top
-  int h = 0;
-  for (int top = C; top >= 1; top -= 32) {
-    const int k = top - lane;
-    int c = k >= 1 ? bins[k] : 0;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int t = __shfl_up_sync(0xffffffffu, c, off);
-      if (lane >= off) c += t;
-    }
-    const unsigned ok = __ballot_sync(0xffffffffu, k >= 1 && above + c >= k);
-    if (ok) {  // the lowest such lane has the largest k
-      h = top - (__ffs(ok) - 1);
-      break;
-    }
-    above += __shfl_sync(0xffffffffu, c, 31);
-  }
+  const int32_t h = ell::hist_hindex(bins, C, lane);
   if (lane == 0) out[row] = h;
 }
 

@@ -24,7 +24,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .ell_hindex import columns
+from .ell_hindex import columns, on_cuda
 
 
 def frontier_step_ell_plain(nbr: torch.Tensor, f: torch.Tensor,
@@ -63,24 +63,17 @@ def frontier_step_ell(nbr: torch.Tensor, f: torch.Tensor,
     (and bump `frontier_step_ell.launches`); CPU tensors take
     `frontier_step_ell_plain`.
     """
-    if nbr.device.type == "cpu":
+    if not on_cuda(nbr, "frontier_step_ell"):
         return frontier_step_ell_plain(nbr, f, eligible, visited, K)
-    if nbr.device.type != "cuda":
-        raise ValueError(
-            f"frontier_step_ell runs on cuda or cpu, not {nbr.device}")
     _check(nbr, f, eligible, visited)
     N, Cd = nbr.shape
     R = f.shape[1]
     out = torch.empty((N, R), dtype=torch.bool, device=nbr.device)
     u8 = torch.uint8
-    with torch.cuda.device(nbr.device):  # launch on the tensors' card
-        err = _build.launcher("ell_frontier")(
-            nbr.data_ptr(), f.view(u8).data_ptr(),
-            eligible.view(u8).data_ptr(), visited.view(u8).data_ptr(),
-            out.view(u8).data_ptr(), N, Cd, columns(Cd, K), R,
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"ell_frontier launch failed: cudaError {err}")
+    _build.launch("ell_frontier", nbr.device, nbr.data_ptr(),
+                  f.view(u8).data_ptr(), eligible.view(u8).data_ptr(),
+                  visited.view(u8).data_ptr(), out.view(u8).data_ptr(), N, Cd,
+                  columns(Cd, K), R)
     frontier_step_ell.launches += 1
     return out
 

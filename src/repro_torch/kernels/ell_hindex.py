@@ -53,15 +53,28 @@ def hindex_ell_plain(nbr: torch.Tensor, est: torch.Tensor,
     return hindex_rows(ell_gather(nbr[:, :C], est.to(torch.int32)))
 
 
-def _check(nbr: torch.Tensor, est: torch.Tensor) -> None:
+def check_field(nbr: torch.Tensor, field: torch.Tensor,
+                dtype: torch.dtype = torch.int32, name: str = "est") -> None:
+    """Raise unless nbr is a contiguous (N, Cd) int32 tensor and field a
+    contiguous (N,) tensor of `dtype` on the same device (what the kernels
+    take)."""
     if nbr.dim() != 2 or nbr.dtype != torch.int32 or not nbr.is_contiguous():
         raise ValueError("nbr must be a contiguous (N, Cd) int32 tensor")
-    if est.shape != (nbr.shape[0],) or est.dtype != torch.int32 \
-            or not est.is_contiguous():
-        raise ValueError(f"est must be a contiguous ({nbr.shape[0]},) int32 "
-                         f"tensor, got {tuple(est.shape)} {est.dtype}")
-    if est.device != nbr.device:
-        raise ValueError(f"est on {est.device}, nbr on {nbr.device}")
+    if field.shape != (nbr.shape[0],) or field.dtype != dtype \
+            or not field.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous ({nbr.shape[0]},) "
+                         f"{dtype} tensor, got {tuple(field.shape)} "
+                         f"{field.dtype}")
+    if field.device != nbr.device:
+        raise ValueError(f"{name} on {field.device}, nbr on {nbr.device}")
+
+
+def on_cuda(nbr: torch.Tensor, kernel: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one (the plain version's
+    device); raise for any other device."""
+    if nbr.device.type in ("cpu", "cuda"):
+        return nbr.device.type == "cuda"
+    raise ValueError(f"{kernel} runs on cuda or cpu, not {nbr.device}")
 
 
 def hindex_ell(nbr: torch.Tensor, est: torch.Tensor,
@@ -71,19 +84,13 @@ def hindex_ell(nbr: torch.Tensor, est: torch.Tensor,
     CUDA tensors launch the CUDA kernel (and bump `hindex_ell.launches`);
     CPU tensors take `hindex_ell_plain`.
     """
-    if nbr.device.type == "cpu":
+    if not on_cuda(nbr, "hindex_ell"):
         return hindex_ell_plain(nbr, est, K)
-    if nbr.device.type != "cuda":
-        raise ValueError(f"hindex_ell runs on cuda or cpu, not {nbr.device}")
-    _check(nbr, est)
+    check_field(nbr, est)
     N, Cd = nbr.shape
     out = torch.empty(N, dtype=torch.int32, device=nbr.device)
-    with torch.cuda.device(nbr.device):  # launch on the tensors' card
-        err = _build.launcher("ell_hindex")(
-            nbr.data_ptr(), est.data_ptr(), out.data_ptr(), N, Cd,
-            columns(Cd, K), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"ell_hindex launch failed: cudaError {err}")
+    _build.launch("ell_hindex", nbr.device, nbr.data_ptr(), est.data_ptr(),
+                  out.data_ptr(), N, Cd, columns(Cd, K))
     hindex_ell.launches += 1
     return out
 

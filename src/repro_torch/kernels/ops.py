@@ -1,18 +1,22 @@
-"""Kernel backend registry: one dispatch layer for the k-core hot loops.
+"""Kernel backend registry: one dispatch layer for every BLADYG hot loop.
 
-Two executions of the two core graph primitives (h-index of neighbor
-estimates; masked frontier hop), exact and bit-identical:
+Two executions of the graph primitives — the h-index of neighbor
+estimates, the masked frontier hop, and the named neighbor combines of
+the `BlockProgram` contract (`COMBINES`) — exact and bit-identical except
+for float sums, which agree to float32 rounding:
 
   "torch"  plain whole-graph PyTorch gather (`ref.py`) — the oracle, the
            counterpart of the JAX package's "jnp".
   "ell"    the hand-written CUDA kernels (`ell_hindex.py`,
-           `ell_frontier.py`) on a CUDA graph; on a CPU graph the same
-           wrappers run their plain versions.
-  "auto"   resolves to "ell" for a CUDA graph and "torch" for a CPU graph.
+           `ell_frontier.py`, `ell_cc.py`, `ell_pagerank.py`,
+           `ell_multi.py`, `ell_triangles.py`) on a CUDA graph; on a CPU
+           graph the same wrappers run their plain versions.
+  "auto"   resolves to "ell" for a CUDA graph and "torch" for a CPU graph;
+           it is every entry point's default.
 
 "dense" and "ell_spmd" are not ported yet and raise NotImplementedError
-(see ROADMAP.md).  `core.kcore` and `core.kcore_dynamic` reach the
-primitives only through this layer.
+(see ROADMAP.md).  `core.kcore`, `core.kcore_dynamic` and
+`core.algorithms` reach the primitives only through this layer.
 
 **Sync policy.**  A min-H fixpoint or a frontier search ends when a
 device-side flag says so, and reading that flag is a host sync.  The
@@ -29,22 +33,42 @@ port checks convergence every `SYNC_EVERY` = 8 supersteps:
     ``any(frontier)`` into the counter; hops on an empty frontier stay
     empty, so the count and the result equal the reference's.
 
-Neither loop ever runs past `max_steps`.  One more host read per fixpoint
-is `degree_bound`'s max degree.  Capturing the loop in a CUDA graph, to
-drop the per-chunk syncs and the launch overhead, is later work.
+  * in `run_block_program` (any `BlockProgram`) a device-side ``live``
+    flag gates each superstep: ``new`` is applied only where ``live`` is
+    set, ``live`` is added to the step counter, then ``live &= changed``.
+    The quiet superstep itself is applied, as in the JAX package's
+    ``while_loop``, and later supersteps of the chunk change nothing, so
+    the state and the count equal the reference's even for programs whose
+    update is not idempotent at the halt (PageRank with a tolerance).
+
+No loop ever runs past `max_steps`.  One more host read per fixpoint is
+`degree_bound`'s max degree (for a program, the real-node count).
+Capturing the loop in a CUDA graph, to drop the per-chunk syncs and the
+launch overhead, is later work.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple, Union
+from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from . import ref
+from .ell_cc import neighbor_min_ell
 from .ell_frontier import frontier_step_ell
 from .ell_hindex import hindex_ell
+from .ell_multi import neighbor_multi_ell, neighbor_multi_ell_plain
+from .ell_pagerank import neighbor_sum_ell
+from .ell_triangles import neighbor_common_ell
 
 BACKENDS = ("torch", "ell")
 NOT_PORTED = ("dense", "ell_spmd")
+
+#: neighbor combines of the BlockProgram contract
+COMBINES = ("min", "sum", "hindex", "count_common")
+
+#: combines a fused MultiProgram superstep may bundle (`ell_multi`); the
+#: meta-combine name "multi" dispatches to the fused paths
+MULTI_COMBINES = ("min", "sum", "hindex")
 
 #: supersteps between two host reads of a loop's convergence counter
 SYNC_EVERY = 8
@@ -163,3 +187,157 @@ def coreness_blocks(
         est0, lambda e: hindex_blocks(g, e, backend=b, K=K), g.node_mask,
         max_steps)
     return (est, steps) if with_steps else est
+
+
+# ---------------------------------------------------------------------------
+# BlockProgram execution: the generic superstep runner.  The program
+# contract itself lives in `core.engine.BlockProgram` (which imports the
+# context type from here — kernels never import core); the workloads live
+# in `core.algorithms`.
+# ---------------------------------------------------------------------------
+
+
+class BlockCtx(NamedTuple):
+    """Per-node context handed to `BlockProgram.update`.
+
+    deg:       (N,) int32 — true degree per node (0 on padding rows).
+    node_mask: (N,) bool  — True for real nodes.
+    n_real:    int        — real-node count (a host int; e.g. the PageRank
+                            teleport denominator).
+    """
+
+    deg: torch.Tensor
+    node_mask: torch.Tensor
+    n_real: int
+
+
+def _unknown(combine: str, allowed=COMBINES) -> ValueError:
+    return ValueError(f"unknown combine {combine!r}; expected one of "
+                      f"{allowed}")
+
+
+def _combine_torch(nbr: torch.Tensor, field: torch.Tensor,
+                   combine: str) -> torch.Tensor:
+    """Whole-graph gather + reduce, plain PyTorch (the oracle execution)."""
+    if combine == "min":
+        return ref.ell_min_ref(nbr, field)
+    if combine == "sum":
+        return ref.ell_sum_ref(nbr, field)
+    if combine == "hindex":
+        return ref.ell_hindex_ref(nbr, field)
+    if combine == "count_common":
+        return ref.ell_common_ref(nbr, field)
+    raise _unknown(combine)
+
+
+def _combine_ell(nbr: torch.Tensor, field: torch.Tensor, combine: str,
+                 K: Optional[int]) -> torch.Tensor:
+    """Whole-graph gather + reduce via the ELL kernels."""
+    if combine == "min":
+        return neighbor_min_ell(nbr, field, K=K)
+    if combine == "sum":
+        return neighbor_sum_ell(nbr, field, K=K)
+    if combine == "hindex":
+        return hindex_ell(nbr, field, K=K)
+    if combine == "count_common":
+        return neighbor_common_ell(nbr, field, K=K)
+    raise _unknown(combine)
+
+
+def _combine_multi_torch(nbr: torch.Tensor, fields, combines) -> Tuple:
+    """Shared-gather multi reduce, plain PyTorch."""
+    return neighbor_multi_ell_plain(nbr, tuple(fields), tuple(combines))
+
+
+def _combine_multi_ell(nbr: torch.Tensor, fields, combines,
+                       K: Optional[int]) -> Tuple:
+    """Fused multi reduce via the `ell_multi` kernel."""
+    return neighbor_multi_ell(nbr, tuple(fields), tuple(combines), K=K)
+
+
+def neighbor_combine_blocks(
+    g, field: torch.Tensor, combine: str, backend: str = "auto",
+    K: Optional[int] = None,
+) -> torch.Tensor:
+    """One gather + reduce superstep of a named combine, via a backend.
+
+    field: (N,) values for "min"/"sum"/"hindex", (N, Cd) neighbor rows for
+    "count_common".  K (optional) bounds the columns the "ell" path reads.
+    """
+    b = resolve_backend(backend, g.device)
+    if b == "torch":
+        return _combine_torch(g.nbr, field, combine)
+    return _combine_ell(g.nbr, field, combine, K)
+
+
+def tree_where(cond: torch.Tensor, new: Any, old: Any) -> Any:
+    """`torch.where(cond, new, old)` over matching tuples of tensors (None
+    leaves stay None): the port's form of a pytree select."""
+    if isinstance(new, (tuple, list)):
+        return type(new)(tree_where(cond, n, o) for n, o in zip(new, old))
+    if new is None:
+        return None
+    return torch.where(cond, new, old)
+
+
+def run_block_program(
+    g,  # GraphBlocks (duck-typed: .nbr, .deg, .node_mask, .n_real, .device)
+    program,  # core.engine.BlockProgram
+    backend: str = "auto",
+    max_steps: Optional[int] = None,
+    with_steps: bool = False,
+    state0: Optional[Any] = None,
+    executor=None,
+    mirror=None,
+) -> Union[Any, Tuple[Any, int]]:
+    """Run a `BlockProgram` to its halt fixpoint on one device.
+
+    Each superstep is halo field -> backend combine -> block-local update
+    -> halt verdict, with the sync policy of the module docstring: a
+    device ``live`` flag, read on the host once per `SYNC_EVERY`
+    supersteps.  The final state and the superstep count equal the JAX
+    package's fused ``while_loop`` for every program.  `max_steps=None`
+    takes the program's own bound; `state0` warm-starts from a caller's
+    state (same structure as `program.init`'s).  Returns the final state,
+    plus the superstep count (a host int) when `with_steps=True`.
+
+    The real-node count is read on the host once per run.  `executor=`
+    (the mesh runtime) and `mirror=` (hub splitting) are not ported yet.
+    """
+    if executor is not None or mirror is not None:
+        raise NotImplementedError(
+            "run_block_program's executor= (mesh runtime) and mirror= (hub "
+            "split) are not ported to PyTorch yet; see ROADMAP.md (Queue 1)")
+    b = resolve_backend(backend, g.device)
+    multi = program.combine == "multi"
+    if not multi and program.combine not in COMBINES:
+        raise _unknown(program.combine, COMBINES + ("multi",))
+    ms = int(program.max_steps if max_steps is None else max_steps)
+    ctx = BlockCtx(deg=g.deg.to(torch.int32), node_mask=g.node_mask,
+                   n_real=int(g.n_real))  # the run's one extra host read
+    state = program.init(g) if state0 is None else state0
+
+    def red_of(field):
+        if multi:
+            if b == "torch":
+                return _combine_multi_torch(g.nbr, field, program.combines)
+            return _combine_multi_ell(g.nbr, field, program.combines, None)
+        if b == "torch":
+            return _combine_torch(g.nbr, field, program.combine)
+        return _combine_ell(g.nbr, field, program.combine, None)
+
+    live = torch.ones((), dtype=torch.bool, device=g.device)
+    steps = torch.zeros((), dtype=torch.int32, device=g.device)
+    done = 0
+    while done < ms:
+        n = min(SYNC_EVERY, ms - done)
+        for _ in range(n):
+            new = program.update(ctx, state, red_of(program.halo_field(state)))
+            changed = program.changed(state, new)
+            state = tree_where(live, new, state)
+            steps += live.to(torch.int32)
+            live = live & changed
+        done += n
+        if not bool(live):  # the one host read of this chunk
+            break
+    return (state, int(steps)) if with_steps else state

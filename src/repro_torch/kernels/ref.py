@@ -3,8 +3,9 @@
 The semantic ground truth the kernels are held to, and the ``"torch"``
 backend of the `ops.py` registry (the counterpart of the JAX package's
 ``"jnp"``).  The h-index and frontier oracles are the kernels' own plain
-versions, which live beside each kernel; nothing here imports
-`repro_torch.core`.
+versions, which live beside each kernel; the neighbor-combine oracles
+below are what the other kernels' plain versions call.  Nothing here
+imports `repro_torch.core`.
 """
 from __future__ import annotations
 
@@ -14,7 +15,15 @@ from .ell_frontier import frontier_step_ell_plain
 from .ell_hindex import ell_gather, hindex_ell_plain, hindex_rows
 
 __all__ = ["ell_gather", "hindex_rows", "ell_hindex_ref",
-           "ell_frontier_hop_ref"]
+           "ell_frontier_hop_ref", "PAD_KEY", "key_sort_rows", "min_rows",
+           "sum_rows", "common_rows", "combine_rows", "ell_min_ref",
+           "ell_sum_ref", "ell_common_ref"]
+
+#: what a PAD slot is keyed to before a row sort: above every node id
+PAD_KEY = torch.iinfo(torch.int32).max
+
+#: elements of the (rows, C, C) probe tensors `ell_common_ref` holds at once
+_COMMON_CHUNK = 1 << 22
 
 
 def ell_hindex_ref(nbr: torch.Tensor, est: torch.Tensor) -> torch.Tensor:
@@ -33,3 +42,118 @@ def ell_frontier_hop_ref(
     next[u, r] = (exists j: f[nbr[u, j], r]) & eligible[u, r] & ~visited[u, r]
     """
     return frontier_step_ell_plain(nbr, f, eligible, visited)
+
+
+# ---------------------------------------------------------------------------
+# Neighbor-combine oracles (the BlockProgram reductions of `ops.COMBINES`).
+# The *_rows forms reduce already-gathered (n, Cd, ...) neighbor values; the
+# ell_* forms bundle the ELL gather for whole-graph use.
+# ---------------------------------------------------------------------------
+
+
+def _fill(dtype: torch.dtype) -> float:
+    """The min combine's absorbing fill: the dtype's max (inf for floats)."""
+    if dtype.is_floating_point:
+        return float("inf")
+    return torch.iinfo(dtype).max
+
+
+def min_rows(vals: torch.Tensor) -> torch.Tensor:
+    """Row-wise min of gathered neighbor values: (n, Cd) -> (n,).
+
+    PAD slots must already hold an absorbing fill (int32 max for the CC
+    label exchange); a row with no column at all gives that fill.
+    """
+    if vals.shape[-1] == 0:
+        return torch.full(vals.shape[:-1], _fill(vals.dtype), dtype=vals.dtype,
+                          device=vals.device)
+    return vals.amin(dim=-1)
+
+
+def sum_rows(vals: torch.Tensor) -> torch.Tensor:
+    """Row-wise sum of gathered neighbor values (PAD slots hold 0)."""
+    return vals.sum(dim=-1, dtype=vals.dtype)
+
+
+def common_rows(own_rows: torch.Tensor, nb_rows: torch.Tensor) -> torch.Tensor:
+    """Directed common-neighbor counts: ((n, Cd), (n, Cd, Cd)) -> (n,) int32.
+
+    own_rows[u] is u's padded neighbor list; nb_rows[u, j] is the padded
+    list of u's j-th neighbor (-1 = PAD never matches).  Materializes the
+    (n, Cd, Cd, Cd) match tensor, as the JAX package's form does: for small
+    inputs only (`ell_common_ref` is the chunked whole-graph form).
+    """
+    own = own_rows[:, None, :, None]
+    nb = nb_rows[:, :, None, :]
+    match = (own == nb) & (own >= 0) & (nb >= 0)
+    return match.sum(dim=(1, 2, 3)).to(torch.int32)
+
+
+def combine_rows(combine: str, field: torch.Tensor,
+                 nb_vals: torch.Tensor) -> torch.Tensor:
+    """Reduce already-gathered neighbor values by combine name.
+
+    field: (n, ...) this node's own values; nb_vals: (n, Cd, ...) the
+    neighbors' values with PAD slots holding the combine's absorbing fill.
+    """
+    if combine == "min":
+        return min_rows(nb_vals)
+    if combine == "sum":
+        return sum_rows(nb_vals)
+    if combine == "hindex":
+        return hindex_rows(nb_vals)
+    if combine == "count_common":
+        return common_rows(field, nb_vals)
+    raise ValueError(f"unknown combine {combine!r}")
+
+
+def _gather(nbr: torch.Tensor, field: torch.Tensor, fill) -> torch.Tensor:
+    vals = field[nbr.clamp(min=0).long()]
+    return torch.where(nbr >= 0, vals, torch.full_like(vals, fill))
+
+
+def ell_min_ref(nbr: torch.Tensor, field: torch.Tensor) -> torch.Tensor:
+    """Gather + row-min over the ELL adjacency (PAD -> dtype max)."""
+    return min_rows(_gather(nbr, field, _fill(field.dtype)))
+
+
+def ell_sum_ref(nbr: torch.Tensor, field: torch.Tensor) -> torch.Tensor:
+    """Gather + row-sum over the ELL adjacency (PAD -> 0)."""
+    return sum_rows(_gather(nbr, field, 0))
+
+
+def key_sort_rows(rows: torch.Tensor) -> torch.Tensor:
+    """Key PAD (any negative id) to `PAD_KEY` and sort each row ascending."""
+    keyed = torch.where(rows >= 0, rows, torch.full_like(rows, PAD_KEY))
+    return torch.sort(keyed, dim=1).values
+
+
+def ell_common_ref(nbr: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Common-neighbor counts over the ELL adjacency: (N,) int32,
+
+        red[u] = sum over valid slots j of |rows[u] ∩ rows[nbr[u, j]]|
+
+    counted as a multiset intersection (duplicate ids count as in the JAX
+    package's all-pairs match).  `rows` is the (N, Cr) row field (`nbr`
+    itself for whole-graph use).  Rows are keyed and sorted once; then,
+    over chunks of rows, every element of u's row is located in each
+    neighbor's sorted row by a lower and an upper `searchsorted`, whose
+    difference is its count there.  Memory is O(chunk * C * Cr), never
+    the (N, C, Cr, Cr) match tensor of `common_rows`.
+    """
+    N, C = nbr.shape
+    keyed = key_sort_rows(rows)
+    Cr = keyed.shape[1]
+    own_ok = keyed != PAD_KEY
+    out = torch.zeros(N, dtype=torch.int32, device=nbr.device)
+    step = max(1, _COMMON_CHUNK // max(1, C * Cr))
+    for s in range(0, N, step):
+        nb = nbr[s:s + step]
+        v_rows = keyed[nb.clamp(min=0).long()]                  # (b, C, Cr)
+        own = keyed[s:s + step, None, :].expand_as(v_rows).contiguous()
+        lo = torch.searchsorted(v_rows, own)
+        hi = torch.searchsorted(v_rows, own, right=True)
+        occ = torch.where(own_ok[s:s + step, None, :], hi - lo, 0).sum(dim=2)
+        out[s:s + step] = torch.where(nb >= 0, occ, 0).sum(dim=1).to(
+            torch.int32)
+    return out

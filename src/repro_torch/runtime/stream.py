@@ -23,21 +23,29 @@ equals processing the stream one update at a time.  The routing verdict
 is computed on the device (`_route_window`); only compact (R,)/(P,)
 results cross to the host, in one transfer per window.
 
+With `cc_labels=` the session also keeps connected-component labels
+exact, window by window, on the post-window graph: a window with a delete
+recomputes them (`connected_components`), an insert-only window merges
+them (`merge_labels`, inserts only join components).
+
 `StreamSession` is the resumable stepper (open -> `apply_window` ->
 `result`); `run_stream` drains an iterable through one.  Not ported yet:
-the mesh executor, live rebalancing, CC label maintenance, capacity
-growth, checkpoints, and `MirrorStream` (see ROADMAP.md).
+the mesh executor, live rebalancing, capacity growth, checkpoints, and
+`MirrorStream` (see ROADMAP.md).
 """
 from __future__ import annotations
 
 import dataclasses
 from itertools import islice
-from typing import Dict, Iterable, Iterator, List, NamedTuple, Tuple
+from typing import (
+    Dict, Iterable, Iterator, List, NamedTuple, Optional, Tuple,
+)
 
 import numpy as np
 import torch
 
 from ..core import kcore_dynamic as kd
+from ..core.algorithms import connected_components, merge_labels
 from ..core.graph import GraphBlocks
 from ..core.updates import validate_updates
 
@@ -54,6 +62,8 @@ class StreamStats(NamedTuple):
     bfs_steps: int               # frontier supersteps (all paths)
     recompute_steps: int         # clamped min-H supersteps (all paths)
     per_block: Tuple[int, ...]   # block-local updates applied per block
+    cc_merges: int = 0           # CC labels maintained by O(1) label merges
+    cc_recomputes: int = 0       # CC label recomputations (delete windows)
 
     @property
     def escalated(self) -> int:
@@ -68,6 +78,7 @@ class StreamResult:
     g: GraphBlocks               # post-stream graph
     core: torch.Tensor           # (N,) int32 maintained coreness
     stats: StreamStats
+    labels: Optional[torch.Tensor] = None  # (N,) int32 CC labels, if kept
 
 
 def owner_block(g, u: int) -> int:
@@ -166,11 +177,16 @@ class StreamSession:
     `(u, v, op)` with global padded ids; windows narrower than R are
     padded to the fixed width.
 
+    `cc_labels` (optional) arms CC maintenance: the canonical labels of
+    the graph at open, as `core.algorithms.connected_components` returns
+    them; `.labels` then stays equal to a recompute after every window.
+
     The graph passed at open is updated IN PLACE; read `.g` back.
     """
 
     def __init__(self, g: GraphBlocks, core: torch.Tensor, R: int = 8,
-                 backend: str = "torch"):
+                 backend: str = "auto",
+                 cc_labels: Optional[torch.Tensor] = None):
         if R < 1:
             raise ValueError(f"R must be >= 1, got {R}")
         self.R = int(R)
@@ -182,6 +198,9 @@ class StreamSession:
         self._n_local = 0
         self._esc_cross = self._esc_spill = self._esc_conflict = 0
         self._per_block = np.zeros(g.P, np.int64)
+        self.labels = (None if cc_labels is None
+                       else torch.as_tensor(cc_labels, device=g.device))
+        self._cc_merges = self._cc_recomputes = 0
 
     @property
     def windows_applied(self) -> int:
@@ -242,6 +261,19 @@ class StreamSession:
         # coordinator path, original stream order within the window
         for r in np.flatnonzero(cross | spl | conf):
             g, core = kd._maintain_one(g, core, window[r], tot, backend)
+
+        # CC labels on the post-window graph: inserts only ever JOIN
+        # components, so an insert-only window is an on-device label merge;
+        # a delete may split one, so such a window re-propagates
+        if self.labels is not None:
+            ins = valid & (ops_ > 0)
+            if (valid & (ops_ < 0)).any():
+                self.labels = connected_components(g, backend=backend)
+                self._cc_recomputes += 1
+            elif ins.any():
+                self.labels = merge_labels(
+                    self.labels, us_d, vs_d, torch.as_tensor(ins, device=dev))
+                self._cc_merges += int(ins.sum())
         self.g, self.core = g, core
 
     def stats(self) -> StreamStats:
@@ -256,12 +288,15 @@ class StreamSession:
             bfs_steps=self._tot["bfs"],
             recompute_steps=self._tot["rec"],
             per_block=tuple(int(x) for x in self._per_block),
+            cc_merges=self._cc_merges,
+            cc_recomputes=self._cc_recomputes,
         )
 
     def result(self) -> StreamResult:
         """The session's state as a `StreamResult` snapshot (the session
         stays usable; `close` is the self-documenting alias)."""
-        return StreamResult(g=self.g, core=self.core, stats=self.stats())
+        return StreamResult(g=self.g, core=self.core, stats=self.stats(),
+                            labels=self.labels)
 
     close = result
 
@@ -271,9 +306,11 @@ def run_stream(
     core: torch.Tensor,
     updates: Iterable[Tuple[int, int, int]],
     R: int = 8,
-    backend: str = "torch",
+    backend: str = "auto",
+    cc_labels: Optional[torch.Tensor] = None,
 ) -> StreamResult:
-    """Ingest an update stream; returns a `StreamResult` (g, core, stats).
+    """Ingest an update stream; returns a `StreamResult` (g, core, stats,
+    labels).
 
     g: GraphBlocks (P blocks of Cn rows, nbr (N, Cd)); core: (N,) int32
     coreness of `g` (as `core.kcore.coreness` returns it).  `updates` may
@@ -282,8 +319,16 @@ def run_stream(
     stacked-frontier axis of the batched candidate search).  The final
     coreness equals sequential per-update maintenance.  `g` is updated in
     place; use the returned graph.
+
+    `cc_labels` (optional): the canonical CC labels of the pre-stream
+    graph (as `core.algorithms.connected_components` returns them).  The
+    stream then keeps them exact in `result.labels`, bit-identical to
+    `connected_components` of the final graph; `StreamStats.cc_merges` /
+    `cc_recomputes` count the merge and recompute paths.  Without it,
+    `result.labels` is None.
     """
-    session = StreamSession(g, core, R=R, backend=backend)
+    session = StreamSession(g, core, R=R, backend=backend,
+                            cc_labels=cc_labels)
     for window in _iter_windows(updates, R):
         session.apply_window(window)
     return session.result()

@@ -6,9 +6,12 @@ with R=8, in both packages — the JAX one with ``backend="ell"`` (Pallas
 in interpret mode).  The final `nbr`, `deg` and coreness, and every
 `StreamStats` field the port keeps, are integers and must be EQUAL.
 
-Also: the port's entry points raise without CUDA unless the caller asks
-for the CPU, and no module of the port (nor chip_smoke.py) imports jax or
-the JAX package.
+With `cc_labels=` both packages also keep connected-component labels
+over the stream; the labels and the `cc_merges` / `cc_recomputes` counts
+must be EQUAL.  Also: with no backend given, the entry points take the
+plain versions on a CPU graph and the CUDA kernels on a CUDA graph; they
+raise without CUDA unless the caller asks for the CPU; and no module of
+the port (nor chip_smoke.py) imports jax or the JAX package.
 """
 import ast
 from pathlib import Path
@@ -22,6 +25,7 @@ from _torch_port import (  # noqa: F401 (require_cuda is a fixture)
     to_port)
 
 import repro.core as jcore
+import repro.core.algorithms as jalg
 import repro.core.partition as jpart
 import repro.core.updates as jupd
 import repro.graphgen as jgen
@@ -93,6 +97,57 @@ def test_session_windows_and_torch_backend():
     np.testing.assert_array_equal(got.g.nbr.numpy(), want.g.nbr.numpy())
     with pytest.raises(ValueError, match="exceeds R"):
         sess.apply_window(ups[:5])
+
+
+def _cc_stream(kind):
+    """(jax graph, updates) for the CC-maintenance cases."""
+    edges = jgen.barabasi_albert(120, 3, seed=31)
+    n = int(edges.max()) + 1
+    rng = np.random.default_rng(32)
+    jg = jcore.build_blocks(edges, n, rng.integers(0, 4, n), P=4,
+                            deg_slack=24)
+    if kind == "insert_only":
+        return jg, jupd.sample_insertions(jg, 8, "inter", seed=43)
+    return jg, (jupd.sample_insertions(jg, 6, "inter", seed=33)
+                + jupd.sample_deletions(jg, 3, "intra", seed=34)
+                + jupd.sample_insertions(jg, 5, "intra", seed=35))
+
+
+@pytest.mark.parametrize("kind", ["mixed", "insert_only"])
+def test_run_stream_cc_labels_equal_reference(kind):
+    jg, ups = _cc_stream(kind)
+    core = jcore.coreness(jg, backend="jnp")
+    labels0 = jalg.connected_components(jg, backend="jnp")
+    tg, tg2 = to_port(jg), to_port(jg)  # before the reference donates jg
+    res = tstream.run_stream(tg, tensor_of(core), list(ups), R=4,
+                             cc_labels=tensor_of(labels0))
+    ref = reference().run_stream(jg, core, list(ups), R=4, backend="jnp",
+                                 cc_labels=labels0)
+    np.testing.assert_array_equal(res.labels.numpy(), np.asarray(ref.labels))
+    np.testing.assert_array_equal(res.core.numpy(), np.asarray(ref.core))
+    assert res.stats._asdict() == {f: getattr(ref.stats, f)
+                                   for f in tstream.StreamStats._fields}
+    assert torch.equal(res.labels, tcore.connected_components(res.g))
+    st = res.stats
+    if kind == "insert_only":
+        assert (st.cc_merges, st.cc_recomputes) == (len(ups), 0)
+    else:
+        assert st.cc_merges > 0 and st.cc_recomputes > 0
+    # without cc_labels nothing is kept
+    plain = tstream.run_stream(tg2, tensor_of(core), list(ups), R=4)
+    assert plain.labels is None and plain.stats.cc_merges == 0
+
+
+def test_defaults_equal_torch_backend_on_cpu():
+    """No backend given: "auto", the plain versions on a CPU graph."""
+    _, _, _, jg, ups = _slice(n=200, q=4)
+    core, steps = tcore.coreness_with_stats(to_port(jg))
+    core_t, steps_t = tcore.coreness_with_stats(to_port(jg), backend="torch")
+    assert torch.equal(core, core_t) and steps == steps_t
+    got = tstream.run_stream(to_port(jg), core, ups, R=4)
+    want = tstream.run_stream(to_port(jg), core_t, ups, R=4, backend="torch")
+    assert torch.equal(got.core, want.core) and got.stats == want.stats
+    assert torch.equal(got.g.nbr, want.g.nbr)
 
 
 def test_route_window_equals_reference():
@@ -176,3 +231,25 @@ def test_run_stream_on_gpu_equals_reference():
     np.testing.assert_array_equal(res.core.cpu().numpy(), np.asarray(ref.core))
     assert res.stats._asdict() == {f: getattr(ref.stats, f)
                                    for f in tstream.StreamStats._fields}
+
+
+@needs_cuda
+def test_defaults_launch_the_kernels_on_gpu():
+    """No backend given on a CUDA graph: the CUDA kernels run."""
+    from repro_torch.kernels.ell_frontier import frontier_step_ell
+    from repro_torch.kernels.ell_hindex import hindex_ell
+
+    _, _, _, jg, ups = _slice(n=300, q=8)
+    tg = to_port(jg, device="cuda")
+    h0 = hindex_ell.launches
+    core, steps = tcore.coreness_with_stats(tg)
+    assert hindex_ell.launches > h0
+    h1, f1 = hindex_ell.launches, frontier_step_ell.launches
+    res = tstream.run_stream(tg, core, ups, R=8)
+    torch.cuda.synchronize()
+    assert hindex_ell.launches > h1 and frontier_step_ell.launches > f1
+    want = jcore.coreness_with_stats(jg, backend="jnp")
+    np.testing.assert_array_equal(core.cpu().numpy(), np.asarray(want[0]))
+    assert steps == want[1]
+    ref = reference().run_stream(jg, want[0], ups, R=8, backend="jnp")
+    np.testing.assert_array_equal(res.core.cpu().numpy(), np.asarray(ref.core))

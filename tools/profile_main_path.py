@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the time of the port's DS1 main path goes, on one NVIDIA GPU.
+"""Where the time of the port's DS1 paths goes, on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with one CUDA card and nvcc:
 
@@ -7,14 +7,15 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc:
 
 Builds the DS1 graph and update stream exactly as chip_smoke.py does
 (`snap_like("DS1", 1.0, seed=7)`, 8 BFS blocks, 200 mixed updates, R=8),
-then for each backend ("ell": the CUDA kernels, "torch": the plain
-versions) runs the main path — static coreness plus `run_stream` — once
-to warm up, once timed on the host clock, and once under
-`torch.profiler`.  Prints one JSON line per backend: the wall seconds
-without and with the profiler, the device time summed over every kernel,
-memcpy and memset of the profiled run, the device's busy share of that
-same run's wall time, the number of device operations, and the top
-kernels by device time.
+then for each path — "main" (static coreness plus `run_stream`) and
+"analytics" (chip_smoke.py's `analytics_path`: the BlockProgram workloads
+and the CC-maintaining stream) — and each backend ("ell": the CUDA
+kernels, "torch": the plain versions) runs the path once to warm up, once
+timed on the host clock, and once under `torch.profiler`.  Prints one
+JSON line per path and backend: the wall seconds without and with the
+profiler, the device time summed over every kernel, memcpy and memset of
+the profiled run, the device's busy share of that same run's wall time,
+the number of device operations, and the top kernels by device time.
 """
 from __future__ import annotations
 
@@ -44,19 +45,24 @@ def main() -> int:
     card = cs.card_line()
     _build.build_all()
     dev = torch.device("cuda", 0)
-    g, _ = cs.ds1_graph(dev)
+    g, core = cs.ds1_graph(dev)
     ups = cs.sample_stream(g, cs.DS1_UPDATES // 4, seed0=2)
 
-    def run(backend):
+    def main_path(backend):
         gc = g.clone()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        core, _ = coreness_with_stats(gc, backend=backend)
-        run_stream(gc, core, ups, R=cs.R, backend=backend)
+        c, _ = coreness_with_stats(gc, backend=backend)
+        run_stream(gc, c, ups, R=cs.R, backend=backend)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    for backend in ("ell", "torch"):
+    def analytics(backend):
+        return cs.analytics_path(g.clone(), backend, core, ups)["seconds"]
+
+    for (path, run), backend in ((p, b) for p in (("main", main_path),
+                                                  ("analytics", analytics))
+                                 for b in ("ell", "torch")):
         run(backend)  # warm-up: allocator, kernel loads
         wall = run(backend)
         with profile(activities=[ProfilerActivity.CPU,
@@ -72,7 +78,7 @@ def main() -> int:
         if count == 0:
             raise RuntimeError("the profiler recorded no device operation")
         print(json.dumps({
-            "backend": backend, "card": card, "wall_s": wall,
+            "path": path, "backend": backend, "card": card, "wall_s": wall,
             "wall_profiled_s": wall_prof, "device_s": device_s,
             "device_busy_share": device_s / wall_prof, "device_ops": count,
             "top_kernels_ms": {k[:80]: v / 1e3
