@@ -636,7 +636,10 @@ def combine_timing(g, fields, parity, launches):
     `torch.sparse.mm` of the CSR adjacency by the field (the CSR is built
     outside the timed region).  `ell_triangles` also gets an operations
     bound: each element of a row probed into each neighbour's row by two
-    binary searches over C entries, counted at the scalar float32 rate."""
+    binary searches over C entries, counted at the scalar float32 rate.
+    Its `ms` is the launch alone on the rows sorted beforehand (inputs nbr
+    and the sorted copy); `sort_ms` is the wrapper's key-and-sort of the
+    rows and `wrapper_ms` the whole wrapper, sort and launch."""
     import math
     import warnings
 
@@ -649,7 +652,8 @@ def combine_timing(g, fields, parity, launches):
     from repro_torch.kernels.ell_pagerank import (
         neighbor_sum_ell, neighbor_sum_ell_plain)
     from repro_torch.kernels.ell_triangles import (
-        neighbor_common_ell, neighbor_common_ell_plain)
+        common_sorted_ell, neighbor_common_ell, neighbor_common_ell_plain)
+    from repro_torch.kernels.ref import key_sort_rows
 
     N, Cd, nbr = g.N, g.Cd, g.nbr
     lab = torch.where(g.node_mask, fields["labels"], INT32_MAX)
@@ -671,6 +675,7 @@ def combine_timing(g, fields, parity, launches):
     deg = valid.sum(dim=1)
     probes = int((deg * deg).sum()) * 2 * max(1, math.ceil(math.log2(Cd + 1)))
     nbr_b, vec = N * Cd * 4, N * 4
+    keyed = key_sort_rows(nbr)  # the triangle wrapper's sorted copy, once
     runs = {
         "ell_cc": (lambda: neighbor_min_ell(nbr, lab),
                    lambda: neighbor_min_ell_plain(nbr, lab),
@@ -683,10 +688,16 @@ def combine_timing(g, fields, parity, launches):
             lambda: neighbor_multi_ell_plain(nbr, (core, lab, contrib),
                                              combines),
             nbr_b + 6 * vec, 0),
-        "ell_triangles": (lambda: neighbor_common_ell(nbr, nbr),
+        "ell_triangles": (lambda: common_sorted_ell(nbr, keyed),
                           lambda: neighbor_common_ell_plain(nbr, nbr),
-                          nbr_b + vec, probes),
+                          2 * nbr_b + vec, probes),
     }
+    if not torch.equal(common_sorted_ell(nbr, keyed),
+                       neighbor_common_ell(nbr, nbr)):
+        raise AssertionError("ell_triangles: launch alone != wrapper")
+    tri_split = dict(sort_ms=_time_ms(lambda: key_sort_rows(nbr)),
+                     wrapper_ms=_time_ms(lambda: neighbor_common_ell(nbr,
+                                                                     nbr)))
     out, shapes = [], {}
     for name, (kern, plain, nbytes, ops_) in runs.items():
         ms, plain_ms = _time_pair(kern, plain)
@@ -694,6 +705,8 @@ def combine_timing(g, fields, parity, launches):
         ops_ms = ops_ / SCALAR_OPS_PER_S * 1e3
         shapes[name] = dict(ms=ms, plain_ms=plain_ms, bound_bytes=nbytes,
                             bound_ops=ops_)
+        extra = tri_split if name == "ell_triangles" else {}
+        shapes[name].update(extra)
         out.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -706,7 +719,8 @@ def combine_timing(g, fields, parity, launches):
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bound_bytes": nbytes, "bound_ops": ops_,
-            "library_ms": lib_ms if name == "ell_pagerank" else None})
+            "library_ms": lib_ms if name == "ell_pagerank" else None,
+            **extra})
     emit(phase="combine_timing", order="plain,kernel,kernel,plain", N=N,
          Cd=Cd, K=None, valid_slots=int(valid.sum()), shapes=shapes,
          sparse_mm_ms=lib_ms, sparse_mm_max_abs_err_vs_kernel=sp_err)

@@ -37,7 +37,7 @@ from typing import Any, List, NamedTuple, Optional, Tuple
 import torch
 
 from ..kernels.ops import (  # noqa: F401  (BlockCtx: re-export, contract)
-    MULTI_COMBINES, SYNC_EVERY, BlockCtx, tree_where,
+    MULTI_COMBINES, SYNC_EVERY, BlockCtx, live_loop,
 )
 from .graph import GraphBlocks
 
@@ -272,9 +272,10 @@ class BladygEngine:
     ) -> Tuple[Any, Any]:
         """The same loop with one host read per `SYNC_EVERY` supersteps.
 
-        A device ``live`` flag gates each superstep's results (as in
-        `kernels.ops.run_block_program`), so the states and the superstep
-        count equal the JAX package's fused ``while_loop``.  Per-superstep
+        A device ``live`` flag gates each superstep's results
+        (`kernels.ops.live_loop`, the loop `run_block_program` runs too), so
+        the states and the superstep count equal the JAX package's fused
+        ``while_loop``.  Per-superstep
         message sizes are fixed by the shapes, so the traces are
         reconstructed after the loop from the first superstep's summary,
         the directive passed in and the declared W2W payload.
@@ -282,26 +283,20 @@ class BladygEngine:
         g = self.g
         w2w = w2w_override if w2w_override is not None \
             else program.w2w_payload(g)
-        live = torch.ones((), dtype=torch.bool, device=g.device)
-        n = torch.zeros((), dtype=torch.int32, device=g.device)
-        stats = None
-        done = 0
-        while done < max_supersteps:
-            k = min(SYNC_EVERY, max_supersteps - done)
-            for _ in range(k):
-                w2, summary = program.worker_compute(g, wstate, directive)
-                m2, d2, halt = program.master_compute(mstate, summary)
-                if stats is None:
-                    stats = self._meter(summary, directive, w2w)
-                wstate, mstate, directive = tree_where(
-                    live, (w2, m2, d2), (wstate, mstate, directive))
-                n += live.to(torch.int32)
-                live = live & ~halt
-            done += k
-            if not bool(live):  # the one host read of this chunk
-                break
-        self.traces.extend(SuperstepTrace(step, program.modes, stats)
-                           for step in range(int(n)))
+        stats = []
+
+        def step(s):
+            wstate, mstate, directive = s
+            w2, summary = program.worker_compute(g, wstate, directive)
+            m2, d2, halt = program.master_compute(mstate, summary)
+            if not stats:
+                stats.append(self._meter(summary, directive, w2w))
+            return (w2, m2, d2), ~halt
+
+        (wstate, mstate, _), n = live_loop(
+            step, (wstate, mstate, directive), max_supersteps, g.device)
+        self.traces.extend(SuperstepTrace(i, program.modes, stats[0])
+                           for i in range(n))
         return wstate, mstate
 
     @staticmethod

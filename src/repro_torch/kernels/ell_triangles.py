@@ -16,7 +16,8 @@ of each row of the field (a no-op permutation under the sorted-ELL
 invariant, as in the JAX wrapper), then launches the hand-written CUDA
 kernel (`csrc/ell_triangles.cu`, binary probes into the sorted rows) on
 CUDA tensors; on CPU tensors it runs `neighbor_common_ell_plain`; any
-other device raises.  So it is exact for any slot order.  It replaces the
+other device raises.  So it is exact for any slot order.
+`common_sorted_ell` is the launch alone, on rows sorted beforehand.  It replaces the
 TPU kernel `neighbor_common_ell` of the JAX package's
 `kernels/ell_triangles.py`, variant "merge"; the "allpairs" variant, a
 benchmark yardstick, is not ported yet.
@@ -70,12 +71,27 @@ def neighbor_common_ell(nbr: torch.Tensor, rows: torch.Tensor,
         raise ValueError(f"rows must be a {tuple(nbr.shape)} int32 tensor on "
                          f"{nbr.device}, got {tuple(rows.shape)} {rows.dtype} "
                          f"on {rows.device}")
+    return common_sorted_ell(
+        nbr, ref.key_sort_rows(rows[:, :columns(nbr.shape[1], K)]))
+
+
+def common_sorted_ell(nbr: torch.Tensor, keyed: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel alone, on a row field already keyed and sorted
+    (`ref.key_sort_rows` of its first C columns, C <= Cd): (N,) int32.
+
+    `neighbor_common_ell` calls it after its sort; it bumps
+    `neighbor_common_ell.launches`.  CUDA tensors only.
+    """
     N, Cd = nbr.shape
-    C = columns(Cd, K)
-    keyed = ref.key_sort_rows(rows[:, :C]).contiguous()
+    if keyed.dim() != 2 or keyed.shape[0] != N or keyed.shape[1] > Cd \
+            or keyed.dtype != torch.int32 or keyed.device != nbr.device:
+        raise ValueError(f"keyed must be an (N={N}, C<={Cd}) int32 tensor on "
+                         f"{nbr.device}, got {tuple(keyed.shape)} "
+                         f"{keyed.dtype} on {keyed.device}")
+    keyed = keyed.contiguous()
     out = torch.empty(N, dtype=torch.int32, device=nbr.device)
     _build.launch("ell_triangles", nbr.device, nbr.data_ptr(),
-                  keyed.data_ptr(), out.data_ptr(), N, Cd, C)
+                  keyed.data_ptr(), out.data_ptr(), N, Cd, keyed.shape[1])
     neighbor_common_ell.launches += 1
     return out
 

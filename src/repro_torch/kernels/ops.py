@@ -33,8 +33,9 @@ port checks convergence every `SYNC_EVERY` = 8 supersteps:
     ``any(frontier)`` into the counter; hops on an empty frontier stay
     empty, so the count and the result equal the reference's.
 
-  * in `run_block_program` (any `BlockProgram`) a device-side ``live``
-    flag gates each superstep: ``new`` is applied only where ``live`` is
+  * in `live_loop`, which runs any `BlockProgram` (`run_block_program`)
+    and `core.engine.BladygEngine.run_jit`, a device-side ``live`` flag
+    gates each superstep: ``new`` is applied only where ``live`` is
     set, ``live`` is added to the step counter, then ``live &= changed``.
     The quiet superstep itself is applied, as in the JAX package's
     ``while_loop``, and later supersteps of the chunk change nothing, so
@@ -244,17 +245,6 @@ def _combine_ell(nbr: torch.Tensor, field: torch.Tensor, combine: str,
     raise _unknown(combine)
 
 
-def _combine_multi_torch(nbr: torch.Tensor, fields, combines) -> Tuple:
-    """Shared-gather multi reduce, plain PyTorch."""
-    return neighbor_multi_ell_plain(nbr, tuple(fields), tuple(combines))
-
-
-def _combine_multi_ell(nbr: torch.Tensor, fields, combines,
-                       K: Optional[int]) -> Tuple:
-    """Fused multi reduce via the `ell_multi` kernel."""
-    return neighbor_multi_ell(nbr, tuple(fields), tuple(combines), K=K)
-
-
 def neighbor_combine_blocks(
     g, field: torch.Tensor, combine: str, backend: str = "auto",
     K: Optional[int] = None,
@@ -278,6 +268,34 @@ def tree_where(cond: torch.Tensor, new: Any, old: Any) -> Any:
     if new is None:
         return None
     return torch.where(cond, new, old)
+
+
+def live_loop(
+    step: Callable[[Any], Tuple[Any, torch.Tensor]], state: Any,
+    max_steps: int, device: torch.device,
+) -> Tuple[Any, int]:
+    """Iterate ``new, changed = step(state)`` under a device ``live`` flag.
+
+    The sync policy of the module docstring: ``new`` is applied only
+    where ``live`` is set, ``live`` is added to the step counter, then
+    ``live &= changed``; the host reads ``live`` once per `SYNC_EVERY`
+    supersteps.  Returns (state, supersteps) with the count of the JAX
+    package's ``while_loop`` (the quiet superstep applied and counted).
+    """
+    live = torch.ones((), dtype=torch.bool, device=device)
+    steps = torch.zeros((), dtype=torch.int32, device=device)
+    done = 0
+    while done < max_steps:
+        n = min(SYNC_EVERY, max_steps - done)
+        for _ in range(n):
+            new, changed = step(state)
+            state = tree_where(live, new, state)
+            steps += live.to(torch.int32)
+            live = live & changed
+        done += n
+        if not bool(live):  # the one host read of this chunk
+            break
+    return state, int(steps)
 
 
 def run_block_program(
@@ -317,27 +335,16 @@ def run_block_program(
                    n_real=int(g.n_real))  # the run's one extra host read
     state = program.init(g) if state0 is None else state0
 
-    def red_of(field):
-        if multi:
-            if b == "torch":
-                return _combine_multi_torch(g.nbr, field, program.combines)
-            return _combine_multi_ell(g.nbr, field, program.combines, None)
-        if b == "torch":
-            return _combine_torch(g.nbr, field, program.combine)
-        return _combine_ell(g.nbr, field, program.combine, None)
+    def step(state):
+        field = program.halo_field(state)
+        if not multi:
+            red = neighbor_combine_blocks(g, field, program.combine, b)
+        elif b == "torch":
+            red = neighbor_multi_ell_plain(g.nbr, field, program.combines)
+        else:
+            red = neighbor_multi_ell(g.nbr, field, program.combines)
+        new = program.update(ctx, state, red)
+        return new, program.changed(state, new)
 
-    live = torch.ones((), dtype=torch.bool, device=g.device)
-    steps = torch.zeros((), dtype=torch.int32, device=g.device)
-    done = 0
-    while done < ms:
-        n = min(SYNC_EVERY, ms - done)
-        for _ in range(n):
-            new = program.update(ctx, state, red_of(program.halo_field(state)))
-            changed = program.changed(state, new)
-            state = tree_where(live, new, state)
-            steps += live.to(torch.int32)
-            live = live & changed
-        done += n
-        if not bool(live):  # the one host read of this chunk
-            break
-    return (state, int(steps)) if with_steps else state
+    state, steps = live_loop(step, state, ms, g.device)
+    return (state, steps) if with_steps else state

@@ -35,7 +35,7 @@ from repro_torch.kernels.ell_multi import (
 from repro_torch.kernels.ell_pagerank import (
     neighbor_sum_ell, neighbor_sum_ell_plain)
 from repro_torch.kernels.ell_triangles import (
-    neighbor_common_ell, neighbor_common_ell_plain)
+    common_sorted_ell, neighbor_common_ell, neighbor_common_ell_plain)
 
 
 def _rows(N, Cd, seed, shuffled, max_deg=None, empty=0.15, full=0.15):
@@ -424,3 +424,7 @@ def test_common_kernel_equals_plain(N, Cd, K, shuffled, max_deg):
     torch.cuda.synchronize()
     assert neighbor_common_ell.launches == before + 1
     assert torch.equal(got, neighbor_common_ell_plain(nbr, rows, K))
+    C = rows.shape[1] if K is None else min(K, rows.shape[1])
+    alone = common_sorted_ell(nbr, ref.key_sort_rows(rows[:, :C]))
+    assert neighbor_common_ell.launches == before + 2
+    assert torch.equal(alone, got)
