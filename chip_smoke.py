@@ -7,38 +7,58 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc:
 
 Phases (each raises on failure; the script then exits non-zero):
 
-1. card: the `nvidia-smi` name and power limit; build all six CUDA
+1. card: the `nvidia-smi` name and power limit; build all ten CUDA
    kernels from `src/repro_torch/kernels/csrc` (one nvcc per source, in
    parallel).
-2. kernel parity: each kernel against its plain PyTorch version on the
-   card, on the DS1 graph's adjacency and on its rows shuffled, at K = Cd
-   and at the degree bound — `ell_hindex` with est = degrees, random ints
-   and the coreness; `ell_frontier` at R = 1, 8, 13; `ell_cc` with random
-   ints and CC labels; `ell_pagerank` with PageRank contributions and
-   random floats; `ell_multi` with ("hindex", "min", "sum") and each alone,
-   also bit-equal to the standalone kernels; `ell_triangles` with
-   rows = nbr.  Bit-equal, except the float sum: allclose(rtol=1e-5,
-   atol=1e-9) against `torch.sum`'s order.
-3. main path at the paper's DS1 size (`snap_like("DS1", 1.0, seed=7)`,
+2. kernel parity: each ELL kernel against its plain PyTorch version on
+   the card, on the DS1 graph's adjacency and on its rows shuffled, at
+   K = Cd and at the degree bound — `ell_hindex` and its "count" variant
+   `ell_hindex_count` (also equal to the "sort" kernel) with est =
+   degrees, random ints and the coreness; `ell_frontier` at R = 1, 8, 13;
+   `ell_allpairs` (the "allpairs" triangle variant, also equal to the
+   "merge" kernel); `ell_cc` with random ints and CC labels;
+   `ell_pagerank` with PageRank contributions and random floats;
+   `ell_multi` with ("hindex", "min", "sum") and each alone, also
+   bit-equal to the standalone kernels; `ell_triangles` with rows = nbr.
+   Bit-equal, except the float sum: allclose(rtol=1e-5, atol=1e-9)
+   against `torch.sum`'s order.
+3. dense parity: the two dense kernels against their plain versions on
+   DS1's (50,048 x 50,048) bfloat16 adjacency (5.01 GB; row offsets past
+   2^31) — `kcore_hindex` with est = degrees, random ints and the
+   coreness at K = 128 and 150, `frontier` at R = 1, 8, 13 with
+   per-column eligibility folded into `visited` (also equal to the ELL
+   hop) and with a shared one.  Bit-equal.
+4. main path at the paper's DS1 size (`snap_like("DS1", 1.0, seed=7)`,
    BFS-partitioned into 8 blocks): static coreness and a 200-update
    `run_stream` (R = 8) through the kernels, held against the plain
    backend (same coreness, same superstep counts, same `StreamStats`) and
-   a fresh recompute; both kernels' launch counts must be > 0.
-4. analytics_ds1, the BlockProgram path on the same graph, through the
+   a fresh recompute; both kernels' launch counts must be > 0.  Then the
+   same with `backend="dense"` (`main_path_ds1_dense`), held against the
+   plain run; `kcore_hindex` and `frontier` must launch.
+5. analytics_ds1, the BlockProgram path on the same graph, through the
    kernels and held against the plain backend: connected components,
    PageRank (30 fixed supersteps; and tol = 1e-6), triangle counts, the
    coreness program, `fused_analytics` warm-started from them, and the
    same 200-update stream with CC labels maintained; CC and triangles
-   also against scipy on the host.  All six kernels must launch.
-5. scale: a 2^21-node random ELL graph (Cd = 32, ~256 MB of nbr): static
+   also against scipy on the host.  All six ELL kernels must launch.
+   Then CC, both PageRanks, triangles and the coreness program with
+   `backend="dense"` (`analytics_ds1_dense`), held against the plain run.
+6. variants_ds1: `coreness_blocks(variant="count")` equal to the "sort"
+   coreness in the same supersteps, and `neighbor_common_ell(variant=
+   "allpairs")` equal to "merge" and to scipy's per-node triangles.
+7. scale: a 2^21-node random ELL graph (Cd = 32, ~256 MB of nbr): static
    coreness and a 64-update intra-block stream, then CC, PageRank and
-   triangle counts, held the same way.
-6. timing: each kernel and its plain version at the main path's shapes
+   triangle counts, held the same way (the dense adjacency would be
+   8.8 TB there).
+8. timing: each kernel and its plain version at the main path's shapes
    (`ell_hindex` at both: the stream's K = Cd and the static fixpoint's
-   degree bound; the four combines at the analytics shapes, and
-   `torch.sparse.mm` beside the sum), by CUDA events between 20
-   back-to-back calls after warm-up, the median, beside the bytes bound
-   at 3.35 TB/s.
+   degree bound; `kcore_hindex` at both, K = 150 and 128; `frontier` on
+   the main path's folded masks and with every row live; the combines
+   and the two variants at the analytics shapes; `torch.sparse.mm`
+   beside the sum, and a product-only `torch.matmul` beside the two dense
+   kernels), by CUDA events between 20 back-to-back calls after warm-up,
+   the median, beside the bytes bound at 3.35 TB/s and, where it is the
+   larger, the operations bound.
 
 Earlier lines are JSON objects; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -62,8 +82,11 @@ HBM_BYTES_PER_S = 3.35e12
 #: published float32 rate of one H100 SXM outside the tensor cores (op/s),
 #: the rate the integer compares of the triangle probes are counted at
 SCALAR_OPS_PER_S = 67e12
-#: the six kernels: name -> the wrapper's module under repro_torch.kernels
-#: and the TPU kernel it replaces
+#: published dense bf16 tensor-core rate of one H100 SXM (op/s), the rate
+#: the dense kernels' matrix-product formulation is counted at
+BF16_OPS_PER_S = 989e12
+#: the ten kernels: name -> the wrapper (module.function under
+#: repro_torch.kernels, carrying `.launches`) and the TPU kernel it replaces
 KERNELS = {
     "ell_hindex": ("ell_hindex.hindex_ell",
                    "src/repro/kernels/ell_hindex.py:117"),
@@ -76,7 +99,17 @@ KERNELS = {
                   "src/repro/kernels/ell_multi.py:100"),
     "ell_triangles": ("ell_triangles.neighbor_common_ell",
                       "src/repro/kernels/ell_triangles.py:167"),
+    "ell_hindex_count": ("ell_hindex.hindex_count_ell",
+                         "src/repro/kernels/ell_hindex.py:117"),
+    "ell_allpairs": ("ell_triangles.common_allpairs_ell",
+                     "src/repro/kernels/ell_triangles.py:167"),
+    "kcore_hindex": ("kcore_hindex.hindex_counts",
+                     "src/repro/kernels/kcore_hindex.py:81"),
+    "frontier": ("frontier.frontier_step", "src/repro/kernels/frontier.py:66"),
 }
+#: the kernels of the dense backend, and the ELL kernels' variants
+DENSE = ("kcore_hindex", "frontier")
+VARIANTS = ("ell_hindex_count", "ell_allpairs")
 #: the float sum's tolerance against the plain version (torch.sum adds in
 #: another order); the ranks', after 30 supersteps of such sums
 SUM_TOL = dict(rtol=1e-5, atol=1e-9)
@@ -115,12 +148,19 @@ def main() -> int:
     g, core_plain = ds1_graph(dev)
     parity = kernel_parity(g, core_plain, dev)
     parity.update(combine_parity(g, core_plain, dev))
+    parity.update(dense_parity(g, core_plain, dev))
     ups = sample_stream(g, DS1_UPDATES // 4, seed0=2)
-    launches, hindex_split = _drive(g, ups, "main_path_ds1")
-    launches_an, fields = _analytics(g, "analytics_ds1", core_plain, ups)
+    launches, hindex_split, plain = _drive(g, ups, "main_path_ds1")
+    launches.update(_drive_dense(g, ups, plain))
+    launches_an, fields, plain_an = _analytics(g, "analytics_ds1", core_plain,
+                                               ups)
+    _analytics_dense(g, plain_an)
+    launches_an.update(variants_phase(g, core_plain, plain["steps"],
+                                      plain_an["tri"]))
     scale_phase(dev)
     kernels = timing(g, core_plain, ups[:R], parity, launches, hindex_split)
     kernels += combine_timing(g, fields, parity, launches_an)
+    kernels += dense_timing(g, core_plain, ups[:R], parity, launches)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -174,7 +214,10 @@ def kernel_parity(g, core, dev):
     from repro_torch.kernels import ops
     from repro_torch.kernels.ell_frontier import (
         frontier_step_ell, frontier_step_ell_plain)
-    from repro_torch.kernels.ell_hindex import hindex_ell, hindex_ell_plain
+    from repro_torch.kernels.ell_hindex import (
+        hindex_count_ell_plain, hindex_ell, hindex_ell_plain)
+    from repro_torch.kernels.ell_triangles import (
+        common_allpairs_ell_plain, neighbor_common_ell)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     nbr, N, Cd = g.nbr, g.N, g.Cd
@@ -189,14 +232,37 @@ def kernel_parity(g, core, dev):
     cases = [(f"{e}/K={k}", nbr, est, k) for e, est in ests.items()
              for k in (None, ops.degree_bound(g))]
     cases.append(("shuffled/random/K=Cd", shuffled, ests["random"], None))
-    err = {"ell_hindex": 0, "ell_frontier": 0}
+    cases.append(("shuffled/random/K=degree_bound", shuffled, ests["random"],
+                  ops.degree_bound(g)))  # K < Cd: reads part of the row
+    err = {"ell_hindex": 0, "ell_frontier": 0, "ell_hindex_count": 0,
+           "ell_allpairs": 0}
     for name, nb, est, K in cases:
         got, want = hindex_ell(nb, est, K=K), hindex_ell_plain(nb, est, K)
+        cnt = hindex_ell(nb, est, K=K, variant="count")
+        cnt_plain = hindex_count_ell_plain(nb, est, K)
         torch.cuda.synchronize()
         e = int((got.long() - want.long()).abs().max())
         err["ell_hindex"] = max(err["ell_hindex"], e)
         if e or not torch.equal(got, want):
             raise AssertionError(f"ell_hindex differs from plain on {name}")
+        e = int((cnt.long() - cnt_plain.long()).abs().max())
+        err["ell_hindex_count"] = max(err["ell_hindex_count"], e)
+        if e or not torch.equal(cnt, cnt_plain) or not torch.equal(cnt, got):
+            raise AssertionError(f"ell_hindex_count differs from its plain "
+                                 f"version or from ell_hindex on {name}")
+    tri_cases = [(f"{an}/K={k}", nb, k) for an, nb in
+                 (("sorted", nbr), ("shuffled", shuffled))
+                 for k in (None, ops.degree_bound(g))]
+    for name, nb, K in tri_cases:
+        got = neighbor_common_ell(nb, nb, K, variant="allpairs")
+        want = common_allpairs_ell_plain(nb, nb, K)
+        merge = neighbor_common_ell(nb, nb, K)
+        torch.cuda.synchronize()
+        e = int((got.long() - want.long()).abs().max())
+        err["ell_allpairs"] = max(err["ell_allpairs"], e)
+        if e or not torch.equal(got, want) or not torch.equal(got, merge):
+            raise AssertionError(f"ell_allpairs differs from its plain "
+                                 f"version or from ell_triangles on {name}")
     for Rr, nb in ((1, nbr), (8, nbr), (13, nbr), (8, shuffled)):
         f, elig, vis = (torch.rand((N, Rr), generator=gen, device=dev) < p
                         for p in (0.2, 0.7, 0.2))
@@ -208,7 +274,8 @@ def kernel_parity(g, core, dev):
         if not torch.equal(got, want):
             raise AssertionError(f"ell_frontier differs from plain at R={Rr}")
     emit(phase="kernel_parity", hindex_cases=[c[0] for c in cases],
-         frontier_R=[1, 8, 13, "8/shuffled"], max_abs_err=err)
+         frontier_R=[1, 8, 13, "8/shuffled"],
+         allpairs_cases=[c[0] for c in tri_cases], max_abs_err=err)
     return err
 
 
@@ -294,12 +361,68 @@ def combine_parity(g, core, dev):
     return err
 
 
+def dense_parity(g, core, dev):
+    """The two dense kernels against their plain versions on DS1's dense
+    adjacency, bit-equal.  Returns {kernel name: max |kernel - plain|}."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.ell_frontier import frontier_step_ell
+    from repro_torch.kernels.ell_hindex import hindex_ell
+    from repro_torch.kernels.frontier import frontier_step, frontier_step_plain
+    from repro_torch.kernels.kcore_hindex import (
+        hindex_counts, hindex_counts_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    N, Cd, nbr = g.N, g.Cd, g.nbr
+    adj = ref.ell_to_dense(nbr, N)
+    ests = {"degrees": g.deg,
+            "random": torch.randint(-2, Cd + 10, (N,), generator=gen,
+                                    device=dev, dtype=torch.int32),
+            "coreness": core}
+    Ks = (ops.degree_bound(g), Cd + 1)
+    err = {"kcore_hindex": 0, "frontier": 0}
+    for (en, est), K in ((e, k) for e in ests.items() for k in Ks):
+        got, want = hindex_counts(adj, est, K), hindex_counts_plain(adj, est, K)
+        torch.cuda.synchronize()
+        e = int((got.long() - want.long()).abs().max())
+        err["kcore_hindex"] = max(err["kcore_hindex"], e)
+        if e or not torch.equal(got, want):
+            raise AssertionError(f"kcore_hindex differs from plain: {en} K={K}")
+        if en == "coreness" and not torch.equal(got, hindex_ell(nbr, est)):
+            raise AssertionError(f"kcore_hindex differs from ell_hindex K={K}")
+    ones = torch.ones(N, dtype=torch.bool, device=dev)
+    for Rr in (1, 8, 13):
+        f, elig, vis = (torch.rand((N, Rr), generator=gen, device=dev) < p
+                        for p in (0.2, 0.7, 0.2))
+        folded = (vis | ~elig).contiguous()
+        shared = torch.rand(N, generator=gen, device=dev) < 0.7
+        for name, el, vi in (("folded", ones, folded), ("shared", shared, vis)):
+            got = frontier_step(adj, f, el, vi)
+            want = frontier_step_plain(adj, f, el, vi)
+            torch.cuda.synchronize()
+            e = int((got != want).sum().clamp(max=1))
+            err["frontier"] = max(err["frontier"], e)
+            if e:
+                raise AssertionError(f"frontier differs from plain: R={Rr} "
+                                     f"{name}")
+        if not torch.equal(frontier_step(adj, f, ones, folded),
+                           frontier_step_ell(nbr, f, elig, vis)):
+            raise AssertionError(f"frontier differs from ell_frontier R={Rr}")
+    emit(phase="dense_parity", N=N, adjacency_bytes=ops.dense_bytes(N),
+         hindex_cases=[f"{e}/K={k}" for e in ests for k in Ks],
+         frontier_R=[1, 8, 13], frontier_eligibility=["folded", "shared"],
+         max_abs_err=err)
+    del adj
+    torch.cuda.empty_cache()
+    return err
+
+
 def _check_same_stream(a, b, what):
     import torch
 
     if not (torch.equal(a.core, b.core) and torch.equal(a.g.nbr, b.g.nbr)
             and torch.equal(a.g.deg, b.g.deg) and a.stats == b.stats):
-        raise AssertionError(f"{what}: ell and plain streams differ: "
+        raise AssertionError(f"{what}: stream differs from the plain one: "
                              f"{a.stats} vs {b.stats}")
 
 
@@ -360,7 +483,50 @@ def _drive(g, ups, what):
          stream_stats=res.stats._asdict(), launches=counts,
          ell_hindex_launches=hindex_split,
          path_seconds=secs, plain_path_seconds=secs_p)
-    return counts, hindex_split
+    plain = {"core": core_p, "steps": steps_p, "stream": res_p,
+             "seconds": secs_p}
+    return counts, hindex_split, plain
+
+
+def _drive_dense(g, ups, plain):
+    """`_drive`'s path with backend="dense" on a copy of `g`, held against
+    the plain run `plain` (as `_drive` returns it) and a fresh recompute.
+    Returns the dense kernels' launch counts, the h-index's split into the
+    static fixpoint's (K = the degree bound) and the stream's (K = Cd + 1)
+    under "kcore_hindex_split"."""
+    import torch
+    from repro_torch.core import coreness, coreness_with_stats
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.kcore_hindex import hindex_counts
+    from repro_torch.runtime import run_stream
+
+    what = "main_path_ds1_dense"
+
+    def path():
+        gc = g.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        core, steps = coreness_with_stats(gc, backend="dense")
+        static = hindex_counts.launches
+        res = run_stream(gc, core, ups, R=R, backend="dense")
+        torch.cuda.synchronize()
+        return core, steps, res, time.perf_counter() - t0, static
+
+    torch.cuda.reset_peak_memory_stats()
+    (core, steps, res, secs, static), counts = _counted(path, DENSE)
+    if steps != plain["steps"] or not torch.equal(core, plain["core"]):
+        raise AssertionError(f"{what}: dense coreness differs from plain "
+                             f"({steps} vs {plain['steps']} supersteps)")
+    _check_same_stream(res, plain["stream"], what)
+    if not torch.equal(coreness(res.g, backend="torch"), res.core):
+        raise AssertionError(f"{what}: maintained coreness != recompute")
+    split = {"static": static, "stream": counts["kcore_hindex"] - static}
+    emit(phase=what, static_steps=steps, stream_stats=res.stats._asdict(),
+         launches=counts, kcore_hindex_launches=split,
+         adjacency_bytes=ops.dense_bytes(g.N),
+         peak_device_bytes=torch.cuda.max_memory_allocated(),
+         path_seconds=secs, plain_path_seconds=plain["seconds"])
+    return dict(counts, kcore_hindex_split=split)
 
 
 def scale_phase(dev):
@@ -387,11 +553,12 @@ def _close(a, b, what, tol=RANK_TOL):
 def analytics_path(gc, backend, core=None, ups=None):
     """The BlockProgram workloads on graph `gc` through one backend:
     connected components, PageRank (30 fixed supersteps) and triangle
-    counts; with `core` (the coreness of `gc`) and `ups` also PageRank with
-    tol = 1e-6, the coreness program, `fused_analytics` warm-started from
-    it and the labels, and `run_stream` with CC maintenance, which updates
-    `gc` in place, last.  Returns {result name: value, "seconds": host
-    seconds of the whole path, ending in a synchronize}."""
+    counts; with `core` (the coreness of `gc`) also PageRank with
+    tol = 1e-6 and the coreness program; with `ups` too, `fused_analytics`
+    warm-started from the coreness and the labels, and `run_stream` with CC
+    maintenance, which updates `gc` in place, last.  Returns {result name:
+    value, "seconds": host seconds of the whole path, ending in a
+    synchronize}."""
     import torch
     from repro_torch.core import (
         connected_components, fused_analytics, pagerank, triangle_counts)
@@ -412,6 +579,7 @@ def analytics_path(gc, backend, core=None, ups=None):
             gc, tol=1e-6, backend=backend, with_steps=True)
         r["core"], r["core_steps"] = ops.run_block_program(
             gc, CorenessBlockProgram(), backend=backend, with_steps=True)
+    if ups is not None:
         r["fused"] = fused_analytics(gc, steps=30, backend=backend,
                                      init=(r["core"], r["labels"]))
         r["stream"] = run_stream(gc, core.clone(), ups, R=R,
@@ -428,12 +596,12 @@ def _analytics(g, what, core=None, ups=None):
     `fused_analytics` warm-started from it and the CC labels, PageRank
     with a tolerance, the stream with CC maintenance, and scipy's host
     check.  Returns ({kernel: launches} of the ell run, {field name:
-    tensor} for the timing phase)."""
+    tensor} for the timing phase, the plain run's results)."""
     import torch
     from repro_torch.core import connected_components
 
     full = core is not None
-    names = (tuple(KERNELS) if full
+    names = (tuple(k for k in KERNELS if k not in DENSE + VARIANTS) if full
              else ("ell_cc", "ell_pagerank", "ell_triangles"))
     e, launches = _counted(
         lambda: analytics_path(g.clone(), "ell", core, ups), names)
@@ -478,7 +646,70 @@ def _analytics(g, what, core=None, ups=None):
     emit(**line)
     fields = {"labels": e["labels"], "rank": e["rank"],
               "core": e.get("core")}
-    return launches, fields
+    return launches, fields, p
+
+
+def _analytics_dense(g, p):
+    """CC, PageRank (30 fixed supersteps; tol = 1e-6), triangles and the
+    coreness program with backend="dense" on a copy of `g`, held against
+    the plain run `p` (as `_analytics` returns it): equal labels,
+    triangles, coreness and superstep counts; ranks allclose at RANK_TOL.
+    The coreness program must launch `kcore_hindex`."""
+    import torch
+
+    what = "analytics_ds1_dense"
+    torch.cuda.reset_peak_memory_stats()
+    e, launches = _counted(
+        lambda: analytics_path(g.clone(), "dense", core=p["core"]),
+        ("kcore_hindex",))
+    for k in ("labels", "tri", "core"):
+        if not torch.equal(e[k], p[k]):
+            raise AssertionError(f"{what}: dense and plain {k} differ")
+    for k in ("cc_steps", "pr_steps", "core_steps"):
+        if e[k] != p[k]:
+            raise AssertionError(f"{what}: {k} {e[k]} (dense) vs {p[k]}")
+    _close(e["rank"], p["rank"], f"{what} pagerank(tol=None)")
+    _close(e["rank_tol"], p["rank_tol"], f"{what} pagerank(tol=1e-6)")
+    emit(phase=what, cc_steps=e["cc_steps"], pr_steps=e["pr_steps"],
+         pr_tol_steps={"dense": e["pr_tol_steps"], "torch": p["pr_tol_steps"]},
+         core_steps=e["core_steps"], triangles=int(e["tri"].sum()) // 3,
+         rank_max_abs_err=float((e["rank"] - p["rank"]).abs().max()),
+         launches=launches,
+         peak_device_bytes=torch.cuda.max_memory_allocated(),
+         path_seconds=e["seconds"])
+
+
+def variants_phase(g, core, steps, tri):
+    """The two kernel variants through their entry points on DS1:
+    `coreness_blocks(variant="count")` against the plain coreness `core`
+    (found in `steps` supersteps) and `neighbor_common_ell(variant=
+    "allpairs")` against "merge", the plain triangle counts `tri` and
+    scipy.  Returns the variants' launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ell_triangles import neighbor_common_ell
+
+    what = "variants_ds1"
+
+    def path():
+        c, s = ops.coreness_blocks(g, backend="ell", with_steps=True,
+                                   variant="count")
+        return c, s, neighbor_common_ell(g.nbr, g.nbr, variant="allpairs")
+
+    (c, s, red), launches = _counted(path, VARIANTS)
+    if s != steps or not torch.equal(c, core):
+        raise AssertionError(f"{what}: count-variant coreness differs "
+                             f"({s} vs {steps} supersteps)")
+    if not (torch.equal(red, neighbor_common_ell(g.nbr, g.nbr))
+            and torch.equal(red // 2, tri)):
+        raise AssertionError(f"{what}: allpairs differs from merge or plain")
+    closed = _closed_walks(g)
+    if not np.array_equal(closed, red.cpu().numpy()):
+        raise AssertionError(f"{what}: allpairs differs from scipy")
+    emit(phase=what, count_steps=s, triangles=int(closed.sum() / 6),
+         launches=launches)
+    return launches
 
 
 def _scipy_check(g, labels, tri, what):
@@ -486,13 +717,9 @@ def _scipy_check(g, labels, tri, what):
     the same partition of the real nodes; per-node triangles diag(A^3)/2
     and the total trace(A^3)/6."""
     import numpy as np
-    import scipy.sparse as sp
     from scipy.sparse.csgraph import connected_components as sp_cc
 
-    nbr = g.nbr.cpu().numpy()
-    rows, cols = np.nonzero(nbr >= 0)
-    A = sp.csr_matrix((np.ones(len(rows)), (rows, nbr[rows, cols])),
-                      shape=(g.N, g.N))
+    A = _host_adjacency(g)
     _, sp_lab = sp_cc(A, directed=False)
     mask = g.node_mask.cpu().numpy()
     ours = labels.cpu().numpy()[mask]
@@ -500,11 +727,30 @@ def _scipy_check(g, labels, tri, what):
     pairs = len(set(zip(ours.tolist(), theirs.tolist())))
     if not pairs == len(set(ours.tolist())) == len(set(theirs.tolist())):
         raise AssertionError(f"{what}: CC partition differs from scipy")
-    closed = np.asarray(A.multiply(A @ A).sum(axis=1)).ravel()  # diag(A^3)
+    closed = _closed_walks(g)
     if not (np.array_equal(closed / 2, tri.cpu().numpy())
             and closed.sum() / 6 == int(tri.sum()) // 3):
         raise AssertionError(f"{what}: triangles differ from scipy")
     return {"components": pairs, "triangles": int(closed.sum() / 6)}
+
+
+def _host_adjacency(g):
+    """The graph's adjacency as a scipy CSR matrix on the host."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    nbr = g.nbr.cpu().numpy()
+    rows, cols = np.nonzero(nbr >= 0)
+    return sp.csr_matrix((np.ones(len(rows)), (rows, nbr[rows, cols])),
+                         shape=(g.N, g.N))
+
+
+def _closed_walks(g):
+    """diag(A^3) per node by scipy: twice the triangles through it."""
+    import numpy as np
+
+    A = _host_adjacency(g)
+    return np.asarray(A.multiply(A @ A).sum(axis=1)).ravel()
 
 
 def _time_ms(fn, reps=20, warmup=3) -> float:
@@ -534,11 +780,14 @@ def _bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def _time_pair(kernel, plain):
+def _time_pair(kernel, plain, plain_reps=20):
     """(kernel ms, plain ms) on one card, timed plain, kernel, kernel,
-    plain; each is the smaller of its two medians."""
-    p1, k1, k2, p2 = (_time_ms(fn) for fn in (plain, kernel, kernel, plain))
-    return min(k1, k2), min(p1, p2)
+    plain; each is the smaller of its two medians.  A slow plain version
+    takes fewer calls (`plain_reps`, after one warm-up call)."""
+    kw = {} if plain_reps == 20 else dict(reps=plain_reps, warmup=1)
+    p1 = _time_ms(plain, **kw)
+    k1, k2 = _time_ms(kernel), _time_ms(kernel)
+    return min(k1, k2), min(p1, _time_ms(plain, **kw))
 
 
 def timing(g, core, window, parity, launches, hindex_split):
@@ -639,7 +888,12 @@ def combine_timing(g, fields, parity, launches):
     binary searches over C entries, counted at the scalar float32 rate.
     Its `ms` is the launch alone on the rows sorted beforehand (inputs nbr
     and the sorted copy); `sort_ms` is the wrapper's key-and-sort of the
-    rows and `wrapper_ms` the whole wrapper, sort and launch."""
+    rows and `wrapper_ms` the whole wrapper, sort and launch.  The two
+    variants run at the same shape: `ell_hindex_count` on the coreness
+    (operations: C compares per valid slot) and `ell_allpairs` on
+    rows = nbr (operations: |u's row| compares per valid element of each
+    valid neighbour's row, which its compaction reaches); their launches
+    are `variants_phase`'s."""
     import math
     import warnings
 
@@ -651,8 +905,11 @@ def combine_timing(g, fields, parity, launches):
         neighbor_multi_ell, neighbor_multi_ell_plain)
     from repro_torch.kernels.ell_pagerank import (
         neighbor_sum_ell, neighbor_sum_ell_plain)
+    from repro_torch.kernels.ell_hindex import (
+        hindex_count_ell, hindex_count_ell_plain)
     from repro_torch.kernels.ell_triangles import (
-        common_sorted_ell, neighbor_common_ell, neighbor_common_ell_plain)
+        common_allpairs_ell, common_allpairs_ell_plain, common_sorted_ell,
+        neighbor_common_ell, neighbor_common_ell_plain)
     from repro_torch.kernels.ref import key_sort_rows
 
     N, Cd, nbr = g.N, g.Cd, g.nbr
@@ -676,22 +933,37 @@ def combine_timing(g, fields, parity, launches):
     probes = int((deg * deg).sum()) * 2 * max(1, math.ceil(math.log2(Cd + 1)))
     nbr_b, vec = N * Cd * 4, N * 4
     keyed = key_sort_rows(nbr)  # the triangle wrapper's sorted copy, once
+    n_valid = int(valid.sum())
+    nb_deg = torch.where(valid, deg[nbr.clamp(min=0).long()], 0).sum(dim=1)
+    pair_ops = int((deg * nb_deg).sum())  # the compacted all-pairs match
+    # name: (kernel, plain, bytes, operations, plain calls timed)
     runs = {
         "ell_cc": (lambda: neighbor_min_ell(nbr, lab),
                    lambda: neighbor_min_ell_plain(nbr, lab),
-                   nbr_b + 2 * vec, 0),
+                   nbr_b + 2 * vec, 0, 20),
         "ell_pagerank": (lambda: neighbor_sum_ell(nbr, contrib),
                          lambda: neighbor_sum_ell_plain(nbr, contrib),
-                         nbr_b + 2 * vec, 0),
+                         nbr_b + 2 * vec, 0, 20),
         "ell_multi": (
             lambda: neighbor_multi_ell(nbr, (core, lab, contrib), combines),
             lambda: neighbor_multi_ell_plain(nbr, (core, lab, contrib),
                                              combines),
-            nbr_b + 6 * vec, 0),
+            nbr_b + 6 * vec, 0, 20),
         "ell_triangles": (lambda: common_sorted_ell(nbr, keyed),
                           lambda: neighbor_common_ell_plain(nbr, nbr),
-                          2 * nbr_b + vec, probes),
+                          2 * nbr_b + vec, probes, 20),
+        "ell_hindex_count": (lambda: hindex_count_ell(nbr, core),
+                             lambda: hindex_count_ell_plain(nbr, core),
+                             nbr_b + 2 * vec, n_valid * Cd, 20),
+        "ell_allpairs": (lambda: common_allpairs_ell(nbr, nbr),
+                         lambda: common_allpairs_ell_plain(nbr, nbr),
+                         nbr_b + vec, pair_ops, 3),
     }
+    variant_extra = {
+        "ell_hindex_count": {"ops_every_slot": N * Cd * Cd,
+                             "sibling": "ell_hindex"},
+        "ell_allpairs": {"ops_uncompacted": n_valid * Cd * Cd,
+                         "sibling": "ell_triangles"}}
     if not torch.equal(common_sorted_ell(nbr, keyed),
                        neighbor_common_ell(nbr, nbr)):
         raise AssertionError("ell_triangles: launch alone != wrapper")
@@ -699,13 +971,14 @@ def combine_timing(g, fields, parity, launches):
                      wrapper_ms=_time_ms(lambda: neighbor_common_ell(nbr,
                                                                      nbr)))
     out, shapes = [], {}
-    for name, (kern, plain, nbytes, ops_) in runs.items():
-        ms, plain_ms = _time_pair(kern, plain)
+    for name, (kern, plain, nbytes, ops_, plain_reps) in runs.items():
+        ms, plain_ms = _time_pair(kern, plain, plain_reps)
         bytes_ms = _bound_ms(nbytes)
         ops_ms = ops_ / SCALAR_OPS_PER_S * 1e3
         shapes[name] = dict(ms=ms, plain_ms=plain_ms, bound_bytes=nbytes,
                             bound_ops=ops_)
-        extra = tri_split if name == "ell_triangles" else {}
+        extra = tri_split if name == "ell_triangles" else \
+            variant_extra.get(name, {})
         shapes[name].update(extra)
         out.append({
             "name": name, "route": "cuda",
@@ -722,9 +995,126 @@ def combine_timing(g, fields, parity, launches):
             "library_ms": lib_ms if name == "ell_pagerank" else None,
             **extra})
     emit(phase="combine_timing", order="plain,kernel,kernel,plain", N=N,
-         Cd=Cd, K=None, valid_slots=int(valid.sum()), shapes=shapes,
+         Cd=Cd, K=None, valid_slots=n_valid, shapes=shapes,
          sparse_mm_ms=lib_ms, sparse_mm_max_abs_err_vs_kernel=sp_err)
     return out
+
+
+def _frontier_adj_bytes(adj, f, need):
+    """Adjacency bytes a dense hop must read for these masks: none for a
+    row that needs no column; up to the column where its last needed
+    frontier column is first hit, when every needed column is hit; the
+    whole row otherwise."""
+    import torch
+    from repro_torch.kernels.frontier import frontier_step_plain
+
+    N = adj.shape[0]
+    ones = torch.ones(N, dtype=torch.bool, device=adj.device)
+    hit = frontier_step_plain(adj, f, ones, ~need)  # (A @ F > 0) & need
+    rows_need = need.any(dim=1)
+    done = rows_need & (hit == need).all(dim=1)
+    cols = int((rows_need & ~done).sum()) * N
+    for u in done.nonzero()[:, 0].split(256):
+        m = (adj[u] != 0)[:, :, None] & f[None, :, :]  # (rows, N, R)
+        first = m.to(torch.int8).argmax(dim=1) + 1  # the first hit, per column
+        cols += int(torch.where(need[u], first, 0).amax(dim=1).sum())
+    return 2 * cols
+
+
+def dense_timing(g, core, window, parity, launches):
+    """The two dense kernels at the main path's shapes on DS1's dense
+    adjacency, each beside its plain version, its bounds and a
+    product-only yardstick: `torch.matmul` of the bf16 adjacency by the
+    bf16 threshold matrix or frontier, which computes the product alone
+    (no h-index, no mask; the port never calls it).
+
+    `kcore_hindex` at the stream's clamped recompute (K = Cd + 1, est = the
+    coreness; most launches) and at the static fixpoint (K = the degree
+    bound, est = degrees).  Its bytes bound reads the adjacency once
+    (N^2 * 2 bytes) with est and out; its operations bound is the product
+    formulation's 2 N^2 K at the bf16 tensor-core rate.  `frontier` at the
+    first hop of the stream's first window, with the per-column
+    eligibility folded into `visited` as `ops.frontier_blocks` passes it,
+    and with every row live (all eligible, none visited).  Its bound
+    counts the adjacency these masks need (`_frontier_adj_bytes`) with f,
+    eligible, visited and out, and the same with every row read."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.frontier import frontier_step, frontier_step_plain
+    from repro_torch.kernels.kcore_hindex import (
+        hindex_counts, hindex_counts_plain)
+
+    N, Cd, dev = g.N, g.Cd, g.device
+    adj = ref.ell_to_dense(g.nbr, N)
+    adj_b = N * N * 2
+    split = launches["kcore_hindex_split"]
+    h_shapes = []
+    for shape, est, K, n in (
+            ("stream recompute: K=Cd+1, est=coreness", core, Cd + 1,
+             split["stream"]),
+            ("static fixpoint: K=degree_bound, est=degrees", g.deg,
+             ops.degree_bound(g), split["static"])):
+        ks = torch.arange(1, K + 1, dtype=torch.int32, device=dev)
+        thr = (est[:, None] >= ks[None, :]).to(torch.bfloat16)
+        ms, plain_ms = _time_pair(lambda: hindex_counts(adj, est, K),
+                                  lambda: hindex_counts_plain(adj, est, K))
+        nbytes, nops = adj_b + 2 * N * 4, 2 * N * N * K
+        h_shapes.append(dict(
+            shape=shape, K=K, launches=n, ms=ms, plain_ms=plain_ms,
+            product_only_ms=_time_ms(lambda: torch.matmul(adj, thr)),
+            bound_bytes=nbytes, bound_ms_bytes=_bound_ms(nbytes),
+            bound_ops=nops, bound_ms_ops=nops / BF16_OPS_PER_S * 1e3))
+
+    us = torch.tensor([u for u, _, _ in window], device=dev)
+    vs = torch.tensor([v for _, v, _ in window], device=dev)
+    cols = torch.arange(R, device=dev)
+    ks = torch.minimum(core[us], core[vs])
+    elig = (core[:, None] == ks[None, :]) & g.node_mask[:, None]
+    roots = torch.zeros((N, R), dtype=torch.bool, device=dev)
+    roots[us, cols] = True
+    roots[vs, cols] = True
+    f = (roots & elig).contiguous()
+    fb = f.to(torch.bfloat16)
+    ones = torch.ones(N, dtype=torch.bool, device=dev)
+    io = N * (3 * R + 1)  # f, eligible, visited read; out written
+    f_shapes = []
+    for shape, vis in (("main path: first hop, folded masks",
+                        (f | ~elig).contiguous()),
+                       ("every row live", torch.zeros_like(f))):
+        adj_need = _frontier_adj_bytes(adj, f, ~vis)
+        ms, plain_ms = _time_pair(
+            lambda: frontier_step(adj, f, ones, vis),
+            lambda: frontier_step_plain(adj, f, ones, vis))
+        nbytes, nops = io + adj_need, adj_need * R  # 2R ops per element
+        f_shapes.append(dict(
+            shape=shape, R=R, rows_needing=int((~vis).any(dim=1).sum()),
+            ms=ms, plain_ms=plain_ms,
+            product_only_ms=_time_ms(lambda: torch.matmul(adj, fb)),
+            bound_bytes=nbytes, bound_ms_bytes=_bound_ms(nbytes),
+            bound_ops=nops, bound_ms_ops=nops / BF16_OPS_PER_S * 1e3,
+            bound_bytes_every_row=io + adj_b,
+            bound_ms_every_row=_bound_ms(io + adj_b)))
+    emit(phase="dense_timing", order="plain,kernel,kernel,plain", N=N,
+         adjacency_bytes=adj_b, hindex_shapes=h_shapes,
+         frontier_shapes=f_shapes)
+    del adj
+    torch.cuda.empty_cache()
+
+    def entry(name, s, **extra):
+        bound_ms = max(s["bound_ms_bytes"], s["bound_ms_ops"])
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "replaces": KERNELS[name][1], "launches": launches[name],
+                "parity": "bit-equal", "max_abs_err": parity[name],
+                "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": bound_ms,
+                "bound_by": ("bytes" if s["bound_ms_bytes"] >= s["bound_ms_ops"]
+                             else "operations"),
+                "bound_bytes": s["bound_bytes"], "bound_ops": s["bound_ops"],
+                "library_ms": None, "product_only_ms": s["product_only_ms"],
+                **extra}
+
+    return [entry("kcore_hindex", h_shapes[0], shapes=h_shapes),
+            entry("frontier", f_shapes[0], shapes=f_shapes)]
 
 
 if __name__ == "__main__":

@@ -3,7 +3,8 @@
 Each workload below is a short `BlockProgram` (state + halo field + named
 neighbor combine + update + halt), and the SAME program object runs on
 every backend of the kernel registry through `kernels.ops.run_block_program`
-— the plain PyTorch oracle or the hand-written CUDA kernels.
+— the plain PyTorch oracle ("torch"), the hand-written ELL CUDA kernels
+("ell") or the dense-adjacency forms ("dense").
 
   `ConnectedComponentsProgram` — min-label propagation: every node starts
       labeled with its own padded id and keeps the minimum label among

@@ -14,9 +14,10 @@ true coreness of the rest — that is what makes the incremental
 maintenance in `kcore_dynamic.py` exact.
 
 The H(est) primitive comes only through the kernel backend registry
-(`repro_torch.kernels.ops`): ``backend="torch"|"ell"|"auto"``, all exact
-and bit-identical, "auto" (the default) picking the CUDA kernels on a CUDA
-graph; see `ops` for the sync policy of the fixpoint loop.
+(`repro_torch.kernels.ops`): ``backend="torch"|"ell"|"dense"|"auto"``, all
+exact and bit-identical, "auto" (the default) picking the ELL CUDA
+kernels on a CUDA graph ("dense", over an (N, N) bfloat16 adjacency, only
+when asked for); see `ops` for the sync policy of the fixpoint loop.
 
 `CorenessProgram` runs the same superstep through `BladygEngine` with the
 halo payload declared, so the engine's per-mode message metering gives

@@ -90,11 +90,13 @@ def k_reachable_batch(
     k level.  Column r expands only through nodes with core == ks[r].
     Returns (visited (N, R) bool, supersteps = max over searches).  Each
     hop first adds any(frontier) into a device counter; the host checks
-    the frontier once every `ops.SYNC_EVERY` hops.
+    the frontier once every `ops.SYNC_EVERY` hops.  The "dense" backend
+    densifies once per call, not per hop.
     """
     eligible = (core[:, None] == ks[None, :]) & g.node_mask[:, None]
     visited = roots & eligible
     frontier = visited
+    adj = ops.dense_adj(g, backend)
     steps = torch.zeros((), dtype=torch.int32, device=core.device)
     done = 0
     while done < max_steps:
@@ -102,7 +104,7 @@ def k_reachable_batch(
         for _ in range(n):
             steps += frontier.any().to(torch.int32)
             frontier = ops.frontier_blocks(g, frontier, eligible, visited,
-                                           backend=backend)
+                                           backend=backend, adj=adj)
             visited = visited | frontier
         done += n
         if not bool(frontier.any()):  # the one host read of this chunk
@@ -114,9 +116,11 @@ def _restricted_recompute(
     g: GraphBlocks, est0: torch.Tensor, cand: torch.Tensor,
     max_steps: int = 10_000, backend: str = "auto",
 ) -> Tuple[torch.Tensor, int]:
-    """Clamped min-H iteration: only `cand` nodes move; returns (core', steps)."""
+    """Clamped min-H iteration: only `cand` nodes move; returns (core', steps).
+    The "dense" backend densifies once per call, not per superstep."""
+    adj = ops.dense_adj(g, backend)
     return ops.minh_fixpoint(
-        est0, lambda e: ops.hindex_blocks(g, e, backend=backend),
+        est0, lambda e: ops.hindex_blocks(g, e, backend=backend, adj=adj),
         cand & g.node_mask, max_steps)
 
 

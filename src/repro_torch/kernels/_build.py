@@ -52,6 +52,14 @@ SOURCES = {
     "ell_multi": (_P,) + (_P,) * 6 + (_I,) * 4 + (_L, _I, _I, _P),
     # nbr, keyed sorted rows, out, n_rows, ld, C, stream
     "ell_triangles": (_P, _P, _P, _L, _I, _I, _P),
+    # nbr, est, out, n_rows, ld, C, stream (the "count" variant)
+    "ell_hindex_count": (_P, _P, _P, _L, _I, _I, _P),
+    # nbr, rows as given, out, n_rows, ld, C, stream (the "allpairs" variant)
+    "ell_allpairs": (_P, _P, _P, _L, _I, _I, _P),
+    # dense adjacency, est, out, N, K, stream
+    "kcore_hindex": (_P, _P, _P, _L, _I, _P),
+    # dense adjacency, f, shared eligible, visited, out, N, R, stream
+    "frontier": (_P, _P, _P, _P, _P, _L, _I, _P),
 }
 
 

@@ -29,10 +29,6 @@
 
 namespace {
 
-constexpr int kMaxWarps = 8;                 // rows per block, at most
-constexpr size_t kDefaultSmem = 48 * 1024;   // without opting in
-constexpr size_t kMaxSmem = 227 * 1024;      // Hopper's per-block limit
-
 __global__ void ell_hindex_kernel(const int32_t* __restrict__ nbr,
                                   const int32_t* __restrict__ est,
                                   int32_t* __restrict__ out,
@@ -68,18 +64,12 @@ extern "C" int ell_hindex_launch(const void* nbr, const void* est, void* out,
   if (n_rows <= 0) return 0;
   if (C < 0 || C > ld) return (int)cudaErrorInvalidValue;
   const size_t per_warp = (size_t)(C + 1) * sizeof(int32_t);
-  int warps = (int)(kDefaultSmem / per_warp);
-  warps = warps < 1 ? 1 : (warps > kMaxWarps ? kMaxWarps : warps);
-  const size_t smem = per_warp * warps;
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (smem > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ell_hindex_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const long long blocks = (n_rows + warps - 1) / warps;
-  ell_hindex_kernel<<<(unsigned)blocks, warps * 32, smem,
+  ell::WarpShape shape;
+  const cudaError_t err =
+      ell::warp_shape(ell_hindex_kernel, per_warp, &shape);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (n_rows + shape.warps - 1) / shape.warps;
+  ell_hindex_kernel<<<(unsigned)blocks, shape.warps * 32, shape.smem,
                       (cudaStream_t)stream>>>(
       (const int32_t*)nbr, (const int32_t*)est, (int32_t*)out, n_rows, ld, C);
   return (int)cudaGetLastError();

@@ -32,9 +32,6 @@
 namespace {
 
 constexpr int kMaxFields = 3;
-constexpr int kMaxWarps = 8;                 // rows per block, at most
-constexpr size_t kDefaultSmem = 48 * 1024;   // without opting in
-constexpr size_t kMaxSmem = 227 * 1024;      // Hopper's per-block limit
 
 enum Combine : int { kMin = 0, kSum = 1, kHindex = 2 };
 
@@ -133,18 +130,12 @@ extern "C" int ell_multi_launch(const void* nbr, const void* in0,
     f.bin[i] = codes[i] == kHindex ? f.n_hist++ : 0;
   }
   const size_t per_warp = (size_t)f.n_hist * (C + 1) * sizeof(int32_t);
-  int warps = per_warp ? (int)(kDefaultSmem / per_warp) : kMaxWarps;
-  warps = warps < 1 ? 1 : (warps > kMaxWarps ? kMaxWarps : warps);
-  const size_t smem = per_warp * warps;
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (smem > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ell_multi_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const long long blocks = (n_rows + warps - 1) / warps;
-  ell_multi_kernel<<<(unsigned)blocks, warps * 32, smem,
+  ell::WarpShape shape;
+  const cudaError_t err =
+      ell::warp_shape(ell_multi_kernel, per_warp, &shape);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (n_rows + shape.warps - 1) / shape.warps;
+  ell_multi_kernel<<<(unsigned)blocks, shape.warps * 32, shape.smem,
                      (cudaStream_t)stream>>>((const int32_t*)nbr, f, n_rows,
                                              ld, C);
   return (int)cudaGetLastError();

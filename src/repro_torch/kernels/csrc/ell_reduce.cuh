@@ -6,7 +6,8 @@
 // into a row's result.  The standalone kernels (ell_cc.cu, ell_pagerank.cu,
 // ell_hindex.cu) and the fused ell_multi.cu call the same functions in the
 // same order, so a fused output is bit-identical to its standalone kernel,
-// the float sum included.
+// the float sum included.  `warp_shape` sizes the launch of every kernel
+// whose warps keep per-row arrays in shared memory.
 
 #pragma once
 
@@ -71,6 +72,32 @@ __device__ __forceinline__ int32_t hist_hindex(const int32_t* bins, int C,
     above += __shfl_sync(kFull, c, 31);
   }
   return 0;
+}
+
+// Launch shape of a kernel that gives each warp (one row) `per_warp` bytes
+// of dynamic shared memory: as many warps per block as fit in the 48 KB a
+// block gets without opting in, 8 at most; past 48 KB the kernel opts in, up
+// to Hopper's 227 KB per block.  Returns the error for the launcher to
+// return, or cudaSuccess.
+struct WarpShape {
+  int warps;
+  size_t smem;
+};
+template <typename Kernel>
+inline cudaError_t warp_shape(Kernel* kernel, size_t per_warp,
+                              WarpShape* s) {
+  constexpr int kMaxWarps = 8;
+  constexpr size_t kDefaultSmem = 48 * 1024;
+  constexpr size_t kMaxSmem = 227 * 1024;
+  int w = per_warp ? (int)(kDefaultSmem / per_warp) : kMaxWarps;
+  w = w < 1 ? 1 : (w > kMaxWarps ? kMaxWarps : w);
+  s->warps = w;
+  s->smem = per_warp * w;
+  if (s->smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (s->smem > kDefaultSmem)
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s->smem);
+  return cudaSuccess;
 }
 
 }  // namespace ell

@@ -4,10 +4,20 @@
     est[N]     int32   current coreness estimates
     h[u] = h-index of {est[v] : v in nbr[u, :C]},  C = min(Cd, K)
 
-`hindex_ell` launches the hand-written CUDA kernel (`csrc/ell_hindex.cu`)
-on CUDA tensors and runs the plain PyTorch version, `hindex_ell_plain`,
-on CPU tensors; any other device raises.  It replaces the TPU kernel
-`hindex_ell` of the JAX package's `kernels/ell_hindex.py`.
+Two variants compute the same integers, as in the JAX package:
+
+  "sort" (default)  `hindex_ell_plain` sorts each row;
+                    `csrc/ell_hindex.cu` counts a per-row histogram.
+  "count"           a threshold-count matrix
+                    cnt[u, k-1] = #{j : vals[u, j] >= k}, k = 1..C, then
+                    h = sum_k [cnt[u, k-1] >= k]: `hindex_count_ell_plain`
+                    and `csrc/ell_hindex_count.cu`.
+
+`hindex_ell` launches the variant's hand-written CUDA kernel on CUDA
+tensors and runs its plain PyTorch version on CPU tensors; any other
+device raises.  Each kernel has its own launch count
+(`hindex_ell.launches`, `hindex_count_ell.launches`).  They replace the
+TPU kernel `hindex_ell` of the JAX package's `kernels/ell_hindex.py`.
 
 Column bound K: h(u) <= deg(u), so any K >= max degree is exact when the
 rows are left-filled (valid slots before PAD slots), which the sorted-ELL
@@ -21,6 +31,14 @@ from typing import Optional
 import torch
 
 from . import _build
+
+
+#: the h-index variants ("count" is the JAX package's kernel-sweep twin)
+VARIANTS = ("sort", "count")
+
+#: elements of the (rows, C, C) threshold tensor `hindex_count_ell_plain`
+#: holds at once
+_COUNT_CHUNK = 1 << 24
 
 
 def columns(Cd: int, K: Optional[int]) -> int:
@@ -53,6 +71,22 @@ def hindex_ell_plain(nbr: torch.Tensor, est: torch.Tensor,
     return hindex_rows(ell_gather(nbr[:, :C], est.to(torch.int32)))
 
 
+def hindex_count_ell_plain(nbr: torch.Tensor, est: torch.Tensor,
+                           K: Optional[int] = None) -> torch.Tensor:
+    """The "count" variant's plain version: gather the first C columns,
+    count each threshold k = 1..C over row chunks, sum [cnt >= k]."""
+    N = nbr.shape[0]
+    C = columns(nbr.shape[1], K)
+    vals = ell_gather(nbr[:, :C], est.to(torch.int32))
+    ks = torch.arange(1, C + 1, dtype=torch.int32, device=nbr.device)
+    out = torch.empty(N, dtype=torch.int32, device=nbr.device)
+    step = max(1, _COUNT_CHUNK // max(1, C * C))
+    for s in range(0, N, step):
+        cnt = (vals[s:s + step, :, None] >= ks).sum(dim=1)  # (rows, C)
+        out[s:s + step] = (cnt >= ks).sum(dim=1).to(torch.int32)
+    return out
+
+
 def check_field(nbr: torch.Tensor, field: torch.Tensor,
                 dtype: torch.dtype = torch.int32, name: str = "est") -> None:
     """Raise unless nbr is a contiguous (N, Cd) int32 tensor and field a
@@ -78,22 +112,47 @@ def on_cuda(nbr: torch.Tensor, kernel: str) -> bool:
 
 
 def hindex_ell(nbr: torch.Tensor, est: torch.Tensor,
-               K: Optional[int] = None) -> torch.Tensor:
+               K: Optional[int] = None, variant: str = "sort") -> torch.Tensor:
     """h-index of every row of `nbr` over `est`: (N,) int32.
 
-    CUDA tensors launch the CUDA kernel (and bump `hindex_ell.launches`);
-    CPU tensors take `hindex_ell_plain`.
+    CUDA tensors launch the variant's CUDA kernel ("sort" bumps
+    `hindex_ell.launches`, "count" `hindex_count_ell.launches`); CPU
+    tensors take the variant's plain version.
     """
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; expected one of "
+                         f"{VARIANTS}")
+    if variant == "count":
+        return hindex_count_ell(nbr, est, K)
     if not on_cuda(nbr, "hindex_ell"):
         return hindex_ell_plain(nbr, est, K)
+    out = _launch("ell_hindex", nbr, est, K)
+    hindex_ell.launches += 1
+    return out
+
+
+def hindex_count_ell(nbr: torch.Tensor, est: torch.Tensor,
+                     K: Optional[int] = None) -> torch.Tensor:
+    """`hindex_ell(variant="count")`: CUDA tensors launch
+    `csrc/ell_hindex_count.cu` (and bump `hindex_count_ell.launches`); CPU
+    tensors take `hindex_count_ell_plain`."""
+    if not on_cuda(nbr, "hindex_ell"):
+        return hindex_count_ell_plain(nbr, est, K)
+    out = _launch("ell_hindex_count", nbr, est, K)
+    hindex_count_ell.launches += 1
+    return out
+
+
+def _launch(kernel: str, nbr: torch.Tensor, est: torch.Tensor,
+            K: Optional[int]) -> torch.Tensor:
     check_field(nbr, est)
     N, Cd = nbr.shape
     out = torch.empty(N, dtype=torch.int32, device=nbr.device)
-    _build.launch("ell_hindex", nbr.device, nbr.data_ptr(), est.data_ptr(),
+    _build.launch(kernel, nbr.device, nbr.data_ptr(), est.data_ptr(),
                   out.data_ptr(), N, Cd, columns(Cd, K))
-    hindex_ell.launches += 1
     return out
 
 
 #: kernel launches so far (the CPU path does not count)
 hindex_ell.launches = 0
+hindex_count_ell.launches = 0

@@ -1,22 +1,31 @@
 """Kernel backend registry: one dispatch layer for every BLADYG hot loop.
 
-Two executions of the graph primitives — the h-index of neighbor
+Three executions of the graph primitives — the h-index of neighbor
 estimates, the masked frontier hop, and the named neighbor combines of
 the `BlockProgram` contract (`COMBINES`) — exact and bit-identical except
 for float sums, which agree to float32 rounding:
 
   "torch"  plain whole-graph PyTorch gather (`ref.py`) — the oracle, the
            counterpart of the JAX package's "jnp".
-  "ell"    the hand-written CUDA kernels (`ell_hindex.py`,
-           `ell_frontier.py`, `ell_cc.py`, `ell_pagerank.py`,
-           `ell_multi.py`, `ell_triangles.py`) on a CUDA graph; on a CPU
-           graph the same wrappers run their plain versions.
+  "ell"    the hand-written CUDA kernels over the ELL rows
+           (`ell_hindex.py`, `ell_frontier.py`, `ell_cc.py`,
+           `ell_pagerank.py`, `ell_multi.py`, `ell_triangles.py`) on a
+           CUDA graph; on a CPU graph the same wrappers run their plain
+           versions.
+  "dense"  an (N, N) bfloat16 0/1 adjacency (`dense_adj`; N^2 * 2 bytes,
+           5.01 GB at N = 50,048), built once per loop: the h-index and
+           the frontier hop through the hand-written CUDA kernels
+           `kcore_hindex.py` and `frontier.py` (plain versions on a CPU
+           graph); the combines "min" and "count_common" in plain
+           PyTorch, and "sum" as a float32 matmul, as the JAX package
+           computes them outside its kernels.
   "auto"   resolves to "ell" for a CUDA graph and "torch" for a CPU graph;
-           it is every entry point's default.
+           it is every entry point's default and never picks "dense" (the
+           JAX package's dense crossover was measured on a TPU only).
 
-"dense" and "ell_spmd" are not ported yet and raise NotImplementedError
-(see ROADMAP.md).  `core.kcore`, `core.kcore_dynamic` and
-`core.algorithms` reach the primitives only through this layer.
+"ell_spmd" is not ported yet and raises NotImplementedError (see
+ROADMAP.md).  `core.kcore`, `core.kcore_dynamic` and `core.algorithms`
+reach the primitives only through this layer.
 
 **Sync policy.**  A min-H fixpoint or a frontier search ends when a
 device-side flag says so, and reading that flag is a host sync.  The
@@ -56,13 +65,15 @@ import torch
 from . import ref
 from .ell_cc import neighbor_min_ell
 from .ell_frontier import frontier_step_ell
-from .ell_hindex import hindex_ell
+from .ell_hindex import VARIANTS as HINDEX_VARIANTS, hindex_ell
 from .ell_multi import neighbor_multi_ell, neighbor_multi_ell_plain
 from .ell_pagerank import neighbor_sum_ell
 from .ell_triangles import neighbor_common_ell
+from .frontier import frontier_step as frontier_step_dense
+from .kcore_hindex import hindex_counts, matmul_f32, row_chunks
 
-BACKENDS = ("torch", "ell")
-NOT_PORTED = ("dense", "ell_spmd")
+BACKENDS = ("torch", "ell", "dense")
+NOT_PORTED = ("ell_spmd",)
 
 #: neighbor combines of the BlockProgram contract
 COMBINES = ("min", "sum", "hindex", "count_common")
@@ -112,38 +123,130 @@ def degree_bound(g) -> int:
     return min(g.Cd, _pow2_bucket(max(1, d)))
 
 
+def dense_bytes(N: int) -> int:
+    """Device bytes of the dense backend's (N, N) bfloat16 adjacency (the
+    port pads nothing)."""
+    return N * N * 2
+
+
+def dense_adj(g, backend: str) -> Optional[torch.Tensor]:
+    """Densify once for a loop over dense-backend calls; None otherwise."""
+    if resolve_backend(backend, g.device) == "dense":
+        return ref.ell_to_dense(g.nbr, g.N)
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Dense-path wrappers (the JAX package's adjacency-matrix API).
+# ---------------------------------------------------------------------------
+
+
+def hindex(adj: torch.Tensor, est: torch.Tensor,
+           K: Optional[int] = None) -> torch.Tensor:
+    """h-index per node over a dense adjacency (any dtype; 0/1 values),
+    via `kcore_hindex.hindex_counts`: (N,) int32, capped at K.
+
+    K=None uses the node-count bound N (h <= deg < N), as the JAX package
+    does; loops pass a degree bound.  Exact for K >= max(est) + 1.
+    """
+    N = adj.shape[0]
+    K = max(1, N) if K is None else int(K)
+    return hindex_counts(adj.to(torch.bfloat16).contiguous(),
+                         est.to(torch.int32).contiguous(), K)
+
+
+def frontier_step(adj: torch.Tensor, f: torch.Tensor, eligible: torch.Tensor,
+                  visited: torch.Tensor) -> torch.Tensor:
+    """Masked BFS hop over a dense adjacency, via `frontier.frontier_step`:
+    f, visited (N, R); eligible (N,) shared by the columns.  Returns the
+    next frontier as (N, R) bool."""
+    return frontier_step_dense(
+        adj.to(torch.bfloat16).contiguous(), f.to(torch.bool).contiguous(),
+        eligible.to(torch.bool).contiguous(),
+        visited.to(torch.bool).contiguous())
+
+
+def coreness_dense(
+    adj: torch.Tensor, max_steps: int = 10_000, with_steps: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, int]]:
+    """Full coreness of a dense adjacency via the kernelized min-H
+    iteration: equal to `ref.coreness_dense_ref` and to `core.kcore`'s.
+    K is the pow2-bucketed max degree + 1 (one host read); the fixpoint
+    follows the sync policy of the module docstring.  `with_steps=True`
+    also returns the superstep count (a host int)."""
+    adj = adj.to(torch.bfloat16).contiguous()
+    N = adj.shape[0]
+    deg = (adj > 0).sum(dim=1).to(torch.int32)
+    K = _pow2_bucket(int(deg.max()) + 1) if N else 1
+    est, steps = minh_fixpoint(
+        deg, lambda e: hindex_counts(adj, e, K),
+        torch.ones(N, dtype=torch.bool, device=adj.device), max_steps)
+    return (est, steps) if with_steps else est
+
+
+# ---------------------------------------------------------------------------
+# GraphBlocks-level dispatch — the only entry points core code may use.
+# ---------------------------------------------------------------------------
+
+
 def hindex_blocks(g, est: torch.Tensor, backend: str = "auto",
-                  K: Optional[int] = None) -> torch.Tensor:
+                  K: Optional[int] = None,
+                  adj: Optional[torch.Tensor] = None,
+                  variant: str = "sort") -> torch.Tensor:
     """h-index of neighbor estimates for every node, via the chosen backend.
 
-    g: a GraphBlocks (duck-typed: .nbr, .device); est: (N,) int32.
-    Returns (N,) int32 — h[u] = h-index of {est[v] : v ~ u}, 0 for
-    neighborless rows.  K (optional) is the column bound of the "ell"
-    path (see `degree_bound`); None reads all Cd columns.
+    g: a GraphBlocks (duck-typed: .nbr, .device, .N, .Cd); est: (N,)
+    int32.  Returns (N,) int32 — h[u] = h-index of {est[v] : v ~ u}, 0
+    for neighborless rows.  K (optional) is the column bound of the "ell"
+    path (see `degree_bound`; None reads all Cd columns) and the threshold
+    bound of the "dense" path (None: Cd + 1, exact because h <= deg <= Cd).
+    Loops over the dense backend densify once and pass `adj` (see
+    `dense_adj`).  `variant` picks the "ell" kernel ("sort" or "count").
     """
     b = resolve_backend(backend, g.device)
     if b == "torch":
         return ref.ell_hindex_ref(g.nbr, est)
-    return hindex_ell(g.nbr, est, K=K)
+    if b == "ell":
+        return hindex_ell(g.nbr, est, K=K, variant=variant)
+    if adj is None:
+        adj = ref.ell_to_dense(g.nbr, g.N)
+    return hindex(adj, est, K=g.Cd + 1 if K is None else K)
+
+
+def _eligible_cols(eligible: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """A shared (N,) eligibility broadcast to f's (N, R) column form."""
+    if eligible.dim() == 1 and eligible.shape[0] == f.shape[0]:
+        return eligible[:, None].expand(f.shape)
+    if eligible.shape != f.shape:
+        raise ValueError(f"eligible must be (N,) or (N, R) like f "
+                         f"{tuple(f.shape)}, got {tuple(eligible.shape)}")
+    return eligible
 
 
 def frontier_blocks(g, f: torch.Tensor, eligible: torch.Tensor,
                     visited: torch.Tensor, backend: str = "auto",
-                    K: Optional[int] = None) -> torch.Tensor:
+                    K: Optional[int] = None,
+                    adj: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One masked BFS hop for R stacked frontiers, via the chosen backend.
 
-    f, eligible, visited: (N, R) bool (eligibility is per column; the
-    shared (N,) form of the reference's dense backend is not ported).
-    Returns the next frontier as (N, R) bool.
+    f, visited: (N, R) bool; eligible: (N,) shared or (N, R) per column.
+    Returns the next frontier as (N, R) bool.  K bounds the columns the
+    "ell" path reads.  Loops over the dense backend densify once and pass
+    `adj`; its kernel takes one eligibility per node, so the per-column
+    mask is folded into `visited` (a node ineligible for column r can
+    never enter it) and all nodes are passed as eligible.
     """
-    if eligible.shape != f.shape:
-        raise ValueError(f"eligible must be (N, R) like f {tuple(f.shape)}, "
-                         f"got {tuple(eligible.shape)}")
+    elig = _eligible_cols(eligible, f)
     b = resolve_backend(backend, g.device)
     if b == "torch":
-        return ref.ell_frontier_hop_ref(g.nbr, f, eligible, visited)
-    return frontier_step_ell(g.nbr, f.contiguous(), eligible.contiguous(),
-                             visited.contiguous(), K=K)
+        return ref.ell_frontier_hop_ref(g.nbr, f, elig, visited)
+    if b == "ell":
+        return frontier_step_ell(g.nbr, f.contiguous(), elig.contiguous(),
+                                 visited.contiguous(), K=K)
+    if adj is None:
+        adj = ref.ell_to_dense(g.nbr, g.N)
+    ones = torch.ones(g.N, dtype=torch.bool, device=g.device)
+    return frontier_step(adj, f, ones, visited.to(torch.bool) | ~elig)
 
 
 def minh_fixpoint(
@@ -173,20 +276,27 @@ def minh_fixpoint(
 
 def coreness_blocks(
     g, backend: str = "auto", max_steps: int = 10_000,
-    with_steps: bool = False,
+    with_steps: bool = False, variant: str = "sort",
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, int]]:
     """Full min-H coreness of every node (0 on padding rows), any backend.
 
     g: GraphBlocks; returns (N,) int32 coreness, plus the superstep count
-    as a host int when `with_steps=True`.  The "ell" path reads the column
-    bound once (`degree_bound`).
+    as a host int when `with_steps=True`.  The kernel paths read the
+    degree bound once (`degree_bound`: the "ell" column bound, the "dense"
+    threshold bound); "dense" densifies once per call.  `variant` picks
+    the "ell" h-index kernel ("sort" or "count"; the same integers).
     """
+    if variant not in HINDEX_VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; expected one of "
+                         f"{HINDEX_VARIANTS}")
     b = resolve_backend(backend, g.device)
-    K = degree_bound(g) if b == "ell" else None
+    K = degree_bound(g) if b in ("ell", "dense") else None
+    adj = dense_adj(g, b)
     est0 = torch.where(g.node_mask, g.deg, 0).to(torch.int32)
     est, steps = minh_fixpoint(
-        est0, lambda e: hindex_blocks(g, e, backend=b, K=K), g.node_mask,
-        max_steps)
+        est0, lambda e: hindex_blocks(g, e, backend=b, K=K, adj=adj,
+                                      variant=variant),
+        g.node_mask, max_steps)
     return (est, steps) if with_steps else est
 
 
@@ -245,19 +355,62 @@ def _combine_ell(nbr: torch.Tensor, field: torch.Tensor, combine: str,
     raise _unknown(combine)
 
 
+def _combine_dense(adj: torch.Tensor, field: torch.Tensor, combine: str,
+                   Cd: int) -> torch.Tensor:
+    """Dense-adjacency forms of the combines (adj: (N, N) bfloat16 0/1),
+    over row chunks of at most `kcore_hindex.DENSE_CHUNK` elements:
+
+      min    masked row min over the adjacency (plain PyTorch);
+      sum    adj @ field, a float32 matmul (not TF32: `matmul_f32`);
+      hindex the threshold-count h-index, K = Cd + 1 (exact: h <= deg <=
+             Cd), through the `kcore_hindex` kernel on a CUDA graph;
+      count_common  diag(A^3) as sum(A * (A @ A), axis=1) in float32:
+             every ordered common-neighbor pair at u, equal to the ELL
+             intersection (the row field is not read).
+    """
+    N = adj.shape[0]
+    if combine == "hindex":
+        return hindex(adj, field, K=Cd + 1)
+    if combine == "min":
+        out = torch.empty(N, dtype=field.dtype, device=adj.device)
+        for rows in row_chunks(N):
+            out[rows] = torch.where(adj[rows] > 0, field[None, :],
+                                    ref._fill(field.dtype)).amin(dim=1)
+        return out
+    if combine == "sum":
+        x = field.to(torch.float32)
+        out = torch.empty(N, dtype=torch.float32, device=adj.device)
+        for rows in row_chunks(N):
+            out[rows] = matmul_f32(adj[rows].to(torch.float32), x)
+        return out
+    if combine == "count_common":
+        a = (adj > 0).to(torch.float32)
+        out = torch.empty(N, dtype=torch.int32, device=adj.device)
+        for rows in row_chunks(N):
+            out[rows] = (a[rows] * matmul_f32(a[rows], a)).sum(dim=1).to(
+                torch.int32)
+        return out
+    raise _unknown(combine)
+
+
 def neighbor_combine_blocks(
     g, field: torch.Tensor, combine: str, backend: str = "auto",
-    K: Optional[int] = None,
+    K: Optional[int] = None, adj: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One gather + reduce superstep of a named combine, via a backend.
 
     field: (N,) values for "min"/"sum"/"hindex", (N, Cd) neighbor rows for
     "count_common".  K (optional) bounds the columns the "ell" path reads.
+    Loops over the dense backend densify once and pass `adj`.
     """
     b = resolve_backend(backend, g.device)
     if b == "torch":
         return _combine_torch(g.nbr, field, combine)
-    return _combine_ell(g.nbr, field, combine, K)
+    if b == "ell":
+        return _combine_ell(g.nbr, field, combine, K)
+    if adj is None:
+        adj = ref.ell_to_dense(g.nbr, g.N)
+    return _combine_dense(adj, field, combine, g.Cd)
 
 
 def tree_where(cond: torch.Tensor, new: Any, old: Any) -> Any:
@@ -317,7 +470,8 @@ def run_block_program(
     package's fused ``while_loop`` for every program.  `max_steps=None`
     takes the program's own bound; `state0` warm-starts from a caller's
     state (same structure as `program.init`'s).  Returns the final state,
-    plus the superstep count (a host int) when `with_steps=True`.
+    plus the superstep count (a host int) when `with_steps=True`.  The
+    "dense" backend densifies once per run.
 
     The real-node count is read on the host once per run.  `executor=`
     (the mesh runtime) and `mirror=` (hub splitting) are not ported yet.
@@ -334,15 +488,20 @@ def run_block_program(
     ctx = BlockCtx(deg=g.deg.to(torch.int32), node_mask=g.node_mask,
                    n_real=int(g.n_real))  # the run's one extra host read
     state = program.init(g) if state0 is None else state0
+    adj = dense_adj(g, b)
 
     def step(state):
         field = program.halo_field(state)
         if not multi:
-            red = neighbor_combine_blocks(g, field, program.combine, b)
+            red = neighbor_combine_blocks(g, field, program.combine, b,
+                                          adj=adj)
         elif b == "torch":
             red = neighbor_multi_ell_plain(g.nbr, field, program.combines)
-        else:
+        elif b == "ell":
             red = neighbor_multi_ell(g.nbr, field, program.combines)
+        else:  # one resident adjacency serves every field
+            red = tuple(_combine_dense(adj, f, c, g.Cd)
+                        for c, f in zip(program.combines, field))
         new = program.update(ctx, state, red)
         return new, program.changed(state, new)
 

@@ -1,23 +1,29 @@
-"""Plain PyTorch oracles for the ELL primitives.
+"""Plain PyTorch oracles for the ELL and dense primitives.
 
 The semantic ground truth the kernels are held to, and the ``"torch"``
 backend of the `ops.py` registry (the counterpart of the JAX package's
-``"jnp"``).  The h-index and frontier oracles are the kernels' own plain
-versions, which live beside each kernel; the neighbor-combine oracles
-below are what the other kernels' plain versions call.  Nothing here
+``"jnp"``).  The h-index and frontier oracles, ELL and dense, are the
+kernels' own plain versions, which live beside each kernel; the
+neighbor-combine oracles below are what the other kernels' plain versions
+call; `ell_to_dense` builds the dense backend's adjacency.  Nothing here
 imports `repro_torch.core`.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from .ell_frontier import frontier_step_ell_plain
 from .ell_hindex import ell_gather, hindex_ell_plain, hindex_rows
+from .frontier import frontier_step_plain
+from .kcore_hindex import hindex_counts_plain
 
 __all__ = ["ell_gather", "hindex_rows", "ell_hindex_ref",
            "ell_frontier_hop_ref", "PAD_KEY", "key_sort_rows", "min_rows",
            "sum_rows", "common_rows", "combine_rows", "ell_min_ref",
-           "ell_sum_ref", "ell_common_ref"]
+           "ell_sum_ref", "ell_common_ref", "hindex_counts_ref",
+           "frontier_step_ref", "coreness_dense_ref", "ell_to_dense"]
 
 #: what a PAD slot is keyed to before a row sort: above every node id
 PAD_KEY = torch.iinfo(torch.int32).max
@@ -42,6 +48,53 @@ def ell_frontier_hop_ref(
     next[u, r] = (exists j: f[nbr[u, j], r]) & eligible[u, r] & ~visited[u, r]
     """
     return frontier_step_ell_plain(nbr, f, eligible, visited)
+
+
+def hindex_counts_ref(adj: torch.Tensor, est: torch.Tensor,
+                      K: int) -> torch.Tensor:
+    """h-index of every node from a dense 0/1 adjacency, capped at K:
+    cnt[u, k-1] = #{v ~ u : est[v] >= k}, h[u] = sum_k [cnt[u, k-1] >= k].
+    Exact for K >= max(est) + 1."""
+    return hindex_counts_plain(adj, est, K)
+
+
+def frontier_step_ref(adj: torch.Tensor, f: torch.Tensor,
+                      eligible: torch.Tensor,
+                      visited: torch.Tensor) -> torch.Tensor:
+    """One BFS hop for R stacked frontiers over a dense adjacency:
+    next[u, r] = (exists v ~ u: f[v, r]) & eligible[u] & ~visited[u, r],
+    with eligible (N,) shared by the R columns."""
+    return frontier_step_plain(adj, f, eligible, visited)
+
+
+def coreness_dense_ref(adj: torch.Tensor,
+                       max_steps: int = 10_000) -> torch.Tensor:
+    """Full min-H coreness iteration on a dense adjacency (the oracle: one
+    host read per superstep)."""
+    deg = (adj > 0).sum(dim=1).to(torch.int32)
+    K = int(deg.max()) + 1 if deg.numel() else 1
+    est = deg
+    for _ in range(max_steps):
+        new = torch.minimum(est, hindex_counts_ref(adj, est, K))
+        if torch.equal(new, est):
+            break
+        est = new
+    return est
+
+
+def ell_to_dense(nbr: torch.Tensor, N: Optional[int] = None,
+                 dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """ELL adjacency (rows of padded neighbor ids) -> dense 0/1 (N, N) of
+    `dtype`, built directly in that type (bfloat16 for the dense kernels:
+    no float32 (N, N) intermediate, which would be 10 GB at N = 50,048).
+    Each valid slot writes 1, so a duplicate id gives 1, not 2 (the JAX
+    package's scatter-max)."""
+    rows, C = nbr.shape
+    N = rows if N is None else int(N)
+    dense = torch.zeros((rows, N), dtype=dtype, device=nbr.device)
+    u, j = torch.nonzero(nbr >= 0, as_tuple=True)
+    dense[u, nbr[u, j].long()] = 1
+    return dense
 
 
 # ---------------------------------------------------------------------------

@@ -316,7 +316,10 @@ def run_stream(
     coreness of `g` (as `core.kcore.coreness` returns it).  `updates` may
     be any iterable (including a generator) of (u, v, op) with op = +1
     insert / -1 delete and global padded ids.  R is the window width (the
-    stacked-frontier axis of the batched candidate search).  The final
+    stacked-frontier axis of the batched candidate search).  `backend` is
+    any of `kernels.ops.BACKENDS` or "auto" (the default); "dense" builds
+    its (N, N) bfloat16 adjacency once per candidate search and once per
+    recompute, and keeps CC labels with the dense combines.  The final
     coreness equals sequential per-update maintenance.  `g` is updated in
     place; use the returned graph.
 

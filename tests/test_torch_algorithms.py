@@ -213,9 +213,11 @@ def test_runner_rejects_what_is_not_ported():
         ops.run_block_program(tg, prog, mirror=object())
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ops.run_block_program(tg, prog, executor=object())
-    for b in ("dense", "ell_spmd"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ops.run_block_program(tg, prog, backend=b)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ops.run_block_program(tg, prog, backend="ell_spmd")
+    # "dense" is ported: it runs, equal to the plain backend
+    assert torch.equal(ops.run_block_program(tg, prog, backend="dense"),
+                       ops.run_block_program(tg, prog, backend="torch"))
 
     class Bad(talg.CorenessBlockProgram):
         combine = "nonsense"

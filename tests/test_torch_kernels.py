@@ -1,8 +1,9 @@
-"""PyTorch port vs the JAX package: the six ELL kernels.
+"""PyTorch port vs the JAX package: the ELL kernels and their variants.
 
-On the CPU the port's wrappers (`hindex_ell`, `frontier_step_ell`,
-`neighbor_min_ell`, `neighbor_sum_ell`, `neighbor_multi_ell`,
-`neighbor_common_ell`) run their plain PyTorch versions; these are held
+On the CPU the port's wrappers (`hindex_ell` with variants "sort" and
+"count", `frontier_step_ell`, `neighbor_min_ell`, `neighbor_sum_ell`,
+`neighbor_multi_ell`, `neighbor_common_ell` with variants "merge" and
+"allpairs") run their plain PyTorch versions; these are held
 against the JAX package's Pallas kernels in interpret mode
 (`repro.kernels.ops.*` with ``interpret=True``) and its jnp oracles
 (`ref.ell_*`).  Integer and boolean outputs must match EXACTLY; float32
@@ -29,13 +30,15 @@ from repro_torch.kernels.ell_cc import (
     MIN_FILL, neighbor_min_ell, neighbor_min_ell_plain)
 from repro_torch.kernels.ell_frontier import (
     frontier_step_ell, frontier_step_ell_plain)
-from repro_torch.kernels.ell_hindex import hindex_ell, hindex_ell_plain
+from repro_torch.kernels.ell_hindex import (
+    hindex_count_ell, hindex_count_ell_plain, hindex_ell, hindex_ell_plain)
 from repro_torch.kernels.ell_multi import (
     neighbor_multi_ell, neighbor_multi_ell_plain)
 from repro_torch.kernels.ell_pagerank import (
     neighbor_sum_ell, neighbor_sum_ell_plain)
 from repro_torch.kernels.ell_triangles import (
-    common_sorted_ell, neighbor_common_ell, neighbor_common_ell_plain)
+    common_allpairs_ell, common_allpairs_ell_plain, common_sorted_ell,
+    neighbor_common_ell, neighbor_common_ell_plain)
 
 
 def _rows(N, Cd, seed, shuffled, max_deg=None, empty=0.15, full=0.15):
@@ -93,6 +96,31 @@ def test_hindex_plain_equals_reference(N, Cd, K, shuffled, max_deg):
         oracle)
 
 
+@pytest.mark.parametrize("N,Cd,K,shuffled,max_deg", HINDEX_CASES)
+def test_hindex_count_variant_equals_reference(N, Cd, K, shuffled, max_deg):
+    nbr = _rows(N, Cd, N + Cd, shuffled, max_deg)
+    est = _est(N, Cd)
+    tn, te = torch.as_tensor(nbr), torch.as_tensor(est)
+    got = hindex_ell(tn, te, K=K, variant="count")
+    assert got.dtype == torch.int32 and got.shape == (N,)
+    want = np.asarray(jops.hindex_ell(jnp.asarray(nbr), jnp.asarray(est),
+                                      interpret=True, K=K, variant="count"))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(got, hindex_ell(tn, te, K=K))  # == "sort"
+
+
+def test_hindex_count_plain_chunks_and_rejects(monkeypatch):
+    import repro_torch.kernels.ell_hindex as eh
+    nbr = torch.as_tensor(_rows(70, 24, 3, True))
+    est = torch.as_tensor(_est(70, 3))
+    want = hindex_count_ell_plain(nbr, est)
+    monkeypatch.setattr(eh, "_COUNT_CHUNK", 24 * 24 * 4)  # 4 rows a chunk
+    assert torch.equal(hindex_count_ell_plain(nbr, est), want)
+    assert torch.equal(want, hindex_ell_plain(nbr, est))
+    with pytest.raises(ValueError, match="unknown variant"):
+        hindex_ell(nbr, est, variant="nonsense")
+
+
 def test_hindex_empty_and_full_rows():
     N, Cd = 16, 8
     nbr = np.full((N, Cd), -1, np.int32)
@@ -146,9 +174,10 @@ def test_registry_resolution():
     assert ops.resolve_backend("auto", cpu) == "torch"
     assert ops.resolve_backend(None, torch.device("cuda")) == "ell"
     assert ops.resolve_backend("ell", cpu) == "ell"
-    for b in ("dense", "ell_spmd"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ops.resolve_backend(b, cpu)
+    assert ops.resolve_backend("dense", cpu) == "dense"  # never by "auto"
+    assert ops.BACKENDS == ("torch", "ell", "dense")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ops.resolve_backend("ell_spmd", cpu)
     with pytest.raises(ValueError):
         ops.resolve_backend("jnp", cpu)
     assert [ops._pow2_bucket(x) for x in (1, 32, 33, 85, 300)] == \
@@ -167,7 +196,9 @@ def test_wrappers_reject_other_devices():
     for call in (lambda: neighbor_min_ell(nbr, i),
                  lambda: neighbor_sum_ell(nbr, f),
                  lambda: neighbor_multi_ell(nbr, (i,), ("min",)),
-                 lambda: neighbor_common_ell(nbr, nbr)):
+                 lambda: neighbor_common_ell(nbr, nbr),
+                 lambda: hindex_ell(nbr, i, variant="count"),
+                 lambda: neighbor_common_ell(nbr, nbr, variant="allpairs")):
         with pytest.raises(ValueError):
             call()
 
@@ -296,12 +327,35 @@ def test_common_ref_chunks_equal_one_pass(monkeypatch):
     assert torch.equal(got, want)
 
 
-def test_common_variants():
-    nbr = torch.as_tensor(_rows(8, 4, 1, True))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        neighbor_common_ell(nbr, nbr, variant="allpairs")
+@pytest.mark.parametrize("N,Cd,K,shuffled,max_deg",
+                         [c for c in COMMON_CASES if c[1] <= 40])
+def test_common_variants(N, Cd, K, shuffled, max_deg):
+    """"allpairs" equals the reference's "allpairs", "merge" and the
+    oracle, on sorted and shuffled rows and with duplicate ids."""
+    nbr = _rows(N, Cd, N + Cd, shuffled == True, max_deg)  # noqa: E712
+    rows = _dup_rows(N, Cd, N) if shuffled == "dup" else nbr
+    tn, tr = torch.as_tensor(nbr), torch.as_tensor(rows)
+    got = neighbor_common_ell(tn, tr, K=K, variant="allpairs")
+    assert got.dtype == torch.int32 and got.shape == (N,)
+    want = np.asarray(jops.neighbor_common_ell(
+        jnp.asarray(nbr), jnp.asarray(rows), interpret=True, K=K,
+        variant="allpairs"))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(got, neighbor_common_ell(tn, tr, K=K))  # == "merge"
+    C = Cd if K is None else min(Cd, K)
+    np.testing.assert_array_equal(got.numpy(), ref.ell_common_ref(
+        tn[:, :C], tr[:, :C]).numpy())
     with pytest.raises(ValueError):
-        neighbor_common_ell(nbr, nbr, variant="nonsense")
+        neighbor_common_ell(tn, tr, variant="nonsense")
+
+
+def test_allpairs_plain_chunks_equal_one_pass(monkeypatch):
+    import repro_torch.kernels.ell_triangles as et
+    nbr = torch.as_tensor(_rows(50, 12, 6, True))
+    rows = torch.as_tensor(_dup_rows(50, 12, 6))
+    want = common_allpairs_ell_plain(nbr, rows)
+    monkeypatch.setattr(et, "_ALLPAIRS_CHUNK", 12 ** 3 * 3)  # 3 rows a chunk
+    assert torch.equal(common_allpairs_ell_plain(nbr, rows), want)
 
 
 def test_combine_registry_equals_reference():
@@ -339,7 +393,9 @@ def test_library_names_follow_every_header(tmp_path, monkeypatch):
     includers = [n for n in _build.SOURCES if '#include "ell_reduce.cuh"'
                  in (src / f"{n}.cu").read_text()]
     assert set(includers) >= {"ell_hindex", "ell_cc", "ell_pagerank",
-                              "ell_multi", "ell_triangles"}
+                              "ell_multi", "ell_triangles",
+                              "ell_hindex_count", "ell_allpairs",
+                              "kcore_hindex"}
     for n in includers:
         assert after[n] != before[n], n
 
@@ -428,3 +484,33 @@ def test_common_kernel_equals_plain(N, Cd, K, shuffled, max_deg):
     alone = common_sorted_ell(nbr, ref.key_sort_rows(rows[:, :C]))
     assert neighbor_common_ell.launches == before + 2
     assert torch.equal(alone, got)
+
+
+@needs_cuda
+@pytest.mark.parametrize("N,Cd,K,shuffled,max_deg", HINDEX_CASES)
+def test_hindex_count_kernel_equals_plain_and_sort(N, Cd, K, shuffled,
+                                                   max_deg):
+    nbr = torch.as_tensor(_rows(N, Cd, N + Cd, shuffled, max_deg)).cuda()
+    est = torch.as_tensor(_est(N, Cd)).cuda()
+    before = (hindex_count_ell.launches, hindex_ell.launches)
+    got = hindex_ell(nbr, est, K=K, variant="count")
+    torch.cuda.synchronize()
+    assert (hindex_count_ell.launches, hindex_ell.launches) == \
+        (before[0] + 1, before[1])  # its own kernel and count
+    assert torch.equal(got, hindex_count_ell_plain(nbr, est, K))
+    assert torch.equal(got, hindex_ell(nbr, est, K=K))
+
+
+@needs_cuda
+@pytest.mark.parametrize("N,Cd,K,shuffled,max_deg", COMMON_CASES)
+def test_allpairs_kernel_equals_plain_and_merge(N, Cd, K, shuffled, max_deg):
+    nbr = _rows(N, Cd, N + Cd, shuffled == True, max_deg)  # noqa: E712
+    rows = _dup_rows(N, Cd, N) if shuffled == "dup" else nbr
+    nbr, rows = torch.as_tensor(nbr).cuda(), torch.as_tensor(rows).cuda()
+    before = (common_allpairs_ell.launches, neighbor_common_ell.launches)
+    got = neighbor_common_ell(nbr, rows, K, variant="allpairs")
+    torch.cuda.synchronize()
+    assert (common_allpairs_ell.launches, neighbor_common_ell.launches) == \
+        (before[0] + 1, before[1])  # its own kernel and count
+    assert torch.equal(got, common_allpairs_ell_plain(nbr, rows, K))
+    assert torch.equal(got, neighbor_common_ell(nbr, rows, K))

@@ -9,9 +9,11 @@ Builds the DS1 graph and update stream exactly as chip_smoke.py does
 (`snap_like("DS1", 1.0, seed=7)`, 8 BFS blocks, 200 mixed updates, R=8),
 then for each path — "main" (static coreness plus `run_stream`) and
 "analytics" (chip_smoke.py's `analytics_path`: the BlockProgram workloads
-and the CC-maintaining stream) — and each backend ("ell": the CUDA
-kernels, "torch": the plain versions) runs the path once to warm up, once
-timed on the host clock, and once under `torch.profiler`.  Prints one
+and the CC-maintaining stream) — and each backend ("ell": the ELL CUDA
+kernels, "torch": the plain versions; for the main path also "dense": the
+dense kernels over DS1's 5.01 GB bfloat16 adjacency) runs the path once
+to warm up, once timed on the host clock, and once under
+`torch.profiler`.  Prints one
 JSON line per path and backend: the wall seconds without and with the
 profiler, the device time summed over every kernel, memcpy and memset of
 the profiled run, the device's busy share of that same run's wall time,
@@ -60,9 +62,9 @@ def main() -> int:
     def analytics(backend):
         return cs.analytics_path(g.clone(), backend, core, ups)["seconds"]
 
-    for (path, run), backend in ((p, b) for p in (("main", main_path),
-                                                  ("analytics", analytics))
-                                 for b in ("ell", "torch")):
+    runs = [("main", main_path, b) for b in ("ell", "torch", "dense")]
+    runs += [("analytics", analytics, b) for b in ("ell", "torch")]
+    for path, run, backend in runs:
         run(backend)  # warm-up: allocator, kernel loads
         wall = run(backend)
         with profile(activities=[ProfilerActivity.CPU,
