@@ -14,7 +14,13 @@ Phases (each raises on failure; the script then exits non-zero):
    the card, on the DS1 graph's adjacency and on its rows shuffled, at
    K = Cd and at the degree bound — `ell_hindex` and its "count" variant
    `ell_hindex_count` (also equal to the "sort" kernel) with est =
-   degrees, random ints and the coreness; `ell_frontier` at R = 1, 8, 13;
+   degrees, random ints and the coreness, "sort" with the row lengths
+   `deg` and without; `ell_frontier` at R = 1, 8, 13 on random masks and
+   on the main path's first-hop masks (most rows need a column and miss),
+   with `deg` and without, and with a frontier not 8-byte aligned; both
+   redesigned kernels also on a hand-made graph (`_edge_rows`: empty,
+   full, 31/32/33/64/65/256/257-slot rows, some longer than the h-index's
+   register paths);
    `ell_allpairs` (the "allpairs" triangle variant, also equal to the
    "merge" kernel); `ell_cc` with random ints and CC labels;
    `ell_pagerank` with PageRank contributions and random floats;
@@ -52,7 +58,11 @@ Phases (each raises on failure; the script then exits non-zero):
    8.8 TB there).
 8. timing: each kernel and its plain version at the main path's shapes
    (`ell_hindex` at both: the stream's K = Cd and the static fixpoint's
-   degree bound; `kcore_hindex` at both, K = 150 and 128; `frontier` on
+   degree bound, and `ell_frontier` at the first hop, R = 8 and R = 1,
+   each with the row lengths `deg` as the main path passes them and
+   without, beside the all-columns bound, the row-length bound and a
+   launch floor: one one-element PyTorch op timed the same way;
+   `kcore_hindex` at both, K = 150 and 128; `frontier` on
    the main path's folded masks and with every row live; the combines
    and the two variants at the analytics shapes; `torch.sparse.mm`
    beside the sum, and a product-only `torch.matmul` beside the two dense
@@ -146,10 +156,10 @@ def main() -> int:
          sources=sorted(_build.SOURCES), card=card)
 
     g, core_plain = ds1_graph(dev)
-    parity = kernel_parity(g, core_plain, dev)
+    ups = sample_stream(g, DS1_UPDATES // 4, seed0=2)
+    parity = kernel_parity(g, core_plain, dev, ups[:R])
     parity.update(combine_parity(g, core_plain, dev))
     parity.update(dense_parity(g, core_plain, dev))
-    ups = sample_stream(g, DS1_UPDATES // 4, seed0=2)
     launches, hindex_split, plain = _drive(g, ups, "main_path_ds1")
     launches.update(_drive_dense(g, ups, plain))
     launches_an, fields, plain_an = _analytics(g, "analytics_ds1", core_plain,
@@ -207,9 +217,54 @@ def ds1_graph(dev):
     return g, core
 
 
-def kernel_parity(g, core, dev):
-    """Every kernel against its plain version on the card, bit-equal.
-    Returns {kernel name: max |kernel - plain| over all cases} (0)."""
+def _edge_rows(dev):
+    """A small hand-made ELL graph that reaches every path of the two
+    redesigned kernels: Cd = 300, more than the 256 columns `ell_hindex`
+    keeps in a warp's registers; an all-PAD row, a full row (deg = Cd),
+    rows of 31, 32, 33 (a frontier step), 64, 65 (a lane group's
+    registers), 256 and 257 valid slots and random ones; est from -3 to
+    Cd + 20 (values <= 0 and > C).  Returns (left-filled nbr, the same
+    rows shuffled, deg, est) on `dev`."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(14)
+    N, Cd = 512, 300
+    lens = [0, Cd, 31, 32, 33, 64, 65, 256, 257, 1]
+    deg = np.concatenate([lens, rng.integers(0, Cd + 1, N - len(lens))])
+    nbr = np.full((N, Cd), -1, np.int32)
+    shuffled = nbr.copy()
+    for u in range(N):
+        ids = np.sort(rng.choice(N, deg[u], replace=False))
+        nbr[u, :deg[u]] = ids
+        shuffled[u, rng.choice(Cd, deg[u], replace=False)] = ids
+    est = rng.integers(-3, Cd + 21, N).astype(np.int32)
+    return tuple(torch.as_tensor(a).to(dev) for a in
+                 (nbr, shuffled, deg.astype(np.int32), est))
+
+
+def _first_hop(g, core, window):
+    """The masks of the first hop of the stream's first window, as
+    `k_reachable_batch` builds them: (f, eligible, visited), (N, R) bool."""
+    import torch
+
+    us = torch.tensor([u for u, _, _ in window], device=g.device)
+    vs = torch.tensor([v for _, v, _ in window], device=g.device)
+    cols = torch.arange(len(window), device=g.device)
+    ks = torch.minimum(core[us], core[vs])
+    elig = ((core[:, None] == ks[None, :]) & g.node_mask[:, None]).contiguous()
+    roots = torch.zeros((g.N, len(window)), dtype=torch.bool, device=g.device)
+    roots[us, cols] = True
+    roots[vs, cols] = True
+    f = (roots & elig).contiguous()
+    return f, elig, f.clone()
+
+
+def kernel_parity(g, core, dev, window):
+    """Every kernel against its plain version on the card, bit-equal; the
+    two redesigned kernels with the row lengths `deg` and without.
+    `window` is the stream's first window (the first-hop masks).  Returns
+    {kernel name: max |kernel - plain| over all cases} (0)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.ell_frontier import (
@@ -229,15 +284,22 @@ def kernel_parity(g, core, dev):
                                 device=dev, dtype=torch.int32),
         "coreness": core,
     }
-    cases = [(f"{e}/K={k}", nbr, est, k) for e, est in ests.items()
-             for k in (None, ops.degree_bound(g))]
-    cases.append(("shuffled/random/K=Cd", shuffled, ests["random"], None))
-    cases.append(("shuffled/random/K=degree_bound", shuffled, ests["random"],
-                  ops.degree_bound(g)))  # K < Cd: reads part of the row
+    Kb = ops.degree_bound(g)  # K < Cd: reads part of the row
+    e_nbr, e_shuf, e_deg, e_est = _edge_rows(dev)
+    with_deg = (("", None), ("/deg", g.deg))
+    e_with_deg = (("", None), ("/deg", e_deg))
+    cases = [(f"{e}/K={k}{dn}", nbr, est, k, d) for e, est in ests.items()
+             for k in (None, Kb) for dn, d in with_deg]
+    cases += [(f"shuffled/random/K={k}{dn}", shuffled, ests["random"], k, d)
+              for k in (None, Kb) for dn, d in with_deg]
+    cases += [(f"{an}/K={k}{dn}", nb, e_est, k, d)
+              for an, nb in (("edge", e_nbr), ("edge/shuffled", e_shuf))
+              for k in (None, 64, 257) for dn, d in e_with_deg]
     err = {"ell_hindex": 0, "ell_frontier": 0, "ell_hindex_count": 0,
            "ell_allpairs": 0}
-    for name, nb, est, K in cases:
-        got, want = hindex_ell(nb, est, K=K), hindex_ell_plain(nb, est, K)
+    for name, nb, est, K, d in cases:
+        got = hindex_ell(nb, est, K=K, deg=d)
+        want = hindex_ell_plain(nb, est, K)
         cnt = hindex_ell(nb, est, K=K, variant="count")
         cnt_plain = hindex_count_ell_plain(nb, est, K)
         torch.cuda.synchronize()
@@ -252,7 +314,7 @@ def kernel_parity(g, core, dev):
                                  f"version or from ell_hindex on {name}")
     tri_cases = [(f"{an}/K={k}", nb, k) for an, nb in
                  (("sorted", nbr), ("shuffled", shuffled))
-                 for k in (None, ops.degree_bound(g))]
+                 for k in (None, Kb)]
     for name, nb, K in tri_cases:
         got = neighbor_common_ell(nb, nb, K, variant="allpairs")
         want = common_allpairs_ell_plain(nb, nb, K)
@@ -263,18 +325,39 @@ def kernel_parity(g, core, dev):
         if e or not torch.equal(got, want) or not torch.equal(got, merge):
             raise AssertionError(f"ell_allpairs differs from its plain "
                                  f"version or from ell_triangles on {name}")
-    for Rr, nb in ((1, nbr), (8, nbr), (13, nbr), (8, shuffled)):
-        f, elig, vis = (torch.rand((N, Rr), generator=gen, device=dev) < p
-                        for p in (0.2, 0.7, 0.2))
-        got = frontier_step_ell(nb, f, elig, vis)
-        want = frontier_step_ell_plain(nb, f, elig, vis)
+
+    def masks(n, Rr, p_f=0.2):
+        return tuple(torch.rand((n, Rr), generator=gen, device=dev) < p
+                     for p in (p_f, 0.7, 0.2))
+
+    hop = _first_hop(g, core, window)
+    unaligned = torch.empty(N * R + 1, dtype=torch.bool, device=dev)[1:]
+    unaligned = unaligned.view(N, R).copy_(hop[0])  # contiguous, odd address
+    f_cases = []
+    for an, nb in (("sorted", nbr), ("shuffled", shuffled)):
+        for dn, d in with_deg:
+            for Rr in (1, 8, 13):
+                f_cases.append((f"R={Rr}/{an}{dn}", nb, masks(N, Rr), None, d))
+            f_cases.append((f"first_hop/{an}{dn}", nb, hop, None, d))
+            f_cases.append((f"first_hop/K={Kb}/{an}{dn}", nb, hop, Kb, d))
+            f_cases.append((f"first_hop/f_unaligned/{an}{dn}", nb,
+                            (unaligned,) + hop[1:], None, d))
+    for an, nb in (("edge", e_nbr), ("edge/shuffled", e_shuf)):
+        for dn, d in e_with_deg:
+            for Rr in (1, 8, 13):
+                for K in (None, 64):
+                    f_cases.append((f"{an}/R={Rr}/K={K}{dn}", nb,
+                                    masks(nb.shape[0], Rr, 0.02), K, d))
+    for name, nb, (f, elig, vis), K, d in f_cases:
+        got = frontier_step_ell(nb, f, elig, vis, K=K, deg=d)
+        want = frontier_step_ell_plain(nb, f, elig, vis, K)
         torch.cuda.synchronize()
         e = int((got != want).sum().clamp(max=1))
         err["ell_frontier"] = max(err["ell_frontier"], e)
         if not torch.equal(got, want):
-            raise AssertionError(f"ell_frontier differs from plain at R={Rr}")
+            raise AssertionError(f"ell_frontier differs from plain on {name}")
     emit(phase="kernel_parity", hindex_cases=[c[0] for c in cases],
-         frontier_R=[1, 8, 13, "8/shuffled"],
+         frontier_cases=[c[0] for c in f_cases],
          allpairs_cases=[c[0] for c in tri_cases], max_abs_err=err)
     return err
 
@@ -795,14 +878,23 @@ def timing(g, core, window, parity, launches, hindex_split):
     path's shapes.
 
     `ell_hindex` runs at two shapes.  The stream's clamped recompute
-    (most launches) passes K = None: C = Cd columns, exact for any slot
-    order, so every column must be read; timed with est = the coreness.
-    The static fixpoint passes K = the degree bound (est = degrees there):
-    its bound counts, besides the first C columns the kernel reads, what a
-    left-filled row needs — its valid slots and the first PAD after them.
-    The entry's own numbers are the recompute shape's.  `ell_frontier` is
-    timed at the first hop of the stream's first window.  Bounds count
-    every input read once and the output written once."""
+    (most launches) passes K = None (C = Cd columns, PAD may sit anywhere)
+    with est = the coreness; the static fixpoint passes K = the degree
+    bound with est = degrees.  `ell_frontier` is timed at the first hop of
+    the stream's first window (R = 8, the kernel entry's shape) and at the
+    first hop of its first update alone (R = 1, as the stream searches for
+    the updates a batch defers).  Each is timed as the main path calls it,
+    with the row lengths `deg` (`ms`), and without (`ms_without_deg`,
+    every row read up to its C columns), in turns, beside two bounds that
+    count every input read once and the output written once: the
+    all-columns bound (`bound_ms`: the first C columns of every row a call
+    without deg must read) and the row-length bound (`bound_ms_row_length`:
+    only the slots these inputs need — a row's valid slots, for the
+    frontier only in rows that need a column and up to the slot where its
+    last needed column is first hit — with deg).  `launch_floor_ms` is one
+    one-element PyTorch op (`add_`) timed the same way: what any launch
+    costs on this card.  The kernel entries carry the main path's call:
+    `ms` with deg, against the row-length bound."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.ell_frontier import (
@@ -810,7 +902,9 @@ def timing(g, core, window, parity, launches, hindex_split):
     from repro_torch.kernels.ell_hindex import (
         columns, hindex_ell, hindex_ell_plain)
 
-    N, Cd, nbr = g.N, g.Cd, g.nbr
+    N, Cd, nbr, deg = g.N, g.Cd, g.nbr, g.deg
+    one = torch.zeros(1, device=g.device)
+    floor_ms = min(_time_ms(lambda: one.add_(1)) for _ in range(2))
     io = N * 4 + N * 4  # est read once, out written once
     shapes = []
     for shape, est, K, n in (
@@ -819,62 +913,73 @@ def timing(g, core, window, parity, launches, hindex_split):
             ("static fixpoint: K=degree_bound, est=degrees", g.deg,
              ops.degree_bound(g), hindex_split["static"])):
         C = columns(Cd, K)
-        ms, plain_ms = _time_pair(lambda: hindex_ell(nbr, est, K=K),
-                                  lambda: hindex_ell_plain(nbr, est, K))
-        row_valid = (nbr[:, :C] >= 0).sum(dim=1)
+        ms, ms_all = _time_pair(lambda: hindex_ell(nbr, est, K=K, deg=deg),
+                                lambda: hindex_ell(nbr, est, K=K))
+        plain_ms = min(_time_ms(lambda: hindex_ell_plain(nbr, est, K))
+                       for _ in range(2))
+        valid = int((nbr[:, :C] >= 0).sum())
         s = {"shape": shape, "C": C, "launches": n, "ms": ms,
-             "plain_ms": plain_ms, "valid_slots": int(row_valid.sum()),
-             "bound_bytes": N * C * 4 + io}
+             "ms_without_deg": ms_all, "plain_ms": plain_ms,
+             "valid_slots": valid, "bound_bytes": N * C * 4 + io,
+             "bound_bytes_row_length": valid * 4 + N * 4 + io}
         s["bound_ms"] = _bound_ms(s["bound_bytes"])
-        if C < Cd:
-            left = int((row_valid + 1).clamp(max=C).sum()) * 4 + io
-            s["bound_bytes_left_filled"] = left
-            s["bound_ms_left_filled"] = _bound_ms(left)
+        s["bound_ms_row_length"] = _bound_ms(s["bound_bytes_row_length"])
         shapes.append(s)
 
-    us = torch.tensor([u for u, _, _ in window], device=g.device)
-    vs = torch.tensor([v for _, v, _ in window], device=g.device)
-    ks = torch.minimum(core[us], core[vs])
-    elig = ((core[:, None] == ks[None, :]) & g.node_mask[:, None]).contiguous()
-    roots = torch.zeros((N, R), dtype=torch.bool, device=g.device)
-    roots[us, torch.arange(R, device=g.device)] = True
-    roots[vs, torch.arange(R, device=g.device)] = True
-    f = (roots & elig).contiguous()
-    vis = f.clone()
-    # nbr slots this data needs, in slot order: none for a row that needs
-    # no column; up to the slot where its last needed column is first hit;
-    # all Cd when a needed column is never hit (PAD may sit anywhere)
-    need = elig & ~vis
-    hits = f[nbr.clamp(min=0).long()] & (nbr >= 0)[:, :, None]  # (N, Cd, R)
-    first = hits.to(torch.int32).argmax(dim=1) + 1
-    stop = torch.where(hits.any(dim=1), first, torch.full_like(first, Cd))
-    slots = int(torch.where(need, stop, 0).amax(dim=1).sum())
-    f_bytes = 4 * N * R + slots * 4  # eligible, visited, f, out; nbr slots
-    del hits
-    fk, fp = _time_pair(lambda: frontier_step_ell(nbr, f, elig, vis),
-                        lambda: frontier_step_ell_plain(nbr, f, elig, vis))
-    emit(phase="timing", order="plain,kernel,kernel,plain",
-         hindex_shapes=shapes,
-         frontier_shape=dict(N=N, Cd=Cd, R=R,
-                             rows_needing=int(need.any(dim=1).sum()),
-                             nbr_slots_needed=slots, ms=fk, plain_ms=fp))
+    fshapes = []
+    for shape, hop in (("batch's first hop, R=8", window),
+                       ("deferred update's first hop, R=1", window[:1])):
+        f, elig, vis = _first_hop(g, core, hop)
+        Rr = f.shape[1]
+        # nbr slots this data needs, in slot order: none for a row that
+        # needs no column; up to the slot where its last needed column is
+        # first hit; when a needed column is never hit, all Cd (PAD may sit
+        # anywhere) or, knowing the row's length, its valid slots
+        need = elig & ~vis
+        hits = f[nbr.clamp(min=0).long()] & (nbr >= 0)[:, :, None]
+        first = hits.to(torch.int32).argmax(dim=1) + 1  # (N, R)
+        found = hits.any(dim=1)
+        del hits
+        row_len = (nbr >= 0).sum(dim=1, dtype=torch.int32)[:, None]
+        slots, slots_row = (
+            int(torch.where(need, torch.where(found, first, miss), 0)
+                .amax(dim=1).sum())
+            for miss in (torch.full_like(first, Cd),
+                         row_len.expand_as(first)))
+        masks_b = 4 * N * Rr  # eligible, visited, f read; out written
+        fb, fb_row = masks_b + slots * 4, masks_b + N * 4 + slots_row * 4
+        fk, fk_all = _time_pair(
+            lambda: frontier_step_ell(nbr, f, elig, vis, deg=deg),
+            lambda: frontier_step_ell(nbr, f, elig, vis))
+        fp = min(_time_ms(lambda: frontier_step_ell_plain(nbr, f, elig, vis))
+                 for _ in range(2))
+        fshapes.append(dict(
+            shape=shape, N=N, Cd=Cd, R=Rr,
+            rows_needing=int(need.any(dim=1).sum()), nbr_slots_needed=slots,
+            nbr_slots_needed_row_length=slots_row, ms=fk,
+            ms_without_deg=fk_all, plain_ms=fp, bound_bytes=fb,
+            bound_ms=_bound_ms(fb), bound_bytes_row_length=fb_row,
+            bound_ms_row_length=_bound_ms(fb_row)))
+    emit(phase="timing", order="plain,kernel,kernel,plain; "
+         "without deg, with deg, with deg, without deg",
+         launch_floor_ms=floor_ms,
+         launch_floor_op="one-element torch.Tensor.add_, timed as a kernel",
+         hindex_shapes=shapes, frontier_shapes=fshapes)
 
-    def entry(name, replaces, ms, plain_ms, nbytes, **extra):
+    def entry(name, s):
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-                "replaces": replaces, "launches": launches[name],
+                "replaces": KERNELS[name][1], "launches": launches[name],
                 "parity": "bit-equal", "max_abs_err": parity[name],
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": _bound_ms(nbytes),
-                "bound_by": "bytes", "bound_bytes": nbytes,
-                "library_ms": None, **extra}
+                "ms": s["ms"], "plain_ms": s["plain_ms"],
+                "bound_ms": s["bound_ms_row_length"], "bound_by": "bytes",
+                "bound_bytes": s["bound_bytes_row_length"],
+                "library_ms": None, "ms_without_deg": s["ms_without_deg"],
+                "bound_ms_all_columns": s["bound_ms"],
+                "launch_floor_ms": floor_ms}
 
-    h = shapes[0]
-    return [
-        entry("ell_hindex", "src/repro/kernels/ell_hindex.py:117", h["ms"],
-              h["plain_ms"], h["bound_bytes"], shapes=shapes),
-        entry("ell_frontier", "src/repro/kernels/ell_frontier.py:107", fk, fp,
-              f_bytes),
-    ]
+    return [dict(entry("ell_hindex", shapes[0]), shapes=shapes),
+            dict(entry("ell_frontier", fshapes[0]), shapes=fshapes)]
 
 
 def combine_timing(g, fields, parity, launches):
@@ -1065,15 +1170,7 @@ def dense_timing(g, core, window, parity, launches):
             bound_bytes=nbytes, bound_ms_bytes=_bound_ms(nbytes),
             bound_ops=nops, bound_ms_ops=nops / BF16_OPS_PER_S * 1e3))
 
-    us = torch.tensor([u for u, _, _ in window], device=dev)
-    vs = torch.tensor([v for _, v, _ in window], device=dev)
-    cols = torch.arange(R, device=dev)
-    ks = torch.minimum(core[us], core[vs])
-    elig = (core[:, None] == ks[None, :]) & g.node_mask[:, None]
-    roots = torch.zeros((N, R), dtype=torch.bool, device=dev)
-    roots[us, cols] = True
-    roots[vs, cols] = True
-    f = (roots & elig).contiguous()
+    f, elig, _ = _first_hop(g, core, window)
     fb = f.to(torch.bfloat16)
     ones = torch.ones(N, dtype=torch.bool, device=dev)
     io = N * (3 * R + 1)  # f, eligible, visited read; out written

@@ -41,10 +41,10 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: the kernel sources, by name (csrc/<name>.cu), with the argument types of
 #: each one's C launch function `<name>_launch` (it returns a cudaError_t)
 SOURCES = {
-    # nbr, est, out, n_rows, ld, C, stream
-    "ell_hindex": (_P, _P, _P, _L, _I, _I, _P),
-    # nbr, f, eligible, visited, out, n_rows, ld, C, R, stream
-    "ell_frontier": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
+    # nbr, est, deg (or NULL), out, n_rows, ld, C, stream
+    "ell_hindex": (_P, _P, _P, _P, _L, _I, _I, _P),
+    # nbr, f, eligible, visited, deg (or NULL), out, n_rows, ld, C, R, stream
+    "ell_frontier": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
     # nbr, field, out, n_rows, ld, C, stream
     "ell_cc": (_P, _P, _P, _L, _I, _I, _P),
     "ell_pagerank": (_P, _P, _P, _L, _I, _I, _P),

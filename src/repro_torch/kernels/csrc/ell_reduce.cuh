@@ -1,13 +1,15 @@
 // ell_reduce.cuh — the warp-level row reductions of the ELL kernels.
 //
-// Every ELL kernel of the port gives one warp to one row of nbr and lets
+// Most ELL kernels of the port give one warp to one row of nbr and let
 // lane l take the slots j = l, l + 32, l + 64, ... in ascending order.  The
 // reductions below are the only code that turns those per-lane partials
-// into a row's result.  The standalone kernels (ell_cc.cu, ell_pagerank.cu,
-// ell_hindex.cu) and the fused ell_multi.cu call the same functions in the
-// same order, so a fused output is bit-identical to its standalone kernel,
-// the float sum included.  `warp_shape` sizes the launch of every kernel
-// whose warps keep per-row arrays in shared memory.
+// into a row's result.  The standalone kernels (ell_cc.cu, ell_pagerank.cu)
+// and the fused ell_multi.cu call the same functions in the same order, so
+// a fused output is bit-identical to its standalone kernel, the float sum
+// included.  ell_hindex.cu packs short rows into groups of lanes and uses
+// the histogram for its long rows; its integers equal the histogram's.
+// `warp_shape` sizes the launch of every kernel whose warps keep per-row
+// arrays in shared memory.
 
 #pragma once
 

@@ -15,7 +15,11 @@ updates with different k levels.
 ``uint8`` views, which copy nothing — and runs the plain PyTorch version,
 `frontier_step_ell_plain`, on CPU tensors; any other device raises.  It
 replaces the TPU kernel `frontier_step_ell` of the JAX package's
-`kernels/ell_frontier.py`.  R is not padded.
+`kernels/ell_frontier.py`.  R is not padded.  `deg` (optional, (N,)
+int32, each row's count of valid slots, a `GraphBlocks`' ``deg``) lets
+the kernel stop a row at its length — on left-filled rows it reads
+``nbr[u, :min(deg[u], C)]`` — and never changes the result; the plain
+version takes it and does not need it.
 """
 from __future__ import annotations
 
@@ -24,13 +28,16 @@ from typing import Optional
 import torch
 
 from . import _build
-from .ell_hindex import columns, on_cuda
+from .ell_hindex import check_deg, columns, deg_ptr, on_cuda
 
 
 def frontier_step_ell_plain(nbr: torch.Tensor, f: torch.Tensor,
                             eligible: torch.Tensor, visited: torch.Tensor,
-                            K: Optional[int] = None) -> torch.Tensor:
-    """The plain PyTorch version: gather whole frontier rows, OR, mask."""
+                            K: Optional[int] = None,
+                            deg: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """The plain PyTorch version: gather whole frontier rows, OR, mask.
+    `deg` is accepted and not read: the value does not depend on it."""
     N = nbr.shape[0]
     C = columns(nbr.shape[1], K)
     f_pad = torch.cat([f.to(torch.bool),
@@ -56,15 +63,18 @@ def _check(nbr, f, eligible, visited) -> None:
 
 def frontier_step_ell(nbr: torch.Tensor, f: torch.Tensor,
                       eligible: torch.Tensor, visited: torch.Tensor,
-                      K: Optional[int] = None) -> torch.Tensor:
+                      K: Optional[int] = None,
+                      deg: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Next frontier (N, R) bool for frontiers f (N, R) bool.
 
-    eligible, visited: (N, R) bool.  CUDA tensors launch the CUDA kernel
-    (and bump `frontier_step_ell.launches`); CPU tensors take
+    eligible, visited: (N, R) bool; deg: None or (N,) int32 row lengths.
+    CUDA tensors launch the CUDA kernel (and bump
+    `frontier_step_ell.launches`); CPU tensors take
     `frontier_step_ell_plain`.
     """
+    check_deg(nbr, deg)
     if not on_cuda(nbr, "frontier_step_ell"):
-        return frontier_step_ell_plain(nbr, f, eligible, visited, K)
+        return frontier_step_ell_plain(nbr, f, eligible, visited, K, deg)
     _check(nbr, f, eligible, visited)
     N, Cd = nbr.shape
     R = f.shape[1]
@@ -72,8 +82,8 @@ def frontier_step_ell(nbr: torch.Tensor, f: torch.Tensor,
     u8 = torch.uint8
     _build.launch("ell_frontier", nbr.device, nbr.data_ptr(),
                   f.view(u8).data_ptr(), eligible.view(u8).data_ptr(),
-                  visited.view(u8).data_ptr(), out.view(u8).data_ptr(), N, Cd,
-                  columns(Cd, K), R)
+                  visited.view(u8).data_ptr(), deg_ptr(deg),
+                  out.view(u8).data_ptr(), N, Cd, columns(Cd, K), R)
     frontier_step_ell.launches += 1
     return out
 

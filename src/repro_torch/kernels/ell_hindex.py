@@ -23,6 +23,13 @@ Column bound K: h(u) <= deg(u), so any K >= max degree is exact when the
 rows are left-filled (valid slots before PAD slots), which the sorted-ELL
 invariant of `core.graph` guarantees.  K = None reads all Cd columns and
 assumes nothing about slot order.  No padding of N or Cd is needed.
+
+Row lengths: the "sort" kernel also takes `deg`, each row's count of
+valid slots (a `GraphBlocks`' ``deg``).  With it a row stops once it has
+seen min(deg[u], valid slots of its first C columns) valid slots, which
+on left-filled rows is exactly ``nbr[u, :min(deg[u], C)]``; the result
+is the same for any slot order.  The plain versions and the "count"
+kernel take `deg` and do not need it.
 """
 from __future__ import annotations
 
@@ -65,8 +72,10 @@ def hindex_rows(vals: torch.Tensor) -> torch.Tensor:
 
 
 def hindex_ell_plain(nbr: torch.Tensor, est: torch.Tensor,
-                     K: Optional[int] = None) -> torch.Tensor:
-    """The plain PyTorch version: gather the first C columns, sort, count."""
+                     K: Optional[int] = None,
+                     deg: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain PyTorch version: gather the first C columns, sort, count.
+    `deg` is accepted and not read: the value does not depend on it."""
     C = columns(nbr.shape[1], K)
     return hindex_rows(ell_gather(nbr[:, :C], est.to(torch.int32)))
 
@@ -94,6 +103,22 @@ def check_field(nbr: torch.Tensor, field: torch.Tensor,
     take)."""
     if nbr.dim() != 2 or nbr.dtype != torch.int32 or not nbr.is_contiguous():
         raise ValueError("nbr must be a contiguous (N, Cd) int32 tensor")
+    _check_vector(nbr, field, dtype, name)
+
+
+def check_deg(nbr: torch.Tensor, deg: Optional[torch.Tensor]) -> None:
+    """Raise unless `deg` is None or a contiguous (N,) int32 tensor on
+    nbr's device (the row lengths the kernels take), on every device."""
+    if deg is not None:
+        _check_vector(nbr, deg, torch.int32, "deg")
+
+
+def deg_ptr(deg: Optional[torch.Tensor]) -> Optional[int]:
+    """The kernels' `deg` argument: its address, or NULL for None."""
+    return None if deg is None else deg.data_ptr()
+
+
+def _check_vector(nbr, field, dtype, name) -> None:
     if field.shape != (nbr.shape[0],) or field.dtype != dtype \
             or not field.is_contiguous():
         raise ValueError(f"{name} must be a contiguous ({nbr.shape[0]},) "
@@ -112,21 +137,25 @@ def on_cuda(nbr: torch.Tensor, kernel: str) -> bool:
 
 
 def hindex_ell(nbr: torch.Tensor, est: torch.Tensor,
-               K: Optional[int] = None, variant: str = "sort") -> torch.Tensor:
+               K: Optional[int] = None, variant: str = "sort",
+               deg: Optional[torch.Tensor] = None) -> torch.Tensor:
     """h-index of every row of `nbr` over `est`: (N,) int32.
 
     CUDA tensors launch the variant's CUDA kernel ("sort" bumps
     `hindex_ell.launches`, "count" `hindex_count_ell.launches`); CPU
-    tensors take the variant's plain version.
+    tensors take the variant's plain version.  `deg` (optional, (N,)
+    int32, each row's valid slots) lets the "sort" kernel stop each row
+    at its length; it never changes the result.
     """
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; expected one of "
                          f"{VARIANTS}")
+    check_deg(nbr, deg)
     if variant == "count":
         return hindex_count_ell(nbr, est, K)
     if not on_cuda(nbr, "hindex_ell"):
-        return hindex_ell_plain(nbr, est, K)
-    out = _launch("ell_hindex", nbr, est, K)
+        return hindex_ell_plain(nbr, est, K, deg)
+    out = _launch("ell_hindex", nbr, est, K, deg_ptr(deg))
     hindex_ell.launches += 1
     return out
 
@@ -144,11 +173,12 @@ def hindex_count_ell(nbr: torch.Tensor, est: torch.Tensor,
 
 
 def _launch(kernel: str, nbr: torch.Tensor, est: torch.Tensor,
-            K: Optional[int]) -> torch.Tensor:
+            K: Optional[int], *deg) -> torch.Tensor:
+    """Launch `kernel` on (nbr, est[, deg address]) into a new (N,) int32."""
     check_field(nbr, est)
     N, Cd = nbr.shape
     out = torch.empty(N, dtype=torch.int32, device=nbr.device)
-    _build.launch(kernel, nbr.device, nbr.data_ptr(), est.data_ptr(),
+    _build.launch(kernel, nbr.device, nbr.data_ptr(), est.data_ptr(), *deg,
                   out.data_ptr(), N, Cd, columns(Cd, K))
     return out
 

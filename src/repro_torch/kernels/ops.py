@@ -195,11 +195,12 @@ def hindex_blocks(g, est: torch.Tensor, backend: str = "auto",
                   variant: str = "sort") -> torch.Tensor:
     """h-index of neighbor estimates for every node, via the chosen backend.
 
-    g: a GraphBlocks (duck-typed: .nbr, .device, .N, .Cd); est: (N,)
-    int32.  Returns (N,) int32 — h[u] = h-index of {est[v] : v ~ u}, 0
-    for neighborless rows.  K (optional) is the column bound of the "ell"
-    path (see `degree_bound`; None reads all Cd columns) and the threshold
-    bound of the "dense" path (None: Cd + 1, exact because h <= deg <= Cd).
+    g: a GraphBlocks (duck-typed: .nbr, .deg, .device, .N, .Cd); est:
+    (N,) int32.  Returns (N,) int32 — h[u] = h-index of {est[v] : v ~ u},
+    0 for neighborless rows.  K (optional) is the column bound of the
+    "ell" path (see `degree_bound`; None reads all Cd columns, each row up
+    to its length `g.deg`) and the threshold bound of the "dense" path
+    (None: Cd + 1, exact because h <= deg <= Cd).
     Loops over the dense backend densify once and pass `adj` (see
     `dense_adj`).  `variant` picks the "ell" kernel ("sort" or "count").
     """
@@ -207,7 +208,7 @@ def hindex_blocks(g, est: torch.Tensor, backend: str = "auto",
     if b == "torch":
         return ref.ell_hindex_ref(g.nbr, est)
     if b == "ell":
-        return hindex_ell(g.nbr, est, K=K, variant=variant)
+        return hindex_ell(g.nbr, est, K=K, variant=variant, deg=g.deg)
     if adj is None:
         adj = ref.ell_to_dense(g.nbr, g.N)
     return hindex(adj, est, K=g.Cd + 1 if K is None else K)
@@ -231,10 +232,11 @@ def frontier_blocks(g, f: torch.Tensor, eligible: torch.Tensor,
 
     f, visited: (N, R) bool; eligible: (N,) shared or (N, R) per column.
     Returns the next frontier as (N, R) bool.  K bounds the columns the
-    "ell" path reads.  Loops over the dense backend densify once and pass
-    `adj`; its kernel takes one eligibility per node, so the per-column
-    mask is folded into `visited` (a node ineligible for column r can
-    never enter it) and all nodes are passed as eligible.
+    "ell" path reads, and each row stops at its length `g.deg`.  Loops
+    over the dense backend densify once and pass `adj`; its kernel takes
+    one eligibility per node, so the per-column mask is folded into
+    `visited` (a node ineligible for column r can never enter it) and all
+    nodes are passed as eligible.
     """
     elig = _eligible_cols(eligible, f)
     b = resolve_backend(backend, g.device)
@@ -242,7 +244,7 @@ def frontier_blocks(g, f: torch.Tensor, eligible: torch.Tensor,
         return ref.ell_frontier_hop_ref(g.nbr, f, elig, visited)
     if b == "ell":
         return frontier_step_ell(g.nbr, f.contiguous(), elig.contiguous(),
-                                 visited.contiguous(), K=K)
+                                 visited.contiguous(), K=K, deg=g.deg)
     if adj is None:
         adj = ref.ell_to_dense(g.nbr, g.N)
     ones = torch.ones(g.N, dtype=torch.bool, device=g.device)
@@ -342,14 +344,15 @@ def _combine_torch(nbr: torch.Tensor, field: torch.Tensor,
 
 
 def _combine_ell(nbr: torch.Tensor, field: torch.Tensor, combine: str,
-                 K: Optional[int]) -> torch.Tensor:
-    """Whole-graph gather + reduce via the ELL kernels."""
+                 K: Optional[int], deg: torch.Tensor) -> torch.Tensor:
+    """Whole-graph gather + reduce via the ELL kernels; "hindex" stops each
+    row at its length `deg`."""
     if combine == "min":
         return neighbor_min_ell(nbr, field, K=K)
     if combine == "sum":
         return neighbor_sum_ell(nbr, field, K=K)
     if combine == "hindex":
-        return hindex_ell(nbr, field, K=K)
+        return hindex_ell(nbr, field, K=K, deg=deg)
     if combine == "count_common":
         return neighbor_common_ell(nbr, field, K=K)
     raise _unknown(combine)
@@ -399,7 +402,8 @@ def neighbor_combine_blocks(
 ) -> torch.Tensor:
     """One gather + reduce superstep of a named combine, via a backend.
 
-    field: (N,) values for "min"/"sum"/"hindex", (N, Cd) neighbor rows for
+    g: a GraphBlocks (duck-typed: .nbr, .deg, .device, .Cd).  field: (N,)
+    values for "min"/"sum"/"hindex", (N, Cd) neighbor rows for
     "count_common".  K (optional) bounds the columns the "ell" path reads.
     Loops over the dense backend densify once and pass `adj`.
     """
@@ -407,7 +411,7 @@ def neighbor_combine_blocks(
     if b == "torch":
         return _combine_torch(g.nbr, field, combine)
     if b == "ell":
-        return _combine_ell(g.nbr, field, combine, K)
+        return _combine_ell(g.nbr, field, combine, K, g.deg)
     if adj is None:
         adj = ref.ell_to_dense(g.nbr, g.N)
     return _combine_dense(adj, field, combine, g.Cd)

@@ -190,3 +190,51 @@ def test_apply_updates_rejects_duplicate_missing_and_capacity():
             mod.apply_updates_host(tg if mod is tupd else jg,
                                    [(full, other, 1)])
 
+
+
+def _assert_row_lengths(g):
+    """The invariant the kernels' row-length stop relies on: deg[u] is
+    row u's count of valid slots and they come first,
+    ``nbr[u, :deg[u]] >= 0`` and ``nbr[u, deg[u]:] == PAD``; deg is a
+    contiguous int32 tensor on the graph's device."""
+    assert g.deg.dtype == torch.int32 and g.deg.is_contiguous()
+    assert g.deg.device == g.nbr.device
+    nbr, deg = np_of(g.nbr), np_of(g.deg)
+    np.testing.assert_array_equal(deg, (nbr >= 0).sum(axis=1))
+    left = np.arange(nbr.shape[1])[None, :] < deg[:, None]
+    assert (nbr[left] >= 0).all() and (nbr[~left] == tgraph.PAD).all()
+
+
+def _mutations(tg, seed, n=4):
+    """n inserts and n deletes of each scenario, sampled from tg."""
+    return [up for scen in ("intra", "inter")
+            for up in (tupd.sample_insertions(tg, n, scen, seed=seed)
+                       + tupd.sample_deletions(tg, n, scen, seed=seed + 1))]
+
+
+@pytest.mark.parametrize("path", ["build_blocks", "build_ell_random",
+                                  "insert_delete_edge", "apply_updates_host",
+                                  "run_stream"])
+def test_row_lengths_hold_on_every_mutation_path(path):
+    """deg equals the valid slots of each row, all on the left, after each
+    path that builds or changes a graph (the ELL kernels take g.deg)."""
+    from repro_torch.core import coreness
+    from repro_torch.runtime import run_stream
+
+    if path == "build_ell_random":
+        _assert_row_lengths(tgraph.build_ell_random(300, Cd=12, seed=4,
+                                                    device=CPU))
+        return
+    tg, _ = _graphs(60, 9)
+    _assert_row_lengths(tg)
+    ups = _mutations(tg, seed=9)
+    if path == "insert_delete_edge":
+        for u, v, op in ups:
+            (tgraph.insert_edge if op > 0 else tgraph.delete_edge)(tg, u, v)
+            _assert_row_lengths(tg)
+    elif path == "apply_updates_host":
+        _assert_row_lengths(tupd.apply_updates_host(tg, ups))
+    elif path == "run_stream":
+        res = run_stream(tg, coreness(tg), ups, R=4)
+        _assert_row_lengths(res.g)
+        assert res.stats.updates == len(ups)

@@ -11,9 +11,11 @@ sums to ``rtol=1e-6`` (the two sum in different orders).
 
 Cases: K = Cd on rows whose valid slots are shuffled (PAD anywhere);
 K < Cd on sorted, left-filled rows; Cd in {1, 37, 130}; R in {1, 8, 13};
-empty and full rows.  The CUDA kernels themselves are held against the
-plain versions, on the same cases, by the tests marked `cuda` (they skip
-without a GPU).
+empty and full rows; `hindex_ell` and `frontier_step_ell` with the row
+lengths `deg` and without (the same output).  The CUDA kernels
+themselves are held against the plain versions, on the same cases and on
+rows longer than `ell_hindex`'s register paths (Cd = 300), by the tests
+marked `cuda` (they skip without a GPU).
 """
 import numpy as np
 import pytest
@@ -61,6 +63,11 @@ def _rows(N, Cd, seed, shuffled, max_deg=None, empty=0.15, full=0.15):
         else:
             nbr[i, :deg[i]] = ids
     return nbr
+
+
+def _row_lengths(nbr):
+    """deg: each row's count of valid slots, as a GraphBlocks keeps it."""
+    return (nbr >= 0).sum(axis=1).astype(np.int32)
 
 
 def _est(N, seed):
@@ -167,6 +174,54 @@ def test_frontier_plain_equals_reference(N, Cd, R, K, shuffled, max_deg):
         ref.ell_frontier_hop_ref(*(torch.as_tensor(a)
                                    for a in (nbr, f, elig, vis))).numpy(),
         oracle)
+
+
+@pytest.mark.parametrize("N,Cd,K,shuffled,max_deg", HINDEX_CASES)
+def test_hindex_with_deg_equals_reference(N, Cd, K, shuffled, max_deg):
+    """The row lengths change nothing: with deg, equal to the call without
+    it and to the JAX package's kernel."""
+    nbr = _rows(N, Cd, N + Cd, shuffled, max_deg)
+    tn, te = torch.as_tensor(nbr), torch.as_tensor(_est(N, Cd))
+    deg = torch.as_tensor(_row_lengths(nbr))
+    got = hindex_ell(tn, te, K=K, deg=deg)
+    assert torch.equal(got, hindex_ell(tn, te, K=K))
+    assert torch.equal(got, hindex_ell_plain(tn, te, K, deg))
+    assert torch.equal(got, hindex_ell(tn, te, K=K, variant="count", deg=deg))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jops.hindex_ell(
+        jnp.asarray(nbr), jnp.asarray(te.numpy()), interpret=True, K=K)))
+
+
+@pytest.mark.parametrize("N,Cd,R,K,shuffled,max_deg", FRONTIER_CASES)
+def test_frontier_with_deg_equals_reference(N, Cd, R, K, shuffled, max_deg):
+    nbr = _rows(N, Cd, N + R, shuffled, max_deg)
+    f, elig, vis = _masks(N, R, R)
+    args = [torch.as_tensor(a) for a in (nbr, f, elig, vis)]
+    deg = torch.as_tensor(_row_lengths(nbr))
+    got = frontier_step_ell(*args, K=K, deg=deg)
+    assert torch.equal(got, frontier_step_ell(*args, K=K))
+    assert torch.equal(got, frontier_step_ell_plain(*args, K, deg))
+    want = np.asarray(jops.frontier_step_ell(
+        jnp.asarray(nbr), jnp.asarray(f), jnp.asarray(elig),
+        jnp.asarray(vis), interpret=True, K=K)) > 0
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "device", "strided"])
+def test_wrappers_reject_bad_deg(bad):
+    """A deg the kernels cannot take raises, on the CPU path too."""
+    N = 6
+    nbr = torch.as_tensor(_rows(N, 4, 1, False))
+    est = torch.zeros(N, dtype=torch.int32)
+    m = torch.zeros((N, 2), dtype=torch.bool)
+    deg = {"shape": torch.zeros(N + 1, dtype=torch.int32),
+           "dtype": torch.zeros(N, dtype=torch.int64),
+           "device": torch.zeros(N, dtype=torch.int32, device="meta"),
+           "strided": torch.zeros(2 * N, dtype=torch.int32)[::2]}[bad]
+    for call in (lambda: hindex_ell(nbr, est, deg=deg),
+                 lambda: hindex_ell(nbr, est, variant="count", deg=deg),
+                 lambda: frontier_step_ell(nbr, m, m, m, deg=deg)):
+        with pytest.raises(ValueError, match="deg"):
+            call()
 
 
 def test_registry_resolution():
@@ -362,10 +417,11 @@ def test_combine_registry_equals_reference():
     nbr = _rows(60, 37, 9, True)
     fi, ff = _fields(60, 9)
 
-    class G:  # the registry duck-types on .nbr and .device
+    class G:  # the registry duck-types on .nbr, .deg and .device
         pass
     g = G()
     g.nbr, g.device = torch.as_tensor(nbr), torch.device("cpu")
+    g.deg = torch.as_tensor(_row_lengths(nbr))
     for combine, field in (("min", fi), ("sum", ff), ("hindex", fi),
                            ("count_common", nbr)):
         got = ops.neighbor_combine_blocks(g, torch.as_tensor(field), combine)
@@ -428,6 +484,47 @@ def test_frontier_kernel_equals_plain(N, Cd, R, K, shuffled, max_deg):
     torch.cuda.synchronize()
     assert frontier_step_ell.launches == before + 1
     assert torch.equal(got, frontier_step_ell_plain(nbr, f, elig, vis, K))
+
+
+#: rows longer than the 256 columns `ell_hindex` keeps in a warp's
+#: registers (Cd = 300; the full rows hold 300 slots), and K past 256
+LONG_CASES = [(320, 300, None, True, None), (320, 300, None, False, None),
+              (320, 300, 270, False, None), (320, 300, 257, True, None)]
+
+
+@needs_cuda
+@pytest.mark.parametrize("N,Cd,K,shuffled,max_deg", HINDEX_CASES + LONG_CASES)
+def test_hindex_kernel_with_deg_equals_plain(N, Cd, K, shuffled, max_deg):
+    nbr = _rows(N, Cd, N + Cd, shuffled, max_deg)
+    deg = torch.as_tensor(_row_lengths(nbr)).cuda()
+    nbr = torch.as_tensor(nbr).cuda()
+    est = torch.as_tensor(_est(N, Cd)).cuda()
+    before = hindex_ell.launches
+    got = hindex_ell(nbr, est, K=K, deg=deg)
+    torch.cuda.synchronize()
+    assert hindex_ell.launches == before + 1
+    assert torch.equal(got, hindex_ell_plain(nbr, est, K))
+    assert torch.equal(got, hindex_ell(nbr, est, K=K))
+
+
+@needs_cuda
+@pytest.mark.parametrize("R", [1, 8, 13])
+@pytest.mark.parametrize("N,Cd,K,shuffled,max_deg",
+                         [c[:2] + c[3:] for c in FRONTIER_CASES] + LONG_CASES)
+def test_frontier_kernel_with_deg_equals_plain(N, Cd, K, shuffled, max_deg,
+                                               R):
+    nbr = _rows(N, Cd, N + R, shuffled, max_deg)
+    deg = torch.as_tensor(_row_lengths(nbr)).cuda()
+    nbr = torch.as_tensor(nbr).cuda()
+    rng = np.random.default_rng(R)  # a sparse frontier: most rows miss
+    f, elig, vis = (torch.as_tensor(rng.random((N, R)) < p).cuda()
+                    for p in (0.03, 0.7, 0.2))
+    before = frontier_step_ell.launches
+    got = frontier_step_ell(nbr, f, elig, vis, K=K, deg=deg)
+    torch.cuda.synchronize()
+    assert frontier_step_ell.launches == before + 1
+    assert torch.equal(got, frontier_step_ell_plain(nbr, f, elig, vis, K))
+    assert torch.equal(got, frontier_step_ell(nbr, f, elig, vis, K=K))
 
 
 @needs_cuda
