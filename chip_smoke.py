@@ -24,8 +24,14 @@ Phases (each raises on failure; the script then exits non-zero):
    `ell_allpairs` (the "allpairs" triangle variant, also equal to the
    "merge" kernel); `ell_cc` with random ints and CC labels;
    `ell_pagerank` with PageRank contributions and random floats;
-   `ell_multi` with ("hindex", "min", "sum") and each alone, also
-   bit-equal to the standalone kernels; `ell_triangles` with rows = nbr.
+   `ell_multi` with ("hindex", "min", "sum"), each alone and ("sum",
+   "hindex"), every output bit-equal to its standalone kernel, and
+   `ell_triangles` with rows = nbr, a copy of nbr and a duplicate-id
+   field; both with the row lengths `deg` and without, on DS1 (sorted
+   and shuffled, K = Cd and the degree bound) and on the hand-made graph
+   (the triangles' full 300-slot rows fill more than one of a warp's hash
+   tables), the sum also on order-exposing floats (1e8 beside 1.0, -0.0),
+   bit for bit against `ell_pagerank`.
    Bit-equal, except the float sum: allclose(rtol=1e-5, atol=1e-9)
    against `torch.sum`'s order.
 3. dense parity: the two dense kernels against their plain versions on
@@ -55,7 +61,8 @@ Phases (each raises on failure; the script then exits non-zero):
 7. scale: a 2^21-node random ELL graph (Cd = 32, ~256 MB of nbr): static
    coreness and a 64-update intra-block stream, then CC, PageRank and
    triangle counts, held the same way (the dense adjacency would be
-   8.8 TB there).
+   8.8 TB there); then `ell_multi` and `ell_triangles` timed there, with
+   `deg` and without (its nbr does not fit the L2).
 8. timing: each kernel and its plain version at the main path's shapes
    (`ell_hindex` at both: the stream's K = Cd and the static fixpoint's
    degree bound, and `ell_frontier` at the first hop, R = 8 and R = 1,
@@ -64,7 +71,9 @@ Phases (each raises on failure; the script then exits non-zero):
    launch floor: one one-element PyTorch op timed the same way;
    `kcore_hindex` at both, K = 150 and 128; `frontier` on
    the main path's folded masks and with every row live; the combines
-   and the two variants at the analytics shapes; `torch.sparse.mm`
+   and the two variants at the analytics shapes, `ell_multi` and the
+   whole `ell_triangles` wrapper with `deg` and without, beside the same
+   two bounds and the launch floor; `torch.sparse.mm`
    beside the sum, and a product-only `torch.matmul` beside the two dense
    kernels), by CUDA events between 20 back-to-back calls after warm-up,
    the median, beside the bytes bound at 3.35 TB/s and, where it is the
@@ -158,8 +167,10 @@ def main() -> int:
     g, core_plain = ds1_graph(dev)
     ups = sample_stream(g, DS1_UPDATES // 4, seed0=2)
     parity = kernel_parity(g, core_plain, dev, ups[:R])
-    parity.update(combine_parity(g, core_plain, dev))
-    parity.update(dense_parity(g, core_plain, dev))
+    for part in (combine_parity(g, core_plain, dev),
+                 dense_parity(g, core_plain, dev)):
+        for name, e in part.items():  # the largest error over every phase
+            parity[name] = max(parity.get(name, 0), e)
     launches, hindex_split, plain = _drive(g, ups, "main_path_ds1")
     launches.update(_drive_dense(g, ups, plain))
     launches_an, fields, plain_an = _analytics(g, "analytics_ds1", core_plain,
@@ -167,9 +178,10 @@ def main() -> int:
     _analytics_dense(g, plain_an)
     launches_an.update(variants_phase(g, core_plain, plain["steps"],
                                       plain_an["tri"]))
-    scale_phase(dev)
+    scale = scale_phase(dev)
     kernels = timing(g, core_plain, ups[:R], parity, launches, hindex_split)
-    kernels += combine_timing(g, fields, parity, launches_an)
+    kernels += combine_timing(g, fields, parity, launches_an,
+                              kernels[0]["launch_floor_ms"], scale)
     kernels += dense_timing(g, core_plain, ups[:R], parity, launches)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -265,6 +277,7 @@ def kernel_parity(g, core, dev, window):
     two redesigned kernels with the row lengths `deg` and without.
     `window` is the stream's first window (the first-hop masks).  Returns
     {kernel name: max |kernel - plain| over all cases} (0)."""
+    import numpy as np
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.ell_frontier import (
@@ -356,29 +369,125 @@ def kernel_parity(g, core, dev, window):
         err["ell_frontier"] = max(err["ell_frontier"], e)
         if not torch.equal(got, want):
             raise AssertionError(f"ell_frontier differs from plain on {name}")
+    gen_np = np.random.default_rng(15)
+    e_fields = {"hindex": e_est,
+                "min": torch.as_tensor(gen_np.integers(
+                    -5, e_nbr.shape[0] + 5, e_nbr.shape[0],
+                    dtype=np.int32)).to(dev),
+                "sum": _order_floats(e_nbr.shape[0], gen_np, dev)}
+    e_dup = _dup_field(e_nbr.shape, gen_np, dev)
+    fused_cases = []
+    for an, nb in (("edge", e_nbr), ("edge/shuffled", e_shuf)):
+        for K in (None, 64, 257):
+            fused_cases += _fused_parity(nb, e_deg, K, e_fields, e_dup,
+                                         f"{an}/K={K}", err,
+                                         sum_vs_plain=False)
     emit(phase="kernel_parity", hindex_cases=[c[0] for c in cases],
          frontier_cases=[c[0] for c in f_cases],
-         allpairs_cases=[c[0] for c in tri_cases], max_abs_err=err)
+         allpairs_cases=[c[0] for c in tri_cases],
+         multi_triangles_cases=fused_cases, max_abs_err=err)
     return err
+
+
+def _order_floats(n, rng, dev):
+    """float32 values whose row sums depend on the order of the additions:
+    1e8 beside 1.0, both signs, 3e-8 and -0.0."""
+    import numpy as np
+    import torch
+
+    vals = np.array([1e8, -1e8, 1.0, -1.0, 0.5, -0.0, 3e-8], np.float32)
+    return torch.as_tensor(rng.choice(vals, n)).to(dev)
+
+
+def _dup_field(shape, rng, dev):
+    """A row field with duplicate ids and stray negatives (legal in a raw
+    field, not in a validated graph)."""
+    import numpy as np
+    import torch
+
+    n = shape[0]
+    rows = rng.integers(-2, max(2, n // 4), size=shape).astype(np.int32)
+    rows[rng.random(shape) < 0.3] = -1
+    return torch.as_tensor(rows).to(dev)
+
+
+def _fused_parity(nb, deg, K, fields, dup, name, err, sum_vs_plain=True):
+    """`ell_multi` and `ell_triangles` on adjacency `nb` at column bound K,
+    with the row lengths `deg` and without, against their plain versions:
+    every fused output bit-equal to its standalone kernel (the float sum
+    bit for bit to `neighbor_sum_ell`), min and hindex bit-equal to plain,
+    the sum within SUM_TOL of plain (unless `sum_vs_plain` is False: an
+    order-exposing sum field, whose value depends on the order of the
+    additions, which torch.sum does not share); the triangle counts
+    bit-equal to plain on rows = nb (the same tensor, so `deg` bounds the
+    field's rows too), on a copy of nb (read over its C columns) and on the
+    duplicate-id field `dup`.  Updates `err` (the sum's error against plain
+    for ell_multi) and returns the case names."""
+    import torch
+    from repro_torch.kernels.ell_cc import neighbor_min_ell
+    from repro_torch.kernels.ell_hindex import hindex_ell
+    from repro_torch.kernels.ell_multi import (
+        neighbor_multi_ell, neighbor_multi_ell_plain)
+    from repro_torch.kernels.ell_pagerank import neighbor_sum_ell
+    from repro_torch.kernels.ell_triangles import (
+        neighbor_common_ell, neighbor_common_ell_plain)
+
+    alone = {"min": neighbor_min_ell, "sum": neighbor_sum_ell,
+             "hindex": hindex_ell}
+    names = []
+    for combines in (("hindex", "min", "sum"), ("hindex",), ("min",),
+                     ("sum",), ("sum", "hindex")):
+        fs = [fields[c] for c in combines]
+        want = neighbor_multi_ell_plain(nb, fs, combines, K)
+        for dn, d in (("", None), ("/deg", deg)):
+            got = neighbor_multi_ell(nb, fs, combines, K, deg=d)
+            for c, f, g_, w in zip(combines, fs, got, want):
+                if not torch.equal(g_.view(torch.int32),
+                                   alone[c](nb, f, K).view(torch.int32)):
+                    raise AssertionError(f"ell_multi {c} != standalone "
+                                         f"kernel: {name}{dn} {combines}")
+                if c == "sum":
+                    if not sum_vs_plain:
+                        continue
+                    err["ell_multi"] = max(err.get("ell_multi", 0.0),
+                                           float((g_ - w).abs().max()))
+                    ok = torch.allclose(g_, w, **SUM_TOL)
+                else:
+                    ok = torch.equal(g_, w)
+                if not ok:
+                    raise AssertionError(f"ell_multi {c} differs from plain: "
+                                         f"{name}{dn} {combines}")
+        names.append(f"multi/{name}/{'+'.join(combines)}")
+    for fn, rows in (("rows=nbr", nb), ("rows=copy", nb.clone()),
+                     ("rows=dup", dup)):
+        want = neighbor_common_ell_plain(nb, rows, K)
+        for dn, d in (("", None), ("/deg", deg)):
+            got = neighbor_common_ell(nb, rows, K, deg=d)
+            if not torch.equal(got, want):
+                raise AssertionError(f"ell_triangles differs from plain: "
+                                     f"{name}{dn} {fn}")
+        names.append(f"triangles/{name}/{fn}")
+    err.setdefault("ell_triangles", 0)
+    torch.cuda.synchronize()
+    return names
 
 
 def combine_parity(g, core, dev):
     """The four combine kernels against their plain versions on the card,
     on the DS1 adjacency and its rows shuffled, at K = Cd and at the degree
-    bound.  Returns {kernel name: max |kernel - plain| over all cases}."""
+    bound; `ell_multi` and `ell_triangles` with the row lengths `deg` and
+    without (`_fused_parity`), also on order-exposing floats and a
+    duplicate-id field.  Returns {kernel name: max |kernel - plain| over
+    all cases}."""
+    import numpy as np
     import torch
     from repro_torch.core import connected_components, pagerank
     from repro_torch.core.algorithms import PageRankProgram
     from repro_torch.kernels import ops
     from repro_torch.kernels.ell_cc import (
         neighbor_min_ell, neighbor_min_ell_plain)
-    from repro_torch.kernels.ell_hindex import hindex_ell
-    from repro_torch.kernels.ell_multi import (
-        neighbor_multi_ell, neighbor_multi_ell_plain)
     from repro_torch.kernels.ell_pagerank import (
         neighbor_sum_ell, neighbor_sum_ell_plain)
-    from repro_torch.kernels.ell_triangles import (
-        neighbor_common_ell, neighbor_common_ell_plain)
 
     gen = torch.Generator(device=dev).manual_seed(1)
     nbr, N, Cd = g.nbr, g.N, g.Cd
@@ -393,11 +502,12 @@ def combine_parity(g, core, dev):
     floats = {"pagerank_contrib": PageRankProgram._contrib(g.deg, rank),
               "random": torch.rand(N, generator=gen, device=dev)}
     adj = {"sorted": nbr, "shuffled": shuffled}
+    rng = np.random.default_rng(1)
+    order_floats = _order_floats(N, rng, dev)
+    dup = _dup_field((N, Cd), rng, dev)
     Ks = {"K=Cd": None, "K=degree_bound": ops.degree_bound(g)}
     err = dict.fromkeys(("ell_cc", "ell_pagerank", "ell_multi",
                          "ell_triangles"), 0.0)
-    alone = {"min": neighbor_min_ell, "sum": neighbor_sum_ell,
-             "hindex": hindex_ell}
     cases = []
     for (an, nb), (kn, K) in ((a, k) for a in adj.items() for k in Ks.items()):
         for fn, f in ints.items():
@@ -416,28 +526,11 @@ def combine_parity(g, core, dev):
                                      f"{kn} {fn}")
         host = {"hindex": core, "min": ints["cc_labels"],
                 "sum": floats["pagerank_contrib"]}
-        for combines in (("hindex", "min", "sum"), ("hindex",), ("min",),
-                         ("sum",)):
-            fields = [host[c] for c in combines]
-            got = neighbor_multi_ell(nb, fields, combines, K)
-            want = neighbor_multi_ell_plain(nb, fields, combines, K)
-            for c, f, g_, w in zip(combines, fields, got, want):
-                if not torch.equal(g_, alone[c](nb, f, K)):
-                    raise AssertionError(f"ell_multi {c} != standalone kernel:"
-                                         f" {an} {kn} {combines}")
-                ok = torch.allclose(g_, w, **SUM_TOL) if c == "sum" \
-                    else torch.equal(g_, w)
-                if not ok:
-                    raise AssertionError(f"ell_multi {c} differs from plain: "
-                                         f"{an} {kn} {combines}")
-                if c == "sum":
-                    err["ell_multi"] = max(err["ell_multi"],
-                                           float((g_ - w).abs().max()))
-        got = neighbor_common_ell(nb, nb, K)
-        if not torch.equal(got, neighbor_common_ell_plain(nb, nb, K)):
-            raise AssertionError(
-                f"ell_triangles differs from plain: {an} {kn}")
-        cases.append(f"{an}/{kn}")
+        cases += _fused_parity(nb, g.deg, K, host, dup, f"{an}/{kn}", err)
+        order = dict(host, sum=order_floats)
+        cases += _fused_parity(nb, g.deg, K, order, dup,
+                               f"{an}/{kn}/order_floats", err,
+                               sum_vs_plain=False)
     torch.cuda.synchronize()
     emit(phase="combine_parity", cases=cases, ints=sorted(ints),
          floats=sorted(floats), sum_tol=SUM_TOL, max_abs_err=err)
@@ -613,7 +706,13 @@ def _drive_dense(g, ups, plain):
 
 
 def scale_phase(dev):
+    """A 2^21-node random ELL graph: the main path and the analytics
+    through the kernels, held against the plain backend; then `ell_multi`
+    and `ell_triangles` timed there (`_fused_timing`; its nbr, 256 MiB,
+    does not fit the 50 MB L2).  Returns those timings."""
+    import torch
     from repro_torch.core import build_ell_random
+    from repro_torch.core.algorithms import INT32_MAX, PageRankProgram
 
     t0 = time.perf_counter()
     g = build_ell_random(2 ** SCALE_LOG2_N, Cd=32, seed=0, m_factor=4.0,
@@ -622,7 +721,14 @@ def scale_phase(dev):
     emit(phase="scale_graph", N=g.N, Cd=g.Cd, nbr_bytes=g.nbr.numel() * 4,
          max_degree=int(g.deg.max()), host_seconds=time.perf_counter() - t0)
     _drive(g, ups, "scale_random_2^%d" % SCALE_LOG2_N)
-    _analytics(g, "analytics_scale_2^%d" % SCALE_LOG2_N)
+    _, fields, _ = _analytics(g, "analytics_scale_2^%d" % SCALE_LOG2_N)
+    lab = torch.where(g.node_mask, fields["labels"], INT32_MAX)
+    contrib = PageRankProgram._contrib(g.deg, fields["rank"])
+    # the h-index field is est = degrees, the static fixpoint's first step
+    shapes = _fused_timing(g, (g.deg, lab, contrib), _launch_floor_ms(dev))
+    emit(phase="scale_timing", order="without deg, with deg, with deg, "
+         "without deg", shapes=shapes)
+    return shapes
 
 
 def _close(a, b, what, tol=RANK_TOL):
@@ -873,6 +979,68 @@ def _time_pair(kernel, plain, plain_reps=20):
     return min(k1, k2), min(p1, _time_ms(plain, **kw))
 
 
+def _launch_floor_ms(dev) -> float:
+    """What any launch costs on this card: one one-element PyTorch op
+    (`add_`) timed as a kernel, the smaller of two medians."""
+    import torch
+
+    one = torch.zeros(1, device=dev)
+    return min(_time_ms(lambda: one.add_(1)) for _ in range(2))
+
+
+def _fused_timing(g, fields, floor_ms):
+    """`ell_multi` on fields (hindex, min, sum) and the whole
+    `ell_triangles` wrapper on rows = nbr, each as the analytics path calls
+    it, with the row lengths `deg` (`ms`), and without (`ms_without_deg`),
+    in turns, beside its plain version and three bounds: the all-columns
+    bound (`bound_ms_all_columns`: the first C = Cd columns of nbr, which a
+    call without deg must read, with the fields and outputs), the
+    row-length bound (`bound_ms_row_length`: every valid slot these inputs
+    need read once, with deg, the fields and the outputs; for the
+    triangles the field is nbr itself, so its valid slots are those bytes)
+    and `launch_floor_ms`.  The triangles' operations: one probe per
+    (u, v, y) triple, at the scalar rate.  Returns {kernel: shape dict}."""
+    import torch
+    from repro_torch.kernels.ell_multi import (
+        neighbor_multi_ell, neighbor_multi_ell_plain)
+    from repro_torch.kernels.ell_triangles import (
+        neighbor_common_ell, neighbor_common_ell_plain)
+
+    N, Cd, nbr, deg = g.N, g.Cd, g.nbr, g.deg
+    valid = nbr >= 0
+    n_valid = int(valid.sum())
+    rdeg = valid.sum(dim=1)
+    triples = int(torch.where(valid, rdeg[nbr.clamp(min=0).long()], 0).sum())
+    vec = N * 4
+    combines = ("hindex", "min", "sum")
+    runs = {
+        # name: (call with deg or None, plain, all-columns bytes,
+        #        row-length bytes, operations)
+        "ell_multi": (
+            lambda d: neighbor_multi_ell(nbr, fields, combines, deg=d),
+            lambda: neighbor_multi_ell_plain(nbr, fields, combines),
+            N * Cd * 4 + 6 * vec, n_valid * 4 + vec + 6 * vec, 0),
+        "ell_triangles": (
+            lambda d: neighbor_common_ell(nbr, nbr, deg=d),
+            lambda: neighbor_common_ell_plain(nbr, nbr),
+            N * Cd * 4 + vec, n_valid * 4 + 2 * vec, triples),
+    }
+    out = {}
+    for name, (call, plain, all_b, row_b, ops_) in runs.items():
+        ms, ms_all = _time_pair(lambda: call(deg), lambda: call(None))
+        plain_ms = min(_time_ms(plain) for _ in range(2))
+        ops_ms = ops_ / SCALAR_OPS_PER_S * 1e3
+        out[name] = dict(
+            N=N, Cd=Cd, valid_slots=n_valid, ms=ms, ms_without_deg=ms_all,
+            plain_ms=plain_ms, bound_bytes_all_columns=all_b,
+            bound_ms_all_columns=max(_bound_ms(all_b), ops_ms),
+            bound_bytes_row_length=row_b,
+            bound_ms_row_length=max(_bound_ms(row_b), ops_ms),
+            bound_by="bytes" if _bound_ms(row_b) >= ops_ms else "operations",
+            bound_ops=ops_, launch_floor_ms=floor_ms)
+    return out
+
+
 def timing(g, core, window, parity, launches, hindex_split):
     """The kernel line: each kernel and its plain version at the main
     path's shapes.
@@ -903,8 +1071,7 @@ def timing(g, core, window, parity, launches, hindex_split):
         columns, hindex_ell, hindex_ell_plain)
 
     N, Cd, nbr, deg = g.N, g.Cd, g.nbr, g.deg
-    one = torch.zeros(1, device=g.device)
-    floor_ms = min(_time_ms(lambda: one.add_(1)) for _ in range(2))
+    floor_ms = _launch_floor_ms(g.device)
     io = N * 4 + N * 4  # est read once, out written once
     shapes = []
     for shape, est, K, n in (
@@ -982,46 +1149,39 @@ def timing(g, core, window, parity, launches, hindex_split):
             dict(entry("ell_frontier", fshapes[0]), shapes=fshapes)]
 
 
-def combine_timing(g, fields, parity, launches):
+def combine_timing(g, fields, parity, launches, floor_ms, scale):
     """The four combine kernels at the analytics shapes the runner gives
     them (K = None: every one of the Cd columns, PAD may sit anywhere),
-    each beside its plain version and a bytes bound that counts every input
-    once and every output once; `ell_pagerank` also beside
-    `torch.sparse.mm` of the CSR adjacency by the field (the CSR is built
-    outside the timed region).  `ell_triangles` also gets an operations
-    bound: each element of a row probed into each neighbour's row by two
-    binary searches over C entries, counted at the scalar float32 rate.
-    Its `ms` is the launch alone on the rows sorted beforehand (inputs nbr
-    and the sorted copy); `sort_ms` is the wrapper's key-and-sort of the
-    rows and `wrapper_ms` the whole wrapper, sort and launch.  The two
-    variants run at the same shape: `ell_hindex_count` on the coreness
-    (operations: C compares per valid slot) and `ell_allpairs` on
-    rows = nbr (operations: |u's row| compares per valid element of each
-    valid neighbour's row, which its compaction reaches); their launches
-    are `variants_phase`'s."""
-    import math
+    each beside its plain version.  `ell_cc` and `ell_pagerank` beside a
+    bytes bound that counts every input once and every output once;
+    `ell_pagerank` also beside `torch.sparse.mm` of the CSR adjacency by the
+    field (the CSR is built outside the timed region).  `ell_multi` and
+    `ell_triangles` (the whole wrapper, rows = nbr) as the analytics path
+    calls them, with the row lengths `deg`, and without, beside the
+    all-columns bound, the row-length bound and the launch floor
+    `floor_ms` (`_fused_timing`), on DS1 and on the 2^21 scale graph
+    (`scale`, from `scale_phase`).  The two variants run at the same shape:
+    `ell_hindex_count` on the coreness (operations: C compares per valid
+    slot) and `ell_allpairs` on rows = nbr (operations: |u's row| compares
+    per valid element of each valid neighbour's row, which its compaction
+    reaches); their launches are `variants_phase`'s."""
     import warnings
 
     import torch
     from repro_torch.core.algorithms import INT32_MAX, PageRankProgram
     from repro_torch.kernels.ell_cc import (
         neighbor_min_ell, neighbor_min_ell_plain)
-    from repro_torch.kernels.ell_multi import (
-        neighbor_multi_ell, neighbor_multi_ell_plain)
     from repro_torch.kernels.ell_pagerank import (
         neighbor_sum_ell, neighbor_sum_ell_plain)
     from repro_torch.kernels.ell_hindex import (
         hindex_count_ell, hindex_count_ell_plain)
     from repro_torch.kernels.ell_triangles import (
-        common_allpairs_ell, common_allpairs_ell_plain, common_sorted_ell,
-        neighbor_common_ell, neighbor_common_ell_plain)
-    from repro_torch.kernels.ref import key_sort_rows
+        common_allpairs_ell, common_allpairs_ell_plain)
 
     N, Cd, nbr = g.N, g.Cd, g.nbr
     lab = torch.where(g.node_mask, fields["labels"], INT32_MAX)
     contrib = PageRankProgram._contrib(g.deg, fields["rank"])
     core = fields["core"]
-    combines = ("hindex", "min", "sum")
     valid = nbr >= 0
     rows, cols = torch.nonzero(valid, as_tuple=True)
     with warnings.catch_warnings():  # CSR support is "beta" in PyTorch
@@ -1035,9 +1195,7 @@ def combine_timing(g, fields, parity, launches):
     sp_err = float((torch.sparse.mm(csr, x)[:, 0]
                     - neighbor_sum_ell(nbr, contrib)).abs().max())
     deg = valid.sum(dim=1)
-    probes = int((deg * deg).sum()) * 2 * max(1, math.ceil(math.log2(Cd + 1)))
     nbr_b, vec = N * Cd * 4, N * 4
-    keyed = key_sort_rows(nbr)  # the triangle wrapper's sorted copy, once
     n_valid = int(valid.sum())
     nb_deg = torch.where(valid, deg[nbr.clamp(min=0).long()], 0).sum(dim=1)
     pair_ops = int((deg * nb_deg).sum())  # the compacted all-pairs match
@@ -1049,14 +1207,6 @@ def combine_timing(g, fields, parity, launches):
         "ell_pagerank": (lambda: neighbor_sum_ell(nbr, contrib),
                          lambda: neighbor_sum_ell_plain(nbr, contrib),
                          nbr_b + 2 * vec, 0, 20),
-        "ell_multi": (
-            lambda: neighbor_multi_ell(nbr, (core, lab, contrib), combines),
-            lambda: neighbor_multi_ell_plain(nbr, (core, lab, contrib),
-                                             combines),
-            nbr_b + 6 * vec, 0, 20),
-        "ell_triangles": (lambda: common_sorted_ell(nbr, keyed),
-                          lambda: neighbor_common_ell_plain(nbr, nbr),
-                          2 * nbr_b + vec, probes, 20),
         "ell_hindex_count": (lambda: hindex_count_ell(nbr, core),
                              lambda: hindex_count_ell_plain(nbr, core),
                              nbr_b + 2 * vec, n_valid * Cd, 20),
@@ -1069,39 +1219,44 @@ def combine_timing(g, fields, parity, launches):
                              "sibling": "ell_hindex"},
         "ell_allpairs": {"ops_uncompacted": n_valid * Cd * Cd,
                          "sibling": "ell_triangles"}}
-    if not torch.equal(common_sorted_ell(nbr, keyed),
-                       neighbor_common_ell(nbr, nbr)):
-        raise AssertionError("ell_triangles: launch alone != wrapper")
-    tri_split = dict(sort_ms=_time_ms(lambda: key_sort_rows(nbr)),
-                     wrapper_ms=_time_ms(lambda: neighbor_common_ell(nbr,
-                                                                     nbr)))
     out, shapes = [], {}
+
+    def entry(name, **rest):
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "replaces": KERNELS[name][1], "launches": launches[name],
+                "parity": "allclose" if name == "ell_pagerank" else "bit-equal",
+                "max_abs_err": parity[name], **rest}
+
     for name, (kern, plain, nbytes, ops_, plain_reps) in runs.items():
         ms, plain_ms = _time_pair(kern, plain, plain_reps)
         bytes_ms = _bound_ms(nbytes)
         ops_ms = ops_ / SCALAR_OPS_PER_S * 1e3
         shapes[name] = dict(ms=ms, plain_ms=plain_ms, bound_bytes=nbytes,
-                            bound_ops=ops_)
-        extra = tri_split if name == "ell_triangles" else \
-            variant_extra.get(name, {})
-        shapes[name].update(extra)
-        out.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": KERNELS[name][1], "launches": launches[name],
-            "parity": "allclose" if name == "ell_pagerank" else "bit-equal",
+                            bound_ops=ops_, **variant_extra.get(name, {}))
+        out.append(entry(
+            name, ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            bound_bytes=nbytes, bound_ops=ops_,
+            library_ms=lib_ms if name == "ell_pagerank" else None,
+            **variant_extra.get(name, {})))
+    fused = _fused_timing(g, (core, lab, contrib), floor_ms)
+    for name, s in fused.items():
+        shapes[name] = {"ds1": s, "scale_2^%d" % SCALE_LOG2_N: scale[name]}
+        out.append(entry(
+            name, ms=s["ms"], plain_ms=s["plain_ms"],
+            bound_ms=s["bound_ms_row_length"], bound_by=s["bound_by"],
+            bound_bytes=s["bound_bytes_row_length"], bound_ops=s["bound_ops"],
+            library_ms=None, ms_without_deg=s["ms_without_deg"],
+            bound_ms_all_columns=s["bound_ms_all_columns"],
+            launch_floor_ms=floor_ms, shapes=shapes[name],
             **({"parity_detail": "every output bit-equal to its standalone "
                 "kernel; min and hindex bit-equal to plain; max_abs_err is "
-                "the sum's against plain"} if name == "ell_multi" else {}),
-            "max_abs_err": parity[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bound_bytes": nbytes, "bound_ops": ops_,
-            "library_ms": lib_ms if name == "ell_pagerank" else None,
-            **extra})
-    emit(phase="combine_timing", order="plain,kernel,kernel,plain", N=N,
-         Cd=Cd, K=None, valid_slots=n_valid, shapes=shapes,
-         sparse_mm_ms=lib_ms, sparse_mm_max_abs_err_vs_kernel=sp_err)
+                "the sum's against plain"} if name == "ell_multi" else {})))
+    emit(phase="combine_timing", order="plain,kernel,kernel,plain; "
+         "without deg, with deg, with deg, without deg", N=N, Cd=Cd, K=None,
+         valid_slots=n_valid, shapes=shapes, sparse_mm_ms=lib_ms,
+         sparse_mm_max_abs_err_vs_kernel=sp_err)
     return out
 
 

@@ -48,10 +48,12 @@ SOURCES = {
     # nbr, field, out, n_rows, ld, C, stream
     "ell_cc": (_P, _P, _P, _L, _I, _I, _P),
     "ell_pagerank": (_P, _P, _P, _L, _I, _I, _P),
-    # nbr, in0..in2, out0..out2, code0..code2, k, n_rows, ld, C, stream
-    "ell_multi": (_P,) + (_P,) * 6 + (_I,) * 4 + (_L, _I, _I, _P),
-    # nbr, keyed sorted rows, out, n_rows, ld, C, stream
-    "ell_triangles": (_P, _P, _P, _L, _I, _I, _P),
+    # nbr, deg (or NULL), in0..in2, out0..out2, code0..code2, k, n_rows,
+    # ld, C, stream
+    "ell_multi": (_P, _P) + (_P,) * 6 + (_I,) * 4 + (_L, _I, _I, _P),
+    # nbr, rows, deg (or NULL), the field's deg (or NULL), out, n_rows, ld,
+    # C, stream
+    "ell_triangles": (_P, _P, _P, _P, _P, _L, _I, _I, _P),
     # nbr, est, out, n_rows, ld, C, stream (the "count" variant)
     "ell_hindex_count": (_P, _P, _P, _L, _I, _I, _P),
     # nbr, rows as given, out, n_rows, ld, C, stream (the "allpairs" variant)

@@ -29,7 +29,8 @@
 //    about one load and one gather of latency.  h is then found by
 //    bisection over [0, n], n the row's valid slots: each probe counts the
 //    lane's values >= k and sums over the group with shuffles —
-//    ceil(log2(n + 1)) probes, no shared memory, no atomics.  The loops
+//    ceil(log2(n + 1)) probes, no shared memory, no atomics
+//    (`ell::reg_hindex_of`, which ell_multi.cu calls too).  The loops
 //    run the warp's largest trip counts, so a warp never diverges.
 //  * Rows of 65 to 32 * kSlots = 256 columns (every row of DS1 without
 //    deg, Cd = 149) are done the same way by the whole warp, one row after
@@ -53,20 +54,6 @@ namespace {
 constexpr int kGroup = 8;                   // lanes per short row
 constexpr int kRowsPerWarp = 32 / kGroup;   // rows per warp
 constexpr int kSlots = 8;                   // register slots per lane
-
-// Sum of x over the W lanes of this lane's group (W a power of two); all
-// 32 lanes call it together.
-template <int W>
-__device__ __forceinline__ int group_sum(int x) {
-  if constexpr (W == 32) {
-    return __reduce_add_sync(ell::kFull, x);
-  } else {
-#pragma unroll
-    for (int off = W / 2; off >= 1; off >>= 1)
-      x += __shfl_xor_sync(ell::kFull, x, off);
-    return x;
-  }
-}
 
 // h-index of the first S columns of row r, for every W-lane group of the
 // warp at once (this lane is lane `gl` of its group; a group with S = 0
@@ -95,22 +82,8 @@ __device__ __forceinline__ int32_t reg_hindex(const int32_t* __restrict__ r,
     c += v[i] >= 0;
     v[i] = v[i] >= 0 ? __ldg(est + v[i]) : 0;
   }
-  *n = group_sum<W>(c);
-  // h in [lo, hi): at most n valid; ceil(log2(n + 1)) halvings, the
-  // warp's most (a group already at hi = lo + 1 probes k = lo and stays)
-  int lo = 0, hi = *n + 1;
-  const int probes = 32 - __clz(__reduce_max_sync(ell::kFull, *n));
-  for (int t = 0; t < probes; ++t) {
-    const int k = (lo + hi) >> 1;
-    c = 0;
-#pragma unroll
-    for (int i = 0; i < kSlots; ++i) {
-      if (i >= steps) break;
-      c += v[i] >= k;
-    }
-    if (group_sum<W>(c) >= k) lo = k; else hi = k;
-  }
-  return lo;
+  *n = ell::group_sum<W>(c);
+  return ell::reg_hindex_of<W, kSlots>(v, steps, *n);
 }
 
 __global__ void ell_hindex_kernel(const int32_t* __restrict__ nbr,

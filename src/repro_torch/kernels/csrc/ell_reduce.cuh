@@ -6,8 +6,10 @@
 // into a row's result.  The standalone kernels (ell_cc.cu, ell_pagerank.cu)
 // and the fused ell_multi.cu call the same functions in the same order, so
 // a fused output is bit-identical to its standalone kernel, the float sum
-// included.  ell_hindex.cu packs short rows into groups of lanes and uses
-// the histogram for its long rows; its integers equal the histogram's.
+// included.  ell_hindex.cu and ell_multi.cu pack short rows into groups of
+// 8 lanes and keep them in registers (`group_sum`, `group_min`,
+// `reg_hindex_of`, `vlane_sum`); long rows take the warp and the histogram.
+// Integers equal the histogram's, and `vlane_sum` gives `warp_sum`'s bits.
 // `warp_shape` sizes the launch of every kernel whose warps keep per-row
 // arrays in shared memory.
 
@@ -74,6 +76,81 @@ __device__ __forceinline__ int32_t hist_hindex(const int32_t* bins, int C,
     above += __shfl_sync(kFull, c, 31);
   }
   return 0;
+}
+
+// --- Rows packed into groups of W lanes (W a power of two, <= 32) --------
+// All 32 lanes call these together; each group reduces its own row.
+
+// Sum of x over this lane's W-lane group.
+template <int W>
+__device__ __forceinline__ int group_sum(int x) {
+  if constexpr (W == 32) {
+    return __reduce_add_sync(kFull, x);
+  } else {
+#pragma unroll
+    for (int off = W / 2; off >= 1; off >>= 1)
+      x += __shfl_xor_sync(kFull, x, off);
+    return x;
+  }
+}
+
+// Min of x over this lane's W-lane group.
+template <int W>
+__device__ __forceinline__ int32_t group_min(int32_t x) {
+  if constexpr (W == 32) {
+    return __reduce_min_sync(kFull, x);
+  } else {
+#pragma unroll
+    for (int off = W / 2; off >= 1; off >>= 1) {
+      const int32_t y = __shfl_xor_sync(kFull, x, off);
+      x = y < x ? y : x;
+    }
+    return x;
+  }
+}
+
+// h-index of a row held in its group's registers: v[i], i < steps, are
+// this lane's gathered values (0 for a PAD or an unused slot: 0 counts for
+// no k >= 1) and n the group's valid slots, so h lies in [0, n].  Bisection
+// over [lo, hi): each probe counts the lane's values >= k and sums over the
+// group; ceil(log2(n + 1)) probes, the warp's most (a group already at
+// hi = lo + 1 probes k = lo and stays), so the warp never diverges.
+template <int W, int kSlots>
+__device__ __forceinline__ int32_t reg_hindex_of(const int32_t (&v)[kSlots],
+                                                 int steps, int n) {
+  int lo = 0, hi = n + 1;
+  const int probes = 32 - __clz(__reduce_max_sync(kFull, n));
+  for (int t = 0; t < probes; ++t) {
+    const int k = (lo + hi) >> 1;
+    int c = 0;
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) {
+      if (i >= steps) break;
+      c += v[i] >= k;
+    }
+    if (group_sum<W>(c) >= k) lo = k; else hi = k;
+  }
+  return lo;
+}
+
+// "sum" of a row packed into 8 lanes, bit-equal to `warp_sum` of the same
+// row laid out one warp per row.  In that layout slot j folds into lane
+// j mod 32 ("its virtual lane"), and the butterfly's stages 16 and 8 leave
+// in lane g < 8 the value (a_g + a_{g+16}) + (a_{g+8} + a_{g+24}), a_l the
+// fold of virtual lane l; stages 4, 2, 1 then stay within lanes 0..7.  Here
+// lane g of the group takes slots j = g + 8 i and folds slot j into
+// acc[i mod 4], the fold of virtual lane g + 8 (i mod 4), in ascending j
+// from 0.0f, skipping PAD (never adding 0.0f for it), exactly as that
+// virtual lane would.  Forming (acc[0] + acc[2]) + (acc[1] + acc[3]) is
+// then the value of stages 16 and 8 in lane g, operand for operand, and
+// the xor shuffles over 4, 2 and 1 stay within the group and pair the same
+// lanes as the warp's last three stages.  IEEE addition is commutative, so
+// every addition takes the same two operands: the bits are the same.
+__device__ __forceinline__ float vlane_sum(const float (&acc)[4]) {
+  float s = (acc[0] + acc[2]) + (acc[1] + acc[3]);
+#pragma unroll
+  for (int off = 4; off >= 1; off >>= 1) s += __shfl_xor_sync(kFull, s, off);
+  return s;
 }
 
 // Launch shape of a kernel that gives each warp (one row) `per_warp` bytes

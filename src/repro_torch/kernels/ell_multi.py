@@ -13,9 +13,15 @@ once and serves 1 to 3 fields from it, each reduced by its combine:
 
 Each CUDA output is bit-identical to the port's standalone kernel for its
 combine (`ell_cc`, `ell_pagerank`, `ell_hindex`), the float sum included:
-`csrc/ell_multi.cu` folds and reduces every field through the same
-functions of `csrc/ell_reduce.cuh`, in the same order.  Likewise the plain
-version's outputs equal the standalone plain versions'.
+`csrc/ell_multi.cu` folds every slot of a row into the accumulator of the
+lane the standalone kernel gives it and reduces through the functions of
+`csrc/ell_reduce.cuh`, so every addition has the same operands.  Likewise
+the plain version's outputs equal the standalone plain versions'.
+
+Row lengths: `deg` (optional, (N,) int32, each row's count of valid
+slots, a `GraphBlocks`' ``deg``) lets the kernel stop each row at its
+length, as `ell_hindex.hindex_ell` does; the result is the same, and the
+plain version takes it and does not read it.
 
 `neighbor_multi_ell` launches the CUDA kernel on CUDA tensors and runs
 `neighbor_multi_ell_plain` on CPU tensors; any other device raises.  It
@@ -30,7 +36,8 @@ import torch
 
 from . import _build, ref
 from .ell_cc import MIN_FILL
-from .ell_hindex import check_field, columns, hindex_rows, on_cuda
+from .ell_hindex import (
+    check_deg, check_field, columns, deg_ptr, hindex_rows, on_cuda)
 
 #: combines the fused kernel serves: (field dtype, PAD fill, kernel code)
 FIELD_SPEC = {
@@ -55,9 +62,11 @@ def _check_combines(fields: Sequence[torch.Tensor],
 def neighbor_multi_ell_plain(
     nbr: torch.Tensor, fields: Sequence[torch.Tensor],
     combines: Sequence[str], K: Optional[int] = None,
+    deg: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """The plain PyTorch version: one clamp and validity mask of the first
-    C columns, then each field's gather and row reduction."""
+    C columns, then each field's gather and row reduction.  `deg` is
+    accepted and not read: the value does not depend on it."""
     _check_combines(fields, combines)
     sub = nbr[:, :columns(nbr.shape[1], K)]
     valid = sub >= 0
@@ -79,15 +88,18 @@ def neighbor_multi_ell_plain(
 def neighbor_multi_ell(
     nbr: torch.Tensor, fields: Sequence[torch.Tensor],
     combines: Sequence[str], K: Optional[int] = None,
+    deg: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """One (N,) reduction per field, off ONE read of `nbr`.
 
     fields: one (N,) tensor per combine (int32 for "min"/"hindex", float32
-    for "sum").  CUDA tensors launch the CUDA kernel (and bump
+    for "sum").  deg: optional (N,) int32 row lengths; they never change
+    the result.  CUDA tensors launch the CUDA kernel (and bump
     `neighbor_multi_ell.launches`); CPU tensors take the plain version.
     """
+    check_deg(nbr, deg)
     if not on_cuda(nbr, "neighbor_multi_ell"):
-        return neighbor_multi_ell_plain(nbr, fields, combines, K)
+        return neighbor_multi_ell_plain(nbr, fields, combines, K, deg)
     _check_combines(fields, combines)
     for c, f in zip(combines, fields):
         check_field(nbr, f, FIELD_SPEC[c][0], f"{c!r} field")
@@ -97,7 +109,7 @@ def neighbor_multi_ell(
                  for c in combines)
     pad = [None] * (MAX_FIELDS - k)  # NULL for the unused slots
     codes = [FIELD_SPEC[c][2] for c in combines] + [0] * (MAX_FIELDS - k)
-    _build.launch("ell_multi", nbr.device, nbr.data_ptr(),
+    _build.launch("ell_multi", nbr.device, nbr.data_ptr(), deg_ptr(deg),
                   *[f.data_ptr() for f in fields], *pad,
                   *[o.data_ptr() for o in outs], *pad,
                   *codes, k, N, Cd, columns(Cd, K))

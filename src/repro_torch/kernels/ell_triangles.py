@@ -14,16 +14,25 @@ undirected graph red[u] is twice the triangles through u.  The
 Two variants compute the same integers, as in the JAX package; both are
 exact for any slot order:
 
-  "merge" (default)  keys PAD to int32 max and sorts the first C columns
-      of each row of the field (a no-op permutation under the sorted-ELL
-      invariant, as in the JAX wrapper), then launches
-      `csrc/ell_triangles.cu` (binary probes into the sorted rows);
-      `common_sorted_ell` is that launch alone, on rows sorted
-      beforehand.  Plain version: `neighbor_common_ell_plain`.
+  "merge" (default)  the JAX package sorts each row of the field and probes
+      it; `csrc/ell_triangles.cu` sorts nothing: it loads u's valid field
+      entries into a hash table of (id, multiplicity) in shared memory and
+      adds mult_u(y) for every valid entry y of each neighbour's row.
+      Plain version: `neighbor_common_ell_plain`.
   "allpairs"  matches every id of u's row against every id of each
       neighbour's row, as given, with no sort: `csrc/ell_allpairs.cu`
       (`common_allpairs_ell`), plain version `common_allpairs_ell_plain`.
       The JAX package keeps it as the yardstick of its kernel sweep.
+
+Row lengths: "merge" takes `deg` (optional, (N,) int32, each row's count
+of valid nbr slots, a `GraphBlocks`' ``deg``).  It bounds the rows of
+`nbr`; it bounds the rows of the field too only when `rows` is `nbr`
+itself, the same memory with the same strides (`field_deg`), as for
+whole-graph triangles, where `TriangleCountProgram.halo_field` hands over
+`g.nbr`.  Any other field is read over its C columns.  The kernel stops
+each row at its length, and a PAD met before it sends the row on to C, so
+the result never depends on `deg`; the plain versions and "allpairs"
+take it and do not read it.
 
 `neighbor_common_ell` launches the variant's CUDA kernel on CUDA tensors
 and runs its plain version on CPU tensors; any other device raises.  Each
@@ -38,7 +47,7 @@ from typing import Optional
 import torch
 
 from . import _build, ref
-from .ell_hindex import columns, on_cuda
+from .ell_hindex import check_deg, columns, deg_ptr, on_cuda
 
 #: the intersection variants
 VARIANTS = ("merge", "allpairs")
@@ -65,49 +74,52 @@ def _check_rows(nbr: torch.Tensor, rows: torch.Tensor) -> None:
 
 
 def neighbor_common_ell_plain(nbr: torch.Tensor, rows: torch.Tensor,
-                              K: Optional[int] = None) -> torch.Tensor:
+                              K: Optional[int] = None,
+                              deg: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
     """The plain PyTorch version: `ref.ell_common_ref` over the first C
-    columns of both (sorted rows, searchsorted bounds, chunked)."""
+    columns of both (sorted rows, searchsorted bounds, chunked).  `deg` is
+    accepted and not read: the value does not depend on it."""
     C = columns(nbr.shape[1], K)
     return ref.ell_common_ref(nbr[:, :C], rows[:, :C])
 
 
+def field_deg(nbr: torch.Tensor, rows: torch.Tensor,
+              deg: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The row lengths of the field: `deg` when `rows` is `nbr` itself
+    (the same memory, shape and strides, so the same rows), else None (the
+    field's rows are read over their C columns)."""
+    same = (rows.data_ptr() == nbr.data_ptr() and rows.shape == nbr.shape
+            and rows.stride() == nbr.stride())
+    return deg if same else None
+
+
 def neighbor_common_ell(nbr: torch.Tensor, rows: torch.Tensor,
-                        K: Optional[int] = None,
-                        variant: str = "merge") -> torch.Tensor:
+                        K: Optional[int] = None, variant: str = "merge",
+                        deg: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Directed common-neighbor counts: (N,) int32.
 
     CUDA tensors launch the variant's CUDA kernel ("merge" bumps
     `neighbor_common_ell.launches`, "allpairs"
     `common_allpairs_ell.launches`); CPU tensors take its plain version.
+    `deg` (optional, (N,) int32 row lengths of `nbr`) lets "merge" stop
+    each row of `nbr`, and of the field when `rows` is `nbr` (`field_deg`),
+    at its length; it never changes the result.
     """
     _check_variant(variant)
+    check_deg(nbr, deg)
     if variant == "allpairs":
         return common_allpairs_ell(nbr, rows, K)
     if not on_cuda(nbr, "neighbor_common_ell"):
-        return neighbor_common_ell_plain(nbr, rows, K)
+        return neighbor_common_ell_plain(nbr, rows, K, deg)
     _check_rows(nbr, rows)
-    return common_sorted_ell(
-        nbr, ref.key_sort_rows(rows[:, :columns(nbr.shape[1], K)]))
-
-
-def common_sorted_ell(nbr: torch.Tensor, keyed: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel alone, on a row field already keyed and sorted
-    (`ref.key_sort_rows` of its first C columns, C <= Cd): (N,) int32.
-
-    `neighbor_common_ell` calls it after its sort; it bumps
-    `neighbor_common_ell.launches`.  CUDA tensors only.
-    """
+    fdeg = field_deg(nbr, rows, deg)
+    rows = rows.contiguous()
     N, Cd = nbr.shape
-    if keyed.dim() != 2 or keyed.shape[0] != N or keyed.shape[1] > Cd \
-            or keyed.dtype != torch.int32 or keyed.device != nbr.device:
-        raise ValueError(f"keyed must be an (N={N}, C<={Cd}) int32 tensor on "
-                         f"{nbr.device}, got {tuple(keyed.shape)} "
-                         f"{keyed.dtype} on {keyed.device}")
-    keyed = keyed.contiguous()
     out = torch.empty(N, dtype=torch.int32, device=nbr.device)
     _build.launch("ell_triangles", nbr.device, nbr.data_ptr(),
-                  keyed.data_ptr(), out.data_ptr(), N, Cd, keyed.shape[1])
+                  rows.data_ptr(), deg_ptr(deg), deg_ptr(fdeg),
+                  out.data_ptr(), N, Cd, columns(Cd, K))
     neighbor_common_ell.launches += 1
     return out
 

@@ -345,8 +345,8 @@ def _combine_torch(nbr: torch.Tensor, field: torch.Tensor,
 
 def _combine_ell(nbr: torch.Tensor, field: torch.Tensor, combine: str,
                  K: Optional[int], deg: torch.Tensor) -> torch.Tensor:
-    """Whole-graph gather + reduce via the ELL kernels; "hindex" stops each
-    row at its length `deg`."""
+    """Whole-graph gather + reduce via the ELL kernels; "hindex" and
+    "count_common" stop each row at its length `deg`."""
     if combine == "min":
         return neighbor_min_ell(nbr, field, K=K)
     if combine == "sum":
@@ -354,7 +354,7 @@ def _combine_ell(nbr: torch.Tensor, field: torch.Tensor, combine: str,
     if combine == "hindex":
         return hindex_ell(nbr, field, K=K, deg=deg)
     if combine == "count_common":
-        return neighbor_common_ell(nbr, field, K=K)
+        return neighbor_common_ell(nbr, field, K=K, deg=deg)
     raise _unknown(combine)
 
 
@@ -502,7 +502,8 @@ def run_block_program(
         elif b == "torch":
             red = neighbor_multi_ell_plain(g.nbr, field, program.combines)
         elif b == "ell":
-            red = neighbor_multi_ell(g.nbr, field, program.combines)
+            red = neighbor_multi_ell(g.nbr, field, program.combines,
+                                     deg=ctx.deg)
         else:  # one resident adjacency serves every field
             red = tuple(_combine_dense(adj, f, c, g.Cd)
                         for c, f in zip(program.combines, field))

@@ -11,11 +11,12 @@ sums to ``rtol=1e-6`` (the two sum in different orders).
 
 Cases: K = Cd on rows whose valid slots are shuffled (PAD anywhere);
 K < Cd on sorted, left-filled rows; Cd in {1, 37, 130}; R in {1, 8, 13};
-empty and full rows; `hindex_ell` and `frontier_step_ell` with the row
-lengths `deg` and without (the same output).  The CUDA kernels
-themselves are held against the plain versions, on the same cases and on
-rows longer than `ell_hindex`'s register paths (Cd = 300), by the tests
-marked `cuda` (they skip without a GPU).
+empty and full rows; `hindex_ell`, `frontier_step_ell`,
+`neighbor_multi_ell` and `neighbor_common_ell` with the row lengths `deg`
+and without (the same output).  The CUDA kernels themselves are held
+against the plain versions, on the same cases and on rows longer than the
+kernels' register paths (Cd = 300), by the tests marked `cuda` (they skip
+without a GPU).
 """
 import numpy as np
 import pytest
@@ -33,13 +34,14 @@ from repro_torch.kernels.ell_cc import (
 from repro_torch.kernels.ell_frontier import (
     frontier_step_ell, frontier_step_ell_plain)
 from repro_torch.kernels.ell_hindex import (
-    hindex_count_ell, hindex_count_ell_plain, hindex_ell, hindex_ell_plain)
+    columns, hindex_count_ell, hindex_count_ell_plain, hindex_ell,
+    hindex_ell_plain)
 from repro_torch.kernels.ell_multi import (
     neighbor_multi_ell, neighbor_multi_ell_plain)
 from repro_torch.kernels.ell_pagerank import (
     neighbor_sum_ell, neighbor_sum_ell_plain)
 from repro_torch.kernels.ell_triangles import (
-    common_allpairs_ell, common_allpairs_ell_plain, common_sorted_ell,
+    common_allpairs_ell, common_allpairs_ell_plain, field_deg,
     neighbor_common_ell, neighbor_common_ell_plain)
 
 
@@ -413,6 +415,93 @@ def test_allpairs_plain_chunks_equal_one_pass(monkeypatch):
     assert torch.equal(common_allpairs_ell_plain(nbr, rows), want)
 
 
+def _bad_degs(nbr):
+    """deg tensors the wrappers must refuse: wrong shape, dtype, device."""
+    N = nbr.shape[0]
+    return (torch.zeros(N + 1, dtype=torch.int32),
+            torch.zeros(N, dtype=torch.int64),
+            torch.zeros(N, dtype=torch.int32, device="meta"))
+
+
+def test_multi_and_common_reject_bad_deg():
+    nbr = torch.as_tensor(_rows(12, 5, 3, True))
+    f = torch.zeros(12, dtype=torch.int32)
+    for deg in _bad_degs(nbr):
+        for call in (lambda: neighbor_multi_ell(nbr, (f,), ("min",), deg=deg),
+                     lambda: neighbor_common_ell(nbr, nbr, deg=deg),
+                     lambda: neighbor_common_ell(nbr, nbr, variant="allpairs",
+                                                 deg=deg)):
+            with pytest.raises(ValueError, match="deg"):
+                call()
+
+
+@pytest.mark.parametrize("N,Cd,K,shuffled,max_deg", COMBINE_CASES[:4])
+def test_multi_plain_ignores_deg(N, Cd, K, shuffled, max_deg):
+    nbr = _rows(N, Cd, N + Cd, shuffled, max_deg)
+    deg = torch.as_tensor(_row_lengths(nbr))
+    fi, ff = _fields(N, Cd)
+    fields = (torch.as_tensor(_est(N, Cd)), torch.as_tensor(fi),
+              torch.as_tensor(ff))
+    combines = ("hindex", "min", "sum")
+    tn = torch.as_tensor(nbr)
+    want = neighbor_multi_ell_plain(tn, fields, combines, K)
+    for got in (neighbor_multi_ell_plain(tn, fields, combines, K, deg),
+                neighbor_multi_ell(tn, fields, combines, K, deg=deg)):
+        for g_, w in zip(got, want):
+            assert torch.equal(g_, w)
+
+
+@pytest.mark.parametrize("N,Cd,K,shuffled,max_deg", COMMON_CASES)
+def test_common_plain_ignores_deg(N, Cd, K, shuffled, max_deg):
+    nbr = _rows(N, Cd, N + Cd, shuffled == True, max_deg)  # noqa: E712
+    rows = _dup_rows(N, Cd, N) if shuffled == "dup" else nbr
+    deg = torch.as_tensor(_row_lengths(nbr))
+    tn, tr = torch.as_tensor(nbr), torch.as_tensor(rows)
+    want = neighbor_common_ell_plain(tn, tr, K)
+    assert torch.equal(neighbor_common_ell_plain(tn, tr, K, deg), want)
+    assert torch.equal(neighbor_common_ell(tn, tr, K, deg=deg), want)
+    assert torch.equal(neighbor_common_ell(tn, tr, K, variant="allpairs",
+                                           deg=deg), want)
+
+
+def _stop_rows(nbr, deg, C):
+    """The first C columns of each row as a row-length stop reads them:
+    every slot after the one where `deg` valid slots were seen is PAD (a
+    PAD before that point only sends the stop further on)."""
+    sub = nbr[:, :C]
+    valid = (sub >= 0).to(torch.int32)
+    before = valid.cumsum(dim=1) - valid
+    return torch.where(before < deg[:, None], sub, torch.full_like(sub, -1))
+
+
+@pytest.mark.parametrize("shuffled", [False, True, "dup"])
+def test_common_field_deg_rule(shuffled):
+    """`deg` bounds the field's rows only when the field is nbr itself; the
+    stop that rule allows gives the counts of the full read, on sorted,
+    shuffled and duplicate-id inputs; bounding a field that is not nbr by
+    nbr's lengths would not."""
+    N, Cd = 60, 16
+    nbr = _rows(N, Cd, 11, shuffled == True, 10)  # noqa: E712
+    deg = torch.as_tensor(_row_lengths(nbr))
+    tn = torch.as_tensor(nbr)
+    rows = torch.as_tensor(_dup_rows(N, Cd, 12)) if shuffled == "dup" \
+        else tn
+    fdeg = field_deg(tn, rows, deg)
+    assert (fdeg is deg) == (shuffled != "dup")
+    assert field_deg(tn, tn.clone(), deg) is None       # other memory
+    assert field_deg(tn, tn[:, :Cd - 1], deg) is None   # other shape
+    for K in (None, 12):
+        C = columns(Cd, K)
+        want = neighbor_common_ell_plain(tn, rows, K)
+        stopped_rows = rows if fdeg is None else _stop_rows(rows, fdeg, C)
+        got = neighbor_common_ell_plain(_stop_rows(tn, deg, C), stopped_rows)
+        assert torch.equal(got, want)
+        if shuffled == "dup":
+            wrong = neighbor_common_ell_plain(_stop_rows(tn, deg, C),
+                                              _stop_rows(rows, deg, C))
+            assert not torch.equal(wrong, want)
+
+
 def test_combine_registry_equals_reference():
     nbr = _rows(60, 37, 9, True)
     fi, ff = _fields(60, 9)
@@ -577,10 +666,84 @@ def test_common_kernel_equals_plain(N, Cd, K, shuffled, max_deg):
     torch.cuda.synchronize()
     assert neighbor_common_ell.launches == before + 1
     assert torch.equal(got, neighbor_common_ell_plain(nbr, rows, K))
-    C = rows.shape[1] if K is None else min(K, rows.shape[1])
-    alone = common_sorted_ell(nbr, ref.key_sort_rows(rows[:, :C]))
-    assert neighbor_common_ell.launches == before + 2
-    assert torch.equal(alone, got)
+    # an independent kernel: "allpairs" sorts nothing and matches all pairs
+    assert torch.equal(got, common_allpairs_ell(nbr, rows, K))
+    assert neighbor_common_ell.launches == before + 1
+
+
+@needs_cuda
+@pytest.mark.parametrize("combines", MULTI_COMBINES)
+@pytest.mark.parametrize("N,Cd,K,shuffled,max_deg",
+                         COMBINE_CASES + LONG_CASES)
+def test_multi_kernel_with_deg_equals_plain(N, Cd, K, shuffled, max_deg,
+                                            combines):
+    nbr = _rows(N, Cd, N + Cd, shuffled, max_deg)
+    deg = torch.as_tensor(_row_lengths(nbr)).cuda()
+    nbr = torch.as_tensor(nbr).cuda()
+    fi, ff = (torch.as_tensor(a).cuda() for a in _fields(N, Cd))
+    host = {"min": fi, "sum": ff,
+            "hindex": torch.as_tensor(_est(N, Cd)).cuda()}
+    fields = [host[c] for c in combines]
+    before = neighbor_multi_ell.launches
+    got = neighbor_multi_ell(nbr, fields, combines, K, deg=deg)
+    torch.cuda.synchronize()
+    assert neighbor_multi_ell.launches == before + 1
+    alone = {"min": neighbor_min_ell, "sum": neighbor_sum_ell,
+             "hindex": hindex_ell}
+    plain = neighbor_multi_ell_plain(nbr, fields, combines, K)
+    without = neighbor_multi_ell(nbr, fields, combines, K)
+    for c, f, g_, p, w in zip(combines, fields, got, plain, without):
+        assert torch.equal(g_, alone[c](nbr, f, K)), c  # bit-equal, sum too
+        assert torch.equal(g_, w), c
+        torch.testing.assert_close(g_, p, rtol=1e-5 if c == "sum" else 0,
+                                   atol=1e-9 if c == "sum" else 0)
+
+
+@needs_cuda
+@pytest.mark.parametrize("shuffled", [False, True])
+def test_multi_sum_keeps_the_standalone_fold_order(shuffled):
+    """Fields whose sum depends on the order of its additions (1e8 beside
+    1.0, -0.0, signs mixed) on rows of 31 to 65 slots: the fused sum has
+    the bits of `neighbor_sum_ell`, with `deg` and without."""
+    N, Cd = 256, 80
+    rng = np.random.default_rng(15)
+    deg = np.array([0, 1, 31, 32, 33, 64, 65, 80] * (N // 8))
+    nbr = np.full((N, Cd), -1, np.int32)
+    for u in range(N):
+        ids = np.sort(rng.choice(N, deg[u], replace=False))
+        cols = rng.choice(Cd, deg[u], replace=False) if shuffled \
+            else np.arange(deg[u])
+        nbr[u, cols] = ids
+    field = rng.choice(np.array([1e8, -1e8, 1.0, -1.0, 0.5, -0.0, 3e-8],
+                                np.float32), N)
+    nbr, deg = torch.as_tensor(nbr).cuda(), torch.as_tensor(
+        deg.astype(np.int32)).cuda()
+    field = torch.as_tensor(field).cuda()
+    want = neighbor_sum_ell(nbr, field)
+    for d in (None, deg):
+        got, = neighbor_multi_ell(nbr, (field,), ("sum",), deg=d)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@needs_cuda
+@pytest.mark.parametrize("N,Cd,K,shuffled,max_deg",
+                         COMMON_CASES + LONG_CASES)
+def test_common_kernel_with_deg_equals_plain(N, Cd, K, shuffled, max_deg):
+    nbr = _rows(N, Cd, N + Cd, shuffled == True, max_deg)  # noqa: E712
+    deg = torch.as_tensor(_row_lengths(nbr)).cuda()
+    rows = torch.as_tensor(_dup_rows(N, Cd, N)).cuda() \
+        if shuffled == "dup" else None
+    nbr = torch.as_tensor(nbr).cuda()
+    rows = nbr if rows is None else rows  # whole-graph: the same tensor
+    before = neighbor_common_ell.launches
+    got = neighbor_common_ell(nbr, rows, K, deg=deg)
+    torch.cuda.synchronize()
+    assert neighbor_common_ell.launches == before + 1
+    assert torch.equal(got, neighbor_common_ell_plain(nbr, rows, K))
+    assert torch.equal(got, neighbor_common_ell(nbr, rows, K))
+    # a copy of nbr as the field: its rows are read over their C columns
+    assert torch.equal(got, neighbor_common_ell(nbr, rows.clone(), K,
+                                                deg=deg))
 
 
 @needs_cuda
