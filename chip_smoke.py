@@ -23,12 +23,14 @@ Phases (each raises on failure; the script then exits non-zero):
    register paths);
    `ell_allpairs` (the "allpairs" triangle variant, also equal to the
    "merge" kernel); `ell_cc` with random ints and CC labels;
-   `ell_pagerank` with PageRank contributions and random floats;
-   `ell_multi` with ("hindex", "min", "sum"), each alone and ("sum",
-   "hindex"), every output bit-equal to its standalone kernel, and
+   `ell_pagerank` with PageRank contributions and random floats, its sum
+   bit-equal with `deg` and without; `ell_multi` with ("hindex", "min",
+   "sum"), each alone and ("sum", "hindex"), every output bit-equal to
+   its standalone kernel with the same `deg` and without, and
    `ell_triangles` with rows = nbr, a copy of nbr and a duplicate-id
-   field; both with the row lengths `deg` and without, on DS1 (sorted
-   and shuffled, K = Cd and the degree bound) and on the hand-made graph
+   field; all four with the row lengths `deg` and without, on DS1
+   (sorted, shuffled, and with holes: a PAD inside the `deg` prefix of
+   every 7th row; K = Cd and the degree bound) and on the hand-made graph
    (the triangles' full 300-slot rows fill more than one of a warp's hash
    tables), the sum also on order-exposing floats (1e8 beside 1.0, -0.0),
    bit for bit against `ell_pagerank`.
@@ -61,8 +63,9 @@ Phases (each raises on failure; the script then exits non-zero):
 7. scale: a 2^21-node random ELL graph (Cd = 32, ~256 MB of nbr): static
    coreness and a 64-update intra-block stream, then CC, PageRank and
    triangle counts, held the same way (the dense adjacency would be
-   8.8 TB there); then `ell_multi` and `ell_triangles` timed there, with
-   `deg` and without (its nbr does not fit the L2).
+   8.8 TB there); then `ell_cc`, `ell_pagerank`, `ell_multi` and
+   `ell_triangles` timed there, with `deg` and without (its nbr does not
+   fit the L2).
 8. timing: each kernel and its plain version at the main path's shapes
    (`ell_hindex` at both: the stream's K = Cd and the static fixpoint's
    degree bound, and `ell_frontier` at the first hop, R = 8 and R = 1,
@@ -71,11 +74,12 @@ Phases (each raises on failure; the script then exits non-zero):
    launch floor: one one-element PyTorch op timed the same way;
    `kcore_hindex` at both, K = 150 and 128; `frontier` on
    the main path's folded masks and with every row live; the combines
-   and the two variants at the analytics shapes, `ell_multi` and the
-   whole `ell_triangles` wrapper with `deg` and without, beside the same
-   two bounds and the launch floor; `torch.sparse.mm`
-   beside the sum, and a product-only `torch.matmul` beside the two dense
-   kernels), by CUDA events between 20 back-to-back calls after warm-up,
+   and the two variants at the analytics shapes, `ell_cc`,
+   `ell_pagerank`, `ell_multi` and the whole `ell_triangles` wrapper with
+   `deg` and without, beside the same two bounds and the launch floor,
+   the variants beside both bounds; `torch.sparse.mm` beside the sum, and
+   a product-only `torch.matmul` beside the two dense kernels), by CUDA
+   events between 20 back-to-back calls after warm-up,
    the median, beside the bytes bound at 3.35 TB/s and, where it is the
    larger, the operations bound.
 
@@ -376,16 +380,26 @@ def kernel_parity(g, core, dev, window):
                     dtype=np.int32)).to(dev),
                 "sum": _order_floats(e_nbr.shape[0], gen_np, dev)}
     e_dup = _dup_field(e_nbr.shape, gen_np, dev)
-    fused_cases = []
-    for an, nb in (("edge", e_nbr), ("edge/shuffled", e_shuf)):
+    e_holes = _holes(e_nbr, e_deg)
+    e_rand = torch.rand(e_nbr.shape[0], generator=gen, device=dev)
+    fused_cases, min_sum_cases = [], []
+    for an, nb in (("edge", e_nbr), ("edge/shuffled", e_shuf),
+                   ("edge/holes", e_holes)):
         for K in (None, 64, 257):
             fused_cases += _fused_parity(nb, e_deg, K, e_fields, e_dup,
                                          f"{an}/K={K}", err,
                                          sum_vs_plain=False)
+            min_sum_cases += _min_sum_parity(
+                nb, e_deg, K, {"random": e_fields["min"]},
+                {"random": e_rand}, f"{an}/K={K}", err)
+            min_sum_cases += _min_sum_parity(
+                nb, e_deg, K, {}, {"order_floats": e_fields["sum"]},
+                f"{an}/K={K}", err, sum_vs_plain=False)
     emit(phase="kernel_parity", hindex_cases=[c[0] for c in cases],
          frontier_cases=[c[0] for c in f_cases],
          allpairs_cases=[c[0] for c in tri_cases],
-         multi_triangles_cases=fused_cases, max_abs_err=err)
+         multi_triangles_cases=fused_cases, min_sum_cases=min_sum_cases,
+         max_abs_err=err)
     return err
 
 
@@ -411,11 +425,67 @@ def _dup_field(shape, rng, dev):
     return torch.as_tensor(rows).to(dev)
 
 
+def _min_sum_parity(nb, deg, K, ints, floats, name, err, sum_vs_plain=True):
+    """`ell_cc` and `ell_pagerank` on adjacency `nb` at column bound K, with
+    the row lengths `deg` and without: every min (fields `ints`) bit-equal
+    to plain; every sum (fields `floats`) bit-equal with `deg` and without,
+    and within SUM_TOL of plain (unless `sum_vs_plain` is False: fields
+    whose sums depend on the order of the additions).  Updates `err` (the
+    sum's error against plain) and returns the case names."""
+    import torch
+    from repro_torch.kernels.ell_cc import (
+        neighbor_min_ell, neighbor_min_ell_plain)
+    from repro_torch.kernels.ell_pagerank import (
+        neighbor_sum_ell, neighbor_sum_ell_plain)
+
+    names = []
+    err.setdefault("ell_cc", 0)
+    for fn, f in ints.items():
+        want = neighbor_min_ell_plain(nb, f, K)
+        for dn, d in (("", None), ("/deg", deg)):
+            if not torch.equal(neighbor_min_ell(nb, f, K, deg=d), want):
+                raise AssertionError(f"ell_cc differs from plain: {name}{dn} "
+                                     f"{fn}")
+        names.append(f"min/{name}/{fn}")
+    for fn, f in floats.items():
+        got = neighbor_sum_ell(nb, f, K)
+        if not torch.equal(neighbor_sum_ell(nb, f, K, deg=deg).view(
+                torch.int32), got.view(torch.int32)):
+            raise AssertionError(f"ell_pagerank with deg != without: {name} "
+                                 f"{fn}")
+        if sum_vs_plain:
+            want = neighbor_sum_ell_plain(nb, f, K)
+            err["ell_pagerank"] = max(err.get("ell_pagerank", 0.0),
+                                      float((got - want).abs().max()))
+            if not torch.allclose(got, want, **SUM_TOL):
+                raise AssertionError(f"ell_pagerank not close to plain: "
+                                     f"{name} {fn}")
+        names.append(f"sum/{name}/{fn}")
+    torch.cuda.synchronize()
+    return names
+
+
+def _holes(nbr, deg, every=7):
+    """`nbr` (left-filled) with, in every `every`-th row that holds 1 to
+    Cd - 1 valid slots, its first slot moved to the last column: a PAD
+    inside the row's `deg` prefix, so the row is read on past it."""
+    import torch
+
+    N, Cd = nbr.shape
+    out = nbr.clone()
+    rows = torch.arange(0, N, every, device=nbr.device)
+    rows = rows[(deg[rows] > 0) & (deg[rows] < Cd)]
+    out[rows, Cd - 1] = out[rows, 0]
+    out[rows, 0] = -1
+    return out
+
+
 def _fused_parity(nb, deg, K, fields, dup, name, err, sum_vs_plain=True):
     """`ell_multi` and `ell_triangles` on adjacency `nb` at column bound K,
     with the row lengths `deg` and without, against their plain versions:
-    every fused output bit-equal to its standalone kernel (the float sum
-    bit for bit to `neighbor_sum_ell`), min and hindex bit-equal to plain,
+    every fused output bit-equal to its standalone kernel, with the same
+    `deg` and without (the float sum bit for bit to `neighbor_sum_ell`),
+    min and hindex bit-equal to plain,
     the sum within SUM_TOL of plain (unless `sum_vs_plain` is False: an
     order-exposing sum field, whose value depends on the order of the
     additions, which torch.sum does not share); the triangle counts
@@ -442,8 +512,10 @@ def _fused_parity(nb, deg, K, fields, dup, name, err, sum_vs_plain=True):
         for dn, d in (("", None), ("/deg", deg)):
             got = neighbor_multi_ell(nb, fs, combines, K, deg=d)
             for c, f, g_, w in zip(combines, fs, got, want):
-                if not torch.equal(g_.view(torch.int32),
-                                   alone[c](nb, f, K).view(torch.int32)):
+                bits = g_.view(torch.int32)
+                if not (torch.equal(bits, alone[c](nb, f, K).view(torch.int32))
+                        and torch.equal(bits, alone[c](nb, f, K, deg=d).view(
+                            torch.int32))):
                     raise AssertionError(f"ell_multi {c} != standalone "
                                          f"kernel: {name}{dn} {combines}")
                 if c == "sum":
@@ -474,9 +546,11 @@ def _fused_parity(nb, deg, K, fields, dup, name, err, sum_vs_plain=True):
 
 def combine_parity(g, core, dev):
     """The four combine kernels against their plain versions on the card,
-    on the DS1 adjacency and its rows shuffled, at K = Cd and at the degree
-    bound; `ell_multi` and `ell_triangles` with the row lengths `deg` and
-    without (`_fused_parity`), also on order-exposing floats and a
+    on the DS1 adjacency, its rows shuffled and its rows with holes (a PAD
+    inside the `deg` prefix of every 7th row, `_holes`), at K = Cd and at
+    the degree bound, each with the row lengths `deg` and without:
+    `ell_cc` and `ell_pagerank` (`_min_sum_parity`), `ell_multi` and
+    `ell_triangles` (`_fused_parity`), also on order-exposing floats and a
     duplicate-id field.  Returns {kernel name: max |kernel - plain| over
     all cases}."""
     import numpy as np
@@ -484,10 +558,6 @@ def combine_parity(g, core, dev):
     from repro_torch.core import connected_components, pagerank
     from repro_torch.core.algorithms import PageRankProgram
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ell_cc import (
-        neighbor_min_ell, neighbor_min_ell_plain)
-    from repro_torch.kernels.ell_pagerank import (
-        neighbor_sum_ell, neighbor_sum_ell_plain)
 
     gen = torch.Generator(device=dev).manual_seed(1)
     nbr, N, Cd = g.nbr, g.N, g.Cd
@@ -501,7 +571,7 @@ def combine_parity(g, core, dev):
                                      torch.iinfo(torch.int32).max)}
     floats = {"pagerank_contrib": PageRankProgram._contrib(g.deg, rank),
               "random": torch.rand(N, generator=gen, device=dev)}
-    adj = {"sorted": nbr, "shuffled": shuffled}
+    adj = {"sorted": nbr, "shuffled": shuffled, "holes": _holes(nbr, g.deg)}
     rng = np.random.default_rng(1)
     order_floats = _order_floats(N, rng, dev)
     dup = _dup_field((N, Cd), rng, dev)
@@ -510,20 +580,11 @@ def combine_parity(g, core, dev):
                          "ell_triangles"), 0.0)
     cases = []
     for (an, nb), (kn, K) in ((a, k) for a in adj.items() for k in Ks.items()):
-        for fn, f in ints.items():
-            got, want = neighbor_min_ell(nb, f, K), neighbor_min_ell_plain(
-                nb, f, K)
-            if not torch.equal(got, want):
-                raise AssertionError(f"ell_cc differs from plain: {an} {kn} "
-                                     f"{fn}")
-        for fn, f in floats.items():
-            got, want = neighbor_sum_ell(nb, f, K), neighbor_sum_ell_plain(
-                nb, f, K)
-            err["ell_pagerank"] = max(err["ell_pagerank"],
-                                      float((got - want).abs().max()))
-            if not torch.allclose(got, want, **SUM_TOL):
-                raise AssertionError(f"ell_pagerank not close to plain: {an} "
-                                     f"{kn} {fn}")
+        cases += _min_sum_parity(nb, g.deg, K, ints, floats, f"{an}/{kn}",
+                                 err)
+        cases += _min_sum_parity(nb, g.deg, K, {},
+                                 {"order_floats": order_floats},
+                                 f"{an}/{kn}", err, sum_vs_plain=False)
         host = {"hindex": core, "min": ints["cc_labels"],
                 "sum": floats["pagerank_contrib"]}
         cases += _fused_parity(nb, g.deg, K, host, dup, f"{an}/{kn}", err)
@@ -707,9 +768,10 @@ def _drive_dense(g, ups, plain):
 
 def scale_phase(dev):
     """A 2^21-node random ELL graph: the main path and the analytics
-    through the kernels, held against the plain backend; then `ell_multi`
-    and `ell_triangles` timed there (`_fused_timing`; its nbr, 256 MiB,
-    does not fit the 50 MB L2).  Returns those timings."""
+    through the kernels, held against the plain backend; then `ell_cc`,
+    `ell_pagerank`, `ell_multi` and `ell_triangles` timed there
+    (`_deg_timing`; its nbr, 256 MiB, does not fit the 50 MB L2).  Returns
+    those timings."""
     import torch
     from repro_torch.core import build_ell_random
     from repro_torch.core.algorithms import INT32_MAX, PageRankProgram
@@ -725,7 +787,7 @@ def scale_phase(dev):
     lab = torch.where(g.node_mask, fields["labels"], INT32_MAX)
     contrib = PageRankProgram._contrib(g.deg, fields["rank"])
     # the h-index field is est = degrees, the static fixpoint's first step
-    shapes = _fused_timing(g, (g.deg, lab, contrib), _launch_floor_ms(dev))
+    shapes = _deg_timing(g, (g.deg, lab, contrib), _launch_floor_ms(dev))
     emit(phase="scale_timing", order="without deg, with deg, with deg, "
          "without deg", shapes=shapes)
     return shapes
@@ -988,25 +1050,51 @@ def _launch_floor_ms(dev) -> float:
     return min(_time_ms(lambda: one.add_(1)) for _ in range(2))
 
 
-def _fused_timing(g, fields, floor_ms):
-    """`ell_multi` on fields (hindex, min, sum) and the whole
-    `ell_triangles` wrapper on rows = nbr, each as the analytics path calls
-    it, with the row lengths `deg` (`ms`), and without (`ms_without_deg`),
-    in turns, beside its plain version and three bounds: the all-columns
-    bound (`bound_ms_all_columns`: the first C = Cd columns of nbr, which a
-    call without deg must read, with the fields and outputs), the
-    row-length bound (`bound_ms_row_length`: every valid slot these inputs
-    need read once, with deg, the fields and the outputs; for the
-    triangles the field is nbr itself, so its valid slots are those bytes)
-    and `launch_floor_ms`.  The triangles' operations: one probe per
-    (u, v, y) triple, at the scalar rate.  Returns {kernel: shape dict}."""
+def _csr(nbr, N):
+    """The ELL adjacency as a torch CSR matrix of ones (for
+    `torch.sparse.mm`, the library call beside the sum)."""
+    import warnings
+
     import torch
+
+    rows, cols = torch.nonzero(nbr >= 0, as_tuple=True)
+    with warnings.catch_warnings():  # CSR support is "beta" in PyTorch
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_coo_tensor(
+            torch.stack([rows, nbr[rows, cols].long()]),
+            torch.ones(rows.numel(), device=nbr.device),
+            (N, N)).to_sparse_csr()
+
+
+def _deg_timing(g, fields, floor_ms):
+    """The four kernels that take the row lengths, each as the analytics
+    path calls it on graph `g`: `ell_cc` on the min field, `ell_pagerank`
+    on the sum field, `ell_multi` on fields (hindex, min, sum) and the
+    whole `ell_triangles` wrapper on rows = nbr, with the row lengths `deg`
+    (`ms`) and without (`ms_without_deg`), in turns, beside the plain
+    version and three bounds: the all-columns bound
+    (`bound_ms_all_columns`: the first C = Cd columns of nbr, which a call
+    without deg must read, with the fields and outputs), the row-length
+    bound (`bound_ms_row_length`: every valid slot these inputs need read
+    once, with deg, the fields and the outputs; for the triangles the field
+    is nbr itself, so its valid slots are those bytes) and
+    `launch_floor_ms`.  The triangles' operations: one probe per (u, v, y)
+    triple, at the scalar rate.  `ell_pagerank` also beside
+    `torch.sparse.mm` of the CSR adjacency by the field (`library_ms`; the
+    CSR is built outside the timed region).  Returns {kernel: shape
+    dict}."""
+    import torch
+    from repro_torch.kernels.ell_cc import (
+        neighbor_min_ell, neighbor_min_ell_plain)
     from repro_torch.kernels.ell_multi import (
         neighbor_multi_ell, neighbor_multi_ell_plain)
+    from repro_torch.kernels.ell_pagerank import (
+        neighbor_sum_ell, neighbor_sum_ell_plain)
     from repro_torch.kernels.ell_triangles import (
         neighbor_common_ell, neighbor_common_ell_plain)
 
     N, Cd, nbr, deg = g.N, g.Cd, g.nbr, g.deg
+    _, lab, contrib = fields
     valid = nbr >= 0
     n_valid = int(valid.sum())
     rdeg = valid.sum(dim=1)
@@ -1016,6 +1104,14 @@ def _fused_timing(g, fields, floor_ms):
     runs = {
         # name: (call with deg or None, plain, all-columns bytes,
         #        row-length bytes, operations)
+        "ell_cc": (
+            lambda d: neighbor_min_ell(nbr, lab, deg=d),
+            lambda: neighbor_min_ell_plain(nbr, lab),
+            N * Cd * 4 + 2 * vec, n_valid * 4 + vec + 2 * vec, 0),
+        "ell_pagerank": (
+            lambda d: neighbor_sum_ell(nbr, contrib, deg=d),
+            lambda: neighbor_sum_ell_plain(nbr, contrib),
+            N * Cd * 4 + 2 * vec, n_valid * 4 + vec + 2 * vec, 0),
         "ell_multi": (
             lambda d: neighbor_multi_ell(nbr, fields, combines, deg=d),
             lambda: neighbor_multi_ell_plain(nbr, fields, combines),
@@ -1038,6 +1134,13 @@ def _fused_timing(g, fields, floor_ms):
             bound_ms_row_length=max(_bound_ms(row_b), ops_ms),
             bound_by="bytes" if _bound_ms(row_b) >= ops_ms else "operations",
             bound_ops=ops_, launch_floor_ms=floor_ms)
+    csr, x = _csr(nbr, N), contrib[:, None]
+    out["ell_pagerank"]["library_ms"] = _time_ms(
+        lambda: torch.sparse.mm(csr, x))
+    out["ell_pagerank"]["library_max_abs_err_vs_kernel"] = float(
+        (torch.sparse.mm(csr, x)[:, 0]
+         - neighbor_sum_ell(nbr, contrib, deg=deg)).abs().max())
+    del csr
     return out
 
 
@@ -1150,29 +1253,25 @@ def timing(g, core, window, parity, launches, hindex_split):
 
 
 def combine_timing(g, fields, parity, launches, floor_ms, scale):
-    """The four combine kernels at the analytics shapes the runner gives
-    them (K = None: every one of the Cd columns, PAD may sit anywhere),
-    each beside its plain version.  `ell_cc` and `ell_pagerank` beside a
-    bytes bound that counts every input once and every output once;
-    `ell_pagerank` also beside `torch.sparse.mm` of the CSR adjacency by the
-    field (the CSR is built outside the timed region).  `ell_multi` and
-    `ell_triangles` (the whole wrapper, rows = nbr) as the analytics path
-    calls them, with the row lengths `deg`, and without, beside the
-    all-columns bound, the row-length bound and the launch floor
-    `floor_ms` (`_fused_timing`), on DS1 and on the 2^21 scale graph
-    (`scale`, from `scale_phase`).  The two variants run at the same shape:
+    """The combine kernels and the two variants at the analytics shapes the
+    runner gives them (K = None: every one of the Cd columns, PAD may sit
+    anywhere), each beside its plain version.  `ell_cc`, `ell_pagerank`,
+    `ell_multi` and `ell_triangles` (the whole wrapper, rows = nbr) as the
+    analytics path calls them, with the row lengths `deg`, and without,
+    beside the all-columns bound, the row-length bound and the launch floor
+    `floor_ms` (`_deg_timing`; `ell_pagerank` also beside `torch.sparse.mm`
+    of the CSR adjacency by the field), on DS1 and on the 2^21 scale graph
+    (`scale`, from `scale_phase`).  The two variants take no `deg` and run
+    at the same shape, beside the all-columns bound (`bound_ms`: what their
+    calls read) and the row-length bound (`bound_ms_row_length`: the valid
+    slots, deg and the vectors, with the operations row lengths leave):
     `ell_hindex_count` on the coreness (operations: C compares per valid
-    slot) and `ell_allpairs` on rows = nbr (operations: |u's row| compares
-    per valid element of each valid neighbour's row, which its compaction
-    reaches); their launches are `variants_phase`'s."""
-    import warnings
-
+    slot; with row lengths min(deg, C), as h <= deg) and `ell_allpairs` on
+    rows = nbr (operations: |u's row| compares per valid element of each
+    valid neighbour's row, which its compaction reaches, the same with row
+    lengths); their launches are `variants_phase`'s."""
     import torch
     from repro_torch.core.algorithms import INT32_MAX, PageRankProgram
-    from repro_torch.kernels.ell_cc import (
-        neighbor_min_ell, neighbor_min_ell_plain)
-    from repro_torch.kernels.ell_pagerank import (
-        neighbor_sum_ell, neighbor_sum_ell_plain)
     from repro_torch.kernels.ell_hindex import (
         hindex_count_ell, hindex_count_ell_plain)
     from repro_torch.kernels.ell_triangles import (
@@ -1183,36 +1282,23 @@ def combine_timing(g, fields, parity, launches, floor_ms, scale):
     contrib = PageRankProgram._contrib(g.deg, fields["rank"])
     core = fields["core"]
     valid = nbr >= 0
-    rows, cols = torch.nonzero(valid, as_tuple=True)
-    with warnings.catch_warnings():  # CSR support is "beta" in PyTorch
-        warnings.simplefilter("ignore", UserWarning)
-        csr = torch.sparse_coo_tensor(
-            torch.stack([rows, nbr[rows, cols].long()]),
-            torch.ones(rows.numel(), device=nbr.device),
-            (N, N)).to_sparse_csr()
-    x = contrib[:, None]
-    lib_ms = _time_ms(lambda: torch.sparse.mm(csr, x))
-    sp_err = float((torch.sparse.mm(csr, x)[:, 0]
-                    - neighbor_sum_ell(nbr, contrib)).abs().max())
     deg = valid.sum(dim=1)
     nbr_b, vec = N * Cd * 4, N * 4
     n_valid = int(valid.sum())
     nb_deg = torch.where(valid, deg[nbr.clamp(min=0).long()], 0).sum(dim=1)
     pair_ops = int((deg * nb_deg).sum())  # the compacted all-pairs match
-    # name: (kernel, plain, bytes, operations, plain calls timed)
+    # name: (kernel, plain, bytes, operations, row-length bytes,
+    #        row-length operations, plain calls timed)
     runs = {
-        "ell_cc": (lambda: neighbor_min_ell(nbr, lab),
-                   lambda: neighbor_min_ell_plain(nbr, lab),
-                   nbr_b + 2 * vec, 0, 20),
-        "ell_pagerank": (lambda: neighbor_sum_ell(nbr, contrib),
-                         lambda: neighbor_sum_ell_plain(nbr, contrib),
-                         nbr_b + 2 * vec, 0, 20),
         "ell_hindex_count": (lambda: hindex_count_ell(nbr, core),
                              lambda: hindex_count_ell_plain(nbr, core),
-                             nbr_b + 2 * vec, n_valid * Cd, 20),
+                             nbr_b + 2 * vec, n_valid * Cd,
+                             n_valid * 4 + 3 * vec,
+                             int((deg * deg.clamp(max=Cd)).sum()), 20),
         "ell_allpairs": (lambda: common_allpairs_ell(nbr, nbr),
                          lambda: common_allpairs_ell_plain(nbr, nbr),
-                         nbr_b + vec, pair_ops, 3),
+                         nbr_b + vec, pair_ops, n_valid * 4 + 2 * vec,
+                         pair_ops, 3),
     }
     variant_extra = {
         "ell_hindex_count": {"ops_every_slot": N * Cd * Cd,
@@ -1228,26 +1314,37 @@ def combine_timing(g, fields, parity, launches, floor_ms, scale):
                 "parity": "allclose" if name == "ell_pagerank" else "bit-equal",
                 "max_abs_err": parity[name], **rest}
 
-    for name, (kern, plain, nbytes, ops_, plain_reps) in runs.items():
+    def bound(nbytes, nops):
+        bytes_ms, ops_ms = _bound_ms(nbytes), nops / SCALAR_OPS_PER_S * 1e3
+        return (max(bytes_ms, ops_ms),
+                "bytes" if bytes_ms >= ops_ms else "operations")
+
+    for name, (kern, plain, nbytes, ops_, row_b, row_ops,
+               plain_reps) in runs.items():
         ms, plain_ms = _time_pair(kern, plain, plain_reps)
-        bytes_ms = _bound_ms(nbytes)
-        ops_ms = ops_ / SCALAR_OPS_PER_S * 1e3
+        bound_ms, bound_by = bound(nbytes, ops_)
+        row_ms, row_by = bound(row_b, row_ops)
         shapes[name] = dict(ms=ms, plain_ms=plain_ms, bound_bytes=nbytes,
-                            bound_ops=ops_, **variant_extra.get(name, {}))
+                            bound_ops=ops_, bound_ms=bound_ms,
+                            bound_bytes_row_length=row_b,
+                            bound_ops_row_length=row_ops,
+                            bound_ms_row_length=row_ms,
+                            **variant_extra[name])
         out.append(entry(
-            name, ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            bound_bytes=nbytes, bound_ops=ops_,
-            library_ms=lib_ms if name == "ell_pagerank" else None,
-            **variant_extra.get(name, {})))
-    fused = _fused_timing(g, (core, lab, contrib), floor_ms)
-    for name, s in fused.items():
+            name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, bound_bytes=nbytes, bound_ops=ops_,
+            library_ms=None, bound_ms_row_length=row_ms,
+            bound_by_row_length=row_by, bound_bytes_row_length=row_b,
+            bound_ops_row_length=row_ops, **variant_extra[name]))
+    timed = _deg_timing(g, (core, lab, contrib), floor_ms)
+    for name, s in timed.items():
         shapes[name] = {"ds1": s, "scale_2^%d" % SCALE_LOG2_N: scale[name]}
         out.append(entry(
             name, ms=s["ms"], plain_ms=s["plain_ms"],
             bound_ms=s["bound_ms_row_length"], bound_by=s["bound_by"],
             bound_bytes=s["bound_bytes_row_length"], bound_ops=s["bound_ops"],
-            library_ms=None, ms_without_deg=s["ms_without_deg"],
+            library_ms=s.get("library_ms"),
+            ms_without_deg=s["ms_without_deg"],
             bound_ms_all_columns=s["bound_ms_all_columns"],
             launch_floor_ms=floor_ms, shapes=shapes[name],
             **({"parity_detail": "every output bit-equal to its standalone "
@@ -1255,8 +1352,10 @@ def combine_timing(g, fields, parity, launches, floor_ms, scale):
                 "the sum's against plain"} if name == "ell_multi" else {})))
     emit(phase="combine_timing", order="plain,kernel,kernel,plain; "
          "without deg, with deg, with deg, without deg", N=N, Cd=Cd, K=None,
-         valid_slots=n_valid, shapes=shapes, sparse_mm_ms=lib_ms,
-         sparse_mm_max_abs_err_vs_kernel=sp_err)
+         valid_slots=n_valid, shapes=shapes,
+         sparse_mm_ms=timed["ell_pagerank"]["library_ms"],
+         sparse_mm_max_abs_err_vs_kernel=timed["ell_pagerank"][
+             "library_max_abs_err_vs_kernel"])
     return out
 
 

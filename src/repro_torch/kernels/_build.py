@@ -45,9 +45,9 @@ SOURCES = {
     "ell_hindex": (_P, _P, _P, _P, _L, _I, _I, _P),
     # nbr, f, eligible, visited, deg (or NULL), out, n_rows, ld, C, R, stream
     "ell_frontier": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
-    # nbr, field, out, n_rows, ld, C, stream
-    "ell_cc": (_P, _P, _P, _L, _I, _I, _P),
-    "ell_pagerank": (_P, _P, _P, _L, _I, _I, _P),
+    # nbr, field, deg (or NULL), out, n_rows, ld, C, stream
+    "ell_cc": (_P, _P, _P, _P, _L, _I, _I, _P),
+    "ell_pagerank": (_P, _P, _P, _P, _L, _I, _I, _P),
     # nbr, deg (or NULL), in0..in2, out0..out2, code0..code2, k, n_rows,
     # ld, C, stream
     "ell_multi": (_P, _P) + (_P,) * 6 + (_I,) * 4 + (_L, _I, _I, _P),

@@ -10,56 +10,81 @@
 // with INT32_MAX for a row that has no valid slot among its first C columns
 // (C = min(Cd, K)).  PAD is skipped wherever it sits, so the result is
 // exact for any slot order when C = Cd.  N, Cd and K are not padded.
+// `deg` (N,) int32 is optional, each row's count of valid slots: with it a
+// row stops at its length, and the result is the same (ell_rows.cuh).
 //
-// Design: one warp per row; each lane keeps the min of its slots
-// (j = lane, lane + 32, ...) and the warp takes the min of the lanes
-// (`ell::warp_min`, shared with ell_multi.cu).  Integers, so deterministic.
-//
-// What bounds it on the card: bytes.  A launch must read the first C
-// columns of nbr (N*C*4 bytes), one field value per valid slot, and write
-// N*4 bytes; one integer min per slot.  The field gather is the only
-// uncoalesced traffic.  Several rows per warp on short rows, and stopping
-// at the first PAD of a sorted row, are the next steps.
+// What bounds it on the card: latency, not bytes.  With deg a launch needs
+// each row's valid slots, deg, the field and the output (about 1.3 MB at
+// DS1); without it the first C columns of every row (29.8 MB at DS1, 98 %
+// PAD).  Design: the row tiers of ell_rows.cuh (8 lanes a row, 4 rows a
+// warp, every slot load then every gather before any use; without deg and
+// with C > 64 a warp a row) with the min fixed at compile time: a group
+// min (`ell::reg_min`), `ell::warp_min` in the warp layout.  Integers, so
+// every tier gives the same, deterministic min, and ell_multi.cu's "min"
+// equals it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "ell_reduce.cuh"
+#include "ell_rows.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;  // rows per block
+struct MinOp {
+  const int32_t* __restrict__ in;
+  int32_t* __restrict__ out;
+  using Vals = int32_t[ell::kSlots];
+  using Acc = int32_t;
 
-__global__ void ell_cc_kernel(const int32_t* __restrict__ nbr,
-                              const int32_t* __restrict__ field,
-                              int32_t* __restrict__ out, long long n_rows,
-                              int ld, int C) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * kWarps + warp;
-  if (row >= n_rows) return;  // the whole warp leaves
-
-  const int32_t* r = nbr + row * (long long)ld;
-  int32_t acc = ell::kMinFill;
-  for (int j = lane; j < C; j += 32) {
-    const int32_t v = r[j];
-    if (v >= 0) ell::min_step(acc, __ldg(field + v));
+  __device__ __forceinline__ void gather(const int32_t (&v)[ell::kSlots],
+                                         int steps, Vals& x) const {
+    ell::gather_slots(in, v, steps, x);
   }
-  acc = ell::warp_min(acc);
-  if (lane == 0) out[row] = acc;
+  template <int W>
+  __device__ __forceinline__ void reduce(const int32_t (&v)[ell::kSlots],
+                                         const Vals& x, int steps, int,
+                                         long long row, bool write) const {
+    const int32_t m = ell::reg_min<W>(v, x, steps);
+    if (write) out[row] = m;
+  }
+  __device__ __forceinline__ void warp_begin(Acc& a, int, int) const {
+    a = ell::kMinFill;
+  }
+  __device__ __forceinline__ void warp_add(Acc& a, int32_t v, int) const {
+    ell::min_step(a, __ldg(in + v));
+  }
+  __device__ __forceinline__ void warp_end(Acc& a, long long u, int,
+                                           int lane) const {
+    const int32_t m = ell::warp_min(a);
+    if (lane == 0) out[u] = m;
+  }
+};
+
+// 256: the 8 warps a block of `ell::warp_shape`; 6 blocks an SM hold a
+// thread to 40 registers, with no spill (the compiler's own choice, about
+// 54, leaves 4 blocks an SM and measured slower; see PERF.md).
+template <bool kPacked>
+__global__ void __launch_bounds__(256, 6)
+    ell_cc_kernel(const int32_t* __restrict__ nbr,
+                  const int32_t* __restrict__ field,
+                  const int32_t* __restrict__ deg, int32_t* __restrict__ out,
+                  long long n_rows, int ld, int C) {
+  ell::combine_rows<kPacked>(MinOp{field, out}, nbr, deg, n_rows, ld, C);
 }
 
 }  // namespace
 
-// nbr: (n_rows, ld) int32; field, out: (n_rows,) int32.  Reads columns
-// [0, C) of each nbr row, C <= ld.  Returns the launch's cudaError_t.
-extern "C" int ell_cc_launch(const void* nbr, const void* field, void* out,
-                             long long n_rows, int ld, int C, void* stream) {
+// nbr: (n_rows, ld) int32; field, out: (n_rows,) int32; deg: (n_rows,)
+// int32 valid slots per row, or NULL.  Reads columns [0, C) of each nbr
+// row, C <= ld.  Returns the launch's cudaError_t.
+extern "C" int ell_cc_launch(const void* nbr, const void* field,
+                             const void* deg, void* out, long long n_rows,
+                             int ld, int C, void* stream) {
   if (n_rows <= 0) return 0;
   if (C < 0 || C > ld) return (int)cudaErrorInvalidValue;
-  const long long blocks = (n_rows + kWarps - 1) / kWarps;
-  ell_cc_kernel<<<(unsigned)blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)nbr, (const int32_t*)field, (int32_t*)out, n_rows, ld,
-      C);
-  return (int)cudaGetLastError();
+  const bool packed = ell::packs(deg, C);
+  return (int)ell::launch_rows(
+      packed ? ell_cc_kernel<true> : ell_cc_kernel<false>, 0, packed,
+      n_rows, (cudaStream_t)stream, (const int32_t*)nbr, (const int32_t*)field,
+      (const int32_t*)deg, (int32_t*)out, n_rows, ld, C);
 }

@@ -8,58 +8,91 @@
 //     out[u] = sum{field[nbr[u, j]] : j < C, nbr[u, j] >= 0}
 //
 // with 0.0 for a row that has no valid slot among its first C columns.  PAD
-// is skipped wherever it sits; N, Cd and K are not padded.
+// is skipped wherever it sits; N, Cd and K are not padded.  `deg` (N,)
+// int32 is optional, each row's count of valid slots: with it a row stops
+// at its length, and the result is the same, bit for bit (ell_rows.cuh).
 //
-// Design: one warp per row; each lane adds its slots j = lane, lane + 32,
-// ... in ascending order, and the warp adds the lanes in a fixed xor
-// butterfly (`ell::warp_sum` in ell_reduce.cuh).  The order is fixed, so
-// the result is deterministic, and the fused ell_multi.cu, which calls the
-// same functions in the same order, gives the same bits.  The order is not
-// torch.sum's, so the plain version agrees to float32 rounding only.
+// The order of the additions is fixed: the warp layout's.  Lane l of a warp
+// adds the row's slots j = l, l + 32, ... in ascending order from 0.0f,
+// skipping PAD (a PAD never adds 0.0f, which would turn -0.0 into +0.0),
+// and the warp adds the lanes in a fixed xor butterfly (`ell::warp_sum`).
+// Every tier keeps those operands: tier 1 packs a row into 8 lanes and
+// folds slot j into the accumulator of its virtual lane j mod 32
+// (`ell::vlane_sum`, the proof beside it); tiers 2 and 3 are the warp
+// layout.  So the sum is deterministic, the same with deg and without, and
+// ell_multi.cu's "sum", which runs the same code, gives the same bits.  The
+// order is not torch.sum's, so the plain version agrees to float32
+// rounding only.
 //
-// What bounds it on the card: bytes, as for ell_cc.cu: the first C columns
-// of nbr, one float per valid slot, N*4 bytes written; one add per slot.
+// What bounds it on the card: latency, as for ell_cc.cu (the same tiers,
+// with the sum fixed at compile time).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "ell_reduce.cuh"
+#include "ell_rows.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;  // rows per block
+struct SumOp {
+  const int32_t* __restrict__ in;  // the field's float bits
+  float* __restrict__ out;
+  using Vals = int32_t[ell::kSlots];
+  using Acc = float;
 
-__global__ void ell_pagerank_kernel(const int32_t* __restrict__ nbr,
-                                    const float* __restrict__ field,
-                                    float* __restrict__ out, long long n_rows,
-                                    int ld, int C) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * kWarps + warp;
-  if (row >= n_rows) return;  // the whole warp leaves
-
-  const int32_t* r = nbr + row * (long long)ld;
-  float acc = 0.0f;
-  for (int j = lane; j < C; j += 32) {
-    const int32_t v = r[j];
-    if (v >= 0) ell::sum_step(acc, __ldg(field + v));
+  __device__ __forceinline__ void gather(const int32_t (&v)[ell::kSlots],
+                                         int steps, Vals& x) const {
+    ell::gather_slots(in, v, steps, x);
   }
-  acc = ell::warp_sum(acc);
-  if (lane == 0) out[row] = acc;
+  template <int W>
+  __device__ __forceinline__ void reduce(const int32_t (&v)[ell::kSlots],
+                                         const Vals& x, int steps, int,
+                                         long long row, bool write) const {
+    const float s = ell::reg_sum<W>(v, x, steps);
+    if (write) out[row] = s;
+  }
+  __device__ __forceinline__ void warp_begin(Acc& a, int, int) const {
+    a = 0.0f;
+  }
+  __device__ __forceinline__ void warp_add(Acc& a, int32_t v, int) const {
+    ell::sum_step(a, __int_as_float(__ldg(in + v)));
+  }
+  __device__ __forceinline__ void warp_end(Acc& a, long long u, int,
+                                           int lane) const {
+    const float s = ell::warp_sum(a);
+    if (lane == 0) out[u] = s;
+  }
+};
+
+// 256: the 8 warps a block of `ell::warp_shape`; 6 blocks an SM hold a
+// thread to 40 registers, with no spill (the compiler's own choice, about
+// 54, leaves 4 blocks an SM and measured slower; see PERF.md).
+template <bool kPacked>
+__global__ void __launch_bounds__(256, 6)
+    ell_pagerank_kernel(const int32_t* __restrict__ nbr,
+                        const float* __restrict__ field,
+                        const int32_t* __restrict__ deg,
+                        float* __restrict__ out, long long n_rows, int ld,
+                        int C) {
+  ell::combine_rows<kPacked>(
+      SumOp{reinterpret_cast<const int32_t*>(field), out}, nbr, deg, n_rows,
+      ld, C);
 }
 
 }  // namespace
 
-// nbr: (n_rows, ld) int32; field, out: (n_rows,) float32.  Reads columns
-// [0, C) of each nbr row, C <= ld.  Returns the launch's cudaError_t.
+// nbr: (n_rows, ld) int32; field, out: (n_rows,) float32; deg: (n_rows,)
+// int32 valid slots per row, or NULL.  Reads columns [0, C) of each nbr
+// row, C <= ld.  Returns the launch's cudaError_t.
 extern "C" int ell_pagerank_launch(const void* nbr, const void* field,
-                                   void* out, long long n_rows, int ld, int C,
+                                   const void* deg, void* out,
+                                   long long n_rows, int ld, int C,
                                    void* stream) {
   if (n_rows <= 0) return 0;
   if (C < 0 || C > ld) return (int)cudaErrorInvalidValue;
-  const long long blocks = (n_rows + kWarps - 1) / kWarps;
-  ell_pagerank_kernel<<<(unsigned)blocks, kWarps * 32, 0,
-                        (cudaStream_t)stream>>>(
-      (const int32_t*)nbr, (const float*)field, (float*)out, n_rows, ld, C);
-  return (int)cudaGetLastError();
+  const bool packed = ell::packs(deg, C);
+  return (int)ell::launch_rows(
+      packed ? ell_pagerank_kernel<true> : ell_pagerank_kernel<false>, 0,
+      packed, n_rows, (cudaStream_t)stream, (const int32_t*)nbr,
+      (const float*)field, (const int32_t*)deg, (float*)out, n_rows, ld, C);
 }

@@ -1,17 +1,17 @@
 // ell_reduce.cuh — the warp-level row reductions of the ELL kernels.
 //
-// Most ELL kernels of the port give one warp to one row of nbr and let
-// lane l take the slots j = l, l + 32, l + 64, ... in ascending order.  The
-// reductions below are the only code that turns those per-lane partials
-// into a row's result.  The standalone kernels (ell_cc.cu, ell_pagerank.cu)
-// and the fused ell_multi.cu call the same functions in the same order, so
-// a fused output is bit-identical to its standalone kernel, the float sum
-// included.  ell_hindex.cu and ell_multi.cu pack short rows into groups of
-// 8 lanes and keep them in registers (`group_sum`, `group_min`,
-// `reg_hindex_of`, `vlane_sum`); long rows take the warp and the histogram.
-// Integers equal the histogram's, and `vlane_sum` gives `warp_sum`'s bits.
-// `warp_shape` sizes the launch of every kernel whose warps keep per-row
-// arrays in shared memory.
+// In the warp layout lane l of a warp takes a row's slots j = l, l + 32,
+// l + 64, ... in ascending order; the reductions below turn those per-lane
+// partials into the row's result.  The combine kernels (ell_cc.cu,
+// ell_pagerank.cu, ell_multi.cu, through the row tiers of ell_rows.cuh)
+// and ell_hindex.cu pack short rows into groups of 8 lanes and keep them
+// in registers (`group_sum`, `group_min`, `reg_hindex_of`, `vlane_sum`);
+// longer rows take the warp layout, and the h-index the histogram.
+// Integers equal the histogram's, and `vlane_sum` gives `warp_sum`'s bits,
+// so a fused output of ell_multi.cu is bit-identical to its standalone
+// kernel, the float sum included, and so is a row read with its length
+// `deg` or without.  `warp_shape` sizes the launch of every kernel whose
+// warps keep per-row arrays in shared memory.
 
 #pragma once
 

@@ -13,10 +13,12 @@ once and serves 1 to 3 fields from it, each reduced by its combine:
 
 Each CUDA output is bit-identical to the port's standalone kernel for its
 combine (`ell_cc`, `ell_pagerank`, `ell_hindex`), the float sum included:
-`csrc/ell_multi.cu` folds every slot of a row into the accumulator of the
-lane the standalone kernel gives it and reduces through the functions of
-`csrc/ell_reduce.cuh`, so every addition has the same operands.  Likewise
-the plain version's outputs equal the standalone plain versions'.
+`csrc/ell_multi.cu` runs the row tiers of `csrc/ell_rows.cuh`, as
+`ell_cc` and `ell_pagerank` do, folds every slot of a row into the
+accumulator of the lane the standalone kernel gives it and reduces through
+the functions of `csrc/ell_reduce.cuh`, so every addition has the same
+operands.  Likewise the plain version's outputs equal the standalone plain
+versions'.
 
 Row lengths: `deg` (optional, (N,) int32, each row's count of valid
 slots, a `GraphBlocks`' ``deg``) lets the kernel stop each row at its

@@ -15,6 +15,13 @@ package's `kernels/ell_pagerank.py`.  The kernel adds in a fixed order of
 its own (lanes over slots, then a butterfly), so it is deterministic and
 bit-equal to the "sum" output of `ell_multi.neighbor_multi_ell`, but
 agrees with the plain version's `torch.sum` only to float32 rounding.
+
+Row lengths: the kernel also takes `deg`, each row's count of valid slots
+(a `GraphBlocks`' ``deg``).  With it a row stops once it has seen
+min(deg[u], valid slots of its first C columns) valid slots, which on
+left-filled rows is exactly ``nbr[u, :min(deg[u], C)]``; the result is
+the same for any slot order, bit for bit.  The plain version takes `deg`
+and does not need it.
 """
 from __future__ import annotations
 
@@ -23,30 +30,37 @@ from typing import Optional
 import torch
 
 from . import _build, ref
-from .ell_hindex import check_field, columns, on_cuda
+from .ell_hindex import check_deg, check_field, columns, deg_ptr, on_cuda
 
 
-def neighbor_sum_ell_plain(nbr: torch.Tensor, field: torch.Tensor,
-                           K: Optional[int] = None) -> torch.Tensor:
-    """The plain PyTorch version: gather the first C columns, row sum."""
+def neighbor_sum_ell_plain(
+        nbr: torch.Tensor, field: torch.Tensor, K: Optional[int] = None,
+        deg: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain PyTorch version: gather the first C columns, row sum.
+    `deg` is accepted and not read: the value does not depend on it."""
     C = columns(nbr.shape[1], K)
     return ref.ell_sum_ref(nbr[:, :C], field.to(torch.float32))
 
 
 def neighbor_sum_ell(nbr: torch.Tensor, field: torch.Tensor,
-                     K: Optional[int] = None) -> torch.Tensor:
+                     K: Optional[int] = None,
+                     deg: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Row-wise float32 sum of `field` over each row of `nbr`: (N,).
 
     CUDA tensors launch the CUDA kernel (and bump
     `neighbor_sum_ell.launches`); CPU tensors take `neighbor_sum_ell_plain`.
+    `deg` (optional, (N,) int32, each row's valid slots) lets the kernel
+    stop each row at its length; it never changes the result.
     """
+    check_deg(nbr, deg)
     if not on_cuda(nbr, "neighbor_sum_ell"):
-        return neighbor_sum_ell_plain(nbr, field, K)
+        return neighbor_sum_ell_plain(nbr, field, K, deg)
     check_field(nbr, field, torch.float32, "field")
     N, Cd = nbr.shape
     out = torch.empty(N, dtype=torch.float32, device=nbr.device)
     _build.launch("ell_pagerank", nbr.device, nbr.data_ptr(),
-                  field.data_ptr(), out.data_ptr(), N, Cd, columns(Cd, K))
+                  field.data_ptr(), deg_ptr(deg), out.data_ptr(), N, Cd,
+                  columns(Cd, K))
     neighbor_sum_ell.launches += 1
     return out
 

@@ -345,12 +345,12 @@ def _combine_torch(nbr: torch.Tensor, field: torch.Tensor,
 
 def _combine_ell(nbr: torch.Tensor, field: torch.Tensor, combine: str,
                  K: Optional[int], deg: torch.Tensor) -> torch.Tensor:
-    """Whole-graph gather + reduce via the ELL kernels; "hindex" and
-    "count_common" stop each row at its length `deg`."""
+    """Whole-graph gather + reduce via the ELL kernels; every combine
+    stops each row at its length `deg` (the same result)."""
     if combine == "min":
-        return neighbor_min_ell(nbr, field, K=K)
+        return neighbor_min_ell(nbr, field, K=K, deg=deg)
     if combine == "sum":
-        return neighbor_sum_ell(nbr, field, K=K)
+        return neighbor_sum_ell(nbr, field, K=K, deg=deg)
     if combine == "hindex":
         return hindex_ell(nbr, field, K=K, deg=deg)
     if combine == "count_common":
@@ -404,8 +404,9 @@ def neighbor_combine_blocks(
 
     g: a GraphBlocks (duck-typed: .nbr, .deg, .device, .Cd).  field: (N,)
     values for "min"/"sum"/"hindex", (N, Cd) neighbor rows for
-    "count_common".  K (optional) bounds the columns the "ell" path reads.
-    Loops over the dense backend densify once and pass `adj`.
+    "count_common".  K (optional) bounds the columns the "ell" path reads,
+    and each row stops at its length `g.deg`.  Loops over the dense
+    backend densify once and pass `adj`.
     """
     b = resolve_backend(backend, g.device)
     if b == "torch":

@@ -29,13 +29,16 @@ recomputes them (`connected_components`), an insert-only window merges
 them (`merge_labels`, inserts only join components).
 
 `StreamSession` is the resumable stepper (open -> `apply_window` ->
-`result`); `run_stream` drains an iterable through one.  Not ported yet:
+`result`); `run_stream` drains an iterable through one.  Both return a
+`StreamResult`, a NamedTuple as in the reference: read its named fields;
+unpacking it yields the reference's legacy arity behind its
+DeprecationWarning.  Not ported yet:
 the mesh executor, live rebalancing, capacity growth, checkpoints, and
 `MirrorStream` (see ROADMAP.md).
 """
 from __future__ import annotations
 
-import dataclasses
+import warnings
 from itertools import islice
 from typing import (
     Dict, Iterable, Iterator, List, NamedTuple, Optional, Tuple,
@@ -71,14 +74,30 @@ class StreamStats(NamedTuple):
                 + self.escalated_conflict)
 
 
-@dataclasses.dataclass(frozen=True)
-class StreamResult:
-    """`run_stream` / `StreamSession.result` return value."""
+class StreamResult(NamedTuple):
+    """`run_stream` / `StreamSession.result` return value, the reference's
+    tuple.
+
+    `labels` is None unless CC maintenance was armed (`cc_labels=`).
+    Tuple-unpacking yields the legacy arity (3 fields, or 4 when labels
+    were kept) with a DeprecationWarning, as in the reference; indexing
+    and `len()` see all 4 fields.  Read the named fields.
+    """
 
     g: GraphBlocks               # post-stream graph
     core: torch.Tensor           # (N,) int32 maintained coreness
     stats: StreamStats
     labels: Optional[torch.Tensor] = None  # (N,) int32 CC labels, if kept
+
+    def __iter__(self):
+        warnings.warn(
+            "tuple-unpacking run_stream's result is deprecated; read "
+            ".g/.core/.stats/.labels on the returned StreamResult",
+            DeprecationWarning, stacklevel=2)
+        legacy = (self.g, self.core, self.stats)
+        if self.labels is not None:
+            legacy += (self.labels,)
+        return iter(legacy)
 
 
 def owner_block(g, u: int) -> int:

@@ -12,11 +12,12 @@ sums to ``rtol=1e-6`` (the two sum in different orders).
 Cases: K = Cd on rows whose valid slots are shuffled (PAD anywhere);
 K < Cd on sorted, left-filled rows; Cd in {1, 37, 130}; R in {1, 8, 13};
 empty and full rows; `hindex_ell`, `frontier_step_ell`,
-`neighbor_multi_ell` and `neighbor_common_ell` with the row lengths `deg`
-and without (the same output).  The CUDA kernels themselves are held
-against the plain versions, on the same cases and on rows longer than the
-kernels' register paths (Cd = 300), by the tests marked `cuda` (they skip
-without a GPU).
+`neighbor_min_ell`, `neighbor_sum_ell`, `neighbor_multi_ell` and
+`neighbor_common_ell` with the row lengths `deg` and without (the same
+output), and the registry handing `deg` to every ELL combine.  The CUDA
+kernels themselves are held against the plain versions, on the same cases
+and on rows longer than the kernels' register paths (Cd = 300), by the
+tests marked `cuda` (they skip without a GPU).
 """
 import numpy as np
 import pytest
@@ -305,6 +306,29 @@ def test_min_sum_plain_equal_reference(N, Cd, K, shuffled, max_deg):
     assert (got_sum.numpy()[empty] == 0).all()
 
 
+@pytest.mark.parametrize("N,Cd,K,shuffled,max_deg", COMBINE_CASES)
+def test_min_sum_with_deg_equals_reference(N, Cd, K, shuffled, max_deg):
+    """The row lengths change nothing: with deg, equal to the calls without
+    it and to the JAX package's kernels (which take no deg)."""
+    nbr = _rows(N, Cd, N + Cd, shuffled, max_deg)
+    fi, ff = _fields(N, Cd)
+    tn, jn = torch.as_tensor(nbr), jnp.asarray(nbr)
+    ti, tf = torch.as_tensor(fi), torch.as_tensor(ff)
+    deg = torch.as_tensor(_row_lengths(nbr))
+    got_min = neighbor_min_ell(tn, ti, K=K, deg=deg)
+    got_sum = neighbor_sum_ell(tn, tf, K=K, deg=deg)
+    assert torch.equal(got_min, neighbor_min_ell(tn, ti, K=K))
+    assert torch.equal(got_min, neighbor_min_ell_plain(tn, ti, K, deg))
+    assert torch.equal(got_sum, neighbor_sum_ell(tn, tf, K=K))
+    assert torch.equal(got_sum, neighbor_sum_ell_plain(tn, tf, K, deg))
+    np.testing.assert_array_equal(
+        got_min.numpy(), np.asarray(jops.neighbor_min_ell(
+            jn, jnp.asarray(fi), interpret=True, K=K)))
+    np.testing.assert_allclose(
+        got_sum.numpy(), np.asarray(jops.neighbor_sum_ell(
+            jn, jnp.asarray(ff), interpret=True, K=K)), rtol=1e-6)
+
+
 MULTI_COMBINES = [("hindex", "min", "sum"), ("min",), ("sum",), ("hindex",),
                   ("sum", "hindex")]
 
@@ -426,8 +450,11 @@ def _bad_degs(nbr):
 def test_multi_and_common_reject_bad_deg():
     nbr = torch.as_tensor(_rows(12, 5, 3, True))
     f = torch.zeros(12, dtype=torch.int32)
+    x = torch.zeros(12, dtype=torch.float32)
     for deg in _bad_degs(nbr):
-        for call in (lambda: neighbor_multi_ell(nbr, (f,), ("min",), deg=deg),
+        for call in (lambda: neighbor_min_ell(nbr, f, deg=deg),
+                     lambda: neighbor_sum_ell(nbr, x, deg=deg),
+                     lambda: neighbor_multi_ell(nbr, (f,), ("min",), deg=deg),
                      lambda: neighbor_common_ell(nbr, nbr, deg=deg),
                      lambda: neighbor_common_ell(nbr, nbr, variant="allpairs",
                                                  deg=deg)):
@@ -523,6 +550,34 @@ def test_combine_registry_equals_reference():
         ops.neighbor_combine_blocks(g, torch.as_tensor(fi), "max")
 
 
+@pytest.mark.parametrize("combine", ["min", "sum"])
+def test_registry_hands_deg_to_min_and_sum(combine, monkeypatch):
+    """On the "ell" route the registry passes each row's length `g.deg` to
+    the "min" and "sum" wrappers, as it does to the others."""
+    nbr = _rows(40, 9, 5, False)
+    fi, ff = _fields(40, 5)
+    field = torch.as_tensor(fi if combine == "min" else ff)
+
+    class G:  # the registry duck-types on .nbr, .deg and .device
+        pass
+    g = G()
+    g.nbr, g.device = torch.as_tensor(nbr), torch.device("cpu")
+    g.deg = torch.as_tensor(_row_lengths(nbr))
+    seen = []
+    name = {"min": "neighbor_min_ell", "sum": "neighbor_sum_ell"}[combine]
+    wrapper = getattr(ops, name)
+
+    def record(nbr_, field_, K=None, deg=None):
+        seen.append(deg)
+        return wrapper(nbr_, field_, K=K, deg=deg)
+
+    monkeypatch.setattr(ops, name, record)
+    got = ops.neighbor_combine_blocks(g, field, combine, backend="ell")
+    assert len(seen) == 1 and seen[0] is g.deg
+    assert torch.equal(got, ops.neighbor_combine_blocks(g, field, combine,
+                                                        backend="torch"))
+
+
 def test_library_names_follow_every_header(tmp_path, monkeypatch):
     """An edit to a shared header renames (so rebuilds) every library."""
     src = tmp_path / "csrc"
@@ -532,17 +587,28 @@ def test_library_names_follow_every_header(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", src)
     before = {n: _build._library_path(n) for n in _build.SOURCES}
     assert before == {n: _build._library_path(n) for n in _build.SOURCES}
-    header = src / "ell_reduce.cuh"
-    header.write_text(header.read_text() + "\n// edited\n")
-    after = {n: _build._library_path(n) for n in _build.SOURCES}
-    includers = [n for n in _build.SOURCES if '#include "ell_reduce.cuh"'
-                 in (src / f"{n}.cu").read_text()]
-    assert set(includers) >= {"ell_hindex", "ell_cc", "ell_pagerank",
-                              "ell_multi", "ell_triangles",
-                              "ell_hindex_count", "ell_allpairs",
-                              "kcore_hindex"}
-    for n in includers:
-        assert after[n] != before[n], n
+
+    def includes(path, header):  # directly or through another header
+        text = path.read_text()
+        return f'#include "{header}"' in text or any(
+            includes(h, header) for h in src.glob("*.cuh")
+            if h.name != header and f'#include "{h.name}"' in text)
+
+    for header, users in (
+            ("ell_reduce.cuh", {"ell_hindex", "ell_cc", "ell_pagerank",
+                                "ell_multi", "ell_triangles",
+                                "ell_hindex_count", "ell_allpairs",
+                                "kcore_hindex"}),
+            ("ell_rows.cuh", {"ell_cc", "ell_pagerank", "ell_multi"})):
+        path = src / header
+        path.write_text(path.read_text() + "\n// edited\n")
+        after = {n: _build._library_path(n) for n in _build.SOURCES}
+        includers = [n for n in _build.SOURCES
+                     if includes(src / f"{n}.cu", header)]
+        assert set(includers) >= users, header
+        for n in includers:
+            assert after[n] != before[n], (header, n)
+        before = after
 
 
 # ---------------------------------------------------------------------------
@@ -630,6 +696,68 @@ def test_min_sum_kernels_equal_plain(N, Cd, K, shuffled, max_deg):
     assert torch.equal(got_min, neighbor_min_ell_plain(nbr, fi, K))
     torch.testing.assert_close(got_sum, neighbor_sum_ell_plain(nbr, ff, K),
                                rtol=1e-5, atol=1e-9)
+
+
+@needs_cuda
+@pytest.mark.parametrize("N,Cd,K,shuffled,max_deg",
+                         COMBINE_CASES + LONG_CASES)
+def test_min_sum_kernels_with_deg_equal_plain(N, Cd, K, shuffled, max_deg):
+    """With deg: the min bit-equal to plain, the sum allclose to plain and
+    bit-equal to the kernel without deg; each one launch."""
+    nbr = _rows(N, Cd, N + Cd, shuffled, max_deg)
+    deg = torch.as_tensor(_row_lengths(nbr)).cuda()
+    nbr = torch.as_tensor(nbr).cuda()
+    fi, ff = (torch.as_tensor(a).cuda() for a in _fields(N, Cd))
+    before = (neighbor_min_ell.launches, neighbor_sum_ell.launches)
+    got_min = neighbor_min_ell(nbr, fi, K, deg=deg)
+    got_sum = neighbor_sum_ell(nbr, ff, K, deg=deg)
+    torch.cuda.synchronize()
+    assert (neighbor_min_ell.launches, neighbor_sum_ell.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(got_min, neighbor_min_ell_plain(nbr, fi, K))
+    assert torch.equal(got_min, neighbor_min_ell(nbr, fi, K))
+    torch.testing.assert_close(got_sum, neighbor_sum_ell_plain(nbr, ff, K),
+                               rtol=1e-5, atol=1e-9)
+    assert torch.equal(got_sum.view(torch.int32),
+                       neighbor_sum_ell(nbr, ff, K).view(torch.int32))
+
+
+@needs_cuda
+@pytest.mark.parametrize("layout", ["sorted", "shuffled", "holes"])
+def test_sum_kernel_bits_do_not_depend_on_deg(layout):
+    """Fields whose sum depends on the order of its additions (1e8 beside
+    1.0, -0.0, signs mixed) on rows of 0 to 300 slots, left-filled,
+    shuffled, or left-filled but for one slot moved to the row's end (a
+    PAD inside the deg prefix): `neighbor_sum_ell` with deg has the bits
+    of the call without deg and of `neighbor_multi_ell`'s sum, and the
+    min equals plain."""
+    N, Cd = 320, 300
+    rng = np.random.default_rng(16)
+    deg = np.array([0, 1, 31, 32, 33, 64, 65, 256, 257, 299, 300, 3, 7, 9,
+                    40, 80] * (N // 16))
+    nbr = np.full((N, Cd), -1, np.int32)
+    for u in range(N):
+        ids = np.sort(rng.choice(N, deg[u], replace=False))
+        cols = rng.choice(Cd, deg[u], replace=False) \
+            if layout == "shuffled" else np.arange(deg[u])
+        if layout == "holes" and 0 < deg[u] < Cd:
+            cols[0] = Cd - 1
+        nbr[u, cols] = ids
+    field = rng.choice(np.array([1e8, -1e8, 1.0, -1.0, 0.5, -0.0, 3e-8],
+                                np.float32), N)
+    labels = rng.integers(-5, N + 5, N).astype(np.int32)
+    nbr, deg = torch.as_tensor(nbr).cuda(), torch.as_tensor(
+        deg.astype(np.int32)).cuda()
+    field, labels = torch.as_tensor(field).cuda(), torch.as_tensor(
+        labels).cuda()
+    for K in (None, 64, 257):
+        want = neighbor_sum_ell(nbr, field, K).view(torch.int32)
+        fused, = neighbor_multi_ell(nbr, (field,), ("sum",), K, deg=deg)
+        assert torch.equal(neighbor_sum_ell(nbr, field, K, deg=deg).view(
+            torch.int32), want)
+        assert torch.equal(fused.view(torch.int32), want)
+        assert torch.equal(neighbor_min_ell(nbr, labels, K, deg=deg),
+                           neighbor_min_ell_plain(nbr, labels, K))
 
 
 @needs_cuda

@@ -8,10 +8,12 @@ in interpret mode).  The final `nbr`, `deg` and coreness, and every
 
 With `cc_labels=` both packages also keep connected-component labels
 over the stream; the labels and the `cc_merges` / `cc_recomputes` counts
-must be EQUAL.  Also: with no backend given, the entry points take the
-plain versions on a CPU graph and the CUDA kernels on a CUDA graph; they
-raise without CUDA unless the caller asks for the CPU; and no module of
-the port (nor chip_smoke.py) imports jax or the JAX package.
+must be EQUAL.  `StreamResult` is the reference's NamedTuple: the same
+fields, length, indexing and legacy unpacking.  Also: with no backend
+given, the entry points take the plain versions on a CPU graph and the
+CUDA kernels on a CUDA graph; they raise without CUDA unless the caller
+asks for the CPU; and no module of the port (nor chip_smoke.py) imports
+jax or the JAX package.
 """
 import ast
 from pathlib import Path
@@ -136,6 +138,45 @@ def test_run_stream_cc_labels_equal_reference(kind):
     # without cc_labels nothing is kept
     plain = tstream.run_stream(tg2, tensor_of(core), list(ups), R=4)
     assert plain.labels is None and plain.stats.cc_merges == 0
+
+
+@pytest.mark.parametrize("keep_labels", [False, True])
+def test_stream_result_is_the_reference_tuple(keep_labels):
+    """The smallest stream on which a dataclass result differs from the
+    reference's NamedTuple: `len`, indexing and `_fields` agree, and
+    unpacking yields the legacy arity (3, or 4 with CC labels) behind the
+    reference's DeprecationWarning, with equal values."""
+    edges = np.array([[0, 1], [1, 2], [2, 0], [3, 4]])
+    assign = np.arange(8) % 2
+    jg = jcore.build_blocks(edges, 8, assign, P=2, deg_slack=4)
+    tg = tcore.build_blocks(edges, 8, assign, P=2, deg_slack=4, device=CPU)
+    assert_same_graph(tg, jg)
+    core = jcore.coreness(jg, backend="jnp")
+    labels = jalg.connected_components(jg, backend="jnp") \
+        if keep_labels else None
+    ups = [(0, 3, +1)]
+    res = tstream.run_stream(
+        tg, tensor_of(core), ups, R=2,
+        cc_labels=None if labels is None else tensor_of(labels))
+    ref = reference().run_stream(jg, core, ups, R=2, backend="jnp",
+                                 cc_labels=labels)
+    assert isinstance(res, tuple)
+    assert res._fields == ref._fields == ("g", "core", "stats", "labels")
+    assert len(res) == len(ref) == 4
+    assert (res[3] is None) == (ref[3] is None) == (not keep_labels)
+    with pytest.warns(DeprecationWarning, match="tuple-unpacking"):
+        got = tuple(res)
+    with pytest.warns(DeprecationWarning, match="tuple-unpacking"):
+        want = tuple(ref)
+    assert len(got) == len(want) == (4 if keep_labels else 3)
+    for item in (got, [res[i] for i in range(len(got))]):
+        assert_same_graph(item[0], want[0])
+        np.testing.assert_array_equal(item[1].numpy(), np.asarray(want[1]))
+        assert item[2]._asdict() == {f: getattr(want[2], f)
+                                     for f in tstream.StreamStats._fields}
+        if keep_labels:
+            np.testing.assert_array_equal(item[3].numpy(),
+                                          np.asarray(want[3]))
 
 
 def test_defaults_equal_torch_backend_on_cpu():
