@@ -63,9 +63,9 @@ Phases (each raises on failure; the script then exits non-zero):
 7. scale: a 2^21-node random ELL graph (Cd = 32, ~256 MB of nbr): static
    coreness and a 64-update intra-block stream, then CC, PageRank and
    triangle counts, held the same way (the dense adjacency would be
-   8.8 TB there); then `ell_cc`, `ell_pagerank`, `ell_multi` and
-   `ell_triangles` timed there, with `deg` and without (its nbr does not
-   fit the L2).
+   8.8 TB there); then `ell_cc`, `ell_pagerank`, `ell_multi`,
+   `ell_triangles`, `ell_hindex_count` and `ell_allpairs` timed there,
+   with `deg` and without (its nbr does not fit the L2).
 8. timing: each kernel and its plain version at the main path's shapes
    (`ell_hindex` at both: the stream's K = Cd and the static fixpoint's
    degree bound, and `ell_frontier` at the first hop, R = 8 and R = 1,
@@ -288,8 +288,6 @@ def kernel_parity(g, core, dev, window):
         frontier_step_ell, frontier_step_ell_plain)
     from repro_torch.kernels.ell_hindex import (
         hindex_count_ell_plain, hindex_ell, hindex_ell_plain)
-    from repro_torch.kernels.ell_triangles import (
-        common_allpairs_ell_plain, neighbor_common_ell)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     nbr, N, Cd = g.nbr, g.N, g.Cd
@@ -309,15 +307,20 @@ def kernel_parity(g, core, dev, window):
              for k in (None, Kb) for dn, d in with_deg]
     cases += [(f"shuffled/random/K={k}{dn}", shuffled, ests["random"], k, d)
               for k in (None, Kb) for dn, d in with_deg]
-    cases += [(f"{an}/K={k}{dn}", nb, e_est, k, d)
-              for an, nb in (("edge", e_nbr), ("edge/shuffled", e_shuf))
+    holes = _holes(nbr, g.deg)
+    cases += [(f"holes/random/K={k}{dn}", holes, ests["random"], k, d)
+              for k in (None, Kb) for dn, d in with_deg]
+    e_holes = _holes(e_nbr, e_deg)
+    e_layouts = (("edge", e_nbr), ("edge/shuffled", e_shuf),
+                 ("edge/holes", e_holes))
+    cases += [(f"{an}/K={k}{dn}", nb, e_est, k, d) for an, nb in e_layouts
               for k in (None, 64, 257) for dn, d in e_with_deg]
     err = {"ell_hindex": 0, "ell_frontier": 0, "ell_hindex_count": 0,
            "ell_allpairs": 0}
     for name, nb, est, K, d in cases:
         got = hindex_ell(nb, est, K=K, deg=d)
         want = hindex_ell_plain(nb, est, K)
-        cnt = hindex_ell(nb, est, K=K, variant="count")
+        cnt = hindex_ell(nb, est, K=K, variant="count", deg=d)
         cnt_plain = hindex_count_ell_plain(nb, est, K)
         torch.cuda.synchronize()
         e = int((got.long() - want.long()).abs().max())
@@ -329,19 +332,10 @@ def kernel_parity(g, core, dev, window):
         if e or not torch.equal(cnt, cnt_plain) or not torch.equal(cnt, got):
             raise AssertionError(f"ell_hindex_count differs from its plain "
                                  f"version or from ell_hindex on {name}")
-    tri_cases = [(f"{an}/K={k}", nb, k) for an, nb in
-                 (("sorted", nbr), ("shuffled", shuffled))
+    tri_cases = [(f"{an}/K={k}", nb, nb, k, g.deg) for an, nb in
+                 (("sorted", nbr), ("shuffled", shuffled), ("holes", holes))
                  for k in (None, Kb)]
-    for name, nb, K in tri_cases:
-        got = neighbor_common_ell(nb, nb, K, variant="allpairs")
-        want = common_allpairs_ell_plain(nb, nb, K)
-        merge = neighbor_common_ell(nb, nb, K)
-        torch.cuda.synchronize()
-        e = int((got.long() - want.long()).abs().max())
-        err["ell_allpairs"] = max(err["ell_allpairs"], e)
-        if e or not torch.equal(got, want) or not torch.equal(got, merge):
-            raise AssertionError(f"ell_allpairs differs from its plain "
-                                 f"version or from ell_triangles on {name}")
+    _allpairs_parity(tri_cases, err)
 
     def masks(n, Rr, p_f=0.2):
         return tuple(torch.rand((n, Rr), generator=gen, device=dev) < p
@@ -380,11 +374,17 @@ def kernel_parity(g, core, dev, window):
                     dtype=np.int32)).to(dev),
                 "sum": _order_floats(e_nbr.shape[0], gen_np, dev)}
     e_dup = _dup_field(e_nbr.shape, gen_np, dev)
-    e_holes = _holes(e_nbr, e_deg)
+    # the field is nbr itself (so deg bounds its rows too), a copy of it
+    # (read over its C columns) or duplicate ids
+    e_tri_cases = [(f"{an}/{fn}/K={k}", nb, rows, k, e_deg)
+                   for an, nb in e_layouts
+                   for fn, rows in (("rows=nbr", nb), ("rows=copy", nb.clone()),
+                                    ("rows=dup", e_dup))
+                   for k in (None, 64, 257)]
+    _allpairs_parity(e_tri_cases, err)
     e_rand = torch.rand(e_nbr.shape[0], generator=gen, device=dev)
     fused_cases, min_sum_cases = [], []
-    for an, nb in (("edge", e_nbr), ("edge/shuffled", e_shuf),
-                   ("edge/holes", e_holes)):
+    for an, nb in e_layouts:
         for K in (None, 64, 257):
             fused_cases += _fused_parity(nb, e_deg, K, e_fields, e_dup,
                                          f"{an}/K={K}", err,
@@ -397,10 +397,32 @@ def kernel_parity(g, core, dev, window):
                 f"{an}/K={K}", err, sum_vs_plain=False)
     emit(phase="kernel_parity", hindex_cases=[c[0] for c in cases],
          frontier_cases=[c[0] for c in f_cases],
-         allpairs_cases=[c[0] for c in tri_cases],
+         allpairs_cases=[c[0] for c in tri_cases + e_tri_cases],
          multi_triangles_cases=fused_cases, min_sum_cases=min_sum_cases,
          max_abs_err=err)
     return err
+
+
+def _allpairs_parity(cases, err):
+    """`ell_allpairs` on each case (name, nbr, field, K, deg), with the row
+    lengths and without, bit-equal to its plain version and to the "merge"
+    kernel called the same way.  Updates `err`."""
+    import torch
+    from repro_torch.kernels.ell_triangles import (
+        common_allpairs_ell_plain, neighbor_common_ell)
+
+    for name, nb, rows, K, d in cases:
+        want = common_allpairs_ell_plain(nb, rows, K)
+        for dn, dd in (("", None), ("/deg", d)):
+            got = neighbor_common_ell(nb, rows, K, variant="allpairs", deg=dd)
+            merge = neighbor_common_ell(nb, rows, K, deg=dd)
+            torch.cuda.synchronize()
+            e = int((got.long() - want.long()).abs().max())
+            err["ell_allpairs"] = max(err["ell_allpairs"], e)
+            if e or not torch.equal(got, want) or not torch.equal(got, merge):
+                raise AssertionError(f"ell_allpairs differs from its plain "
+                                     f"version or from ell_triangles on "
+                                     f"{name}{dn}")
 
 
 def _order_floats(n, rng, dev):
@@ -769,9 +791,9 @@ def _drive_dense(g, ups, plain):
 def scale_phase(dev):
     """A 2^21-node random ELL graph: the main path and the analytics
     through the kernels, held against the plain backend; then `ell_cc`,
-    `ell_pagerank`, `ell_multi` and `ell_triangles` timed there
-    (`_deg_timing`; its nbr, 256 MiB, does not fit the 50 MB L2).  Returns
-    those timings."""
+    `ell_pagerank`, `ell_multi`, `ell_triangles` and the two variants timed
+    there (`_deg_timing`; its nbr, 256 MiB, does not fit the 50 MB L2).
+    Returns those timings."""
     import torch
     from repro_torch.core import build_ell_random
     from repro_torch.core.algorithms import INT32_MAX, PageRankProgram
@@ -931,11 +953,13 @@ def _analytics_dense(g, p):
 
 
 def variants_phase(g, core, steps, tri):
-    """The two kernel variants through their entry points on DS1:
-    `coreness_blocks(variant="count")` against the plain coreness `core`
-    (found in `steps` supersteps) and `neighbor_common_ell(variant=
-    "allpairs")` against "merge", the plain triangle counts `tri` and
-    scipy.  Returns the variants' launch counts."""
+    """The two kernel variants through their entry points on DS1, with the
+    row lengths `deg` as the default paths pass them:
+    `coreness_blocks(variant="count")` (which hands `g.deg` on) against the
+    plain coreness `core` (found in `steps` supersteps) and
+    `neighbor_common_ell(variant="allpairs", deg=g.deg)` against "merge",
+    the plain triangle counts `tri` and scipy.  Returns the variants'
+    launch counts."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
@@ -946,13 +970,14 @@ def variants_phase(g, core, steps, tri):
     def path():
         c, s = ops.coreness_blocks(g, backend="ell", with_steps=True,
                                    variant="count")
-        return c, s, neighbor_common_ell(g.nbr, g.nbr, variant="allpairs")
+        return c, s, neighbor_common_ell(g.nbr, g.nbr, variant="allpairs",
+                                         deg=g.deg)
 
     (c, s, red), launches = _counted(path, VARIANTS)
     if s != steps or not torch.equal(c, core):
         raise AssertionError(f"{what}: count-variant coreness differs "
                              f"({s} vs {steps} supersteps)")
-    if not (torch.equal(red, neighbor_common_ell(g.nbr, g.nbr))
+    if not (torch.equal(red, neighbor_common_ell(g.nbr, g.nbr, deg=g.deg))
             and torch.equal(red // 2, tri)):
         raise AssertionError(f"{what}: allpairs differs from merge or plain")
     closed = _closed_walks(g)
@@ -1067,73 +1092,98 @@ def _csr(nbr, N):
 
 
 def _deg_timing(g, fields, floor_ms):
-    """The four kernels that take the row lengths, each as the analytics
-    path calls it on graph `g`: `ell_cc` on the min field, `ell_pagerank`
-    on the sum field, `ell_multi` on fields (hindex, min, sum) and the
-    whole `ell_triangles` wrapper on rows = nbr, with the row lengths `deg`
-    (`ms`) and without (`ms_without_deg`), in turns, beside the plain
-    version and three bounds: the all-columns bound
+    """The six kernels that take the row lengths, each as its entry point
+    calls it on graph `g`: `ell_cc` on the min field, `ell_pagerank` on the
+    sum field, `ell_multi` on fields (hindex, min, sum), the whole
+    `ell_triangles` wrapper on rows = nbr, and the two variants,
+    `ell_hindex_count` on the h-index field and `ell_allpairs` on rows =
+    nbr, with the row lengths `deg` (`ms`) and without (`ms_without_deg`),
+    in turns, beside the plain version (3 calls, not 20, for the all-pairs
+    match's) and three bounds: the all-columns bound
     (`bound_ms_all_columns`: the first C = Cd columns of nbr, which a call
     without deg must read, with the fields and outputs), the row-length
     bound (`bound_ms_row_length`: every valid slot these inputs need read
     once, with deg, the fields and the outputs; for the triangles the field
     is nbr itself, so its valid slots are those bytes) and
-    `launch_floor_ms`.  The triangles' operations: one probe per (u, v, y)
-    triple, at the scalar rate.  `ell_pagerank` also beside
-    `torch.sparse.mm` of the CSR adjacency by the field (`library_ms`; the
-    CSR is built outside the timed region).  Returns {kernel: shape
-    dict}."""
+    `launch_floor_ms`.  Operations, at the scalar rate: the triangles' one
+    probe per (u, v, y) triple; the count variant's C compares per valid
+    slot, and min(deg, C) with row lengths (h <= deg); the all-pairs
+    match's |u's row| compares per valid element of each valid neighbour's
+    row, which its compaction reaches, the same with row lengths.
+    `ell_pagerank` also beside `torch.sparse.mm` of the CSR adjacency by
+    the field (`library_ms`; the CSR is built outside the timed region).
+    Returns {kernel: shape dict}."""
     import torch
     from repro_torch.kernels.ell_cc import (
         neighbor_min_ell, neighbor_min_ell_plain)
+    from repro_torch.kernels.ell_hindex import (
+        hindex_count_ell, hindex_count_ell_plain)
     from repro_torch.kernels.ell_multi import (
         neighbor_multi_ell, neighbor_multi_ell_plain)
     from repro_torch.kernels.ell_pagerank import (
         neighbor_sum_ell, neighbor_sum_ell_plain)
     from repro_torch.kernels.ell_triangles import (
-        neighbor_common_ell, neighbor_common_ell_plain)
+        common_allpairs_ell, common_allpairs_ell_plain, neighbor_common_ell,
+        neighbor_common_ell_plain)
 
     N, Cd, nbr, deg = g.N, g.Cd, g.nbr, g.deg
-    _, lab, contrib = fields
+    hfield, lab, contrib = fields
     valid = nbr >= 0
     n_valid = int(valid.sum())
     rdeg = valid.sum(dim=1)
-    triples = int(torch.where(valid, rdeg[nbr.clamp(min=0).long()], 0).sum())
+    nb_deg = torch.where(valid, rdeg[nbr.clamp(min=0).long()], 0).sum(dim=1)
+    triples = int(nb_deg.sum())
+    pair_ops = int((rdeg * nb_deg).sum())  # the compacted all-pairs match
+    del nb_deg
     vec = N * 4
     combines = ("hindex", "min", "sum")
     runs = {
         # name: (call with deg or None, plain, all-columns bytes,
-        #        row-length bytes, operations)
+        #        row-length bytes, all-columns operations, row-length
+        #        operations, plain calls timed)
         "ell_cc": (
             lambda d: neighbor_min_ell(nbr, lab, deg=d),
             lambda: neighbor_min_ell_plain(nbr, lab),
-            N * Cd * 4 + 2 * vec, n_valid * 4 + vec + 2 * vec, 0),
+            N * Cd * 4 + 2 * vec, n_valid * 4 + vec + 2 * vec, 0, 0, 20),
         "ell_pagerank": (
             lambda d: neighbor_sum_ell(nbr, contrib, deg=d),
             lambda: neighbor_sum_ell_plain(nbr, contrib),
-            N * Cd * 4 + 2 * vec, n_valid * 4 + vec + 2 * vec, 0),
+            N * Cd * 4 + 2 * vec, n_valid * 4 + vec + 2 * vec, 0, 0, 20),
         "ell_multi": (
             lambda d: neighbor_multi_ell(nbr, fields, combines, deg=d),
             lambda: neighbor_multi_ell_plain(nbr, fields, combines),
-            N * Cd * 4 + 6 * vec, n_valid * 4 + vec + 6 * vec, 0),
+            N * Cd * 4 + 6 * vec, n_valid * 4 + vec + 6 * vec, 0, 0, 20),
         "ell_triangles": (
             lambda d: neighbor_common_ell(nbr, nbr, deg=d),
             lambda: neighbor_common_ell_plain(nbr, nbr),
-            N * Cd * 4 + vec, n_valid * 4 + 2 * vec, triples),
+            N * Cd * 4 + vec, n_valid * 4 + 2 * vec, triples, triples, 20),
+        "ell_hindex_count": (
+            lambda d: hindex_count_ell(nbr, hfield, deg=d),
+            lambda: hindex_count_ell_plain(nbr, hfield),
+            N * Cd * 4 + 2 * vec, n_valid * 4 + vec + 2 * vec, n_valid * Cd,
+            int((rdeg * rdeg.clamp(max=Cd)).sum()), 20),
+        "ell_allpairs": (
+            lambda d: common_allpairs_ell(nbr, nbr, deg=d),
+            lambda: common_allpairs_ell_plain(nbr, nbr),
+            N * Cd * 4 + vec, n_valid * 4 + 2 * vec, pair_ops, pair_ops, 3),
     }
     out = {}
-    for name, (call, plain, all_b, row_b, ops_) in runs.items():
+    for name, (call, plain, all_b, row_b, all_ops, row_ops,
+               plain_reps) in runs.items():
         ms, ms_all = _time_pair(lambda: call(deg), lambda: call(None))
-        plain_ms = min(_time_ms(plain) for _ in range(2))
-        ops_ms = ops_ / SCALAR_OPS_PER_S * 1e3
+        kw = {} if plain_reps == 20 else dict(reps=plain_reps, warmup=1)
+        plain_ms = min(_time_ms(plain, **kw) for _ in range(2))
+        all_ops_ms = all_ops / SCALAR_OPS_PER_S * 1e3
+        row_ops_ms = row_ops / SCALAR_OPS_PER_S * 1e3
         out[name] = dict(
             N=N, Cd=Cd, valid_slots=n_valid, ms=ms, ms_without_deg=ms_all,
-            plain_ms=plain_ms, bound_bytes_all_columns=all_b,
-            bound_ms_all_columns=max(_bound_ms(all_b), ops_ms),
-            bound_bytes_row_length=row_b,
-            bound_ms_row_length=max(_bound_ms(row_b), ops_ms),
-            bound_by="bytes" if _bound_ms(row_b) >= ops_ms else "operations",
-            bound_ops=ops_, launch_floor_ms=floor_ms)
+            plain_ms=plain_ms, plain_calls_timed=plain_reps,
+            bound_bytes_all_columns=all_b, bound_ops_all_columns=all_ops,
+            bound_ms_all_columns=max(_bound_ms(all_b), all_ops_ms),
+            bound_bytes_row_length=row_b, bound_ops=row_ops,
+            bound_ms_row_length=max(_bound_ms(row_b), row_ops_ms),
+            bound_by="bytes" if _bound_ms(row_b) >= row_ops_ms
+            else "operations", launch_floor_ms=floor_ms)
     csr, x = _csr(nbr, N), contrib[:, None]
     out["ell_pagerank"]["library_ms"] = _time_ms(
         lambda: torch.sparse.mm(csr, x))
@@ -1255,101 +1305,50 @@ def timing(g, core, window, parity, launches, hindex_split):
 def combine_timing(g, fields, parity, launches, floor_ms, scale):
     """The combine kernels and the two variants at the analytics shapes the
     runner gives them (K = None: every one of the Cd columns, PAD may sit
-    anywhere), each beside its plain version.  `ell_cc`, `ell_pagerank`,
-    `ell_multi` and `ell_triangles` (the whole wrapper, rows = nbr) as the
-    analytics path calls them, with the row lengths `deg`, and without,
+    anywhere), each beside its plain version: `ell_cc`, `ell_pagerank`,
+    `ell_multi`, `ell_triangles` (the whole wrapper, rows = nbr),
+    `ell_hindex_count` (on the coreness) and `ell_allpairs` (rows = nbr) as
+    their entry points call them, with the row lengths `deg`, and without,
     beside the all-columns bound, the row-length bound and the launch floor
     `floor_ms` (`_deg_timing`; `ell_pagerank` also beside `torch.sparse.mm`
     of the CSR adjacency by the field), on DS1 and on the 2^21 scale graph
-    (`scale`, from `scale_phase`).  The two variants take no `deg` and run
-    at the same shape, beside the all-columns bound (`bound_ms`: what their
-    calls read) and the row-length bound (`bound_ms_row_length`: the valid
-    slots, deg and the vectors, with the operations row lengths leave):
-    `ell_hindex_count` on the coreness (operations: C compares per valid
-    slot; with row lengths min(deg, C), as h <= deg) and `ell_allpairs` on
-    rows = nbr (operations: |u's row| compares per valid element of each
-    valid neighbour's row, which its compaction reaches, the same with row
-    lengths); their launches are `variants_phase`'s."""
+    (`scale`, from `scale_phase`).  The variants' launches are
+    `variants_phase`'s."""
     import torch
     from repro_torch.core.algorithms import INT32_MAX, PageRankProgram
-    from repro_torch.kernels.ell_hindex import (
-        hindex_count_ell, hindex_count_ell_plain)
-    from repro_torch.kernels.ell_triangles import (
-        common_allpairs_ell, common_allpairs_ell_plain)
 
     N, Cd, nbr = g.N, g.Cd, g.nbr
     lab = torch.where(g.node_mask, fields["labels"], INT32_MAX)
     contrib = PageRankProgram._contrib(g.deg, fields["rank"])
     core = fields["core"]
-    valid = nbr >= 0
-    deg = valid.sum(dim=1)
-    nbr_b, vec = N * Cd * 4, N * 4
-    n_valid = int(valid.sum())
-    nb_deg = torch.where(valid, deg[nbr.clamp(min=0).long()], 0).sum(dim=1)
-    pair_ops = int((deg * nb_deg).sum())  # the compacted all-pairs match
-    # name: (kernel, plain, bytes, operations, row-length bytes,
-    #        row-length operations, plain calls timed)
-    runs = {
-        "ell_hindex_count": (lambda: hindex_count_ell(nbr, core),
-                             lambda: hindex_count_ell_plain(nbr, core),
-                             nbr_b + 2 * vec, n_valid * Cd,
-                             n_valid * 4 + 3 * vec,
-                             int((deg * deg.clamp(max=Cd)).sum()), 20),
-        "ell_allpairs": (lambda: common_allpairs_ell(nbr, nbr),
-                         lambda: common_allpairs_ell_plain(nbr, nbr),
-                         nbr_b + vec, pair_ops, n_valid * 4 + 2 * vec,
-                         pair_ops, 3),
-    }
+    n_valid = int((nbr >= 0).sum())
     variant_extra = {
         "ell_hindex_count": {"ops_every_slot": N * Cd * Cd,
                              "sibling": "ell_hindex"},
         "ell_allpairs": {"ops_uncompacted": n_valid * Cd * Cd,
                          "sibling": "ell_triangles"}}
+    multi_detail = {"parity_detail": "every output bit-equal to its "
+                    "standalone kernel; min and hindex bit-equal to plain; "
+                    "max_abs_err is the sum's against plain"}
     out, shapes = [], {}
-
-    def entry(name, **rest):
-        return {"name": name, "route": "cuda",
-                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-                "replaces": KERNELS[name][1], "launches": launches[name],
-                "parity": "allclose" if name == "ell_pagerank" else "bit-equal",
-                "max_abs_err": parity[name], **rest}
-
-    def bound(nbytes, nops):
-        bytes_ms, ops_ms = _bound_ms(nbytes), nops / SCALAR_OPS_PER_S * 1e3
-        return (max(bytes_ms, ops_ms),
-                "bytes" if bytes_ms >= ops_ms else "operations")
-
-    for name, (kern, plain, nbytes, ops_, row_b, row_ops,
-               plain_reps) in runs.items():
-        ms, plain_ms = _time_pair(kern, plain, plain_reps)
-        bound_ms, bound_by = bound(nbytes, ops_)
-        row_ms, row_by = bound(row_b, row_ops)
-        shapes[name] = dict(ms=ms, plain_ms=plain_ms, bound_bytes=nbytes,
-                            bound_ops=ops_, bound_ms=bound_ms,
-                            bound_bytes_row_length=row_b,
-                            bound_ops_row_length=row_ops,
-                            bound_ms_row_length=row_ms,
-                            **variant_extra[name])
-        out.append(entry(
-            name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, bound_bytes=nbytes, bound_ops=ops_,
-            library_ms=None, bound_ms_row_length=row_ms,
-            bound_by_row_length=row_by, bound_bytes_row_length=row_b,
-            bound_ops_row_length=row_ops, **variant_extra[name]))
     timed = _deg_timing(g, (core, lab, contrib), floor_ms)
     for name, s in timed.items():
         shapes[name] = {"ds1": s, "scale_2^%d" % SCALE_LOG2_N: scale[name]}
-        out.append(entry(
-            name, ms=s["ms"], plain_ms=s["plain_ms"],
-            bound_ms=s["bound_ms_row_length"], bound_by=s["bound_by"],
-            bound_bytes=s["bound_bytes_row_length"], bound_ops=s["bound_ops"],
-            library_ms=s.get("library_ms"),
-            ms_without_deg=s["ms_without_deg"],
-            bound_ms_all_columns=s["bound_ms_all_columns"],
-            launch_floor_ms=floor_ms, shapes=shapes[name],
-            **({"parity_detail": "every output bit-equal to its standalone "
-                "kernel; min and hindex bit-equal to plain; max_abs_err is "
-                "the sum's against plain"} if name == "ell_multi" else {})))
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": KERNELS[name][1], "launches": launches[name],
+            "parity": "allclose" if name == "ell_pagerank" else "bit-equal",
+            "max_abs_err": parity[name], "ms": s["ms"],
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms_row_length"],
+            "bound_by": s["bound_by"],
+            "bound_bytes": s["bound_bytes_row_length"],
+            "bound_ops": s["bound_ops"], "library_ms": s.get("library_ms"),
+            "ms_without_deg": s["ms_without_deg"],
+            "bound_ms_all_columns": s["bound_ms_all_columns"],
+            "launch_floor_ms": floor_ms, "shapes": shapes[name],
+            **variant_extra.get(name, {}),
+            **(multi_detail if name == "ell_multi" else {})})
     emit(phase="combine_timing", order="plain,kernel,kernel,plain; "
          "without deg, with deg, with deg, without deg", N=N, Cd=Cd, K=None,
          valid_slots=n_valid, shapes=shapes,

@@ -54,10 +54,12 @@ SOURCES = {
     # nbr, rows, deg (or NULL), the field's deg (or NULL), out, n_rows, ld,
     # C, stream
     "ell_triangles": (_P, _P, _P, _P, _P, _L, _I, _I, _P),
-    # nbr, est, out, n_rows, ld, C, stream (the "count" variant)
-    "ell_hindex_count": (_P, _P, _P, _L, _I, _I, _P),
-    # nbr, rows as given, out, n_rows, ld, C, stream (the "allpairs" variant)
-    "ell_allpairs": (_P, _P, _P, _L, _I, _I, _P),
+    # nbr, est, deg (or NULL), out, n_rows, ld, C, stream (the "count"
+    # variant)
+    "ell_hindex_count": (_P, _P, _P, _P, _L, _I, _I, _P),
+    # nbr, rows, deg (or NULL), the field's deg (or NULL), out, n_rows, ld,
+    # C, stream (the "allpairs" variant)
+    "ell_allpairs": (_P, _P, _P, _P, _P, _L, _I, _I, _P),
     # dense adjacency, est, out, N, K, stream
     "kcore_hindex": (_P, _P, _P, _L, _I, _P),
     # dense adjacency, f, shared eligible, visited, out, N, R, stream

@@ -12,97 +12,119 @@
 //
 // the same counts as the "merge" kernel (ell_triangles.cu) and the plain
 // `ref.ell_common_ref`: a multiset intersection, duplicate ids counted as
-// products.  It sorts nothing and assumes no slot order: PAD may sit
-// anywhere in nbr and in rows, and PAD slots are skipped one by one (there
-// is no stop at the first PAD).
+// products.  It sorts nothing, builds no table and assumes no slot order:
+// PAD may sit anywhere in nbr and in rows.  Row lengths: `deg` (N,) int32,
+// optional, bounds u's nbr row, and `fdeg` the field's rows when the field
+// is nbr itself, as ell_pairs.cuh sets out; the result never depends on
+// them.
 //
-// Design: one warp per row u.  The warp compacts u's valid row elements
-// into its own n_own ints of shared memory (ballot + popc), and leaves at
-// once when there are none.  It then reads nbr's row 32 slots at a time;
-// each valid neighbour v is broadcast with __shfl_sync, lane l takes the
-// elements l, l + 32, ... of rows[v], and each valid element is compared
-// with all n_own elements of u (a shared-memory broadcast).  The warp sums
-// the lanes' integer counts at the end.
-//
-// What bounds it on the card: bytes at the main path's shapes.  A launch
-// must read the first C columns of nbr and rows (the same tensor for
-// whole-graph use, read once: N*C*4 bytes) and write N*4 bytes.  Its
-// operations are n_own(u) * (valid elements of rows[v]) compares per valid
-// slot (u, v), thanks to the compaction, against the (valid slots) * C^2
-// of the match without it (3.7*10^9 on DS1); chip_smoke.py counts both.
+// What bounds it on the card: latency, at the analytics shapes, as for
+// ell_triangles.cu: with deg the data needs the valid slots of nbr, deg and
+// the output (0.32 us of HBM time at DS1) and |u's row| compares per
+// (u, v, y) triple (1.1 * 10^7 at DS1, 0.16 us at the scalar rate).  So it
+// runs ell_triangles.cu's row split (ell_pairs.cuh: 8 lanes a row of up to
+// 64 columns and 128 pairs, a team of 8 warps for each other row, spread
+// over the grid), and only the work per (v, y) pair differs (`AllPairsOp`):
+// each pair's id is compared with every valid id of u's row.  In pass 1
+// (8 lanes a row) u's ids sit in the group's registers, 8 a lane, and are
+// broadcast by shuffles, over the register slots some lane of the warp
+// uses; in pass 2 (a warp, u's row 256 columns at a time) they are
+// compacted into the warp's shared memory and read 4 at a time, every lane
+// reading the same address.  This generalises ell_triangles.cu's no-table
+// case to any row length.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "ell_reduce.cuh"
+#include "ell_pairs.cuh"
 
 namespace {
 
-__global__ void ell_allpairs_kernel(const int32_t* __restrict__ nbr,
-                                    const int32_t* __restrict__ rows,
-                                    int32_t* __restrict__ out,
-                                    long long n_rows, int ld, int C) {
-  extern __shared__ int32_t smem[];
-  const int warps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * warps + warp;
-  if (row >= n_rows) return;  // the whole warp leaves; no block-wide sync
+constexpr int32_t kNoPair = -2;  // a pair's id when it has none: below -1
 
-  int32_t* own = smem + (size_t)warp * C;
-  const int32_t* ru = rows + row * (long long)ld;
-  int n_own = 0;  // warp-uniform
-  for (int i0 = 0; i0 < C; i0 += 32) {
-    const int i = i0 + lane;
-    const int32_t x = i < C ? ru[i] : -1;
-    const unsigned ok = __ballot_sync(ell::kFull, x >= 0);
-    if (x >= 0) own[n_own + __popc(ok & ((1u << lane) - 1u))] = x;
-    n_own += __popc(ok);
+// The per-pair operation of "allpairs": #{i : own[i] == y} over u's valid
+// ids, which are -1 where invalid, so no id of a pair (kNoPair where it has
+// none) equals an invalid one.
+struct AllPairsOp {
+  struct Own {
+    int n;  // W = 8: the register slots in use; W = 32: the ids in shared
+  };        // memory, padded to a multiple of 4 with -1
+
+  template <int W>
+  __device__ __forceinline__ Own begin(int2* table,
+                                       int32_t (&x)[pairs::kSlots], int n,
+                                       bool) const {
+    Own o;
+    if constexpr (W == pairs::kGroup) {  // in registers, compared by shuffles
+      int used = 0;
+#pragma unroll
+      for (int i = 0; i < pairs::kSlots; ++i) {
+        if (x[i] >= 0) used = i + 1;
+        else x[i] = -1;
+      }
+      o.n = __reduce_max_sync(ell::kFull, used);
+    } else {  // compacted into the warp's shared memory
+      static_assert(W == 32, "a warp's ids in shared memory");
+      const int lane = (int)(threadIdx.x & 31);
+      int32_t* own = reinterpret_cast<int32_t*>(table);
+      int at = 0;  // warp-uniform
+#pragma unroll
+      for (int i = 0; i < pairs::kSlots; ++i) {
+        const unsigned ok = __ballot_sync(ell::kFull, x[i] >= 0);
+        if (x[i] >= 0) own[at + __popc(ok & ((1u << lane) - 1u))] = x[i];
+        at += __popc(ok);
+      }
+      if (lane < 3) own[at + lane] = -1;  // pad to a multiple of 4
+      o.n = (n + 3) & ~3;
+      __syncwarp();
+    }
+    return o;
   }
-  __syncwarp();
-  int cnt = 0;
-  if (n_own > 0) {
-    const int32_t* r = nbr + row * (long long)ld;
-    for (int j0 = 0; j0 < C; j0 += 32) {
-      const int j = j0 + lane;
-      const int32_t v = j < C ? r[j] : -1;
-      unsigned live = __ballot_sync(ell::kFull, v >= 0);
-      while (live) {  // warp-uniform
-        const int s = __ffs(live) - 1;
-        live &= live - 1;
-        const int32_t* rv =
-            rows + (long long)__shfl_sync(ell::kFull, v, s) * ld;
-        for (int l = lane; l < C; l += 32) {
-          const int32_t y = __ldg(rv + l);
-          if (y < 0) continue;
-          for (int i = 0; i < n_own; ++i) cnt += own[i] == y;
+  template <int W, int U>
+  __device__ __forceinline__ int count(const int2* table,
+                                       const int32_t (&x)[pairs::kSlots],
+                                       const Own& o,
+                                       const int32_t (&y)[U]) const {
+    int32_t q[U];
+#pragma unroll
+    for (int k = 0; k < U; ++k) q[k] = y[k] >= 0 ? y[k] : kNoPair;
+    int cnt = 0;
+    if constexpr (W == pairs::kGroup) {
+#pragma unroll
+      for (int i = 0; i < pairs::kSlots; ++i) {
+        if (i >= o.n) break;
+#pragma unroll
+        for (int g = 0; g < W; ++g) {
+          const int32_t own = __shfl_sync(ell::kFull, x[i], g, W);
+#pragma unroll
+          for (int k = 0; k < U; ++k) cnt += q[k] == own;
         }
       }
+    } else {
+      const int4* own = reinterpret_cast<const int4*>(table);
+      for (int m = 0; m < o.n / 4; ++m) {
+        const int4 e = own[m];  // the same address on every lane
+#pragma unroll
+        for (int k = 0; k < U; ++k)
+          cnt += (q[k] == e.x) + (q[k] == e.y) + (q[k] == e.z) +
+                 (q[k] == e.w);
+      }
     }
+    return cnt;
   }
-  cnt = __reduce_add_sync(ell::kFull, cnt);
-  if (lane == 0) out[row] = cnt;
-}
+};
 
 }  // namespace
 
-// nbr, rows: (n_rows, ld) int32, row-major and contiguous; out: (n_rows,)
-// int32.  Reads columns [0, C) of each row of both, C <= ld.  Returns the
-// cudaError_t of the launch (0 on success).
+// nbr, rows: (n_rows, ld) int32, row-major and contiguous (the same tensor
+// for whole-graph use); deg: (n_rows,) int32 valid nbr slots per row, or
+// NULL; fdeg: deg when rows is nbr, else NULL; out: (n_rows,) int32.  Reads
+// columns [0, C) of each row of both, C <= ld.  Returns the launch's
+// cudaError_t.
 extern "C" int ell_allpairs_launch(const void* nbr, const void* rows,
+                                   const void* deg, const void* fdeg,
                                    void* out, long long n_rows, int ld, int C,
                                    void* stream) {
-  if (n_rows <= 0) return 0;
-  if (C < 0 || C > ld) return (int)cudaErrorInvalidValue;
-  const size_t per_warp = (size_t)C * sizeof(int32_t);
-  ell::WarpShape shape;
-  const cudaError_t err =
-      ell::warp_shape(ell_allpairs_kernel, per_warp, &shape);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (n_rows + shape.warps - 1) / shape.warps;
-  ell_allpairs_kernel<<<(unsigned)blocks, shape.warps * 32, shape.smem,
-                        (cudaStream_t)stream>>>(
-      (const int32_t*)nbr, (const int32_t*)rows, (int32_t*)out, n_rows, ld,
-      C);
-  return (int)cudaGetLastError();
+  return (int)pairs::launch<AllPairsOp>(nbr, rows, deg, fdeg, out, n_rows,
+                                        ld, C, (cudaStream_t)stream);
 }

@@ -1,5 +1,5 @@
 // ell_rows.cuh — the row tiers of the ELL combines, shared by ell_cc.cu,
-// ell_pagerank.cu and ell_multi.cu.
+// ell_pagerank.cu, ell_multi.cu and ell_hindex_count.cu.
 //
 // Each of those kernels reduces, for every row u of nbr (N, ld) int32 with
 // -1 = PAD, the neighbour values field[nbr[u, j]] over the valid slots of
@@ -44,14 +44,20 @@
 //                                  group, written to row when `write`
 //                                  (n: the group's valid slots);
 //   warp_begin(a, C, lane), warp_add(a, v, C), warp_end(a, u, C, lane)
-//                                  tier 3, in the warp layout.
+//                                  tier 3, in the warp layout: warp_add
+//                                  by the lanes whose slot v is valid,
+//                                  or, where the Op sets `kWarpWide`, by
+//                                  all 32 lanes together (v < 0 for a PAD
+//                                  or past C), so it may shuffle.
 //
-// All 32 lanes call each of them together.
+// All 32 lanes call each of them together, warp_add as just said.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "ell_reduce.cuh"
 
@@ -162,6 +168,14 @@ __device__ __forceinline__ bool reg_row(const Op& op,
   return done;
 }
 
+// True when Op::warp_add takes all 32 lanes' slots together (an Op that
+// sets `static constexpr bool kWarpWide = true`).
+template <class Op, class = void>
+struct warp_wide : std::false_type {};
+template <class Op>
+struct warp_wide<Op, std::void_t<decltype(Op::kWarpWide)>>
+    : std::bool_constant<Op::kWarpWide> {};
+
 // Tier 3: row u by the whole warp, 32 slots a step, reading its first C
 // columns; with `kStop`, only until `target` valid slots have been seen.
 // The stop makes each step wait for the ballot of the last one's slots, so
@@ -183,7 +197,8 @@ __device__ __forceinline__ void warp_row(const Op& op,
     const int j = j0 + lane;
     const int32_t v = j < C ? r[j] : -1;
     if constexpr (kStop) seen += __popc(__ballot_sync(kFull, v >= 0));
-    if (v >= 0) op.warp_add(a, v, C);
+    if constexpr (warp_wide<Op>::value) op.warp_add(a, v, C);
+    else if (v >= 0) op.warp_add(a, v, C);
   }
   __syncwarp();
   op.warp_end(a, u, C, lane);

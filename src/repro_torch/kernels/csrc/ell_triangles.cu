@@ -15,14 +15,9 @@
 // duplicate ids count as the JAX package counts them.  Nothing is sorted,
 // and the result is exact for any slot order of nbr and of rows.
 //
-// Row lengths: `deg` (N,) int32 is optional, each row's count of valid nbr
-// slots.  With it u's nbr row stops after min(deg[u], C) columns.  `fdeg`
-// bounds the rows of the field the same way; the wrapper passes deg there
-// only when rows and nbr are the same tensor (whole-graph triangles), and
-// NULL otherwise (the field is then read over its C columns).  A PAD met
-// inside such a bounded prefix (a row that is not left-filled) sends the
-// row back to be counted over all C columns of everything, so the result
-// never depends on deg.
+// Row lengths: `deg` (N,) int32, optional, bounds u's nbr row, and `fdeg`
+// the field's rows when the field is nbr itself, as ell_pairs.cuh sets
+// out; the result never depends on them.
 //
 // What bounds it on the card: latency, at the analytics shapes.  What the
 // data needs is small: the valid slots of nbr with deg and the output
@@ -30,70 +25,27 @@
 // deg^2 ids, 4.8 MB, mostly L2 hits) and one probe per (u, v, y) triple
 // (1.2 M).  So the design does one probe per triple, into a hash table in
 // shared memory, spreads a row's triples over lanes, and keeps the rows
-// with many triples from queueing behind one another.  DS1's hubs hold
-// neighbouring ids (rows 12512 to 12582 hold up to 1,499 triples each,
-// against 12 for the median row), so a layout that gives each warp a run
-// of consecutive rows leaves a few warps with most of the work.  Two
-// passes, launched back to back:
-//
-//  * Pass 1 gives a row of up to 64 columns a group of 8 lanes (4 rows a
-//    warp).  The group loads u's first 64 columns beside deg[u] (one load
-//    serves nbr and the field when they are the same tensor) and puts its
-//    valid field entries (8 a lane in registers) into an open-addressing
-//    table of (id, multiplicity), a power of two at least twice their
-//    number, built with shared-memory atomics.  It compacts u's valid neighbours v into a shared list with
-//    each one's row length (min(deg[v], C) under fdeg, else C) and its
-//    offset among the flattened (v, column) pairs.  A row of at most 128
-//    pairs deals them out to its lanes, 4 a lane per step: U lockstep
-//    binary searches of the offsets, every load before any probe, and
-//    mult_u(y) added for each valid y.  Counts are summed over the group
-//    in integers: exact and deterministic.  Every other row is left to
-//    pass 2 with a code in out.
-//  * Pass 2 gives each such row a team of 8 warps (a block), 4 pairs a
-//    lane per step.  The team's warps split the row's neighbour slots;
-//    each builds u's table in its own 6 KB, and the team sums their
-//    counts in shared memory.  Team t of the grid's NT takes rows t,
-//    t + NT, ..., so neighbouring hubs go to different teams.  Cd is
-//    unbounded: a warp takes u's row 256 columns at a time, one table each
-//    (the multiplicities add up), and its neighbours 256 at a time.
-//    Without deg every row is pass 2's, one warp a row.
-//  * When the own entries of every row of a warp fit one slot a lane (8
-//    in pass 1, DS1's typical row), there is no table: each pair's id is
-//    compared with the group's entries by shuffles.
+// with many triples from queueing behind one another: the row split of
+// ell_pairs.cuh (pass 1, 8 lanes a row of up to 64 columns and 128 pairs;
+// pass 2, a team of 8 warps for each other row), shared with
+// ell_allpairs.cu, with this per-pair operation (`TableOp`): u's valid
+// field entries go into an open-addressing table of (id, multiplicity), a
+// power of two at least twice their number, built with shared-memory
+// atomics, and each pair adds mult_u(y).  When the own entries of every
+// row of a warp fit one slot a lane (8 in pass 1, DS1's typical row),
+// there is no table: each pair's id is compared with the group's entries
+// by shuffles.
 //
 // The wrapper calls no sort: there is no keyed copy of the field.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "ell_reduce.cuh"
+#include "ell_pairs.cuh"
 
 namespace {
 
-constexpr int kGroup = 8;                   // lanes per short row
-constexpr int kRowsPerWarp = 32 / kGroup;   // rows per warp
-constexpr int kSlots = 8;                   // register slots per lane
-constexpr int kLightUnroll = 4;             // pairs a lane loads per step,
-constexpr int kHeavyUnroll = 4;             //   in pass 1 and in pass 2
-constexpr int kLightPairs = 128;            // pass 1's most pairs per row
-constexpr int kEmpty = -1;                  // a free table slot's key
-constexpr int32_t kHeavy = -1;              // pass 1's codes for pass 2
-constexpr int32_t kBack = -2;
-constexpr int kScan = 32;                   // rows a pass-2 team scans
-constexpr int kTeam = 8;                    // warps a pass-2 row gets
-// a W-lane group's shared memory: a table of 2 * W * kSlots (id, count)
-// pairs and a list of W * kSlots (neighbour, offset) pairs; the same
-// 6 KB per warp whether W = 8 or 32
-__host__ __device__ constexpr int group_int2s(int W) {
-  return W * kSlots * 3;  // 2 W kSlots int2 of table, then the list
-}
-constexpr int kWarpInt2s = group_int2s(32);
-constexpr size_t kWarpBytes = kWarpInt2s * sizeof(int2);
-static_assert(kRowsPerWarp * group_int2s(kGroup) == kWarpInt2s, "layout");
-
-// every warp's tables and lists; indexed from this symbol, not through a
-// pointer argument, so the compiler emits shared-memory loads and atomics
-extern __shared__ int2 tri_smem[];
+constexpr int kEmpty = -1;  // a free table slot's key
 
 __device__ __forceinline__ unsigned hash_slot(int32_t y, int log_t) {
   return ((unsigned)y * 2654435769u) >> (32 - log_t);  // Fibonacci hashing
@@ -120,307 +72,55 @@ __device__ __forceinline__ int table_count(const int2* t, int log_t,
   }
 }
 
-// This lane's part of red[u] for every W-lane group of the warp at once
-// (this lane is lane `gl` of its group, whose shared memory starts at
-// tri_smem[mem]): u's nbr row over its first Sn columns (only the slots j
-// with j % split == part: a team of `split` warps shares a row), u's field
-// row over its first Sf, each neighbour's field row over min(fdeg[v], C)
-// columns, or C when fdeg is NULL.  A group with Sn = 0 reads nothing and
-// gets 0.  Each lane takes U pairs a step.  All 32 lanes call it together;
-// its loops run the warp's largest trip counts.  Sets *bad when a bounded
-// prefix shorter than C holds a PAD, and *heavy (counting nothing) when
-// the group's row has more than `max_pairs` (neighbour, column) pairs.
-// With kPre (one chunk of each, Sn, Sf <= W * kSlots) the row's slots
-// are already loaded: px[i], pv[i] hold its field and nbr columns
-// gl + i * W (any value past C).
-template <int W, int U, bool kPre = false>
-__device__ __forceinline__ int row_common(
-    const int32_t* __restrict__ nbr, const int32_t* __restrict__ rows,
-    const int32_t* __restrict__ fdeg, long long u, int Sn, int Sf, int C,
-    int ld, int gl, int mem, int part, int split, int max_pairs, bool* bad,
-    bool* heavy, const int32_t* px = nullptr, const int32_t* pv = nullptr) {
-  constexpr int kChunk = W * kSlots;
-  int2* table = tri_smem + mem;
-  int32_t* lv = reinterpret_cast<int32_t*>(table + 2 * kChunk);
-  int32_t* loff = lv + kChunk;
-  if (Sn == 0) Sf = 0;  // no neighbour: nothing to count
-  const int32_t* ru = nbr + u * (long long)ld;
-  const int32_t* fu = rows + u * (long long)ld;
-  int cnt = 0;
-  bool b = false, h = false;
-  const int own_chunks =
-      __reduce_max_sync(ell::kFull, (Sf + kChunk - 1) / kChunk);
-  const int nbr_chunks =
-      __reduce_max_sync(ell::kFull, (Sn + kChunk - 1) / kChunk);
-  // every group's row holds at most one own entry a lane: compare by
-  // shuffles, no table
-  const bool small = __all_sync(ell::kFull, Sf <= W);
-  for (int oc = 0; oc < own_chunks; ++oc) {
-    // u's field entries [o0, o0 + kChunk)
-    const int o0 = oc * kChunk;
-    int32_t x[kSlots];
-    int c = 0;
-#pragma unroll
-    for (int i = 0; i < kSlots; ++i) {
-      const int j = o0 + gl + i * W;
-      if constexpr (kPre) x[i] = j < Sf ? px[i] : -1;
-      else x[i] = j < Sf ? __ldg(fu + j) : -1;
-      c += x[i] >= 0;
-      if (j < Sf && x[i] < 0 && Sf < C) b = true;  // a PAD inside
-    }
-    const int n = ell::group_sum<W>(c);
-    const int log_t = n > 0 ? 32 - __clz(2 * n - 1) : 0;  // 2^log_t >= 2n
-    if (!small) {  // into the table
-      for (int k = gl; k < (n > 0 ? 1 << log_t : 0); k += W)
+// The per-pair operation of "merge": mult_u(y) from a hash table of u's
+// entries, or, when every group's row holds at most one own entry a lane
+// (`small`), a compare with the group's entries by shuffles.
+struct TableOp {
+  struct Own {
+    int log_t;   // the table holds 2^log_t >= 2n slots
+    bool small;  // no table: u's entries are x[0] of the group's lanes
+  };
+
+  template <int W>
+  __device__ __forceinline__ Own begin(int2* table,
+                                       int32_t (&x)[pairs::kSlots], int n,
+                                       bool narrow) const {
+    const int gl = (int)(threadIdx.x % W);
+    Own o;
+    o.small = narrow;
+    o.log_t = n > 0 ? 32 - __clz(2 * n - 1) : 0;  // 2^log_t >= 2n
+    if (!o.small) {  // into the table
+      for (int k = gl; k < (n > 0 ? 1 << o.log_t : 0); k += W)
         table[k] = make_int2(kEmpty, 0);
       __syncwarp();
 #pragma unroll
-      for (int i = 0; i < kSlots; ++i)
-        if (x[i] >= 0) table_add(table, log_t, x[i]);
+      for (int i = 0; i < pairs::kSlots; ++i)
+        if (x[i] >= 0) table_add(table, o.log_t, x[i]);
       __syncwarp();
     }
-    for (int nc = 0; nc < nbr_chunks; ++nc) {
-      // u's valid neighbours in [n0, n0 + kChunk), compacted with their
-      // row lengths' offsets (none when u has no own entry here)
-      const int n0 = nc * kChunk;
-      int32_t v[kSlots];
-      int len[kSlots];
-      int cv = 0, lsum = 0;
+    return o;
+  }
+  template <int W, int U>
+  __device__ __forceinline__ int count(const int2* table,
+                                       const int32_t (&x)[pairs::kSlots],
+                                       const Own& o,
+                                       const int32_t (&y)[U]) const {
+    int cnt = 0;
+    if (o.small) {  // u's entries are x[0] of the group's lanes
 #pragma unroll
-      for (int i = 0; i < kSlots; ++i) {
-        const int j = n0 + gl + i * W;
-        const bool mine = n > 0 && j < Sn && j % split == part;
-        if constexpr (kPre) v[i] = mine ? pv[i] : -1;
-        else v[i] = mine ? __ldg(ru + j) : -1;
-        if (mine && v[i] < 0 && Sn < C) b = true;  // a PAD inside
+      for (int g = 0; g < W; ++g) {
+        const int32_t own = __shfl_sync(ell::kFull, x[0], g, W);
+#pragma unroll
+        for (int k = 0; k < U; ++k) cnt += y[k] >= 0 && y[k] == own;
       }
+    } else {
 #pragma unroll
-      for (int i = 0; i < kSlots; ++i) {
-        len[i] = 0;
-        if (v[i] >= 0) {
-          int d = C;
-          if (fdeg != nullptr) {
-            d = __ldg(fdeg + v[i]);
-            d = d < C ? (d > 0 ? d : 0) : C;
-          }
-          len[i] = d;
-          ++cv;
-          lsum += d;
-        }
-      }
-      const int nv = ell::group_sum<W>(cv);
-      int pc = cv, pl = lsum;  // inclusive scans over the group's lanes
-#pragma unroll
-      for (int off = 1; off < W; off <<= 1) {
-        const int tc = __shfl_up_sync(ell::kFull, pc, off, W);
-        const int tl = __shfl_up_sync(ell::kFull, pl, off, W);
-        if (gl >= off) {
-          pc += tc;
-          pl += tl;
-        }
-      }
-      int P = __shfl_sync(ell::kFull, pl, W - 1, W);  // pairs in all
-      if (P > max_pairs) {  // left to the warp pass
-        h = true;
-        P = 0;
-      }
-      int pos = pc - cv, o = pl - lsum;
-#pragma unroll
-      for (int i = 0; i < kSlots; ++i) {
-        if (v[i] >= 0) {
-          lv[pos] = v[i];
-          loff[pos] = o;
-          ++pos;
-          o += len[i];
-        }
-      }
-      __syncwarp();
-      const int trips =
-          __reduce_max_sync(ell::kFull, (P + W * U - 1) / (W * U));
-      for (int t = 0; t < trips; ++t) {
-        // the entry of each of this lane's U pairs: the last offset <= p,
-        // U searches in lockstep (nv steps' worth for every pair alike)
-        int p[U], e[U];
-#pragma unroll
-        for (int k = 0; k < U; ++k) {
-          p[k] = (t * U + k) * W + gl;
-          e[k] = 0;
-        }
-        for (int m = nv; m > 1;) {
-          const int half = m >> 1;
-#pragma unroll
-          for (int k = 0; k < U; ++k)
-            e[k] = loff[e[k] + half] <= p[k] ? e[k] + half : e[k];
-          m -= half;
-        }
-        int32_t y[U];
-#pragma unroll
-        for (int k = 0; k < U; ++k) {
-          y[k] = -1;
-          if (p[k] < P) {
-            const int start = loff[e[k]];
-            const int room = (e[k] + 1 < nv ? loff[e[k] + 1] : P) - start;
-            y[k] = __ldg(rows + (long long)lv[e[k]] * ld + (p[k] - start));
-            if (y[k] < 0 && room < C) b = true;  // a PAD inside
-          }
-        }
-        if (small) {  // u's entries are x[0] of the group's lanes
-#pragma unroll
-          for (int g = 0; g < W; ++g) {
-            const int32_t own = __shfl_sync(ell::kFull, x[0], g, W);
-#pragma unroll
-            for (int k = 0; k < U; ++k) cnt += y[k] >= 0 && y[k] == own;
-          }
-        } else {
-#pragma unroll
-          for (int k = 0; k < U; ++k)
-            if (y[k] >= 0) cnt += table_count(table, log_t, y[k]);
-        }
-      }
-      __syncwarp();  // the list is read before the next chunk writes it
+      for (int k = 0; k < U; ++k)
+        if (y[k] >= 0) cnt += table_count(table, o.log_t, y[k]);
     }
-    __syncwarp();  // the table is read before the next chunk clears it
+    return cnt;
   }
-  *bad = b;
-  *heavy = h;
-  return cnt;
-}
-
-// (Sn, Sf) of row u: its nbr and field columns read first
-__device__ __forceinline__ void row_extent(const int32_t* __restrict__ deg,
-                                           const int32_t* __restrict__ fdeg,
-                                           long long u, int C, int* Sn,
-                                           int* Sf) {
-  *Sn = *Sf = C;
-  if (deg != nullptr) {
-    const int d = __ldg(deg + u);
-    *Sn = d < C ? (d > 0 ? d : 0) : C;
-    if (fdeg != nullptr) *Sf = *Sn;
-  }
-}
-
-// Pass 1: rows of up to 64 columns with at most kLightPairs pairs, 8 lanes
-// each.  Every other row gets a code for pass 2 in out: kHeavy, or kBack
-// for a row sent back (counted over all C columns of everything).
-__global__ void ell_triangles_light(const int32_t* __restrict__ nbr,
-                                    const int32_t* __restrict__ rows,
-                                    const int32_t* __restrict__ deg,
-                                    const int32_t* __restrict__ fdeg,
-                                    int32_t* __restrict__ out,
-                                    long long n_rows, int ld, int C) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int grp = lane / kGroup;
-  const int gl = lane % kGroup;
-  const long long row =
-      ((long long)blockIdx.x * (blockDim.x >> 5) + warp) * kRowsPerWarp + grp;
-  const int mem = warp * kWarpInt2s + grp * group_int2s(kGroup);
-  const bool live = row < n_rows;
-  // the row's first 64 columns, loaded beside deg rather than after it
-  // (for the whole-graph field, fdeg set, one load serves both)
-  int32_t px[kSlots], pv[kSlots];
-#pragma unroll
-  for (int i = 0; i < kSlots; ++i) {
-    const int j = gl + i * kGroup;
-    const bool in = live && j < C;
-    px[i] = in ? __ldg(rows + row * (long long)ld + j) : -1;
-    pv[i] = fdeg != nullptr ? px[i]
-                            : (in ? __ldg(nbr + row * (long long)ld + j) : -1);
-  }
-  int Sn = 0, Sf = 0;
-  bool light = false;
-  if (live) {
-    row_extent(deg, fdeg, row, C, &Sn, &Sf);
-    light = Sn <= kGroup * kSlots && Sf <= kGroup * kSlots;
-  }
-  bool bad, heavy;
-  int cnt = row_common<kGroup, kLightUnroll, true>(
-      nbr, rows, fdeg, row, light ? Sn : 0, light ? Sf : 0, C, ld, gl, mem,
-      0, 1, kLightPairs, &bad, &heavy, px, pv);
-  cnt = ell::group_sum<kGroup>(cnt);
-  bad = ell::group_sum<kGroup>(bad) > 0;
-  heavy = ell::group_sum<kGroup>(heavy) > 0;
-  if (live && gl == 0)
-    out[row] = bad ? kBack : (!light || heavy ? kHeavy : cnt);
-}
-
-// Pass 2: the rows pass 1 left (every row when `all_heavy`), a team of
-// kTeam warps a row: its warps split the row's neighbour slots, each builds
-// u's table, and the team sums their counts in shared memory.  Team t of
-// the grid's NT takes rows t, t + NT, t + 2 NT, ..., so rows of
-// neighbouring ids (a hub's neighbourhood) go to different teams.  A team
-// of more than one warp is a whole block (its __syncthreads are the
-// team's).
-template <int kTeam>
-__global__ void ell_triangles_heavy(const int32_t* __restrict__ nbr,
-                                    const int32_t* __restrict__ rows,
-                                    const int32_t* __restrict__ deg,
-                                    const int32_t* __restrict__ fdeg,
-                                    int32_t* __restrict__ out,
-                                    long long n_rows, int ld, int C,
-                                    bool all_heavy) {
-  __shared__ unsigned masks[kTeam];    // the team's rows left, per warp
-  __shared__ int32_t codes[kTeam * 32];
-  __shared__ int parts[kTeam];         // the warps' counts of one row
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int wi = warp % kTeam;         // this warp's part of the team's row
-  const int teams = (blockDim.x >> 5) / kTeam;
-  const long long nt = (long long)gridDim.x * teams;
-  const long long t = (long long)blockIdx.x * teams + warp / kTeam;
-  const int mem = warp * kWarpInt2s;
-  const int tl = wi * 32 + lane;       // this thread within its team
-  for (long long k0 = 0; t + k0 * nt < n_rows; k0 += kTeam * 32) {
-    const long long mine = t + (k0 + tl) * nt;  // team-uniform loop
-    int code = 0;
-    if (mine < n_rows) code = all_heavy ? kHeavy : out[mine];
-    const unsigned todo = __ballot_sync(ell::kFull, code < 0);
-    if constexpr (kTeam > 1) {
-      if (lane == 0) masks[wi] = todo;
-      codes[tl] = code;
-      __syncthreads();
-    }
-    for (int q = 0; q < kTeam; ++q) {
-      unsigned m = kTeam > 1 ? masks[q] : todo;
-      while (m) {  // team-uniform
-        const int l = __ffs(m) - 1;
-        m &= m - 1;
-        const int idx = q * 32 + l;
-        const long long u = t + (k0 + idx) * nt;
-        const int cu =
-            kTeam > 1 ? codes[idx] : __shfl_sync(ell::kFull, code, l);
-        bool full = cu == kBack;
-        int Sn, Sf, c;
-        row_extent(deg, fdeg, u, C, &Sn, &Sf);
-        for (;;) {
-          bool b, unused;
-          c = row_common<32, kHeavyUnroll>(
-              nbr, rows, full ? nullptr : fdeg, u, full ? C : Sn,
-              full ? C : Sf, C, ld, lane, mem, wi, kTeam, INT32_MAX, &b,
-              &unused);
-          bool any = __any_sync(ell::kFull, b);
-          if constexpr (kTeam > 1) any = __syncthreads_or(any);
-          if (full || !any) break;
-          full = true;
-        }
-        c = __reduce_add_sync(ell::kFull, c);
-        if constexpr (kTeam > 1) {
-          if (lane == 0) parts[wi] = c;
-          __syncthreads();
-          if (tl == 0) {
-            int sum = 0;
-            for (int i = 0; i < kTeam; ++i) sum += parts[i];
-            out[u] = sum;
-          }
-          __syncthreads();  // parts are read before the next row's writes
-        } else if (lane == 0) {
-          out[u] = c;
-        }
-      }
-    }
-    if constexpr (kTeam > 1) __syncthreads();  // before the next round
-  }
-}
+};
 
 }  // namespace
 
@@ -433,41 +133,6 @@ extern "C" int ell_triangles_launch(const void* nbr, const void* rows,
                                     const void* deg, const void* fdeg,
                                     void* out, long long n_rows, int ld,
                                     int C, void* stream) {
-  if (n_rows <= 0) return 0;
-  if (C < 0 || C > ld) return (int)cudaErrorInvalidValue;
-  const int32_t* nb = (const int32_t*)nbr;
-  const int32_t* rw = (const int32_t*)rows;
-  const int32_t* dg = (const int32_t*)deg;
-  const int32_t* fd = deg != nullptr ? (const int32_t*)fdeg : nullptr;
-  cudaStream_t st = (cudaStream_t)stream;
-  ell::WarpShape shape;
-  // without deg every neighbour's row is read over its C columns: every
-  // row goes to pass 2, one warp a row
-  const bool all_heavy = deg == nullptr;
-  if (!all_heavy) {
-    cudaError_t err = ell::warp_shape(ell_triangles_light, kWarpBytes, &shape);
-    if (err != cudaSuccess) return (int)err;
-    const long long per_block = (long long)shape.warps * kRowsPerWarp;
-    const long long blocks = (n_rows + per_block - 1) / per_block;
-    ell_triangles_light<<<(unsigned)blocks, shape.warps * 32, shape.smem,
-                          st>>>(nb, rw, dg, fd, (int32_t*)out, n_rows, ld, C);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  // every row without deg: a warp each; else a team of 8 warps (a block)
-  // for each row pass 1 left, 32 rows scanned by each team
-  auto heavy = all_heavy ? ell_triangles_heavy<1> : ell_triangles_heavy<kTeam>;
-  cudaError_t err = ell::warp_shape(heavy, kWarpBytes, &shape);
-  // the team's static shared memory comes on top of the 48 KB
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(
-        heavy, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shape.smem);
-  if (err != cudaSuccess) return (int)err;
-  if (!all_heavy && shape.warps != kTeam) return (int)cudaErrorInvalidValue;
-  const long long teams = all_heavy ? shape.warps : shape.warps / kTeam;
-  const long long per_block = teams * (all_heavy ? 1 : kScan);
-  const long long blocks = (n_rows + per_block - 1) / per_block;
-  heavy<<<(unsigned)blocks, shape.warps * 32, shape.smem, st>>>(
-      nb, rw, dg, fd, (int32_t*)out, n_rows, ld, C, all_heavy);
-  return (int)cudaGetLastError();
+  return (int)pairs::launch<TableOp>(nbr, rows, deg, fdeg, out, n_rows, ld,
+                                     C, (cudaStream_t)stream);
 }

@@ -24,12 +24,12 @@ rows are left-filled (valid slots before PAD slots), which the sorted-ELL
 invariant of `core.graph` guarantees.  K = None reads all Cd columns and
 assumes nothing about slot order.  No padding of N or Cd is needed.
 
-Row lengths: the "sort" kernel also takes `deg`, each row's count of
-valid slots (a `GraphBlocks`' ``deg``).  With it a row stops once it has
-seen min(deg[u], valid slots of its first C columns) valid slots, which
-on left-filled rows is exactly ``nbr[u, :min(deg[u], C)]``; the result
-is the same for any slot order.  The plain versions and the "count"
-kernel take `deg` and do not need it.
+Row lengths: both kernels also take `deg`, each row's count of valid
+slots (a `GraphBlocks`' ``deg``).  With it a row stops once it has seen
+min(deg[u], valid slots of its first C columns) valid slots, which on
+left-filled rows is exactly ``nbr[u, :min(deg[u], C)]``; the result is
+the same for any slot order.  The plain versions take `deg` and do not
+need it.
 """
 from __future__ import annotations
 
@@ -81,9 +81,12 @@ def hindex_ell_plain(nbr: torch.Tensor, est: torch.Tensor,
 
 
 def hindex_count_ell_plain(nbr: torch.Tensor, est: torch.Tensor,
-                           K: Optional[int] = None) -> torch.Tensor:
+                           K: Optional[int] = None,
+                           deg: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """The "count" variant's plain version: gather the first C columns,
-    count each threshold k = 1..C over row chunks, sum [cnt >= k]."""
+    count each threshold k = 1..C over row chunks, sum [cnt >= k].  `deg`
+    is accepted and not read: the value does not depend on it."""
     N = nbr.shape[0]
     C = columns(nbr.shape[1], K)
     vals = ell_gather(nbr[:, :C], est.to(torch.int32))
@@ -144,42 +147,45 @@ def hindex_ell(nbr: torch.Tensor, est: torch.Tensor,
     CUDA tensors launch the variant's CUDA kernel ("sort" bumps
     `hindex_ell.launches`, "count" `hindex_count_ell.launches`); CPU
     tensors take the variant's plain version.  `deg` (optional, (N,)
-    int32, each row's valid slots) lets the "sort" kernel stop each row
-    at its length; it never changes the result.
+    int32, each row's valid slots) lets either kernel stop each row at
+    its length; it never changes the result.
     """
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; expected one of "
                          f"{VARIANTS}")
-    check_deg(nbr, deg)
     if variant == "count":
-        return hindex_count_ell(nbr, est, K)
+        return hindex_count_ell(nbr, est, K, deg)
+    check_deg(nbr, deg)
     if not on_cuda(nbr, "hindex_ell"):
         return hindex_ell_plain(nbr, est, K, deg)
-    out = _launch("ell_hindex", nbr, est, K, deg_ptr(deg))
+    out = _launch("ell_hindex", nbr, est, K, deg)
     hindex_ell.launches += 1
     return out
 
 
 def hindex_count_ell(nbr: torch.Tensor, est: torch.Tensor,
-                     K: Optional[int] = None) -> torch.Tensor:
+                     K: Optional[int] = None,
+                     deg: Optional[torch.Tensor] = None) -> torch.Tensor:
     """`hindex_ell(variant="count")`: CUDA tensors launch
-    `csrc/ell_hindex_count.cu` (and bump `hindex_count_ell.launches`); CPU
-    tensors take `hindex_count_ell_plain`."""
+    `csrc/ell_hindex_count.cu` (and bump `hindex_count_ell.launches`),
+    each row stopped at its length when `deg` is given; CPU tensors take
+    `hindex_count_ell_plain`."""
+    check_deg(nbr, deg)
     if not on_cuda(nbr, "hindex_ell"):
-        return hindex_count_ell_plain(nbr, est, K)
-    out = _launch("ell_hindex_count", nbr, est, K)
+        return hindex_count_ell_plain(nbr, est, K, deg)
+    out = _launch("ell_hindex_count", nbr, est, K, deg)
     hindex_count_ell.launches += 1
     return out
 
 
 def _launch(kernel: str, nbr: torch.Tensor, est: torch.Tensor,
-            K: Optional[int], *deg) -> torch.Tensor:
-    """Launch `kernel` on (nbr, est[, deg address]) into a new (N,) int32."""
+            K: Optional[int], deg: Optional[torch.Tensor]) -> torch.Tensor:
+    """Launch `kernel` on (nbr, est, deg) into a new (N,) int32."""
     check_field(nbr, est)
     N, Cd = nbr.shape
     out = torch.empty(N, dtype=torch.int32, device=nbr.device)
-    _build.launch(kernel, nbr.device, nbr.data_ptr(), est.data_ptr(), *deg,
-                  out.data_ptr(), N, Cd, columns(Cd, K))
+    _build.launch(kernel, nbr.device, nbr.data_ptr(), est.data_ptr(),
+                  deg_ptr(deg), out.data_ptr(), N, Cd, columns(Cd, K))
     return out
 
 

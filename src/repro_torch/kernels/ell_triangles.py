@@ -20,19 +20,24 @@ exact for any slot order:
       adds mult_u(y) for every valid entry y of each neighbour's row.
       Plain version: `neighbor_common_ell_plain`.
   "allpairs"  matches every id of u's row against every id of each
-      neighbour's row, as given, with no sort: `csrc/ell_allpairs.cu`
-      (`common_allpairs_ell`), plain version `common_allpairs_ell_plain`.
+      neighbour's row, as given, with no sort and no table:
+      `csrc/ell_allpairs.cu` (`common_allpairs_ell`), plain version
+      `common_allpairs_ell_plain`.
       The JAX package keeps it as the yardstick of its kernel sweep.
 
-Row lengths: "merge" takes `deg` (optional, (N,) int32, each row's count
-of valid nbr slots, a `GraphBlocks`' ``deg``).  It bounds the rows of
-`nbr`; it bounds the rows of the field too only when `rows` is `nbr`
+Both kernels run one row split (`csrc/ell_pairs.cuh`): 8 lanes a short
+row, a team of 8 warps for each row with many (neighbour, entry) pairs;
+only the work per pair differs.
+
+Row lengths: both variants take `deg` (optional, (N,) int32, each row's
+count of valid nbr slots, a `GraphBlocks`' ``deg``).  It bounds the rows
+of `nbr`; it bounds the rows of the field too only when `rows` is `nbr`
 itself, the same memory with the same strides (`field_deg`), as for
 whole-graph triangles, where `TriangleCountProgram.halo_field` hands over
-`g.nbr`.  Any other field is read over its C columns.  The kernel stops
+`g.nbr`.  Any other field is read over its C columns.  The kernels stop
 each row at its length, and a PAD met before it sends the row on to C, so
-the result never depends on `deg`; the plain versions and "allpairs"
-take it and do not read it.
+the result never depends on `deg`; the plain versions take it and do not
+read it.
 
 `neighbor_common_ell` launches the variant's CUDA kernel on CUDA tensors
 and runs its plain version on CPU tensors; any other device raises.  Each
@@ -102,33 +107,44 @@ def neighbor_common_ell(nbr: torch.Tensor, rows: torch.Tensor,
     CUDA tensors launch the variant's CUDA kernel ("merge" bumps
     `neighbor_common_ell.launches`, "allpairs"
     `common_allpairs_ell.launches`); CPU tensors take its plain version.
-    `deg` (optional, (N,) int32 row lengths of `nbr`) lets "merge" stop
-    each row of `nbr`, and of the field when `rows` is `nbr` (`field_deg`),
-    at its length; it never changes the result.
+    `deg` (optional, (N,) int32 row lengths of `nbr`) lets either kernel
+    stop each row of `nbr`, and of the field when `rows` is `nbr`
+    (`field_deg`), at its length; it never changes the result.
     """
     _check_variant(variant)
-    check_deg(nbr, deg)
     if variant == "allpairs":
-        return common_allpairs_ell(nbr, rows, K)
+        return common_allpairs_ell(nbr, rows, K, deg)
+    check_deg(nbr, deg)
     if not on_cuda(nbr, "neighbor_common_ell"):
         return neighbor_common_ell_plain(nbr, rows, K, deg)
+    out = _launch("ell_triangles", nbr, rows, K, deg)
+    neighbor_common_ell.launches += 1
+    return out
+
+
+def _launch(kernel: str, nbr: torch.Tensor, rows: torch.Tensor,
+            K: Optional[int], deg: Optional[torch.Tensor]) -> torch.Tensor:
+    """Launch `kernel` on (nbr, rows, deg, the field's deg) into a new
+    (N,) int32."""
     _check_rows(nbr, rows)
     fdeg = field_deg(nbr, rows, deg)
     rows = rows.contiguous()
     N, Cd = nbr.shape
     out = torch.empty(N, dtype=torch.int32, device=nbr.device)
-    _build.launch("ell_triangles", nbr.device, nbr.data_ptr(),
-                  rows.data_ptr(), deg_ptr(deg), deg_ptr(fdeg),
-                  out.data_ptr(), N, Cd, columns(Cd, K))
-    neighbor_common_ell.launches += 1
+    _build.launch(kernel, nbr.device, nbr.data_ptr(), rows.data_ptr(),
+                  deg_ptr(deg), deg_ptr(fdeg), out.data_ptr(), N, Cd,
+                  columns(Cd, K))
     return out
 
 
 def common_allpairs_ell_plain(nbr: torch.Tensor, rows: torch.Tensor,
-                              K: Optional[int] = None) -> torch.Tensor:
+                              K: Optional[int] = None,
+                              deg: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
     """The "allpairs" variant's plain version: over row chunks, match every
     valid id of u's row against every valid id of each valid neighbour's
-    row ((rows, C, C, C) at a time; PAD is any negative id)."""
+    row ((rows, C, C, C) at a time; PAD is any negative id).  `deg` is
+    accepted and not read: the value does not depend on it."""
     N = nbr.shape[0]
     C = columns(nbr.shape[1], K)
     nb, field = nbr[:, :C], rows[:, :C]
@@ -145,19 +161,17 @@ def common_allpairs_ell_plain(nbr: torch.Tensor, rows: torch.Tensor,
 
 
 def common_allpairs_ell(nbr: torch.Tensor, rows: torch.Tensor,
-                        K: Optional[int] = None) -> torch.Tensor:
+                        K: Optional[int] = None,
+                        deg: Optional[torch.Tensor] = None) -> torch.Tensor:
     """`neighbor_common_ell(variant="allpairs")`: CUDA tensors launch
     `csrc/ell_allpairs.cu` on the rows as given (and bump
-    `common_allpairs_ell.launches`); CPU tensors take
+    `common_allpairs_ell.launches`), each row stopped at its length as
+    "merge" stops it when `deg` is given; CPU tensors take
     `common_allpairs_ell_plain`."""
+    check_deg(nbr, deg)
     if not on_cuda(nbr, "neighbor_common_ell"):
-        return common_allpairs_ell_plain(nbr, rows, K)
-    _check_rows(nbr, rows)
-    rows = rows.contiguous()
-    N, Cd = nbr.shape
-    out = torch.empty(N, dtype=torch.int32, device=nbr.device)
-    _build.launch("ell_allpairs", nbr.device, nbr.data_ptr(), rows.data_ptr(),
-                  out.data_ptr(), N, Cd, columns(Cd, K))
+        return common_allpairs_ell_plain(nbr, rows, K, deg)
+    out = _launch("ell_allpairs", nbr, rows, K, deg)
     common_allpairs_ell.launches += 1
     return out
 

@@ -73,6 +73,19 @@ def _row_lengths(nbr):
     return (nbr >= 0).sum(axis=1).astype(np.int32)
 
 
+def _holes(nbr, every=7):
+    """`nbr` (left-filled) with, in every `every`-th row that holds 1 to
+    Cd - 1 valid slots, its first slot moved to the last column: a PAD
+    inside the row's `deg` prefix, so a kernel reads the row on past it."""
+    out = nbr.copy()
+    Cd = nbr.shape[1]
+    deg = _row_lengths(nbr)
+    for u in range(0, nbr.shape[0], every):
+        if 0 < deg[u] < Cd:
+            out[u, Cd - 1], out[u, 0] = out[u, 0], -1
+    return out
+
+
 def _est(N, seed):
     """Estimates with negatives, zeros and values above Cd."""
     return np.random.default_rng(seed + 100).integers(-2, 40, size=N,
@@ -106,9 +119,22 @@ def test_hindex_plain_equals_reference(N, Cd, K, shuffled, max_deg):
         oracle)
 
 
-@pytest.mark.parametrize("N,Cd,K,shuffled,max_deg", HINDEX_CASES)
+#: left-filled rows with holes (`_holes`): a PAD inside the `deg` prefix
+#: (K = Cd: a column bound below Cd is exact only on left-filled rows)
+HOLES_CASES = [(64, 12, None, "holes", None), (80, 40, None, "holes", 16),
+               (120, 37, None, "holes", None)]
+
+
+@pytest.mark.parametrize("N,Cd,K,shuffled,max_deg",
+                         HINDEX_CASES + HOLES_CASES)
 def test_hindex_count_variant_equals_reference(N, Cd, K, shuffled, max_deg):
-    nbr = _rows(N, Cd, N + Cd, shuffled, max_deg)
+    """"count" equals the reference's "count" and "sort", with the row
+    lengths `deg` and without, on rows sorted, shuffled and with holes (a
+    PAD inside the `deg` prefix)."""
+    nbr = _rows(N, Cd, N + Cd, shuffled is True, max_deg)
+    deg = torch.as_tensor(_row_lengths(nbr))
+    if shuffled == "holes":
+        nbr = _holes(nbr)
     est = _est(N, Cd)
     tn, te = torch.as_tensor(nbr), torch.as_tensor(est)
     got = hindex_ell(tn, te, K=K, variant="count")
@@ -117,6 +143,10 @@ def test_hindex_count_variant_equals_reference(N, Cd, K, shuffled, max_deg):
                                       interpret=True, K=K, variant="count"))
     np.testing.assert_array_equal(got.numpy(), want)
     assert torch.equal(got, hindex_ell(tn, te, K=K))  # == "sort"
+    with_deg = hindex_ell(tn, te, K=K, variant="count", deg=deg)
+    assert torch.equal(with_deg, got)
+    assert torch.equal(hindex_count_ell(tn, te, K, deg), got)
+    assert torch.equal(hindex_count_ell_plain(tn, te, K, deg), got)
 
 
 def test_hindex_count_plain_chunks_and_rejects(monkeypatch):
@@ -222,6 +252,7 @@ def test_wrappers_reject_bad_deg(bad):
            "strided": torch.zeros(2 * N, dtype=torch.int32)[::2]}[bad]
     for call in (lambda: hindex_ell(nbr, est, deg=deg),
                  lambda: hindex_ell(nbr, est, variant="count", deg=deg),
+                 lambda: hindex_count_ell(nbr, est, deg=deg),
                  lambda: frontier_step_ell(nbr, m, m, m, deg=deg)):
         with pytest.raises(ValueError, match="deg"):
             call()
@@ -409,13 +440,21 @@ def test_common_ref_chunks_equal_one_pass(monkeypatch):
 
 
 @pytest.mark.parametrize("N,Cd,K,shuffled,max_deg",
-                         [c for c in COMMON_CASES if c[1] <= 40])
+                         [c for c in COMMON_CASES if c[1] <= 40]
+                         + HOLES_CASES)
 def test_common_variants(N, Cd, K, shuffled, max_deg):
     """"allpairs" equals the reference's "allpairs", "merge" and the
-    oracle, on sorted and shuffled rows and with duplicate ids."""
-    nbr = _rows(N, Cd, N + Cd, shuffled == True, max_deg)  # noqa: E712
+    oracle, on sorted and shuffled rows, with holes (a PAD inside the `deg`
+    prefix) and with duplicate ids, with the row lengths `deg` and
+    without."""
+    nbr = _rows(N, Cd, N + Cd, shuffled is True, max_deg)
+    deg = torch.as_tensor(_row_lengths(nbr))
+    if shuffled == "holes":
+        nbr = _holes(nbr)
     rows = _dup_rows(N, Cd, N) if shuffled == "dup" else nbr
     tn, tr = torch.as_tensor(nbr), torch.as_tensor(rows)
+    if shuffled != "dup":
+        tr = tn  # whole-graph use: the field is nbr itself
     got = neighbor_common_ell(tn, tr, K=K, variant="allpairs")
     assert got.dtype == torch.int32 and got.shape == (N,)
     want = np.asarray(jops.neighbor_common_ell(
@@ -426,6 +465,10 @@ def test_common_variants(N, Cd, K, shuffled, max_deg):
     C = Cd if K is None else min(Cd, K)
     np.testing.assert_array_equal(got.numpy(), ref.ell_common_ref(
         tn[:, :C], tr[:, :C]).numpy())
+    with_deg = neighbor_common_ell(tn, tr, K=K, variant="allpairs", deg=deg)
+    assert torch.equal(with_deg, got)
+    assert torch.equal(common_allpairs_ell(tn, tr, K, deg), got)
+    assert torch.equal(common_allpairs_ell_plain(tn, tr, K, deg), got)
     with pytest.raises(ValueError):
         neighbor_common_ell(tn, tr, variant="nonsense")
 
@@ -457,7 +500,8 @@ def test_multi_and_common_reject_bad_deg():
                      lambda: neighbor_multi_ell(nbr, (f,), ("min",), deg=deg),
                      lambda: neighbor_common_ell(nbr, nbr, deg=deg),
                      lambda: neighbor_common_ell(nbr, nbr, variant="allpairs",
-                                                 deg=deg)):
+                                                 deg=deg),
+                     lambda: common_allpairs_ell(nbr, nbr, deg=deg)):
             with pytest.raises(ValueError, match="deg"):
                 call()
 
@@ -599,7 +643,9 @@ def test_library_names_follow_every_header(tmp_path, monkeypatch):
                                 "ell_multi", "ell_triangles",
                                 "ell_hindex_count", "ell_allpairs",
                                 "kcore_hindex"}),
-            ("ell_rows.cuh", {"ell_cc", "ell_pagerank", "ell_multi"})):
+            ("ell_rows.cuh", {"ell_cc", "ell_pagerank", "ell_multi",
+                              "ell_hindex_count"}),
+            ("ell_pairs.cuh", {"ell_triangles", "ell_allpairs"})):
         path = src / header
         path.write_text(path.read_text() + "\n// edited\n")
         after = {n: _build._library_path(n) for n in _build.SOURCES}
@@ -874,31 +920,62 @@ def test_common_kernel_with_deg_equals_plain(N, Cd, K, shuffled, max_deg):
                                                 deg=deg))
 
 
+#: rows of at most 64 and at most 256 valid slots (a group's registers, a
+#: warp's), sorted and shuffled; LONG_CASES reach past 256 (the warp loop)
+TIER_CASES = [(256, 300, None, True, 64), (256, 300, None, False, 64),
+              (256, 300, None, True, 256), (256, 300, 200, False, 256)]
+
+
 @needs_cuda
-@pytest.mark.parametrize("N,Cd,K,shuffled,max_deg", HINDEX_CASES)
+@pytest.mark.parametrize("N,Cd,K,shuffled,max_deg",
+                         HINDEX_CASES + HOLES_CASES + LONG_CASES + TIER_CASES)
 def test_hindex_count_kernel_equals_plain_and_sort(N, Cd, K, shuffled,
                                                    max_deg):
-    nbr = torch.as_tensor(_rows(N, Cd, N + Cd, shuffled, max_deg)).cuda()
+    """The "count" kernel with the row lengths `deg` and without: equal to
+    its plain version and to the "sort" kernel; one launch each, on its
+    own counter."""
+    nbr = _rows(N, Cd, N + Cd, shuffled is True, max_deg)
+    deg = torch.as_tensor(_row_lengths(nbr)).cuda()
+    if shuffled == "holes":
+        nbr = _holes(nbr)
+    nbr = torch.as_tensor(nbr).cuda()
     est = torch.as_tensor(_est(N, Cd)).cuda()
-    before = (hindex_count_ell.launches, hindex_ell.launches)
-    got = hindex_ell(nbr, est, K=K, variant="count")
-    torch.cuda.synchronize()
-    assert (hindex_count_ell.launches, hindex_ell.launches) == \
-        (before[0] + 1, before[1])  # its own kernel and count
-    assert torch.equal(got, hindex_count_ell_plain(nbr, est, K))
-    assert torch.equal(got, hindex_ell(nbr, est, K=K))
+    want = hindex_count_ell_plain(nbr, est, K)
+    for d in (None, deg):
+        before = (hindex_count_ell.launches, hindex_ell.launches)
+        got = hindex_ell(nbr, est, K=K, variant="count", deg=d)
+        torch.cuda.synchronize()
+        assert (hindex_count_ell.launches, hindex_ell.launches) == \
+            (before[0] + 1, before[1])  # its own kernel and count
+        assert torch.equal(got, want)
+        assert torch.equal(got, hindex_ell(nbr, est, K=K, deg=d))
 
 
 @needs_cuda
-@pytest.mark.parametrize("N,Cd,K,shuffled,max_deg", COMMON_CASES)
+@pytest.mark.parametrize("N,Cd,K,shuffled,max_deg",
+                         COMMON_CASES + HOLES_CASES + LONG_CASES + TIER_CASES)
 def test_allpairs_kernel_equals_plain_and_merge(N, Cd, K, shuffled, max_deg):
-    nbr = _rows(N, Cd, N + Cd, shuffled == True, max_deg)  # noqa: E712
-    rows = _dup_rows(N, Cd, N) if shuffled == "dup" else nbr
-    nbr, rows = torch.as_tensor(nbr).cuda(), torch.as_tensor(rows).cuda()
-    before = (common_allpairs_ell.launches, neighbor_common_ell.launches)
-    got = neighbor_common_ell(nbr, rows, K, variant="allpairs")
-    torch.cuda.synchronize()
-    assert (common_allpairs_ell.launches, neighbor_common_ell.launches) == \
-        (before[0] + 1, before[1])  # its own kernel and count
-    assert torch.equal(got, common_allpairs_ell_plain(nbr, rows, K))
-    assert torch.equal(got, neighbor_common_ell(nbr, rows, K))
+    """The "allpairs" kernel with the row lengths `deg` and without, on the
+    field nbr itself (so `deg` bounds its rows too), a copy of it and
+    duplicate ids: equal to its plain version and to the "merge" kernel;
+    one launch each, on its own counter."""
+    nbr = _rows(N, Cd, N + Cd, shuffled is True, max_deg)
+    deg = torch.as_tensor(_row_lengths(nbr)).cuda()
+    if shuffled == "holes":
+        nbr = _holes(nbr)
+    nbr = torch.as_tensor(nbr).cuda()
+    fields = [nbr, nbr.clone()]
+    if shuffled == "dup":
+        fields.append(torch.as_tensor(_dup_rows(N, Cd, N)).cuda())
+    for rows in fields:
+        want = common_allpairs_ell_plain(nbr, rows, K)
+        for d in (None, deg):
+            before = (common_allpairs_ell.launches,
+                      neighbor_common_ell.launches)
+            got = neighbor_common_ell(nbr, rows, K, variant="allpairs", deg=d)
+            torch.cuda.synchronize()
+            assert (common_allpairs_ell.launches,
+                    neighbor_common_ell.launches) == \
+                (before[0] + 1, before[1])  # its own kernel and count
+            assert torch.equal(got, want)
+            assert torch.equal(got, neighbor_common_ell(nbr, rows, K, deg=d))

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Compare this checkout's combine kernels with another checkout's, on one
-NVIDIA GPU.
+"""Compare this checkout's ELL kernels that take row lengths with another
+checkout's, on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with one CUDA card and nvcc:
 
@@ -10,19 +10,21 @@ DIR is the root of another checkout of the repo, for example a
 `git archive` of the parent commit unpacked under `build/`.  Its
 `src/repro_torch` is loaded as a second package, `base_repro_torch`,
 which builds its kernels into DIR's own build directory.  For each of
-`ell_cc`, `ell_pagerank` and `ell_multi`:
+`ell_cc`, `ell_pagerank`, `ell_multi`, `ell_triangles`,
+`ell_hindex_count` and `ell_allpairs`:
 
 * registers: `nvcc -Xptxas -v` of the source in both checkouts (the
   build flags of `kernels/_build.py`), each kernel's registers a thread
   and spills;
 * on chip_smoke.py's DS1 graph and on its 2^21-node scale graph, with
   the fields the analytics path gives them (CC labels, PageRank
-  contributions, and for `ell_multi` an h-index field as well): every
-  output of this checkout, with the row lengths `deg` and without, equal
-  bit for bit to the base's (with `deg` too where the base's wrapper takes
-  it); and each call's device time, as chip_smoke.py times a kernel
-  (`_time_ms`: the median of 20 back-to-back calls), in turns: base, this,
-  this, base, each side the smaller of its two medians.
+  contributions, an h-index field for `ell_multi` and the count variant,
+  rows = nbr for the two triangle kernels): every output of this
+  checkout, with the row lengths `deg` and without, equal bit for bit to
+  the base's (with `deg` too where the base's wrapper takes it); and each
+  call's device time, as chip_smoke.py times a kernel (`_time_ms`: the
+  median of 20 back-to-back calls), in turns: base, this, this, base,
+  each side the smaller of its two medians.
 
 Prints the card line, then one JSON object per graph; exits non-zero if
 any output differs or there is no CUDA device.
@@ -45,6 +47,9 @@ WRAPPERS = {
     "ell_cc": "ell_cc.neighbor_min_ell",
     "ell_pagerank": "ell_pagerank.neighbor_sum_ell",
     "ell_multi": "ell_multi.neighbor_multi_ell",
+    "ell_triangles": "ell_triangles.neighbor_common_ell",
+    "ell_hindex_count": "ell_hindex.hindex_count_ell",
+    "ell_allpairs": "ell_triangles.common_allpairs_ell",
 }
 
 
@@ -97,7 +102,9 @@ def compare(graph: str, g, fields, cs) -> dict:
     hfield, lab, contrib = fields
     args = {"ell_cc": (nbr, lab), "ell_pagerank": (nbr, contrib),
             "ell_multi": (nbr, (hfield, lab, contrib),
-                          ("hindex", "min", "sum"))}
+                          ("hindex", "min", "sum")),
+            "ell_triangles": (nbr, nbr), "ell_hindex_count": (nbr, hfield),
+            "ell_allpairs": (nbr, nbr)}
     line = {"graph": graph, "N": g.N, "Cd": g.Cd,
             "valid_slots": int((nbr >= 0).sum()),
             "order": "base, this, this, base", "kernels": {}}
