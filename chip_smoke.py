@@ -60,13 +60,30 @@ Phases (each raises on failure; the script then exits non-zero):
 6. variants_ds1: `coreness_blocks(variant="count")` equal to the "sort"
    coreness in the same supersteps, and `neighbor_common_ell(variant=
    "allpairs")` equal to "merge" and to scipy's per-node triangles.
-7. scale: a 2^21-node random ELL graph (Cd = 32, ~256 MB of nbr): static
+7. elastic_ds1: the elastic stream on DS1, through the kernels and the
+   plain versions (`ell`, `torch`): a `StreamSession` with CC labels, the
+   §4.2 rebalance (threshold 1.2, at most 8 moves a round) and
+   `auto_grow`; the 100 inserts of the DS1 stream; `add_vertices` of two
+   more vertices than the block with the fewest free rows holds (a Cn grow
+   to 8,192, N = 65,536); a window joining the new vertices to the graph
+   through their handles; `grow(Cd=256)`; `save_session` (async) and
+   `restore_session` through a `CheckpointManager` in a temporary
+   directory; the 100 deletes, in open-time ids, on the restored session.
+   Both runs equal (core, labels, graph arrays, `StreamStats`), with
+   migrations and two grows; coreness by `orig_id` and the edge set in
+   original ids equal to a run of the same steps without rebalancing or
+   checkpoint; core and labels equal a fresh recompute; `ell_hindex`,
+   `ell_frontier` and `ell_cc` equal to their plain versions on the grown
+   graph.  `ell_hindex`, `ell_frontier` and `ell_cc` must launch.  Prints
+   the host seconds of every move selection, migration and grow, of the
+   save and the restore, and the snapshot's bytes.
+8. scale: a 2^21-node random ELL graph (Cd = 32, ~256 MB of nbr): static
    coreness and a 64-update intra-block stream, then CC, PageRank and
    triangle counts, held the same way (the dense adjacency would be
    8.8 TB there); then `ell_cc`, `ell_pagerank`, `ell_multi`,
    `ell_triangles`, `ell_hindex_count` and `ell_allpairs` timed there,
    with `deg` and without (its nbr does not fit the L2).
-8. timing: each kernel and its plain version at the main path's shapes
+9. timing: each kernel and its plain version at the main path's shapes
    (`ell_hindex` at both: the stream's K = Cd and the static fixpoint's
    degree bound, and `ell_frontier` at the first hop, R = 8 and R = 1,
    each with the row lengths `deg` as the main path passes them and
@@ -95,6 +112,7 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -141,6 +159,9 @@ DS1_UPDATES = 200   # 50 each: inter/intra inserts, inter/intra deletes
 SCALE_LOG2_N = 21   # the scale phase's node count, 2**21
 SCALE_UPDATES = 64  # intra-block updates of the scale stream
 R = 8               # stream window width
+ELASTIC_THRESHOLD = 1.2  # the §4.2 balance threshold of elastic_ds1
+ELASTIC_MOVES = 8        # at most this many migrated vertices a round
+ELASTIC_CD = 256         # the explicit degree-capacity grow of elastic_ds1
 
 
 def emit(**obj) -> None:
@@ -182,6 +203,8 @@ def main() -> int:
     _analytics_dense(g, plain_an)
     launches_an.update(variants_phase(g, core_plain, plain["steps"],
                                       plain_an["tri"]))
+    for name, e in elastic_phase(g, core_plain, ups).items():
+        parity[name] = max(parity.get(name, 0), e)
     scale = scale_phase(dev)
     kernels = timing(g, core_plain, ups[:R], parity, launches, hindex_split)
     kernels += combine_timing(g, fields, parity, launches_an,
@@ -786,6 +809,211 @@ def _drive_dense(g, ups, plain):
          peak_device_bytes=torch.cuda.max_memory_allocated(),
          path_seconds=secs, plain_path_seconds=plain["seconds"])
     return dict(counts, kcore_hindex_split=split)
+
+
+@contextmanager
+def _host_timed(module, names):
+    """Replace `module`'s functions `names` with wrappers that record each
+    call's host seconds, between two device syncs; yields {name: [s]}."""
+    import torch
+
+    times = {n: [] for n in names}
+    orig = {n: getattr(module, n) for n in names}
+
+    def timed(n):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig[n](*args, **kwargs)
+            torch.cuda.synchronize()
+            times[n].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    for n in names:
+        setattr(module, n, timed(n))
+    try:
+        yield times
+    finally:
+        for n in names:
+            setattr(module, n, orig[n])
+
+
+def _join_window(handles, g):
+    """A window joining the new vertices (`add_vertices` handles) to the
+    first real nodes of `g` (open-time ids) and to each other."""
+    import torch
+
+    real = torch.nonzero(g.node_mask).flatten()[:R - 1].tolist()
+    return ([(handles[i % len(handles)], real[i], +1)
+             for i in range(R - 1)] + [(handles[0], handles[1], +1)])
+
+
+def _elastic_run(g, core, ups, backend, elastic, plan=None):
+    """The elastic steps on a copy of `g` (see `elastic_phase`); without
+    `elastic`, the same steps with no rebalancing and no checkpoint.
+    `plan` is the (block, count) of `add_vertices` (default: the block
+    with the fewest free rows, two more than it holds).  Returns (session,
+    plan, seconds, {host seconds and snapshot bytes})."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import (
+        CheckpointManager, restore_session, save_session)
+    from repro_torch.core import connected_components
+    from repro_torch.runtime import StreamSession
+
+    def windows(sess, part):
+        for i in range(0, len(part), R):
+            sess.apply_window(part[i:i + R])
+
+    half = len(ups) // 2
+    gc = g.clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess = StreamSession(
+        gc, core.clone(), R=R, backend=backend,
+        cc_labels=connected_components(gc, backend=backend),
+        rebalance_threshold=ELASTIC_THRESHOLD if elastic else None,
+        rebalance_max_moves=ELASTIC_MOVES, auto_grow=True)
+    windows(sess, ups[:half])
+    if plan is None:
+        free = (~sess.g.node_mask).reshape(sess.g.P, sess.g.Cn).sum(1)
+        b = int(free.argmin())
+        plan = (b, int(free[b]) + 2)
+    handles = sess.add_vertices(*plan)
+    sess.apply_window(_join_window(handles, g))
+    sess.grow(Cd=ELASTIC_CD)
+    info = {}
+    if elastic:
+        with tempfile.TemporaryDirectory() as d:
+            mgr = CheckpointManager(d)
+            t = time.perf_counter()
+            step = save_session(mgr, sess, blocking=False)
+            info["save_seconds"] = time.perf_counter() - t
+            mgr.wait()
+            info["save_and_write_seconds"] = time.perf_counter() - t
+            info["snapshot_bytes"] = sum(
+                f.stat().st_size for f in (Path(d) / f"step_{step:08d}")
+                .iterdir())
+            t = time.perf_counter()
+            _, sess, _ = restore_session(mgr, device=g.device)
+            torch.cuda.synchronize()
+            info["restore_seconds"] = time.perf_counter() - t
+    windows(sess, ups[half:])
+    torch.cuda.synchronize()
+    return sess, plan, time.perf_counter() - t0, info
+
+
+def _grown_parity(sess, window):
+    """`ell_hindex`, `ell_frontier` and `ell_cc` against their plain
+    versions on the session's grown graph (K = Cd and the degree bound,
+    with the row lengths `deg` and without); `window` gives the first-hop
+    masks.  Returns {kernel: max |kernel - plain|} (0)."""
+    import torch
+    from repro_torch.core.algorithms import INT32_MAX
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ell_frontier import (
+        frontier_step_ell, frontier_step_ell_plain)
+    from repro_torch.kernels.ell_hindex import hindex_ell, hindex_ell_plain
+
+    g, core = sess.g, sess.core
+    Ks = (None, ops.degree_bound(g))
+    with_deg = (None, g.deg)
+    err = {"ell_hindex": 0, "ell_frontier": 0}
+    for est in (core, g.deg):
+        for K in Ks:
+            want = hindex_ell_plain(g.nbr, est, K)
+            for d in with_deg:
+                got = hindex_ell(g.nbr, est, K=K, deg=d)
+                torch.cuda.synchronize()
+                e = int((got.long() - want.long()).abs().max())
+                err["ell_hindex"] = max(err["ell_hindex"], e)
+                if e:
+                    raise AssertionError("elastic_ds1: ell_hindex differs "
+                                         f"from plain on the grown graph")
+    hop = _first_hop(g, core, window)
+    for K in Ks:
+        want = frontier_step_ell_plain(g.nbr, *hop, K)
+        for d in with_deg:
+            got = frontier_step_ell(g.nbr, *hop, K=K, deg=d)
+            torch.cuda.synchronize()
+            e = int((got != want).sum().clamp(max=1))
+            err["ell_frontier"] = max(err["ell_frontier"], e)
+            if e:
+                raise AssertionError("elastic_ds1: ell_frontier differs "
+                                     "from plain on the grown graph")
+    gen = torch.Generator(device=g.device).manual_seed(18)
+    ints = {"cc_labels": torch.where(g.node_mask, sess.labels, INT32_MAX),
+            "random": torch.randint(-5, g.N + 5, (g.N,), generator=gen,
+                                    device=g.device, dtype=torch.int32)}
+    for K in Ks:
+        _min_sum_parity(g.nbr, g.deg, K, ints, {}, f"grown/K={K}", err)
+    return err
+
+
+def elastic_phase(g, core, ups):
+    """The elastic stream on DS1 (module docstring, phase 7), through the
+    kernels and the plain versions, held against each other, against the
+    same steps without rebalancing or checkpoint, and against a fresh
+    recompute.  Returns the grown-graph parity errors."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (
+        connected_components, coreness, to_networkx_edges)
+    from repro_torch.core import partition_dynamic as pd
+    from repro_torch.runtime import stream as stream_mod
+
+    what = "elastic_ds1"
+    with _host_timed(stream_mod, ("migrate_vertices", "grow_blocks")) as \
+            host, _host_timed(pd, ("choose_node_moves",)) as moves_host:
+        (sess, plan, secs, info), counts = _counted(
+            lambda: _elastic_run(g, core, ups, "ell", True),
+            ("ell_hindex", "ell_frontier", "ell_cc"))
+    plain, _, secs_p, _ = _elastic_run(g, core, ups, "torch", True, plan)
+    st = sess.stats()
+    if not (torch.equal(sess.core, plain.core)
+            and torch.equal(sess.labels, plain.labels)
+            and all(torch.equal(a, b) for a, b in zip(
+                (sess.g.nbr, sess.g.deg, sess.g.node_mask, sess.g.orig_id),
+                (plain.g.nbr, plain.g.deg, plain.g.node_mask,
+                 plain.g.orig_id)))
+            and st == plain.stats()):
+        raise AssertionError(f"{what}: ell differs from plain: {st} vs "
+                             f"{plain.stats()}")
+    if st.migrations < 1 or st.grows != 2:
+        raise AssertionError(f"{what}: expected migrations and 2 grows: {st}")
+    still, _, secs_s, _ = _elastic_run(g, core, ups, "ell", False, plan)
+
+    def by_orig(s):
+        orig, c = s.g.orig_id.cpu().numpy(), s.core.cpu().numpy()
+        out = np.full(int(orig.max()) + 1, -1, c.dtype)
+        out[orig[orig >= 0]] = c[orig >= 0]
+        return out
+
+    if not (np.array_equal(by_orig(sess), by_orig(still))
+            and np.array_equal(to_networkx_edges(sess.g),
+                               to_networkx_edges(still.g))):
+        raise AssertionError(f"{what}: differs from the run without "
+                             "rebalancing read through orig_id")
+    if not (torch.equal(coreness(sess.g, backend="torch"), sess.core)
+            and torch.equal(connected_components(sess.g, backend="torch"),
+                            sess.labels)):
+        raise AssertionError(f"{what}: maintained core/labels != recompute")
+    window = [(sess._cur(u), sess._cur(v), op)
+              for u, v, op in ups[len(ups) // 2:][:R]]
+    err = _grown_parity(sess, window)
+    emit(phase=what, N=sess.g.N, Cn=sess.g.Cn, Cd=sess.g.Cd,
+         add_vertices=dict(block=plan[0], count=plan[1]),
+         block_balance=dict(open=pd.block_balance(g),
+                            end=pd.block_balance(sess.g),
+                            end_without_rebalance=pd.block_balance(still.g)),
+         stream_stats=st._asdict(), launches=counts,
+         path_seconds={"ell": secs, "torch": secs_p,
+                       "ell_without_rebalance_or_checkpoint": secs_s},
+         choose_node_moves_seconds=moves_host["choose_node_moves"],
+         migrate_seconds=host["migrate_vertices"],
+         grow_seconds=host["grow_blocks"], max_abs_err=err, **info)
+    return err
 
 
 def scale_phase(dev):

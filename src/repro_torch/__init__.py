@@ -10,7 +10,11 @@ and drive that from an update stream (`runtime.stream`).  The framework
 path runs any `BlockProgram` (`core.engine`) — connected components,
 PageRank, triangle counting, their fused form (`core.algorithms`) —
 through one runner (`kernels.ops.run_block_program`), and keeps CC labels
-exact in the stream.
+exact in the stream.  The elastic stream (`runtime.stream.StreamSession`)
+rebalances its blocks live by the paper's §4.2 protocol
+(`core.partition_dynamic`, `core.graph.migrate_vertices`), grows its
+capacities (`core.graph.grow_blocks`) and saves and resumes itself
+(`checkpoint`).
 
 This package carries a seed_fixtures note for the JAX package's dead-seed
 import audit: it is not seed substrate but a separate port, which the

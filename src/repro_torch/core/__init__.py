@@ -1,9 +1,10 @@
 """BLADYG core on PyTorch: the block graph, static and dynamic coreness,
 the superstep engine and the BlockProgram workloads."""
 from .graph import (
-    PAD, CapacityError, GraphBlocks, build_blocks, build_ell_random,
-    delete_edge, halo_pair_counts, halo_slot_counts, insert_edge,
-    sort_nbr_rows,
+    PAD, CapacityError, GraphBlocks, add_vertices_host, build_blocks,
+    build_ell_random, delete_edge, grow_blocks, halo_pair_counts,
+    halo_slot_counts, has_edge, insert_edge, migrate_vertices,
+    relocate_rows, sort_nbr_rows, to_networkx_edges,
 )
 from .engine import (
     BladygEngine, BladygProgram, BlockCtx, BlockProgram, MessageStats, Mode,
@@ -23,12 +24,14 @@ from .kcore_dynamic import (
     insert_edge_maintain, k_reachable, k_reachable_batch, maintain_batch,
     maintain_batch_host,
 )
-from . import partition, updates
+from . import partition, partition_dynamic, updates
 
 __all__ = [
-    "PAD", "CapacityError", "GraphBlocks", "build_blocks",
-    "build_ell_random", "delete_edge", "insert_edge", "sort_nbr_rows",
-    "halo_slot_counts", "halo_pair_counts",
+    "PAD", "CapacityError", "GraphBlocks", "add_vertices_host",
+    "build_blocks", "build_ell_random", "delete_edge", "grow_blocks",
+    "has_edge", "insert_edge", "migrate_vertices", "relocate_rows",
+    "sort_nbr_rows", "to_networkx_edges", "halo_slot_counts",
+    "halo_pair_counts",
     "BladygEngine", "BladygProgram", "BlockCtx", "BlockProgram",
     "MessageStats", "Mode", "MultiProgram",
     "ConnectedComponentsProgram", "CorenessBlockProgram", "PageRankProgram",
@@ -38,5 +41,6 @@ __all__ = [
     "coreness_with_stats", "max_coreness",
     "BatchMaintenanceStats", "MaintenanceStats", "delete_edge_maintain",
     "insert_edge_maintain", "k_reachable", "k_reachable_batch",
-    "maintain_batch", "maintain_batch_host", "partition", "updates",
+    "maintain_batch", "maintain_batch_host", "partition",
+    "partition_dynamic", "updates",
 ]

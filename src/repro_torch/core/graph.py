@@ -11,13 +11,19 @@ fixed-capacity, padded slice of the node axis:
 - Rows obey the **sorted-ELL invariant**: the valid slots of every row are
   in strictly ascending id order and the ``-1`` pads sit on the right
   (``nbr[u, :deg[u]]`` ascending, ``nbr[u, deg[u]:] == PAD``).
-  `build_blocks`, `build_ell_random`, `insert_edge`, `delete_edge` and
-  `updates.apply_updates_host` all keep it, so the host and device update
-  paths produce bit-identical arrays, and the kernels may bound the
-  columns they read by the max degree (`kernels.ops.degree_bound`).
+  `build_blocks`, `build_ell_random`, `insert_edge`, `delete_edge`,
+  `updates.apply_updates_host` and `migrate_vertices` all keep it, so the
+  host and device update paths produce bit-identical arrays, and the
+  kernels may bound the columns they read by the max degree
+  (`kernels.ops.degree_bound`).
 - Capacity overflow is checked at the host boundary (`build_blocks`,
-  `updates.apply_updates_host`) and raises; the device path never
-  reallocates.
+  `updates.apply_updates_host`) and raises `CapacityError`; the device
+  path never reallocates.  Capacity grows only through `grow_blocks`, a
+  pad-and-rekey that returns a new graph.
+- `migrate_vertices` (live §4.2 rebalancing), `grow_blocks` and
+  `add_vertices_host` return graphs with fresh tensors: the update paths
+  write a graph's rows in place, so nothing they return aliases their
+  input.
 
 Public tensors keep the JAX package's dtypes: ``nbr``, ``deg`` and
 ``orig_id`` are int32, ``node_mask`` is bool.  `GraphBlocks.from_numpy` /
@@ -312,6 +318,216 @@ def build_ell_random(
         dict(nbr=nbr, deg=deg, node_mask=np.ones(N, bool),
              orig_id=np.arange(N)),
         P=1, Cn=N, Cd=Cd, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Live migration and capacity growth: host-boundary operations that return
+# a new graph (fresh tensors on the input's device) plus the old-id ->
+# new-id map as host int64 numpy, as the JAX package's functions do.
+# ---------------------------------------------------------------------------
+
+
+def _sorted_rows(nbr: torch.Tensor) -> torch.Tensor:
+    """`sort_nbr_rows` on the tensor's device: pads to int32 max, an
+    ascending row sort, pads back.  The same bits as the host version."""
+    keyed = torch.where(nbr >= 0, nbr, _PAD_KEY)
+    keyed = torch.sort(keyed, dim=-1).values
+    return torch.where(keyed == _PAD_KEY, PAD, keyed).to(nbr.dtype)
+
+
+def _remap_ids(nbr: torch.Tensor, idmap: np.ndarray) -> torch.Tensor:
+    """Map every valid id of `nbr` through the host map `idmap`, PAD kept;
+    int32 on `nbr`'s device."""
+    m = torch.from_numpy(np.asarray(idmap, np.int64)).to(nbr.device)
+    return torch.where(nbr >= 0, m[nbr.clamp(min=0).long()],
+                       PAD).to(torch.int32)
+
+
+def migrate_vertices(g: GraphBlocks, moves, *arrays):
+    """Live §4.2 rebalancing: move real nodes to other blocks.
+
+    `moves` is a sequence of (u, dest_block) with `u` a global padded id
+    of a real node.  Each move swaps the node's row with a *padding* row
+    of the destination block, so the whole migration is a permutation of
+    the node axis under fixed (P, Cn, Cd).  Node ids DO change — the
+    returned `perm` (old id -> new id, host int64) lets the caller remap
+    anything it holds; `orig_id` rides the permutation.
+
+    Any extra `arrays` (coreness, per-node estimates, ...: tensors on the
+    graph's device) are permuted along and returned in order.  Raises on
+    moving padding/duplicate nodes, on no-op moves, and when a destination
+    block has no free padding slots (slots vacated by this very migration
+    do NOT count — capacity is checked against the pre-migration layout).
+    The permuted rows are re-sorted on the device (`_sorted_rows`).
+
+    Returns (g', perm, *arrays'), every tensor fresh.  Coreness is
+    invariant under the permutation: ``core'[perm[u]] == core[u]``.
+    """
+    mask = g.node_mask.cpu().numpy()
+    N, Cn = g.N, g.Cn
+    perm = np.arange(N, dtype=np.int64)
+    free = {
+        b: list(np.flatnonzero(~mask[b * Cn:(b + 1) * Cn]) + b * Cn)
+        for b in range(g.P)
+    }
+    seen: set = set()
+    for u, b2 in moves:
+        u, b2 = int(u), int(b2)
+        if not (0 <= u < N) or not mask[u]:
+            raise ValueError(f"cannot migrate non-real node {u}")
+        if not (0 <= b2 < g.P):
+            raise ValueError(f"destination block {b2} outside [0, {g.P})")
+        if b2 == u // Cn:
+            raise ValueError(f"no-op move: node {u} already in block {b2}")
+        if u in seen:
+            raise ValueError(f"duplicate move for node {u}")
+        if not free[b2]:
+            raise CapacityError(
+                f"block {b2} has no free node capacity (Cn={Cn})")
+        seen.add(u)
+        t = free[b2].pop(0)
+        perm[u], perm[t] = t, u  # swap node row with the padding row
+
+    inv = np.empty(N, dtype=np.int64)
+    inv[perm] = np.arange(N)
+    inv_t = torch.from_numpy(inv).to(g.device)
+    # remapping ids scrambles in-row order; re-sort to keep the invariant
+    g2 = dataclasses.replace(
+        g,
+        nbr=_sorted_rows(_remap_ids(g.nbr, perm)[inv_t]),
+        deg=g.deg[inv_t],
+        node_mask=g.node_mask[inv_t],
+        orig_id=g.orig_id[inv_t],
+    )
+    out = tuple(torch.as_tensor(a, device=g.device)[inv_t] for a in arrays)
+    return (g2, perm) + out
+
+
+def grow_blocks(g: GraphBlocks, Cn: Optional[int] = None,
+                Cd: Optional[int] = None):
+    """Capacity escalation: pure pad-and-rekey to new (Cn, Cd).
+
+    Block ``b``'s rows move from ``[b*Cn, b*Cn+Cn)`` to ``[b*Cn2,
+    b*Cn2+Cn2)`` keeping their in-block slot ``r``, so the id map is
+    ``rekey[b*Cn + r] = b*Cn2 + r``: globally monotone whenever
+    ``Cn2 >= Cn``, so remapped rows stay ascending without a re-sort.
+    Growing is always legal; *shrinking* is legal exactly when the
+    contents fit (every real node at ``r < Cn2``, every degree
+    ``<= Cd2``), else `CapacityError`.
+
+    Returns ``(g2, rekey)`` with ``rekey`` the (N_old,) host int64 old-id
+    -> new-id map (-1 for rows a shrink drops, necessarily padding).
+    Relocate per-node arrays with `relocate_rows`; CC labels also need
+    their *values* rekeyed (they hold padded ids): relocation first, then
+    ``rekey[label]``.
+    """
+    Cn2 = g.Cn if Cn is None else int(Cn)
+    Cd2 = g.Cd if Cd is None else int(Cd)
+    if Cn2 < 1 or Cd2 < 1:
+        raise ValueError(f"capacities must be >= 1, got Cn={Cn2} Cd={Cd2}")
+    mask = g.node_mask.cpu().numpy()
+    deg = g.deg.cpu().numpy()
+    if Cn2 < g.Cn:
+        slots = np.flatnonzero(mask) % g.Cn
+        if slots.size and slots.max() >= Cn2:
+            raise CapacityError(
+                f"cannot shrink Cn {g.Cn} -> {Cn2}: a real node occupies "
+                f"slot {int(slots.max())}")
+    if Cd2 < g.Cd and deg.size and deg.max() > Cd2:
+        raise CapacityError(
+            f"cannot shrink Cd {g.Cd} -> {Cd2}: max degree is "
+            f"{int(deg.max())}")
+    N2 = g.P * Cn2
+    old_r = np.arange(g.N) % g.Cn
+    rekey = np.where(old_r < Cn2,
+                     (np.arange(g.N) // g.Cn) * Cn2 + old_r, -1)
+    r2 = np.arange(N2) % Cn2
+    src = np.where(r2 < g.Cn, (np.arange(N2) // Cn2) * g.Cn + r2, -1)
+    dev = g.device
+    have = torch.from_numpy(src >= 0).to(dev)
+    srcc = torch.from_numpy(np.maximum(src, 0)).to(dev)
+    Cmin = min(g.Cd, Cd2)
+    vals = _remap_ids(g.nbr[srcc, :Cmin], rekey)
+    nbr2 = torch.full((N2, Cd2), PAD, dtype=torch.int32, device=dev)
+    nbr2[:, :Cmin] = torch.where(have[:, None], vals, PAD)
+    g2 = GraphBlocks(
+        nbr=nbr2,
+        deg=torch.where(have, g.deg[srcc], 0),
+        node_mask=have & g.node_mask[srcc],
+        orig_id=torch.where(have, g.orig_id[srcc], PAD),
+        P=g.P, Cn=Cn2, Cd=Cd2,
+    )
+    return g2, rekey
+
+
+def relocate_rows(arr, rekey: np.ndarray, N2: int, fill=0) -> np.ndarray:
+    """Scatter an (N_old, ...) per-node array onto the post-`grow_blocks`
+    node axis: row ``u`` lands at ``rekey[u]``; unsourced rows get `fill`.
+    Host-side (numpy in, numpy out)."""
+    arr = np.asarray(arr)
+    out = np.full((N2,) + arr.shape[1:], fill, arr.dtype)
+    ok = rekey >= 0
+    out[rekey[ok]] = arr[ok]
+    return out
+
+
+def add_vertices_host(g: GraphBlocks, block: int, count: int = 1,
+                      orig_ids=None):
+    """Vertex arrival: activate `count` padding rows of `block` as fresh
+    real (degree-0) nodes.
+
+    Rows are taken lowest-index-first (deterministic, so a replayed log
+    reproduces the same ids).  New nodes get original ids `orig_ids`, or
+    consecutive ids after the current max when omitted.  Raises
+    `CapacityError` when the block lacks free rows — the caller's cue to
+    `grow_blocks` and retry.  Returns ``(g2, new_ids)``: a graph of fresh
+    tensors, and the (count,) host int64 padded ids of the new vertices.
+    """
+    b, count = int(block), int(count)
+    if not 0 <= b < g.P:
+        raise ValueError(f"block {b} outside [0, {g.P})")
+    if count < 1:
+        raise ValueError(f"count must be >= 1, got {count}")
+    mask = g.node_mask.cpu().numpy().copy()
+    free = np.flatnonzero(~mask[b * g.Cn:(b + 1) * g.Cn]) + b * g.Cn
+    if len(free) < count:
+        raise CapacityError(
+            f"block {b} has {len(free)} free node rows, needs {count} "
+            f"(Cn={g.Cn})")
+    rows = free[:count]
+    orig = g.orig_id.cpu().numpy().copy()
+    if orig_ids is None:
+        base = int(orig.max(initial=-1)) + 1
+        orig_ids = np.arange(base, base + count)
+    orig_ids = np.asarray(orig_ids, np.int64)
+    if orig_ids.shape != (count,):
+        raise ValueError(f"need {count} orig_ids, got {orig_ids.shape}")
+    mask[rows] = True
+    orig[rows] = orig_ids
+    g2 = dataclasses.replace(
+        g, nbr=g.nbr.clone(), deg=g.deg.clone(),
+        node_mask=torch.from_numpy(mask).to(g.device),
+        orig_id=torch.from_numpy(orig.astype(np.int32)).to(g.device))
+    return g2, rows
+
+
+def to_networkx_edges(g: GraphBlocks) -> np.ndarray:
+    """Extract the (m, 2) edge list in *original* ids (test oracle helper;
+    host numpy, rows sorted and unique)."""
+    nbr = g.nbr.cpu().numpy()
+    orig = g.orig_id.cpu().numpy()
+    src = np.repeat(np.arange(g.N), g.Cd)
+    dst = nbr.reshape(-1)
+    ok = dst >= 0
+    src, dst = src[ok], dst[ok]
+    e = np.stack([orig[src], orig[dst]], 1)
+    e = e[e[:, 0] < e[:, 1]]
+    return np.unique(e, axis=0)
+
+
+def has_edge(g: GraphBlocks, u, v) -> torch.Tensor:
+    """Whether padded ids u and v are adjacent (0-d bool on the device)."""
+    return (g.nbr[int(u)] == int(v)).any()
 
 
 # ---------------------------------------------------------------------------

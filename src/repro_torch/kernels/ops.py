@@ -101,8 +101,8 @@ def resolve_backend(backend: Optional[str], device: torch.device) -> str:
         return "ell" if torch.device(device).type == "cuda" else "torch"
     if backend in NOT_PORTED:
         raise NotImplementedError(
-            f"backend {backend!r} is not ported to PyTorch yet; see "
-            "ROADMAP.md (Queue 2) for the kernels still to port")
+            f"backend {backend!r} is not ported to PyTorch yet: it needs "
+            "the mesh runtime; see ROADMAP.md (Queue 1 item 6)")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
                          f"{BACKENDS + ('auto',)}")

@@ -25,16 +25,36 @@ results cross to the host, in one transfer per window.
 
 With `cc_labels=` the session also keeps connected-component labels
 exact, window by window, on the post-window graph: a window with a delete
-recomputes them (`connected_components`), an insert-only window merges
-them (`merge_labels`, inserts only join components).
+or a migration recomputes them (`connected_components`), an insert-only
+window merges them (`merge_labels`, inserts only join components).
+
+The stream is elastic:
+
+  * **Live rebalancing** (`rebalance_threshold`) — after each window the
+    §4.2 threshold protocol runs: when the max/mean of the per-block loads
+    (`partition_dynamic.block_balance`) exceeds the threshold, the
+    coordinator picks boundary-vertex moves (`choose_node_moves`, ordered
+    by `graph.halo_pair_counts`) and executes them with
+    `graph.migrate_vertices`, a node-axis permutation under fixed
+    (P, Cn, Cd) that keeps coreness bit for bit.
+  * **Capacity growth** (`auto_grow`, `grow`, `add_vertices`) — a window
+    that overflows the degree capacity grows Cd to the next power of two
+    and re-keys its ids before it is applied; `add_vertices` grows Cn when
+    a block has no free row (`graph.grow_blocks`, a pad-and-rekey).
+  * **Checkpoints** (`state_dict`, `from_state`; `checkpoint.elastic`).
+
+Window ids stay those of the graph at open (or `add_vertices` handles):
+the session composes every migration's permutation and every grow's rekey
+into one open-time id map (`_compose_perm`) and resolves each id on
+ingest (`_cur`).
 
 `StreamSession` is the resumable stepper (open -> `apply_window` ->
 `result`); `run_stream` drains an iterable through one.  Both return a
 `StreamResult`, a NamedTuple as in the reference: read its named fields;
 unpacking it yields the reference's legacy arity behind its
-DeprecationWarning.  Not ported yet:
-the mesh executor, live rebalancing, capacity growth, checkpoints, and
-`MirrorStream` (see ROADMAP.md).
+DeprecationWarning.  Not ported yet: the mesh executor (`W=`,
+`executor=`, `backend="ell_spmd"` raise NotImplementedError) and
+`MirrorStream` (see ROADMAP.md, Queue 1 items 5 and 6).
 """
 from __future__ import annotations
 
@@ -48,9 +68,14 @@ import numpy as np
 import torch
 
 from ..core import kcore_dynamic as kd
+from ..core import partition_dynamic as pd
 from ..core.algorithms import connected_components, merge_labels
-from ..core.graph import GraphBlocks
+from ..core.graph import (
+    CapacityError, GraphBlocks, add_vertices_host, grow_blocks,
+    halo_pair_counts, migrate_vertices, relocate_rows,
+)
 from ..core.updates import validate_updates
+from ..device import DeviceLike, resolve_device
 
 
 class StreamStats(NamedTuple):
@@ -65,8 +90,14 @@ class StreamStats(NamedTuple):
     bfs_steps: int               # frontier supersteps (all paths)
     recompute_steps: int         # clamped min-H supersteps (all paths)
     per_block: Tuple[int, ...]   # block-local updates applied per block
+    plan_updates: int = 0        # incremental halo-plan maintenances (mesh
+                                 # runtime; 0 until it is ported)
+    plan_rebuilds: int = 0       # full halo-plan rebuilds (mesh runtime)
+    migrations: int = 0          # §4.2 rebalance rounds executed
+    migrated_vertices: int = 0   # vertices moved across blocks in total
     cc_merges: int = 0           # CC labels maintained by O(1) label merges
-    cc_recomputes: int = 0       # CC label recomputations (delete windows)
+    cc_recomputes: int = 0       # CC label recomputations (delete/migration)
+    grows: int = 0               # capacity escalations (Cn/Cd pad-and-rekey)
 
     @property
     def escalated(self) -> int:
@@ -178,6 +209,20 @@ def _route_window(cand: torch.Tensor, us: torch.Tensor, vs: torch.Tensor,
                       cand_ins, cand_del, per_block)
 
 
+def _pow2_ceil(x: int) -> int:
+    """Smallest power of two >= max(1, x) — the capacity slack policy."""
+    x = max(1, int(x))
+    return 1 << (x - 1).bit_length()
+
+
+def _mesh_not_ported(W=None, executor=None) -> None:
+    """The mesh runtime's arguments: accepted, and refused unless None."""
+    if W is not None or executor is not None:
+        raise NotImplementedError(
+            "W= and executor= need the mesh runtime, which is not ported "
+            "to PyTorch yet; see ROADMAP.md (Queue 1 item 6)")
+
+
 def _iter_windows(updates, R: int) -> Iterator[list]:
     it = iter(updates)
     while True:
@@ -190,24 +235,36 @@ def _iter_windows(updates, R: int) -> Iterator[list]:
 class StreamSession:
     """Resumable stream stepper: open -> `apply_window` -> `result`.
 
-    Holds the current graph, the maintained coreness and the routing /
-    superstep counters, so a caller can interleave other device work
-    between windows.  `apply_window` takes a list of at most `R` updates
-    `(u, v, op)` with global padded ids; windows narrower than R are
-    padded to the fixed width.
+    Holds the current graph, the maintained coreness (and optionally CC
+    labels), the open-time id map and the routing / superstep counters, so
+    a caller can interleave other device work between windows.
+    `apply_window` takes a list of at most `R` updates `(u, v, op)` with
+    ids global padded *as of session open* (or `add_vertices` handles);
+    later migrations and grows are remapped internally.  Windows narrower
+    than R are padded to the fixed width.
 
     `cc_labels` (optional) arms CC maintenance: the canonical labels of
     the graph at open, as `core.algorithms.connected_components` returns
     them; `.labels` then stays equal to a recompute after every window.
+    `rebalance_threshold` arms the §4.2 protocol after every window (None
+    disables it), moving at most `rebalance_max_moves` vertices a round.
+    `auto_grow` grows the capacities instead of raising `CapacityError`.
+    `W` and `executor` belong to the mesh runtime, which is not ported:
+    anything but None raises NotImplementedError.
 
-    The graph passed at open is updated IN PLACE; read `.g` back.
+    The graph passed at open is updated IN PLACE until a migration or a
+    grow replaces it with a new one; read `.g` back.
     """
 
     def __init__(self, g: GraphBlocks, core: torch.Tensor, R: int = 8,
-                 backend: str = "auto",
-                 cc_labels: Optional[torch.Tensor] = None):
+                 backend: str = "auto", W=None, executor=None,
+                 rebalance_threshold: Optional[float] = None,
+                 rebalance_max_moves: int = 8,
+                 cc_labels: Optional[torch.Tensor] = None,
+                 auto_grow: bool = False):
         if R < 1:
             raise ValueError(f"R must be >= 1, got {R}")
+        _mesh_not_ported(W, executor)
         self.R = int(R)
         self.backend = backend
         self.g = g
@@ -220,6 +277,17 @@ class StreamSession:
         self.labels = (None if cc_labels is None
                        else torch.as_tensor(cc_labels, device=g.device))
         self._cc_merges = self._cc_recomputes = 0
+        self._rebalance_threshold = rebalance_threshold
+        self._rebalance_max_moves = int(rebalance_max_moves)
+        self._migrations = self._migrated = 0
+        self._remap: Optional[np.ndarray] = None  # open-time -> current ids
+        self._auto_grow = bool(auto_grow)
+        self._grows = 0
+        #: id space size at open: window ids below it are open-time padded
+        #: ids; ids at/above it are `add_vertices` handles, resolved
+        #: through `_virtual` (their current padded ids)
+        self._n_open = g.N
+        self._virtual: List[int] = []
 
     @property
     def windows_applied(self) -> int:
@@ -233,8 +301,21 @@ class StreamSession:
                 f"window of {len(window)} updates exceeds R={self.R}")
         if not window:
             return
-        window = [(int(u), int(v), int(op)) for u, v, op in window]
-        validate_updates(self.g, window)
+        window = [(self._cur(u), self._cur(v), int(op))
+                  for u, v, op in window]
+        while True:
+            try:
+                validate_updates(self.g, window)
+                break
+            except CapacityError:
+                if not self._auto_grow:
+                    raise
+                # a row of this window is out of degree capacity: grow Cd
+                # to the next power of two, re-key the window (the grow
+                # relocates every row) and validate again
+                rekey = self.grow(Cd=_pow2_ceil(self.g.Cd + 1))
+                window = [(int(rekey[u]), int(rekey[v]), op)
+                          for u, v, op in window]
         g, core, tot, backend = self.g, self.core, self._tot, self.backend
         tot["batches"] += 1
         R, n = self.R, len(window)
@@ -281,12 +362,28 @@ class StreamSession:
         for r in np.flatnonzero(cross | spl | conf):
             g, core = kd._maintain_one(g, core, window[r], tot, backend)
 
+        # §4.2 repartition-threshold protocol, live: per-block load
+        # summaries -> threshold + move selection -> a node migration
+        migrated_now = False
+        if (self._rebalance_threshold is not None
+                and pd.block_balance(g) > self._rebalance_threshold):
+            moves = pd.choose_node_moves(
+                g, max_moves=self._rebalance_max_moves,
+                pair_counts=halo_pair_counts(g))
+            if moves:
+                g, perm, core = migrate_vertices(g, moves, core)
+                self._compose_perm(perm)
+                self._migrations += 1
+                self._migrated += len(moves)
+                migrated_now = True
+
         # CC labels on the post-window graph: inserts only ever JOIN
         # components, so an insert-only window is an on-device label merge;
-        # a delete may split one, so such a window re-propagates
+        # a delete may split one, and a migration renames the padded ids
+        # the canonical labels are, so such a window re-propagates
         if self.labels is not None:
             ins = valid & (ops_ > 0)
-            if (valid & (ops_ < 0)).any():
+            if (valid & (ops_ < 0)).any() or migrated_now:
                 self.labels = connected_components(g, backend=backend)
                 self._cc_recomputes += 1
             elif ins.any():
@@ -295,8 +392,213 @@ class StreamSession:
                 self._cc_merges += int(ins.sum())
         self.g, self.core = g, core
 
+    # ---- elastic growth / recovery surface ------------------------------
+
+    def _cur(self, u) -> int:
+        """Resolve an open-time id (or `add_vertices` handle) to the
+        CURRENT padded id, through the composed migration/grow remap."""
+        u = int(u)
+        if u >= self._n_open:
+            i = u - self._n_open
+            if i >= len(self._virtual):
+                raise ValueError(
+                    f"unknown vertex handle {u} (have "
+                    f"{len(self._virtual)} post-open vertices)")
+            return self._virtual[i]
+        if self._remap is None:
+            return u
+        cur = int(self._remap[u])
+        if cur < 0:
+            raise ValueError(f"open-time id {u} no longer exists")
+        return cur
+
+    def _compose_perm(self, perm: np.ndarray) -> None:
+        """Fold a node-axis permutation/rekey (host int64, -1 for dropped
+        rows) into the open-time id maps."""
+        perm = np.asarray(perm, np.int64)
+        if self._remap is None:
+            self._remap = perm.copy()
+        else:
+            self._remap = np.where(
+                self._remap >= 0, perm[np.maximum(self._remap, 0)], -1)
+        self._virtual = [int(perm[x]) for x in self._virtual]
+
+    def grow(self, Cn: Optional[int] = None,
+             Cd: Optional[int] = None) -> np.ndarray:
+        """Capacity escalation on the live session: pad-and-rekey the
+        blocks to (Cn, Cd) (`core.graph.grow_blocks`), relocating the
+        maintained coreness and CC labels along (label *values* are padded
+        ids, so they ride the same monotone rekey and stay canonical), and
+        folding the rekey into the open-time id map.  Returns the rekey
+        map (host int64)."""
+        g2, rekey = grow_blocks(self.g, Cn, Cd)
+        dev = g2.device
+        core = relocate_rows(self.core.cpu().numpy(), rekey, g2.N, 0)
+        self.core = torch.from_numpy(core).to(dev)
+        if self.labels is not None:
+            lab = relocate_rows(self.labels.cpu().numpy(), rekey, g2.N, -1)
+            lab = np.where(lab >= 0, rekey[np.maximum(lab, 0)], -1)
+            self.labels = torch.from_numpy(lab.astype(np.int32)).to(dev)
+        self._compose_perm(rekey)
+        self.g = g2
+        self._grows += 1
+        return rekey
+
+    def add_vertices(self, block: int, count: int = 1) -> List[int]:
+        """Vertex arrival: activate `count` fresh degree-0 nodes in
+        `block` (`core.graph.add_vertices_host`), growing Cn first when
+        the block is full and auto-grow is armed.  Returns stable HANDLES:
+        ids in the session's open-time id space, usable in later windows
+        like any open-time id (they survive migrations and grows;
+        allocation is deterministic, so a replayed log hands back the same
+        handles)."""
+        while True:
+            try:
+                g2, rows = add_vertices_host(self.g, block, count)
+                break
+            except CapacityError:
+                if not self._auto_grow:
+                    raise
+                self.grow(Cn=_pow2_ceil(self.g.Cn + 1))
+        self.g = g2
+        if self.labels is not None:
+            # a fresh isolated vertex is its own component (canonical
+            # label == own padded id); coreness 0 already holds
+            r = torch.from_numpy(rows).to(g2.device)
+            self.labels = self.labels.index_put((r,), r.to(self.labels.dtype))
+        base = self._n_open + len(self._virtual)
+        self._virtual.extend(int(x) for x in rows)
+        return list(range(base, base + len(rows)))
+
+    def migrate(self, moves) -> np.ndarray:
+        """Execute an explicit vertex migration (caller-chosen moves).
+        Same machinery as the §4.2 rebalance: a node-axis permutation
+        composed into the id map, and one CC re-propagation when labels
+        are kept.  Returns the permutation (host int64)."""
+        g, perm, core = migrate_vertices(self.g, moves, self.core)
+        self.g, self.core = g, core
+        self._compose_perm(perm)
+        self._migrations += 1
+        self._migrated += len(moves)
+        if self.labels is not None:
+            self.labels = connected_components(g, backend=self.backend)
+            self._cc_recomputes += 1
+        return perm
+
+    def state_dict(self):
+        """Everything needed to resume this stream elsewhere: a flat dict
+        of tensors (which `checkpoint.CheckpointManager` saves) plus a
+        JSON-able meta dict of statics and counters, the JAX package's
+        keys and layout.  Every tensor is a CLONE: the session updates the
+        live graph in place, so a snapshot sharing storage would change
+        with the next window.
+
+        The recompute supersteps are counted on the host, so ``rec_dev``
+        (the JAX package's on-device counter) is written as a 0-d int32
+        zero and the count rides in ``meta["tot"]``.  ``remap`` is int32
+        on disk, as the JAX package writes it."""
+        g = self.g
+        arrays = {
+            "core": self.core.clone(),
+            "g.deg": g.deg.clone(),
+            "g.nbr": g.nbr.clone(),
+            "g.node_mask": g.node_mask.clone(),
+            "g.orig_id": g.orig_id.clone(),
+            "rec_dev": torch.zeros((), dtype=torch.int32, device=g.device),
+        }
+        if self.labels is not None:
+            arrays["labels"] = self.labels.clone()
+        if self._remap is not None:
+            arrays["remap"] = torch.from_numpy(
+                self._remap.astype(np.int32)).to(g.device)
+        meta = {
+            "kind": "stream_session",
+            "P": g.P, "Cn": g.Cn, "Cd": g.Cd,
+            "R": self.R, "backend": self.backend,
+            "auto_grow": self._auto_grow,
+            "track_labels": self.labels is not None,
+            "has_remap": self._remap is not None,
+            "n_open": self._n_open,
+            "virtual": [int(x) for x in self._virtual],
+            "rebalance_threshold": self._rebalance_threshold,
+            "rebalance_max_moves": self._rebalance_max_moves,
+            "tot": {k: int(v) for k, v in self._tot.items()},
+            "counters": {
+                "n_updates": self._n_updates,
+                "n_local": self._n_local,
+                "esc_cross": self._esc_cross,
+                "esc_spill": self._esc_spill,
+                "esc_conflict": self._esc_conflict,
+                "migrations": self._migrations,
+                "migrated": self._migrated,
+                "cc_merges": self._cc_merges,
+                "cc_recomputes": self._cc_recomputes,
+                "grows": self._grows,
+                "plan_updates": 0,
+                "plan_rebuilds": 0,
+                "per_block": [int(x) for x in self._per_block],
+            },
+        }
+        return arrays, meta
+
+    @classmethod
+    def from_state(cls, arrays, meta, W=None, backend: Optional[str] = None,
+                   executor=None, device: DeviceLike = None
+                   ) -> "StreamSession":
+        """Rebuild a session from `state_dict` output, this package's or
+        the JAX package's (arrays may be tensors or numpy arrays).  The
+        session gets copies on `device` (default CUDA, see
+        `device.resolve_device`), never the snapshot's storage.
+        `backend` overrides the snapshot's; `W`/`executor` raise
+        NotImplementedError unless None (the mesh runtime is not ported).
+        A snapshot's ``rec_dev`` is added to the recompute count."""
+        _mesh_not_ported(W, executor)
+        dev = resolve_device(device)
+
+        def tensor(key, dtype):
+            x = arrays[key]
+            if not isinstance(x, torch.Tensor):
+                x = torch.from_numpy(np.asarray(x))
+            return x.to(device=dev, dtype=dtype, copy=True)
+
+        g = GraphBlocks(
+            nbr=tensor("g.nbr", torch.int32),
+            deg=tensor("g.deg", torch.int32),
+            node_mask=tensor("g.node_mask", torch.bool),
+            orig_id=tensor("g.orig_id", torch.int32),
+            P=int(meta["P"]), Cn=int(meta["Cn"]), Cd=int(meta["Cd"]))
+        sess = cls(
+            g, tensor("core", torch.int32), R=int(meta["R"]),
+            backend=meta["backend"] if backend is None else backend,
+            rebalance_threshold=meta["rebalance_threshold"],
+            rebalance_max_moves=int(meta["rebalance_max_moves"]),
+            cc_labels=(tensor("labels", torch.int32)
+                       if meta["track_labels"] else None),
+            auto_grow=bool(meta["auto_grow"]))
+        sess._remap = (np.asarray(tensor("remap", torch.int64).cpu())
+                       if meta["has_remap"] else None)
+        sess._n_open = int(meta["n_open"])
+        sess._virtual = [int(x) for x in meta["virtual"]]
+        sess._tot = {k: int(v) for k, v in meta["tot"].items()}
+        sess._tot["rec"] += int(tensor("rec_dev", torch.int64))
+        c = meta["counters"]
+        sess._n_updates = int(c["n_updates"])
+        sess._n_local = int(c["n_local"])
+        sess._esc_cross = int(c["esc_cross"])
+        sess._esc_spill = int(c["esc_spill"])
+        sess._esc_conflict = int(c["esc_conflict"])
+        sess._migrations = int(c["migrations"])
+        sess._migrated = int(c["migrated"])
+        sess._cc_merges = int(c["cc_merges"])
+        sess._cc_recomputes = int(c["cc_recomputes"])
+        sess._grows = int(c["grows"])
+        sess._per_block = np.asarray(c["per_block"], np.int64)
+        return sess
+
     def stats(self) -> StreamStats:
-        """Routing/superstep accounting over every window applied so far."""
+        """Routing/superstep accounting over every window applied so far.
+        `plan_updates` and `plan_rebuilds` count the mesh runtime's halo
+        plans: 0 until it is ported."""
         return StreamStats(
             updates=self._n_updates,
             batches=self._tot["batches"],
@@ -307,8 +609,11 @@ class StreamSession:
             bfs_steps=self._tot["bfs"],
             recompute_steps=self._tot["rec"],
             per_block=tuple(int(x) for x in self._per_block),
+            migrations=self._migrations,
+            migrated_vertices=self._migrated,
             cc_merges=self._cc_merges,
             cc_recomputes=self._cc_recomputes,
+            grows=self._grows,
         )
 
     def result(self) -> StreamResult:
@@ -326,7 +631,12 @@ def run_stream(
     updates: Iterable[Tuple[int, int, int]],
     R: int = 8,
     backend: str = "auto",
+    W=None,
+    executor=None,
+    rebalance_threshold: Optional[float] = None,
+    rebalance_max_moves: int = 8,
     cc_labels: Optional[torch.Tensor] = None,
+    auto_grow: bool = False,
 ) -> StreamResult:
     """Ingest an update stream; returns a `StreamResult` (g, core, stats,
     labels).
@@ -334,13 +644,21 @@ def run_stream(
     g: GraphBlocks (P blocks of Cn rows, nbr (N, Cd)); core: (N,) int32
     coreness of `g` (as `core.kcore.coreness` returns it).  `updates` may
     be any iterable (including a generator) of (u, v, op) with op = +1
-    insert / -1 delete and global padded ids.  R is the window width (the
+    insert / -1 delete and ids global padded *as of the call* (migrations
+    and grows remap later windows internally).  R is the window width (the
     stacked-frontier axis of the batched candidate search).  `backend` is
     any of `kernels.ops.BACKENDS` or "auto" (the default); "dense" builds
     its (N, N) bfloat16 adjacency once per candidate search and once per
     recompute, and keeps CC labels with the dense combines.  The final
-    coreness equals sequential per-update maintenance.  `g` is updated in
-    place; use the returned graph.
+    coreness equals sequential per-update maintenance — under live
+    rebalancing up to the node-axis permutation, i.e. equal when read
+    through `orig_id`.  `g` is updated in place until a migration or grow
+    replaces it; use the returned graph.
+
+    `rebalance_threshold` (e.g. 1.2) arms the §4.2 protocol after every
+    window, moving at most `rebalance_max_moves` vertices a round; None
+    disables it.  `auto_grow` grows Cd when a window overflows it.
+    `W`/`executor` raise NotImplementedError unless None.
 
     `cc_labels` (optional): the canonical CC labels of the pre-stream
     graph (as `core.algorithms.connected_components` returns them).  The
@@ -349,8 +667,11 @@ def run_stream(
     `cc_recomputes` count the merge and recompute paths.  Without it,
     `result.labels` is None.
     """
-    session = StreamSession(g, core, R=R, backend=backend,
-                            cc_labels=cc_labels)
+    session = StreamSession(
+        g, core, R=R, backend=backend, W=W, executor=executor,
+        rebalance_threshold=rebalance_threshold,
+        rebalance_max_moves=rebalance_max_moves, cc_labels=cc_labels,
+        auto_grow=auto_grow)
     for window in _iter_windows(updates, R):
         session.apply_window(window)
     return session.result()

@@ -11,6 +11,11 @@
   CPU mode); it skips, with a reason, when CUDA is unavailable.  The check
   runs in a fixture, never at import time, so every test worker collects
   the same tests.
+* `one_torch_thread` runs a test module with one torch intra-op thread.
+  The suite runs in several worker processes on one machine; with torch's
+  default pool (one thread per core) in each, the plain versions' many
+  small parallel ops wait on descheduled threads and a module takes tens
+  of times longer.  Results do not depend on the thread count.
 """
 from __future__ import annotations
 
@@ -57,6 +62,14 @@ def assert_same_graph(tg, jg) -> None:
     for f in ("nbr", "deg", "node_mask", "orig_id"):
         np.testing.assert_array_equal(a[f], np.asarray(getattr(jg, f)),
                                       err_msg=f)
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture

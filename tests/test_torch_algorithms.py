@@ -20,8 +20,8 @@ import pytest
 import torch
 import jax.numpy as jnp
 
-from _torch_port import (  # noqa: F401 (require_cuda is a fixture)
-    needs_cuda, require_cuda, to_port)
+from _torch_port import (  # noqa: F401 (fixtures)
+    needs_cuda, one_torch_thread, require_cuda, to_port)
 
 import repro.core as jcore
 import repro.core.updates as jupd
@@ -31,6 +31,8 @@ from repro.kernels import ops as jops
 import repro_torch.core as tcore
 from repro_torch.core import algorithms as talg
 from repro_torch.kernels import ops
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 BACKENDS = ["torch", "ell"]
 

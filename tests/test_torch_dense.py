@@ -21,9 +21,9 @@ import pytest
 import torch
 import jax.numpy as jnp
 
-from _torch_port import (  # noqa: F401 (require_cuda is a fixture)
-    assert_same_graph, needs_cuda, np_of, reference, require_cuda, tensor_of,
-    to_port)
+from _torch_port import (  # noqa: F401 (fixtures)
+    assert_same_graph, needs_cuda, np_of, one_torch_thread, reference,
+    require_cuda, tensor_of, to_port)
 
 import repro.core as jcore
 import repro.core.algorithms as jalg
@@ -42,6 +42,8 @@ from repro_torch.kernels.frontier import frontier_step, frontier_step_plain
 from repro_torch.kernels.kcore_hindex import (
     hindex_counts, hindex_counts_plain)
 from repro_torch.runtime import stream as tstream
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _adj(N, p, seed):

@@ -13,7 +13,8 @@ import pytest
 import torch
 import jax.numpy as jnp
 
-from _torch_port import needs_cuda, require_cuda, to_port  # noqa: F401
+from _torch_port import (  # noqa: F401 (fixtures)
+    needs_cuda, one_torch_thread, require_cuda, to_port)
 
 import repro.core as jcore
 import repro.core.partition as jpart
@@ -26,6 +27,8 @@ from repro_torch.core import algorithms as talg
 from repro_torch.core import engine as teng
 from repro_torch.core import kcore as tkcore
 from repro_torch.kernels import ops
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _blocks(kind, seed=2, P=4):

@@ -12,7 +12,8 @@ import torch
 import jax.numpy as jnp
 
 from _hyp import given, settings, st
-from _torch_port import CPU, assert_same_graph, np_of
+from _torch_port import (  # noqa: F401 (fixtures)
+    CPU, assert_same_graph, np_of, one_torch_thread)
 
 import repro.core.graph as jgraph
 import repro.core.partition as jpart
@@ -23,6 +24,8 @@ import repro_torch.core.graph as tgraph
 import repro_torch.core.partition as tpart
 import repro_torch.core.updates as tupd
 import repro_torch.graphgen as tgen
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.mark.parametrize("name,args", [

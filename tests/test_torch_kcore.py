@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from _hyp import given, settings, st
-from _torch_port import needs_cuda, require_cuda, to_port  # noqa: F401
+from _torch_port import (  # noqa: F401 (fixtures)
+    needs_cuda, one_torch_thread, require_cuda, to_port)
 
 import repro.core as jcore
 import repro.core.partition as jpart
@@ -20,6 +21,8 @@ import repro.graphgen as jgen
 
 import repro_torch.core as tcore
 from repro_torch.kernels import ops
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _ref_graph(kind, seed, P=4):

@@ -13,8 +13,9 @@ import pytest
 import torch
 import jax.numpy as jnp
 
-from _torch_port import (  # noqa: F401 (require_cuda is a fixture)
-    assert_same_graph, needs_cuda, np_of, require_cuda, tensor_of, to_port)
+from _torch_port import (  # noqa: F401 (fixtures)
+    assert_same_graph, needs_cuda, np_of, one_torch_thread, require_cuda,
+    tensor_of, to_port)
 
 import repro.core as jcore
 import repro.core.kcore_dynamic as jkd
@@ -24,6 +25,8 @@ import repro.graphgen as jgen
 
 import repro_torch.core as tcore
 import repro_torch.core.kcore_dynamic as tkd
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _setup(seed=4, n=120, P=4):

@@ -24,7 +24,8 @@ import pytest
 import torch
 import jax.numpy as jnp
 
-from _torch_port import needs_cuda, require_cuda  # noqa: F401 (fixture)
+from _torch_port import (  # noqa: F401 (fixtures)
+    needs_cuda, one_torch_thread, require_cuda)
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
@@ -44,6 +45,8 @@ from repro_torch.kernels.ell_pagerank import (
 from repro_torch.kernels.ell_triangles import (
     common_allpairs_ell, common_allpairs_ell_plain, field_deg,
     neighbor_common_ell, neighbor_common_ell_plain)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _rows(N, Cd, seed, shuffled, max_deg=None, empty=0.15, full=0.15):

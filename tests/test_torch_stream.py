@@ -8,8 +8,12 @@ in interpret mode).  The final `nbr`, `deg` and coreness, and every
 
 With `cc_labels=` both packages also keep connected-component labels
 over the stream; the labels and the `cc_merges` / `cc_recomputes` counts
-must be EQUAL.  `StreamResult` is the reference's NamedTuple: the same
-fields, length, indexing and legacy unpacking.  Also: with no backend
+must be EQUAL.  `StreamResult` and `StreamStats` are the reference's
+NamedTuples: the same fields in the same order, length, indexing and
+legacy unpacking, and whole stats tuples compare equal.  With
+`rebalance_threshold=` (§4.2 live rebalancing) both packages migrate the
+same vertices and end on the same arrays; the mesh runtime's arguments
+raise NotImplementedError.  Also: with no backend
 given, the entry points take the plain versions on a CPU graph and the
 CUDA kernels on a CUDA graph; they raise without CUDA unless the caller
 asks for the CPU; and no module of the port (nor chip_smoke.py) imports
@@ -22,9 +26,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import (  # noqa: F401 (require_cuda is a fixture)
-    CPU, assert_same_graph, needs_cuda, reference, require_cuda, tensor_of,
-    to_port)
+from _torch_port import (  # noqa: F401 (fixtures)
+    CPU, assert_same_graph, needs_cuda, np_of, one_torch_thread, reference,
+    require_cuda, tensor_of, to_port)
 
 import repro.core as jcore
 import repro.core.algorithms as jalg
@@ -33,8 +37,11 @@ import repro.core.updates as jupd
 import repro.graphgen as jgen
 
 import repro_torch.core as tcore
+import repro_torch.core.partition_dynamic as tpd
 import repro_torch.core.updates as tupd
 from repro_torch.runtime import stream as tstream
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -72,8 +79,7 @@ def test_run_stream_equals_reference():
     ref = reference().run_stream(jg, j_core, iter(ups), R=8, backend="ell")
     assert_same_graph(res.g, ref.g)
     np.testing.assert_array_equal(res.core.numpy(), np.asarray(ref.core))
-    want = {f: getattr(ref.stats, f) for f in tstream.StreamStats._fields}
-    assert res.stats._asdict() == want
+    assert tuple(res.stats) == tuple(ref.stats)
     assert res.stats.escalated == ref.stats.escalated
     # every routing path ran
     st = res.stats
@@ -127,8 +133,7 @@ def test_run_stream_cc_labels_equal_reference(kind):
                                  cc_labels=labels0)
     np.testing.assert_array_equal(res.labels.numpy(), np.asarray(ref.labels))
     np.testing.assert_array_equal(res.core.numpy(), np.asarray(ref.core))
-    assert res.stats._asdict() == {f: getattr(ref.stats, f)
-                                   for f in tstream.StreamStats._fields}
+    assert tuple(res.stats) == tuple(ref.stats)
     assert torch.equal(res.labels, tcore.connected_components(res.g))
     st = res.stats
     if kind == "insert_only":
@@ -172,11 +177,145 @@ def test_stream_result_is_the_reference_tuple(keep_labels):
     for item in (got, [res[i] for i in range(len(got))]):
         assert_same_graph(item[0], want[0])
         np.testing.assert_array_equal(item[1].numpy(), np.asarray(want[1]))
-        assert item[2]._asdict() == {f: getattr(want[2], f)
-                                     for f in tstream.StreamStats._fields}
+        assert tuple(item[2]) == tuple(want[2])
         if keep_labels:
             np.testing.assert_array_equal(item[3].numpy(),
                                           np.asarray(want[3]))
+
+
+@pytest.mark.parametrize("keep_labels", [False, True])
+def test_stream_stats_are_the_reference_tuple(keep_labels):
+    """`StreamStats` has the reference's fields, in its order and with its
+    defaults, so `len`, every position and the whole tuple agree (Queue 3
+    fault 2: the port's had 11 fields, and from position 9 on each held
+    another counter than the reference's)."""
+    ref = reference()
+    assert tstream.StreamStats._fields == ref.StreamStats._fields
+    assert tstream.StreamStats._field_defaults == \
+        ref.StreamStats._field_defaults
+    edges = np.array([[0, 1], [1, 2], [2, 0], [3, 4]])
+    assign = np.arange(8) % 2
+    jg = jcore.build_blocks(edges, 8, assign, P=2, deg_slack=4)
+    tg = to_port(jg)
+    core = jcore.coreness(jg, backend="jnp")
+    labels = jalg.connected_components(jg, backend="jnp") \
+        if keep_labels else None
+    ups = [(0, 3, +1)]
+    res = tstream.run_stream(
+        tg, tensor_of(core), ups, R=2,
+        cc_labels=None if labels is None else tensor_of(labels))
+    want = ref.run_stream(jg, core, ups, R=2, backend="jnp",
+                          cc_labels=labels)
+    assert len(res.stats) == len(want.stats)
+    assert tuple(res.stats) == tuple(want.stats)
+    assert res.stats.cc_merges == (1 if keep_labels else 0)
+
+
+def _skewed_graph():
+    """tests/test_stream.py's skewed graph: half the nodes (the BA hubs
+    among them) on block 0, free node capacity everywhere."""
+    edges = jgen.barabasi_albert(160, 4, seed=7)
+    n = int(edges.max()) + 1
+    assign = np.where(np.arange(n) < n // 2, 0, 1 + np.arange(n) % 3)
+    return jcore.build_blocks(edges, n, assign, P=4, Cn=96, deg_slack=48)
+
+
+def _mixed_updates(g):
+    return (jupd.sample_insertions(g, 4, "inter", seed=2)
+            + jupd.sample_insertions(g, 4, "intra", seed=3)
+            + jupd.sample_deletions(g, 4, "inter", seed=4)
+            + jupd.sample_deletions(g, 4, "intra", seed=5))
+
+
+def _core_by_orig(g, core):
+    """Coreness indexed by original node id — the migration-invariant view."""
+    orig = np_of(g.orig_id)
+    core = np_of(core)
+    out = np.full(int(orig.max()) + 1, -1, core.dtype)
+    m = orig >= 0
+    out[orig[m]] = core[m]
+    return out
+
+
+@pytest.mark.parametrize("keep_labels", [False, True])
+def test_stream_rebalance_equals_reference(keep_labels):
+    """tests/test_stream.py's acceptance, in both packages: a §4.2
+    migration fires, and the port's graph, coreness, labels and whole
+    stats tuple equal the reference's; read through orig_id, coreness and
+    the edge set equal those of the unmigrated run."""
+    jg = _skewed_graph()
+    ups = _mixed_updates(jg)
+    core = jcore.coreness(jg, backend="jnp")
+    labels = jalg.connected_components(jg, backend="jnp") \
+        if keep_labels else None
+    tg, tg_plain = to_port(jg), to_port(jg)
+    kw = dict(R=4, rebalance_threshold=1.2, rebalance_max_moves=6)
+    res = tstream.run_stream(
+        tg, tensor_of(core), list(ups), backend="torch",
+        cc_labels=None if labels is None else tensor_of(labels), **kw)
+    want = reference().run_stream(jg, core, list(ups), backend="jnp",
+                                  cc_labels=labels, **kw)
+    assert_same_graph(res.g, want.g)
+    np.testing.assert_array_equal(res.core.numpy(), np.asarray(want.core))
+    assert tuple(res.stats) == tuple(want.stats)
+    st = res.stats
+    assert st.migrations > 0 and st.migrated_vertices > 0
+    if keep_labels:
+        np.testing.assert_array_equal(res.labels.numpy(),
+                                      np.asarray(want.labels))
+        assert torch.equal(res.labels, tcore.connected_components(res.g))
+        assert st.cc_recomputes >= st.migrations
+    plain = tstream.run_stream(tg_plain, tensor_of(core), list(ups), R=4)
+    assert plain.stats.migrations == 0
+    np.testing.assert_array_equal(_core_by_orig(res.g, res.core),
+                                  _core_by_orig(plain.g, plain.core))
+    np.testing.assert_array_equal(tcore.to_networkx_edges(res.g),
+                                  tcore.to_networkx_edges(plain.g))
+    assert tpd.block_balance(res.g) <= tpd.block_balance(plain.g)
+    assert torch.equal(res.core, tcore.coreness(res.g, backend="torch"))
+
+
+def test_stream_rebalance_disabled_never_migrates():
+    jg = _skewed_graph()
+    core = jcore.coreness(jg, backend="jnp")
+    st = tstream.run_stream(to_port(jg), tensor_of(core),
+                            _mixed_updates(jg)[:4], R=4).stats
+    assert st.migrations == 0 and st.migrated_vertices == 0
+
+
+def test_session_migrate_equals_reference():
+    """An explicit `migrate` between windows, then windows in open-time
+    ids: the same arrays, labels and stats as the reference's session."""
+    ref = reference()
+    jg = _skewed_graph()
+    ups = _mixed_updates(jg)
+    core = jcore.coreness(jg, backend="jnp")
+    labels = jalg.connected_components(jg, backend="jnp")
+    t = tstream.StreamSession(to_port(jg), tensor_of(core), R=4,
+                              cc_labels=tensor_of(labels))
+    j = ref.StreamSession(jg, core, R=4, backend="jnp", cc_labels=labels)
+    moves = [(0, 1), (1, 2), (2, 3)]
+    for s in (t, j):
+        s.apply_window(ups[:4])
+    np.testing.assert_array_equal(t.migrate(moves), j.migrate(moves))
+    for s in (t, j):
+        for i in range(4, len(ups), 4):
+            s.apply_window(ups[i:i + 4])
+    assert_same_graph(t.g, j.g)
+    np.testing.assert_array_equal(t.core.numpy(), np.asarray(j.core))
+    np.testing.assert_array_equal(t.labels.numpy(), np.asarray(j.labels))
+    assert tuple(t.stats()) == tuple(j.stats())
+    assert t.stats().migrations == 1 and t._cur(0) != 0
+
+
+@pytest.mark.parametrize("kw", [dict(W=2), dict(executor=object()),
+                                dict(backend="ell_spmd")])
+def test_mesh_arguments_raise_not_implemented(kw):
+    jg = _skewed_graph()
+    core = tensor_of(jcore.coreness(jg, backend="jnp"))
+    with pytest.raises(NotImplementedError):
+        tstream.run_stream(to_port(jg), core, _mixed_updates(jg)[:2],
+                           R=2, **kw)
 
 
 def test_defaults_equal_torch_backend_on_cpu():
@@ -270,8 +409,7 @@ def test_run_stream_on_gpu_equals_reference():
                              backend="ell")
     ref = reference().run_stream(jg, core, ups, R=8, backend="jnp")
     np.testing.assert_array_equal(res.core.cpu().numpy(), np.asarray(ref.core))
-    assert res.stats._asdict() == {f: getattr(ref.stats, f)
-                                   for f in tstream.StreamStats._fields}
+    assert tuple(res.stats) == tuple(ref.stats)
 
 
 @needs_cuda
