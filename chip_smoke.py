@@ -77,13 +77,34 @@ Phases (each raises on failure; the script then exits non-zero):
    graph.  `ell_hindex`, `ell_frontier` and `ell_cc` must launch.  Prints
    the host seconds of every move selection, migration and grow, of the
    save and the restore, and the snapshot's bytes.
-8. scale: a 2^21-node random ELL graph (Cd = 32, ~256 MB of nbr): static
+8. service_ds1: the query service (`repro_torch.service`) over the DS1
+   stream, with the settings of the JAX package's
+   `benchmarks/bench_service.py`: the 200 DS1 updates with inserts and
+   deletes in turns (25 windows of R = 8, each with both ops),
+   `ServiceConfig(max_queue=4096, max_batch=64, refresh_every=1,
+   pr_steps=10)`, 48 queries submitted before each window, ids drawn from
+   [0, N) by a seeded numpy generator, for the bench's three mixes
+   (`gather`: core/degree; `mixed`: all five kinds, top-k at k = 8;
+   `topk`: k in 1..16).  Each mix runs `QueryServer.serve` twice on fresh
+   copies through the kernels and reports the second pass: p50/p99
+   answer latency, qps of busy time, answered, shed (must be 0),
+   batches, staleness, refreshes and their mean host seconds, the path's
+   seconds and the launches of `ell_multi`, `ell_hindex`, `ell_frontier`
+   and `ell_cc` (each must launch).  Every published snapshot equals, bit
+   for bit, a recompute on its epoch's graph (`coreness`,
+   `connected_components`, `pagerank(tol=None, max_steps=10)` on "ell"),
+   and every answer equals that recompute's (top-k in `jax.lax.top_k`'s
+   order, ranks bit for bit); the `mixed` mix also runs once on the
+   plain backend, whose answers must equal (ranks allclose at RANK_TOL,
+   top-k ids equal up to ties within it); `compute_degrees(g)` equals
+   `g.deg` on the card.
+9. scale: a 2^21-node random ELL graph (Cd = 32, ~256 MB of nbr): static
    coreness and a 64-update intra-block stream, then CC, PageRank and
    triangle counts, held the same way (the dense adjacency would be
    8.8 TB there); then `ell_cc`, `ell_pagerank`, `ell_multi`,
    `ell_triangles`, `ell_hindex_count` and `ell_allpairs` timed there,
    with `deg` and without (its nbr does not fit the L2).
-9. timing: each kernel and its plain version at the main path's shapes
+10. timing: each kernel and its plain version at the main path's shapes
    (`ell_hindex` at both: the stream's K = Cd and the static fixpoint's
    degree bound, and `ell_frontier` at the first hop, R = 8 and R = 1,
    each with the row lengths `deg` as the main path passes them and
@@ -162,6 +183,16 @@ R = 8               # stream window width
 ELASTIC_THRESHOLD = 1.2  # the §4.2 balance threshold of elastic_ds1
 ELASTIC_MOVES = 8        # at most this many migrated vertices a round
 ELASTIC_CD = 256         # the explicit degree-capacity grow of elastic_ds1
+#: service_ds1, the settings of the JAX package's benchmarks/bench_service.py
+SERVICE_CONFIG = dict(max_queue=4096, max_batch=64, refresh_every=1,
+                      pr_steps=10, alpha=0.85)
+SERVICE_QPW = 48         # queries submitted before each window
+SERVICE_SEED = 2         # the query feed's numpy seed
+SERVICE_MIXED_K = 8      # the top-k width of the "mixed" mix
+SERVICE_TOPK_MAX = 16    # the "topk" mix draws k from 1..16
+#: the kernels a serving run must launch: the refresh's fused loop and the
+#: stream's maintenance and CC recompute
+SERVICE_KERNELS = ("ell_multi", "ell_hindex", "ell_frontier", "ell_cc")
 
 
 def emit(**obj) -> None:
@@ -205,6 +236,7 @@ def main() -> int:
                                       plain_an["tri"]))
     for name, e in elastic_phase(g, core_plain, ups).items():
         parity[name] = max(parity.get(name, 0), e)
+    service_phase(g, core_plain, ups, card)
     scale = scale_phase(dev)
     kernels = timing(g, core_plain, ups[:R], parity, launches, hindex_split)
     kernels += combine_timing(g, fields, parity, launches_an,
@@ -1014,6 +1046,247 @@ def elastic_phase(g, core, ups):
          migrate_seconds=host["migrate_vertices"],
          grow_seconds=host["grow_blocks"], max_abs_err=err, **info)
     return err
+
+
+def _mix_gather(svc, rng, n, count):
+    return [svc.core_of(int(rng.integers(n))) if rng.random() < 0.5
+            else svc.degree_of(int(rng.integers(n))) for _ in range(count)]
+
+
+def _mix_mixed(svc, rng, n, count):
+    out = []
+    for _ in range(count):
+        r = int(rng.integers(5))
+        u, v = int(rng.integers(n)), int(rng.integers(n))
+        out.append([svc.core_of(u), svc.degree_of(u), svc.nbr_max_core_of(u),
+                    svc.same_component(u, v),
+                    svc.topk_pagerank(SERVICE_MIXED_K)][r])
+    return out
+
+
+def _mix_topk(svc, rng, n, count):
+    return [svc.topk_pagerank(int(rng.integers(1, SERVICE_TOPK_MAX + 1)))
+            for _ in range(count)]
+
+
+#: the query mixes of the JAX package's benchmarks/bench_service.py
+SERVICE_MIXES = {"gather": _mix_gather, "mixed": _mix_mixed,
+                 "topk": _mix_topk}
+
+
+def _interleave(ups):
+    """Inserts and deletes in turns, as bench_service._mixed_updates
+    orders them, so every window carries both ops."""
+    half = len(ups) // 2
+    return [u for pair in zip(ups[:half], ups[half:]) for u in pair]
+
+
+def _service_pass(g, core, labels, ups, mix, backend):
+    """One `QueryServer.serve` of `ups` on a copy of `g`, `mix`'s queries
+    (SERVICE_QPW before each window, ids in [0, N), from SERVICE_SEED)
+    submitted through it.  Records every request, every published
+    snapshot by epoch and each refresh's host seconds (between two
+    syncs).  Returns {"srv", "res", "requests", "snaps",
+    "refresh_seconds", "seconds"}."""
+    import numpy as np
+    import torch
+    import repro_torch.service as svc
+    from repro_torch.runtime import StreamSession
+
+    sess = StreamSession(g.clone(), core.clone(), R=R, backend=backend,
+                         cc_labels=labels.clone())
+    srv = svc.QueryServer(sess, config=svc.ServiceConfig(**SERVICE_CONFIG))
+    out = {"srv": srv, "requests": [], "snaps": {0: srv.state.snapshot},
+           "refresh_seconds": []}
+    submit, refresh = srv.submit, srv.state.refresh
+
+    def recorded_submit(query):
+        req = submit(query)
+        out["requests"].append(req)
+        return req
+
+    def timed_refresh():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        snap = refresh()
+        torch.cuda.synchronize()
+        out["refresh_seconds"].append(time.perf_counter() - t)
+        out["snaps"][snap.epoch] = snap
+        return snap
+
+    srv.submit, srv.state.refresh = recorded_submit, timed_refresh
+    rng = np.random.default_rng(SERVICE_SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out["res"] = srv.serve(list(ups),
+                           lambda i: mix(svc, rng, g.N, SERVICE_QPW))
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _epoch_oracles(g, snaps):
+    """From-scratch recompute on every epoch's snapshot graph through the
+    kernels (`coreness`, `connected_components`, `pagerank(tol=None,
+    max_steps=pr_steps)` on "ell"), held bit for bit against the
+    snapshot's own fields; returns {epoch: host arrays} with each node's
+    neighbor max coreness and the top ranks' ids in `jax.lax.top_k`'s
+    order (rank descending, the lower id first), from numpy's lexsort."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import connected_components, coreness, pagerank
+
+    out = {}
+    for epoch, snap in sorted(snaps.items()):
+        eg = dataclasses.replace(g, nbr=snap.nbr, deg=snap.deg,
+                                 node_mask=snap.node_mask,
+                                 orig_id=snap.orig_id)
+        fields = {
+            "core": coreness(eg, backend="ell"),
+            "labels": connected_components(eg, backend="ell"),
+            "rank": pagerank(eg, alpha=SERVICE_CONFIG["alpha"], tol=None,
+                             max_steps=SERVICE_CONFIG["pr_steps"],
+                             backend="ell")}
+        for k, v in fields.items():
+            if not torch.equal(v, getattr(snap, k)):
+                raise AssertionError(f"service_ds1: epoch {epoch} snapshot "
+                                     f"{k} != recompute")
+        core = fields["core"]
+        fields["nbr_max"] = torch.where(
+            eg.nbr >= 0, core[eg.nbr.clamp(min=0).long()], -1).max(1).values
+        fields["deg"] = eg.deg
+        host = {k: v.cpu().numpy() for k, v in fields.items()}
+        host["order"] = np.lexsort((np.arange(g.N), -host["rank"]))[
+            :SERVICE_TOPK_MAX]
+        out[epoch] = host
+    return out
+
+
+def _check_service_answers(requests, oracles, what):
+    """Every answer equal to its epoch's recompute (ranks bit for bit)."""
+    for r in requests:
+        if r is None or not r.done:
+            raise AssertionError(f"{what}: a query was shed or not answered")
+        o, q = oracles[r.epoch], r.query
+        if q.kind == "topk_pagerank":
+            ids = o["order"][:q.k].tolist()
+            want = (ids, o["rank"][ids].tolist())
+        elif q.kind == "same_component":
+            want = bool(o["labels"][q.u] == o["labels"][q.v])
+        else:
+            field = {"core": "core", "degree": "deg",
+                     "nbr_max_core": "nbr_max"}[q.kind]
+            want = int(o[field][q.u])
+        if r.answer != want:
+            raise AssertionError(f"{what}: {q} answered {r.answer} at epoch "
+                                 f"{r.epoch}, the recompute gives {want}")
+
+
+def _same_service_answers(e, p, what):
+    """The ell run's answers against the plain run's: integers, booleans
+    and top-k ids equal, ranks allclose at RANK_TOL.  Where two top-k
+    lists differ, every differing pair of ids must carry ranks within
+    RANK_TOL of each other in both runs (a tie within the tolerance).
+    Returns the count of such lists."""
+    import numpy as np
+
+    swaps = 0
+    for a, b in zip(e["requests"], p["requests"], strict=True):
+        if tuple(a.query) != tuple(b.query) or a.epoch != b.epoch:
+            raise AssertionError(f"{what}: the runs' requests differ")
+        if a.query.kind != "topk_pagerank":
+            if a.answer != b.answer:
+                raise AssertionError(f"{what}: {a.query} ell {a.answer} vs "
+                                     f"plain {b.answer}")
+            continue
+        (ia, ra), (ib, rb) = a.answer, b.answer
+        if not np.allclose(ra, rb, **RANK_TOL):
+            raise AssertionError(f"{what}: top-k ranks differ: {ra} vs {rb}")
+        if ia != ib:
+            ea = e["snaps"][a.epoch].rank.cpu().numpy()
+            pb = p["snaps"][b.epoch].rank.cpu().numpy()
+            for rank in (ea, pb):
+                if not np.allclose(rank[ia], rank[ib], **RANK_TOL):
+                    raise AssertionError(f"{what}: top-k ids differ beyond "
+                                         f"a tie: {ia} vs {ib}")
+            swaps += 1
+    return swaps
+
+
+def service_phase(g, core, ups, card):
+    """The query service on DS1 (module docstring, phase 8), with the
+    settings of the JAX package's benchmarks/bench_service.py: for each
+    mix, two `serve` passes on fresh copies through the kernels, the
+    second reported; every answer held against the recompute on its
+    epoch's graph, the mixed mix also against a plain pass."""
+    import torch
+    from repro_torch.core import compute_degrees, connected_components
+
+    what = "service_ds1"
+    if not torch.equal(compute_degrees(g), g.deg):
+        raise AssertionError(f"{what}: compute_degrees != g.deg")
+    labels = connected_components(g, backend="torch")
+    ups = _interleave(ups)
+    ref_snaps, oracles, checked = None, None, 0
+
+    def line(mix, backend, run, launches, warmup_seconds=None):
+        s = run["srv"].metrics.summary()
+        secs = run["refresh_seconds"]
+        emit(phase=what, mix=mix, backend=backend,
+             windows=run["res"].stats.batches, queries_per_window=SERVICE_QPW,
+             **{k: s[k] for k in ("p50_ms", "p99_ms", "qps", "answered",
+                                  "shed", "batches", "staleness_max")},
+             refreshes=run["srv"].state.refreshes,
+             refresh_seconds_mean=sum(secs) / len(secs),
+             refresh_seconds_max=max(secs), path_seconds=run["seconds"],
+             warmup_path_seconds=warmup_seconds, launches=launches,
+             stream_stats=run["res"].stats._asdict(), card=card)
+        if s["shed"]:
+            raise AssertionError(f"{what}: {s['shed']} queries shed")
+
+    runs = {}
+    for mix, fn in SERVICE_MIXES.items():
+        warm = _service_pass(g, core, labels, ups, fn, "ell")
+        run, launches = _counted(
+            lambda: _service_pass(g, core, labels, ups, fn, "ell"),
+            SERVICE_KERNELS)
+        if ref_snaps is None:  # the epochs' graphs are the same every run
+            ref_snaps = run["snaps"]
+            oracles = _epoch_oracles(g, ref_snaps)
+        for epoch, snap in run["snaps"].items():
+            ref = ref_snaps[epoch]
+            if not all(torch.equal(a, b) for a, b in zip(snap, ref)
+                       if isinstance(a, torch.Tensor)):
+                raise AssertionError(f"{what}: {mix} epoch {epoch} snapshot "
+                                     "differs from the first run's")
+        _check_service_answers(run["requests"], oracles, f"{what} {mix}")
+        checked += len(run["requests"])
+        line(mix, "ell", run, launches, warm["seconds"])
+        runs[mix] = run
+
+    for name in KERNELS:
+        _wrapper(name).launches = 0
+    plain = _service_pass(g, core, labels, ups, SERVICE_MIXES["mixed"],
+                          "torch")
+    torch.cuda.synchronize()
+    launches = {name: _wrapper(name).launches for name in SERVICE_KERNELS}
+    if any(launches.values()):
+        raise AssertionError(f"{what}: the plain run launched {launches}")
+    line("mixed", "torch", plain, launches)
+    swaps = _same_service_answers(runs["mixed"], plain, f"{what} mixed")
+    e, p = runs["mixed"]["res"], plain["res"]
+    if not (torch.equal(e.core, p.core) and torch.equal(e.labels, p.labels)
+            and torch.equal(e.g.nbr, p.g.nbr) and e.stats == p.stats):
+        raise AssertionError(f"{what}: the ell and plain sessions differ")
+    last = oracles[max(oracles)]
+    if not ((e.core.cpu().numpy() == last["core"]).all()
+            and (e.labels.cpu().numpy() == last["labels"]).all()
+            and torch.equal(compute_degrees(e.g), e.g.deg)):
+        raise AssertionError(f"{what}: the session's end state != recompute")
+    emit(phase=what + "_check", epochs=len(oracles), answers_checked=checked,
+         topk_near_tie_swaps_vs_plain=swaps, compute_degrees="== g.deg",
+         card=card)
 
 
 def scale_phase(dev):

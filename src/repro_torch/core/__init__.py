@@ -1,5 +1,6 @@
 """BLADYG core on PyTorch: the block graph, static and dynamic coreness,
-the superstep engine and the BlockProgram workloads."""
+the superstep engine and the BlockProgram workloads, the degree example
+and maximal-clique maintenance."""
 from .graph import (
     PAD, CapacityError, GraphBlocks, add_vertices_host, build_blocks,
     build_ell_random, delete_edge, grow_blocks, halo_pair_counts,
@@ -24,6 +25,10 @@ from .kcore_dynamic import (
     insert_edge_maintain, k_reachable, k_reachable_batch, maintain_batch,
     maintain_batch_host,
 )
+from .degree import (
+    compute_degrees, maintain_degrees_delete, maintain_degrees_insert,
+)
+from .cliques import MaximalCliques, bron_kerbosch
 from . import partition, partition_dynamic, updates
 
 __all__ = [
@@ -41,6 +46,8 @@ __all__ = [
     "coreness_with_stats", "max_coreness",
     "BatchMaintenanceStats", "MaintenanceStats", "delete_edge_maintain",
     "insert_edge_maintain", "k_reachable", "k_reachable_batch",
-    "maintain_batch", "maintain_batch_host", "partition",
-    "partition_dynamic", "updates",
+    "maintain_batch", "maintain_batch_host", "compute_degrees",
+    "maintain_degrees_insert", "maintain_degrees_delete",
+    "MaximalCliques", "bron_kerbosch", "partition", "partition_dynamic",
+    "updates",
 ]

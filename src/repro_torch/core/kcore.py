@@ -30,8 +30,15 @@ from typing import Tuple
 import torch
 
 from ..kernels import ops
+from ..kernels.ell_hindex import ell_gather
 from .engine import BladygEngine, BladygProgram, Mode
 from .graph import GraphBlocks, halo_slot_counts
+
+
+def neighbor_estimates(g: GraphBlocks, est: torch.Tensor) -> torch.Tensor:
+    """Gather est over the ELL adjacency, (N, Cd); PAD slots -> -1
+    (ignored by hindex)."""
+    return ell_gather(g.nbr, est)
 
 
 def coreness_step(

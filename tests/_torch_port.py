@@ -1,10 +1,16 @@
 """Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py).
 
-* `reference()` imports the JAX package's stream runtime.  Importing
+* `reference()` imports the JAX package's stream runtime (and
+  `reference_service()` its query service, which imports it).  Importing
   `repro.runtime` raises a DeprecationWarning from `repro/runtime/spmd.py`
   (jax's shard_map move), which the suite's filterwarnings turn into an
   error; the import here runs with that warning ignored, so the port's
-  tests can use the reference without touching it.
+  tests can use the reference without touching it.  It runs once when
+  this module loads (at collection, in every test worker), not at the
+  first test that asks for it: otherwise whether a test that imports
+  `repro.runtime` itself (ARCHITECTURE.md's doctests, test files
+  collected after this one) sees the warning would depend on which test
+  files happen to share its worker.
 * numpy <-> torch converters for graphs and arrays: the same inputs, made
   from a seed with numpy, go to both packages.
 * `needs_cuda` marks a test that needs an NVIDIA GPU (a CUDA kernel has no
@@ -19,6 +25,7 @@
 """
 from __future__ import annotations
 
+import importlib
 import warnings
 
 import numpy as np
@@ -28,12 +35,25 @@ import torch
 CPU = torch.device("cpu")
 
 
-def reference():
-    """The JAX package's `repro.runtime.stream` module."""
+def _import_reference(name: str):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DeprecationWarning)
-        import repro.runtime.stream as stream
-    return stream
+        return importlib.import_module(name)
+
+
+_STREAM = _import_reference("repro.runtime.stream")
+_SERVICE = _import_reference("repro.service")
+
+
+def reference():
+    """The JAX package's `repro.runtime.stream` module."""
+    return _STREAM
+
+
+def reference_service():
+    """The JAX package's `repro.service` package (it imports the stream
+    runtime, so the same warning is ignored)."""
+    return _SERVICE
 
 
 def to_port(jg, device=CPU):
