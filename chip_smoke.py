@@ -98,13 +98,43 @@ Phases (each raises on failure; the script then exits non-zero):
    plain backend, whose answers must equal (ranks allclose at RANK_TOL,
    top-k ids equal up to ties within it); `compute_degrees(g)` equals
    `g.deg` on the card.
-9. scale: a 2^21-node random ELL graph (Cd = 32, ~256 MB of nbr): static
+9. skew_egofb: hub mirroring (`core.hub_split`) on the JAX package's
+   `benchmarks/bench_skew.py` graph at the paper's full ego-Facebook size
+   (`snap_like("ego-Facebook", 1.0, seed=0)`: 4,039 nodes, 86,121 edges,
+   max degree 1,279; `node_random_partition(n, 8, seed=0)`, one padding
+   row per replica: N = 9,664, Cd = 1,287), split at threshold 64 (Cd =
+   64); `mirror_report`'s counters must equal the JAX package's.  Static:
+   coreness, CC, PageRank (30 steps), triangles and `fused_analytics`
+   with `mirror=plan` on "ell" and "torch" (bit-equal integers, ranks at
+   RANK_TOL) and coreness on "dense"; at primaries equal to the unsplit
+   graph's "ell" run (PageRank within 1e-5), CC and triangles also to
+   scipy's.  `ell_hindex`, `ell_cc`, `ell_pagerank`, `ell_multi`,
+   `ell_triangles` and `kcore_hindex` must launch, and each equals its
+   plain version on the split rows and on `run_common_mirror`'s
+   canonical rows.  Prints the "ell" coreness seconds split and unsplit,
+   the merge's device ms per superstep (and the JAX package's comparison
+   cube's), `run_common_mirror`'s host seconds.  Then a
+   `MirrorStream(backend="ell", cc_labels=True, auto_grow=True)` in
+   windows of R: 8 inserts onto the heaviest hub, inserts pushing 4
+   vertices of degree 57..64 past the threshold (on-line splits), 100
+   seeded deletes of hub-incident edges, `grow(Cn=2·Cn)`, `save_session`
+   and `restore_session`, the 100 re-inserts; after every window core and
+   labels equal a fresh mirrored recompute and, at primaries in original
+   ids, the unsplit recompute of the same edges, and a "torch" run of the
+   same steps holds the same graph, plan, core, labels and stats
+   (`apply_mirrored_edits`' host ms per window).  Last, `QueryServer`
+   over a fresh MirrorStream, SERVICE_CONFIG, the `mixed` mix over the
+   first 12 windows: every snapshot equals its epoch's mirrored
+   recompute, every answer that recompute's read through `primary`
+   (replica rows among the ids), `nbr_max` the max coreness over each
+   logical neighborhood.
+10. scale: a 2^21-node random ELL graph (Cd = 32, ~256 MB of nbr): static
    coreness and a 64-update intra-block stream, then CC, PageRank and
    triangle counts, held the same way (the dense adjacency would be
    8.8 TB there); then `ell_cc`, `ell_pagerank`, `ell_multi`,
    `ell_triangles`, `ell_hindex_count` and `ell_allpairs` timed there,
    with `deg` and without (its nbr does not fit the L2).
-10. timing: each kernel and its plain version at the main path's shapes
+11. timing: each kernel and its plain version at the main path's shapes
    (`ell_hindex` at both: the stream's K = Cd and the static fixpoint's
    degree bound, and `ell_frontier` at the first hop, R = 8 and R = 1,
    each with the row lengths `deg` as the main path passes them and
@@ -193,6 +223,22 @@ SERVICE_TOPK_MAX = 16    # the "topk" mix draws k from 1..16
 #: the kernels a serving run must launch: the refresh's fused loop and the
 #: stream's maintenance and CC recompute
 SERVICE_KERNELS = ("ell_multi", "ell_hindex", "ell_frontier", "ell_cc")
+#: skew_egofb: benchmarks/bench_skew.py's graph at ego-Facebook's full size,
+#: split at the bench's threshold
+SKEW_THRESHOLD = 64
+SKEW_SPLITS = 4          # vertices of degree 57..64 pushed past it
+SKEW_DELETES = 100       # hub-incident deletes, re-inserted after restore
+SKEW_SEED = 20           # the mirrored stream's numpy seed
+SKEW_SERVICE_WINDOWS = 12
+SKEW_RANK_ATOL = 1e-5    # split vs unsplit PageRank (the JAX tests' bar)
+#: mirror_report's counters on that graph, as the JAX package gives them
+SKEW_REPORT = dict(Cd_unsplit=1287, Cd_split=64, slots_unsplit=12_437_568,
+                   slots_split=618_496, inter_unsplit=150_858,
+                   inter_split=132_918, n_groups=461, replica_rows=703,
+                   Gmax=512, Km=2048)
+#: the kernels the mirrored static analytics launch on "ell"
+SKEW_KERNELS = ("ell_hindex", "ell_cc", "ell_pagerank", "ell_multi",
+                "ell_triangles")
 
 
 def emit(**obj) -> None:
@@ -237,6 +283,8 @@ def main() -> int:
     for name, e in elastic_phase(g, core_plain, ups).items():
         parity[name] = max(parity.get(name, 0), e)
     service_phase(g, core_plain, ups, card)
+    for name, e in skew_phase(*skew_graph(dev, card), card).items():
+        parity[name] = max(parity.get(name, 0), e)
     scale = scale_phase(dev)
     kernels = timing(g, core_plain, ups[:R], parity, launches, hindex_split)
     kernels += combine_timing(g, fields, parity, launches_an,
@@ -1287,6 +1335,609 @@ def service_phase(g, core, ups, card):
     emit(phase=what + "_check", epochs=len(oracles), answers_checked=checked,
          topk_near_tie_swaps_vs_plain=swaps, compute_degrees="== g.deg",
          card=card)
+
+
+def skew_graph(dev, card, scale=1.0):
+    """`benchmarks/bench_skew.py`'s graph at the paper's full ego-Facebook
+    size (`snap_like("ego-Facebook", 1.0, seed=0)`, random cut into 8
+    blocks, one padding row per replica the split needs) and its split at
+    SKEW_THRESHOLD.  `mirror_report`'s counters must equal SKEW_REPORT
+    (checked at scale 1 only).  Returns (g, g2, plan, assign)."""
+    import numpy as np
+    from repro_torch.core import build_blocks, mirror_report, split_hubs
+    from repro_torch.core.partition import node_random_partition
+    from repro_torch.graphgen import snap_like
+
+    t0 = time.perf_counter()
+    edges = snap_like("ego-Facebook", scale, seed=0)
+    n = int(edges.max()) + 1
+    deg = np.bincount(edges.ravel(), minlength=n)
+    replicas = int(np.maximum(0, -(-deg // SKEW_THRESHOLD) - 1).sum())
+    assign = node_random_partition(n, 8, seed=0)
+    g = build_blocks(edges, n, assign, P=8, node_slack=replicas, device=dev)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g2, plan = split_hubs(g, SKEW_THRESHOLD)
+    split_s = time.perf_counter() - t0
+    rep = mirror_report(g, g2, plan)
+    counters = dict(
+        Cd_unsplit=g.Cd, Cd_split=g2.Cd, slots_unsplit=rep["slots_unsplit"],
+        slots_split=rep["slots_split"], inter_unsplit=rep["inter_unsplit"],
+        inter_split=rep["inter_split"], n_groups=rep["n_groups"],
+        replica_rows=g2.n_real - g.n_real, Gmax=plan.Gmax, Km=plan.Km)
+    if scale == 1.0 and counters != SKEW_REPORT:
+        raise AssertionError(f"skew_graph: mirror_report's counters "
+                             f"{counters} != {SKEW_REPORT}")
+    emit(phase="skew_graph", n=n, m=int(len(edges)), card=card,
+         max_degree=int(deg.max()), mean_degree=float(deg.mean()), N=g.N,
+         node_slack=replicas, threshold=SKEW_THRESHOLD, counters=counters,
+         mirror_report=rep, build_seconds=build_s, split_seconds=split_s)
+    return g, g2, plan, assign
+
+
+def _primaries(g, g2, plan, what):
+    """The rows at which a split graph is read against its unsplit one:
+    every real row of `g` keeps its index and is the primary of its
+    vertex (replicas take padding rows), with the same `orig_id`."""
+    import torch
+
+    if not (torch.equal(plan.primary_mask, g.node_mask)
+            and torch.equal(g2.orig_id[g.node_mask], g.orig_id[g.node_mask])):
+        raise AssertionError(f"{what}: primaries are not the unsplit rows")
+    return g.node_mask
+
+
+def _skew_static(g2, plan, backend):
+    """The mirrored static analytics through one backend: coreness (with
+    its superstep count), CC, PageRank (30 steps, tol=None), triangles
+    (with `run_common_mirror`'s host seconds) and `fused_analytics`
+    warm-started from the coreness and labels.  Returns {name: value,
+    "seconds": the path's host seconds}."""
+    import torch
+    from repro_torch.core import (
+        connected_components, fused_analytics, pagerank, triangle_counts)
+    from repro_torch.core.algorithms import CorenessBlockProgram
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = {}
+    est, r["core_steps"] = ops.run_block_program(
+        g2, CorenessBlockProgram(), backend=backend, mirror=plan,
+        with_steps=True)
+    r["core"] = torch.where(g2.node_mask, est, 0)
+    r["labels"], r["cc_steps"] = connected_components(
+        g2, backend=backend, mirror=plan, with_steps=True)
+    r["rank"] = pagerank(g2, tol=None, max_steps=30, backend=backend,
+                         mirror=plan)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    r["tri"] = triangle_counts(g2, backend=backend, mirror=plan)
+    torch.cuda.synchronize()
+    r["run_common_mirror_seconds"] = time.perf_counter() - t
+    r["fused"] = fused_analytics(g2, steps=30, backend=backend,
+                                 init=(r["core"], r["labels"]), mirror=plan)
+    torch.cuda.synchronize()
+    r["seconds"] = time.perf_counter() - t0
+    return r
+
+
+def _canonical_rows(g2, plan):
+    """`run_common_mirror`'s canonical rows on the device: every stored
+    serving-row id mapped to its primary, each row sorted, pads right."""
+    import torch
+
+    big = torch.iinfo(torch.int32).max
+    prow = plan.primary_row.long()
+    ids = torch.where(g2.nbr >= 0, prow[g2.nbr.clamp(min=0).long()].int(),
+                      big).sort(dim=1).values
+    return torch.where(ids == big, -1, ids)
+
+
+def _skew_parity(g2, plan, r):
+    """`ell_hindex`, `ell_cc`, `ell_pagerank`, `ell_multi`, `ell_triangles`
+    and `kcore_hindex` against their plain versions on the split graph's
+    rows and on the canonical rows, with the row lengths `deg` and
+    without, on the mirrored run's fields `r` and random ones; bit-equal
+    but the float sum (SUM_TOL).  Returns {kernel: max |kernel - plain|}."""
+    import numpy as np
+    import torch
+    from repro_torch.core.algorithms import INT32_MAX, PageRankProgram
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.ell_hindex import hindex_ell, hindex_ell_plain
+    from repro_torch.kernels.kcore_hindex import (
+        hindex_counts, hindex_counts_plain)
+
+    dev, N = g2.device, g2.N
+    gen = torch.Generator(device=dev).manual_seed(20)
+    rng = np.random.default_rng(20)
+    ests = {"coreness": r["core"], "ldeg": plan.ldeg,
+            "random": torch.randint(-2, plan.Km + 10, (N,), generator=gen,
+                                    device=dev, dtype=torch.int32)}
+    ints = {"cc_labels": torch.where(g2.node_mask, r["labels"], INT32_MAX),
+            "random": torch.randint(-5, N + 5, (N,), generator=gen,
+                                    device=dev, dtype=torch.int32)}
+    floats = {"pagerank_contrib": PageRankProgram._contrib(plan.ldeg,
+                                                           r["rank"]),
+              "random": torch.rand(N, generator=gen, device=dev)}
+    err = {"ell_hindex": 0, "kcore_hindex": 0}
+    cases = []
+    for rn, nb in (("split", g2.nbr), ("canonical", _canonical_rows(g2, plan))):
+        for (en, est), d in ((e, d) for e in ests.items()
+                             for d in (None, g2.deg)):
+            got, want = hindex_ell(nb, est, deg=d), hindex_ell_plain(nb, est)
+            torch.cuda.synchronize()
+            e = int((got.long() - want.long()).abs().max())
+            err["ell_hindex"] = max(err["ell_hindex"], e)
+            if e:
+                raise AssertionError(f"skew_egofb: ell_hindex differs from "
+                                     f"plain on the {rn} rows, est={en}")
+        cases.append(f"hindex/{rn}")
+        cases += _min_sum_parity(nb, g2.deg, None, ints, floats,
+                                 f"skew/{rn}", err)
+        fields = {"hindex": r["core"], "min": ints["cc_labels"],
+                  "sum": floats["pagerank_contrib"]}
+        cases += _fused_parity(nb, g2.deg, None, fields,
+                               _dup_field(tuple(nb.shape), rng, dev),
+                               f"skew/{rn}", err)
+    adj = ref.ell_to_dense(g2.nbr, N)
+    for (en, est), K in ((e, k) for e in ests.items()
+                         for k in (g2.Cd + 1, ops.degree_bound(g2) + 1)):
+        got, want = hindex_counts(adj, est, K), hindex_counts_plain(adj, est, K)
+        torch.cuda.synchronize()
+        e = int((got.long() - want.long()).abs().max())
+        err["kcore_hindex"] = max(err["kcore_hindex"], e)
+        if e:
+            raise AssertionError(f"skew_egofb: kcore_hindex differs from "
+                                 f"plain, est={en} K={K}")
+    cases.append("kcore_hindex/split")
+    del adj
+    torch.cuda.empty_cache()
+    return err, cases
+
+
+def _merge_timing(g2, plan, r):
+    """Device ms of one mirror merge per combine at this graph's shapes
+    (`ops._mirror_merge` with the run's `merge_index`), and of the JAX
+    package's (Rp, Cd, Km) comparison cube for the h-index, written out
+    in PyTorch for the record (equal results checked)."""
+    import torch
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    idx = ops.merge_index(plan, g2.N)
+    index_s = time.perf_counter() - t0
+    red_i = r["labels"].clone()
+    red_f = r["rank"].clone()
+    out = {"merge_index_host_seconds": index_s}
+    for c, red, field in (("hindex", r["core"], r["core"]),
+                          ("min", red_i, red_i), ("sum", red_f, red_f)):
+        out[f"{c}_ms"] = _time_ms(
+            lambda: ops._mirror_merge(red, field, g2.nbr, plan, c, idx))
+
+    def cube():
+        rows, gid, G = plan.grp_rows.long(), plan.grp_gid.long(), plan.Gmax
+        live = gid < G
+        rn = g2.nbr[rows].long()
+        ve = torch.where(rn >= 0, r["core"].long()[rn.clamp(min=0)], -1)
+        t = torch.arange(1, plan.Km + 1, device=ve.device)
+        hist = (ve[:, :, None] >= t[None, None, :]).sum(dim=1)
+        hist = torch.where(live[:, None], hist, 0)
+        cnt = torch.zeros((G + 1, plan.Km), dtype=hist.dtype,
+                          device=ve.device).index_add_(0, gid, hist)
+        h = (cnt >= t[None, :]).sum(dim=1)[gid]
+        return r["core"].index_put((rows[live],), h[live].int())
+
+    if not torch.equal(cube(), ops._mirror_merge(
+            r["core"], r["core"], g2.nbr, plan, "hindex", idx)):
+        raise AssertionError("skew_egofb: the histogram merge differs from "
+                             "the comparison cube")
+    out["hindex_cube_ms"] = _time_ms(cube, reps=5, warmup=1)
+    out["index_rows"] = int(idx.rows.numel())
+    out["table_shape"] = list(idx.table.shape)
+    return out
+
+
+def skew_phase(g, g2, plan, assign, card):
+    """skew_egofb (module docstring, phase 9): the mirrored static
+    analytics, the mirrored stream and the service over it on the split
+    ego-Facebook graph.  Returns the kernels' parity errors there."""
+    import torch
+    from repro_torch.core import (
+        connected_components, coreness, pagerank, triangle_counts)
+
+    what = "skew_egofb"
+    prim = _primaries(g, g2, plan, what)
+    e, launches = _counted(lambda: _skew_static(g2, plan, "ell"),
+                           SKEW_KERNELS)
+    p = _skew_static(g2, plan, "torch")
+    for k in ("core", "labels", "tri"):
+        if not torch.equal(e[k], p[k]):
+            raise AssertionError(f"{what}: ell and plain {k} differ")
+    for k in ("core_steps", "cc_steps"):
+        if e[k] != p[k]:
+            raise AssertionError(f"{what}: {k} {e[k]} (ell) vs {p[k]}")
+    _close(e["rank"], p["rank"], f"{what} pagerank")
+    for r in (e, p):  # fused == standalone, bit for bit, per backend
+        fc, fl, fr = r["fused"]
+        if not (torch.equal(fc, r["core"]) and torch.equal(fl, r["labels"])
+                and torch.equal(fr, r["rank"])):
+            raise AssertionError(f"{what}: fused != standalone")
+    (dense_core, dense_steps), dense_launches = _counted(
+        lambda: _dense_mirrored_coreness(g2, plan), ("kcore_hindex",))
+    if not torch.equal(dense_core, e["core"]) or dense_steps != e["core_steps"]:
+        raise AssertionError(f"{what}: dense mirrored coreness differs")
+    unsplit = {"core": coreness(g, backend="ell"),
+               "labels": connected_components(g, backend="ell"),
+               "tri": triangle_counts(g, backend="ell"),
+               "rank": pagerank(g, tol=None, max_steps=30, backend="ell")}
+    for k in ("core", "labels", "tri"):
+        if not torch.equal(e[k][prim], unsplit[k][prim]):
+            raise AssertionError(f"{what}: split {k} != unsplit at primaries")
+    rank_err = float((e["rank"][prim] - unsplit["rank"][prim]).abs().max())
+    if rank_err > SKEW_RANK_ATOL:
+        raise AssertionError(f"{what}: split PageRank off by {rank_err}")
+    host = _scipy_check(g, torch.where(prim, e["labels"], -1),
+                        torch.where(prim, e["tri"], 0), what)
+    secs = {}
+    for name, fn in (("coreness_split", lambda: coreness(
+            g2, backend="ell", mirror=plan)),
+            ("coreness_unsplit", lambda: coreness(g, backend="ell"))):
+        fn()  # the warm-up call
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    err, cases = _skew_parity(g2, plan, e)
+    merge = _merge_timing(g2, plan, e)
+    emit(phase=what, core_steps=e["core_steps"], cc_steps=e["cc_steps"],
+         max_core=int(e["core"].max()),
+         components=int(torch.unique(e["labels"][prim]).numel()),
+         triangles=host["triangles"], rank_max_abs_err_vs_unsplit=rank_err,
+         launches=launches, dense_launches=dense_launches,
+         ell_coreness_seconds=secs,
+         merge_device_ms_per_superstep=merge,
+         run_common_mirror_host_seconds={
+             "ell": e["run_common_mirror_seconds"],
+             "torch": p["run_common_mirror_seconds"]},
+         path_seconds={"ell": e["seconds"], "torch": p["seconds"]},
+         parity_cases=cases, max_abs_err=err, card=card)
+    ups = _skew_windows(g2, plan)
+    _skew_stream(g, g2, plan, assign, ups, card)
+    _skew_service(g2, plan, ups, card)
+    return err
+
+
+def _dense_mirrored_coreness(g2, plan):
+    """Mirrored coreness on "dense" (the `kcore_hindex` kernel over the
+    split graph's (N, N) bf16 adjacency) and its superstep count."""
+    import torch
+    from repro_torch.core.algorithms import CorenessBlockProgram
+    from repro_torch.kernels import ops
+
+    est, steps = ops.run_block_program(
+        g2, CorenessBlockProgram(), backend="dense", mirror=plan,
+        with_steps=True)
+    return torch.where(g2.node_mask, est, 0), steps
+
+
+def _logical_edges(g2, plan):
+    """The split graph's edges between primary rows, (u < v) pairs."""
+    import numpy as np
+
+    nbr = g2.nbr.cpu().numpy()
+    prow = plan.primary_row.cpu().numpy()
+    rows, cols = np.nonzero(nbr >= 0)
+    a, b = prow[rows], prow[nbr[rows, cols]]
+    keep = a < b
+    return set(zip(a[keep].tolist(), b[keep].tolist()))
+
+
+def _skew_windows(g2, plan):
+    """The mirrored stream's windows of R, in open-time primary-row ids:
+    bench_skew's hub window (8 inserts onto the heaviest hub), inserts
+    pushing SKEW_SPLITS vertices of degree 57..64 one past the threshold
+    (on-line splits), SKEW_DELETES deletes of hub-incident edges, and
+    their re-inserts.  Returns {"pre": [...], "deletes": [...],
+    "reinserts": [...]} (lists of windows)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SKEW_SEED)
+    pm = plan.primary_mask.cpu().numpy()
+    ldeg = plan.ldeg.cpu().numpy().astype(np.int64)
+    cur = _logical_edges(g2, plan)
+    hub = int(np.argmax(np.where(pm, ldeg, -1)))
+    have = {v for e in cur if hub in e for v in e}
+    prim = np.flatnonzero(pm)
+    ins = [(hub, int(v), +1) for v in prim if int(v) not in have][:R]
+    deg = np.zeros(len(pm), np.int64)
+    for u, v in cur:
+        deg[u] += 1
+        deg[v] += 1
+    for u, v, _ in ins:
+        deg[u] += 1
+        deg[v] += 1
+        cur.add((min(u, v), max(u, v)))
+    t = SKEW_THRESHOLD
+    cands = prim[(deg[prim] >= t - 7) & (deg[prim] <= t)]
+    grow = sorted(int(x) for x in rng.choice(cands, SKEW_SPLITS,
+                                            replace=False))
+    for x in grow:
+        while deg[x] <= t:
+            v = int(rng.choice(prim))
+            e = (min(x, v), max(x, v))
+            if v == x or v in grow or e in cur:
+                continue
+            cur.add(e)
+            deg[x] += 1
+            deg[v] += 1
+            ins.append((x, v, +1))
+    hubs = set(np.flatnonzero(
+        pm & (plan.row_gid.cpu().numpy() < plan.Gmax)).tolist())
+    incident = sorted(e for e in cur if e[0] in hubs or e[1] in hubs)
+    pick = rng.choice(len(incident), SKEW_DELETES, replace=False)
+    dels = [(incident[i][0], incident[i][1], -1) for i in pick]
+
+    def chunks(ups):
+        return [ups[i:i + R] for i in range(0, len(ups), R)]
+
+    return {"pre": chunks(ins), "deletes": chunks(dels),
+            "reinserts": chunks([(u, v, +1) for u, v, _ in dels]),
+            "split_vertices": grow, "hub": hub}
+
+
+def _session_state(sess):
+    """A MirrorStream's state as clones: graph, plan, core, labels, stats."""
+    from repro_torch.core.hub_split import MirrorPlan
+
+    g, p = sess.g, sess.mirror
+    out = {f"g.{f}": getattr(g, f).clone()
+           for f in ("nbr", "deg", "node_mask", "orig_id")}
+    out.update({f"plan.{f}": getattr(p, f).clone() for f in MirrorPlan.ARRAYS})
+    out.update(core=sess.core.clone(), labels=sess.labels.clone(),
+               stats=tuple(sess.result().stats),
+               statics=(g.P, g.Cn, g.Cd, p.Gmax, p.Km, p.threshold,
+                        p.n_logical))
+    return out
+
+
+def _same_state(a, b):
+    import torch
+
+    return all(torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
+               else a[k] == b[k] for k in a)
+
+
+def _skew_run(g2, plan, ups, backend, on_window):
+    """The mirrored stream's steps on a fresh MirrorStream: the "pre" and
+    "deletes" windows, `grow(Cn=2·Cn)`, `save_session` and
+    `restore_session` through a CheckpointManager in a temporary
+    directory, then the re-inserts on the restored session.
+    `on_window(i, session)` runs after every window.  Returns (session,
+    {"save_seconds", "restore_seconds", "snapshot_bytes", "seconds"})."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import (
+        CheckpointManager, restore_session, save_session)
+    from repro_torch.runtime import MirrorStream
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess = MirrorStream(g2, plan, backend=backend, cc_labels=True,
+                        auto_grow=True)
+    i, info = 0, {}
+    for w in ups["pre"] + ups["deletes"]:
+        sess.apply_window(w)
+        on_window(i, sess)
+        i += 1
+    sess.grow(Cn=2 * sess.g.Cn)
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        t = time.perf_counter()
+        step = save_session(mgr, sess)
+        info["save_seconds"] = time.perf_counter() - t
+        info["snapshot_bytes"] = sum(
+            f.stat().st_size for f in (Path(d) / f"step_{step:08d}").iterdir())
+        t = time.perf_counter()
+        _, sess, _ = restore_session(mgr, device=g2.device)
+        torch.cuda.synchronize()
+        info["restore_seconds"] = time.perf_counter() - t
+    for w in ups["reinserts"]:
+        sess.apply_window(w)
+        on_window(i, sess)
+        i += 1
+    torch.cuda.synchronize()
+    info["seconds"] = time.perf_counter() - t0
+    return sess, info
+
+
+def _skew_stream(g, g2, plan, assign, ups, card):
+    """The mirrored stream (module docstring, phase 9) on "ell" and
+    "torch": after every window core and labels equal a fresh mirrored
+    recompute and, at primaries in original ids, the unsplit recompute
+    of the same edge set; the two runs hold equal graphs, plans, core,
+    labels and stats."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (
+        GraphBlocks, build_blocks, connected_components, coreness)
+    from repro_torch.core import hub_split
+
+    what = "skew_egofb_stream"
+    states = []
+    orig0 = g2.orig_id.cpu().numpy()
+    n = int(g.orig_id.max()) + 1
+    windows = ups["pre"] + ups["deletes"] + ups["reinserts"]
+    with _host_timed(hub_split, ("apply_mirrored_edits",)) as host:
+        (sess, info), launches = _counted(
+            lambda: _skew_run(g2, plan, ups, "ell",
+                              lambda i, s: states.append(_session_state(s))),
+            ("ell_hindex", "ell_cc"))
+    # the ell run against a fresh recompute and the unsplit graph
+    cur = _logical_edges(g2, plan)
+    for i, (w, st) in enumerate(zip(windows, states)):
+        for u, v, op in w:
+            e = (min(u, v), max(u, v))
+            (cur.add if op > 0 else cur.discard)(e)
+        gi = GraphBlocks(nbr=st["g.nbr"], deg=st["g.deg"],
+                         node_mask=st["g.node_mask"], orig_id=st["g.orig_id"],
+                         P=g2.P, Cn=st["statics"][1], Cd=st["statics"][2])
+        pi = hub_split.MirrorPlan(
+            **{f: st[f"plan.{f}"] for f in hub_split.MirrorPlan.ARRAYS},
+            Gmax=st["statics"][3], Km=st["statics"][4],
+            threshold=st["statics"][5], n_logical=st["statics"][6], uid=0)
+        if not (torch.equal(coreness(gi, backend="ell", mirror=pi), st["core"])
+                and torch.equal(connected_components(
+                    gi, backend="ell", mirror=pi), st["labels"])):
+            raise AssertionError(f"{what}: window {i}: core/labels != a "
+                                 "fresh mirrored recompute")
+        edges = np.array(sorted(cur), np.int64)
+        gu = build_blocks(orig0[edges], n, assign, P=g.P, device=g.device)
+        ucore = coreness(gu, backend="ell")
+        ulab = connected_components(gu, backend="ell")
+        pm = pi.primary_mask
+        oid = gi.orig_id
+        split = (oid[pm], st["core"][pm], oid[st["labels"][pm].long()])
+        um = gu.node_mask
+        ref_ = (gu.orig_id[um], ucore[um], gu.orig_id[ulab[um].long()])
+        os_, ou = split[0].argsort(), ref_[0].argsort()
+        if not all(torch.equal(a[os_], b[ou]) for a, b in zip(split, ref_)):
+            raise AssertionError(f"{what}: window {i}: core/labels != the "
+                                 "unsplit recompute at primaries")
+    stats = sess.result().stats
+    if stats.grows != 1 or stats.batches != len(windows):
+        raise AssertionError(f"{what}: expected one grow over "
+                             f"{len(windows)} windows: {stats}")
+    n_groups0 = plan.n_groups
+
+    def check_plain(i, s):
+        if not _same_state(_session_state(s), states[i]):
+            raise AssertionError(f"{what}: window {i}: the torch run differs "
+                                 "from the ell run")
+
+    _, info_p = _skew_run(g2, plan, ups, "torch", check_plain)
+    ms = [1e3 * s for s in host["apply_mirrored_edits"]]
+    emit(phase=what, windows=len(windows), updates=stats.updates,
+         split_vertices=ups["split_vertices"], hub=ups["hub"],
+         groups={"open": n_groups0, "end": sess.mirror.n_groups},
+         N={"open": g2.N, "end": sess.g.N}, stream_stats=stats._asdict(),
+         launches=launches,
+         apply_mirrored_edits_ms={"median": statistics.median(ms),
+                                  "max": max(ms), "calls": len(ms)},
+         path_seconds={"ell": info["seconds"], "torch": info_p["seconds"]},
+         save_seconds=info["save_seconds"],
+         restore_seconds=info["restore_seconds"],
+         snapshot_bytes=info["snapshot_bytes"], card=card)
+
+
+def _mirror_oracles(snaps):
+    """For each epoch (snapshot, graph, plan): a mirrored recompute on
+    "ell" held against the snapshot (core, labels, ranks bit for bit,
+    logical degrees, the primary map, and `nbr_max` against the max
+    coreness over each vertex's logical neighborhood on the host), then
+    the answer arrays read through the primary map."""
+    import numpy as np
+    import torch
+    from repro_torch.core import connected_components, coreness, pagerank
+
+    out = {}
+    for epoch, (snap, g, plan) in sorted(snaps.items()):
+        core = coreness(g, backend="ell", mirror=plan)
+        fields = {
+            "core": core,
+            "labels": connected_components(g, backend="ell", mirror=plan),
+            "rank": torch.where(plan.primary_mask, pagerank(
+                g, alpha=SERVICE_CONFIG["alpha"], tol=None,
+                max_steps=SERVICE_CONFIG["pr_steps"], backend="ell",
+                mirror=plan), 0.0),
+            "deg": plan.ldeg}
+        for k, v in fields.items():
+            if not torch.equal(v, getattr(snap, k)):
+                raise AssertionError(f"skew_egofb_service: epoch {epoch} "
+                                     f"snapshot {k} != recompute")
+        host = {k: v.cpu().numpy() for k, v in fields.items()}
+        prow = plan.primary_row.cpu().numpy().astype(np.int64)
+        nbr = g.nbr.cpu().numpy()
+        vals = np.where(nbr >= 0, host["core"][prow[np.maximum(nbr, 0)]], -1)
+        best = np.full(g.N, -1, np.int64)
+        np.maximum.at(best, prow, vals.max(axis=1))
+        if not (np.array_equal(snap.nbr_max.cpu().numpy(), best[prow])
+                and np.array_equal(snap.primary, prow)):
+            raise AssertionError(f"skew_egofb_service: epoch {epoch} nbr_max "
+                                 "or primary != the logical neighborhood's")
+        res = {k: v[prow] for k, v in host.items() if k != "rank"}
+        res["nbr_max"] = best[prow]
+        res["rank"] = host["rank"]
+        res["order"] = np.lexsort((np.arange(g.N), -host["rank"]))[
+            :SERVICE_TOPK_MAX]
+        out[epoch] = res
+    return out
+
+
+def _skew_service(g2, plan, ups, card):
+    """The query service over a fresh MirrorStream on "ell": SERVICE_CONFIG,
+    the `mixed` mix (SERVICE_QPW queries before each window, ids in
+    [0, N), replica rows among them) over the stream's first
+    SKEW_SERVICE_WINDOWS windows.  Every snapshot equals its epoch's
+    mirrored recompute and every answer that recompute's, read through
+    the primary map."""
+    import numpy as np
+    import torch
+    import repro_torch.service as svc
+    from repro_torch.runtime import MirrorStream
+
+    what = "skew_egofb_service"
+    windows = (ups["pre"] + ups["deletes"])[:SKEW_SERVICE_WINDOWS]
+
+    def run():
+        sess = MirrorStream(g2, plan, backend="ell", cc_labels=True)
+        srv = svc.QueryServer(sess, config=svc.ServiceConfig(**SERVICE_CONFIG))
+        snaps = {0: (srv.state.snapshot, sess.g, sess.mirror)}
+        refresh, requests, secs = srv.state.refresh, [], []
+
+        def recorded_refresh():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            snap = refresh()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            snaps[snap.epoch] = (snap, sess.g, sess.mirror)
+            return snap
+
+        srv.state.refresh = recorded_refresh
+        rng = np.random.default_rng(SERVICE_SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for w in windows:
+            for q in _mix_mixed(svc, rng, g2.N, SERVICE_QPW):
+                requests.append(srv.submit(q))
+            srv.step(w)
+        srv.pump()
+        torch.cuda.synchronize()
+        return srv, snaps, requests, secs, time.perf_counter() - t0
+
+    (srv, snaps, requests, secs, seconds), launches = _counted(
+        run, ("ell_multi", "ell_hindex", "ell_cc"))
+    oracles = _mirror_oracles(snaps)
+    _check_service_answers(requests, oracles, what)
+    replicas = set(np.flatnonzero(
+        (g2.node_mask & ~plan.primary_mask).cpu().numpy()).tolist())
+    asked = sum(r.query.u in replicas for r in requests
+                if r.query.kind != "topk_pagerank")
+    if not asked:
+        raise AssertionError(f"{what}: no query asked at a replica row")
+    s = srv.metrics.summary()
+    if s["shed"]:
+        raise AssertionError(f"{what}: {s['shed']} queries shed")
+    emit(phase=what, windows=len(windows), queries_per_window=SERVICE_QPW,
+         answers_checked=len(requests), answers_at_replica_rows=asked,
+         epochs=len(oracles),
+         **{k: s[k] for k in ("p50_ms", "p99_ms", "qps", "answered",
+                              "batches", "staleness_max")},
+         refresh_seconds_mean=sum(secs) / len(secs),
+         refresh_seconds_max=max(secs), path_seconds=seconds,
+         launches=launches, card=card)
 
 
 def scale_phase(dev):

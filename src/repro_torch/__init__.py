@@ -14,7 +14,10 @@ exact in the stream.  The elastic stream (`runtime.stream.StreamSession`)
 rebalances its blocks live by the paper's §4.2 protocol
 (`core.partition_dynamic`, `core.graph.migrate_vertices`), grows its
 capacities (`core.graph.grow_blocks`) and saves and resumes itself
-(`checkpoint`).
+(`checkpoint`); the query service (`service`) answers typed queries
+between its windows.  Hub mirroring (`core.hub_split`) splits skewed
+graphs' hubs into replica rows, so every workload and the stream
+(`runtime.stream.MirrorStream`) run with `Cd` bounded by a threshold.
 
 This package carries a seed_fixtures note for the JAX package's dead-seed
 import audit: it is not seed substrate but a separate port, which the

@@ -1,30 +1,31 @@
 """Resume a graph stream from a snapshot: `save_session`,
 `restore_session`.
 
-A snapshot holds everything `StreamSession.state_dict` emits — the graph
-blocks, the maintained coreness and CC labels, the open-time id map and
+A snapshot holds everything `StreamSession.state_dict` or
+`MirrorStream.state_dict` emits — the graph blocks (and the hub-split
+plan), the maintained coreness and CC labels, the open-time id map and
 every counter — plus the capacities (P, Cn, Cd) in the manifest meta, so
 a restore works after capacity escalations the restoring process never
-saw.  The layout is the JAX package's: a session snapshot written by the
-JAX package restores here (its backend overridden to one of this
+saw.  The layout is the JAX package's: a snapshot of either kind written
+by the JAX package restores here (its backend overridden to one of this
 package's), and this package's flat dicts restore there.
 
 Not ported: restoring onto a worker mesh (`W > 1`, `backend="ell_spmd"`:
-ROADMAP.md Queue 1 item 6) and `MirrorStream` snapshots (item 5).
+ROADMAP.md Queue 1 item 6).
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 from ..device import DeviceLike
-from ..runtime.stream import StreamSession
+from ..runtime.stream import MirrorStream, StreamSession
 from .manager import CheckpointManager
 
 
 def save_session(mgr: CheckpointManager, session, step: Optional[int] = None,
                  blocking: bool = True, extra_meta: Optional[dict] = None
                  ) -> int:
-    """Snapshot a `StreamSession` at `step` (default: its
+    """Snapshot a `StreamSession` or `MirrorStream` at `step` (default: its
     `windows_applied` clock).  `extra_meta` (JSON-able) rides along under
     meta["extra"].  The session's tensors are on the host before this
     returns, also with `blocking=False`.  Returns the step saved."""
@@ -43,10 +44,11 @@ def restore_session(mgr: CheckpointManager, step: Optional[int] = None,
     """Rebuild a stream session from the latest (or given) committed
     snapshot, on `device` (default CUDA, see `device.resolve_device`).
 
-    `backend` overrides the snapshot's.  `W > 1`, `executor` and the
-    `ell_spmd` backend need the mesh runtime and raise
-    NotImplementedError, as does a `MirrorStream` snapshot.  Returns
-    ``(step, session, meta)``; meta is the manifest meta.
+    A ``stream_session`` snapshot comes back as a `StreamSession`, a
+    ``mirror_stream`` one as a `MirrorStream`.  `backend` overrides the
+    snapshot's.  `W > 1`, `executor` and the `ell_spmd` backend need the
+    mesh runtime and raise NotImplementedError.  Returns ``(step,
+    session, meta)``; meta is the manifest meta.
     """
     if step is None:
         step = mgr.latest_step()
@@ -58,11 +60,8 @@ def restore_session(mgr: CheckpointManager, step: Optional[int] = None,
         raise ValueError(
             f"step {step} carries no session meta; was it saved with "
             "save_session?")
-    if meta["kind"] == "mirror_stream":
-        raise NotImplementedError(
-            "MirrorStream is not ported to PyTorch yet; see ROADMAP.md "
-            "(Queue 1 item 5)")
-    if meta["kind"] != "stream_session":
+    kinds = {"stream_session": StreamSession, "mirror_stream": MirrorStream}
+    if meta["kind"] not in kinds:
         raise ValueError(f"unknown snapshot kind {meta['kind']!r}")
     be = meta["backend"] if backend is None else backend
     if (W is not None and int(W) > 1) or executor is not None \
@@ -71,8 +70,8 @@ def restore_session(mgr: CheckpointManager, step: Optional[int] = None,
             "restoring onto a worker mesh needs the mesh runtime, which is "
             "not ported to PyTorch yet; see ROADMAP.md (Queue 1 item 6)")
     arrays = mgr.restore_dict(step, device=device)
-    session = StreamSession.from_state(arrays, meta, backend=be,
-                                       device=device)
+    session = kinds[meta["kind"]].from_state(arrays, meta, backend=be,
+                                             device=device)
     return step, session, meta
 
 

@@ -1,6 +1,6 @@
 """BLADYG core on PyTorch: the block graph, static and dynamic coreness,
-the superstep engine and the BlockProgram workloads, the degree example
-and maximal-clique maintenance."""
+the superstep engine and the BlockProgram workloads, hub mirroring, the
+degree example and maximal-clique maintenance."""
 from .graph import (
     PAD, CapacityError, GraphBlocks, add_vertices_host, build_blocks,
     build_ell_random, delete_edge, grow_blocks, halo_pair_counts,
@@ -29,6 +29,10 @@ from .degree import (
     compute_degrees, maintain_degrees_delete, maintain_degrees_insert,
 )
 from .cliques import MaximalCliques, bron_kerbosch
+from .hub_split import (
+    MirrorPlan, apply_mirrored_edits, groups_of, grow_plan, mirror_report,
+    run_common_mirror, split_hubs,
+)
 from . import partition, partition_dynamic, updates
 
 __all__ = [
@@ -48,6 +52,8 @@ __all__ = [
     "insert_edge_maintain", "k_reachable", "k_reachable_batch",
     "maintain_batch", "maintain_batch_host", "compute_degrees",
     "maintain_degrees_insert", "maintain_degrees_delete",
-    "MaximalCliques", "bron_kerbosch", "partition", "partition_dynamic",
-    "updates",
+    "MaximalCliques", "bron_kerbosch",
+    "MirrorPlan", "apply_mirrored_edits", "groups_of", "grow_plan",
+    "mirror_report", "run_common_mirror", "split_hubs",
+    "partition", "partition_dynamic", "updates",
 ]

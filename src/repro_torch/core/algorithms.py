@@ -22,6 +22,11 @@ every backend of the kernel registry through `kernels.ops.run_block_program`
   `CorenessBlockProgram` — the §4.1 min-H iteration on the contract
       (combine "hindex"); `ops.coreness_blocks` stays the production path.
 
+Every entry point takes `mirror=` (a `core.hub_split.MirrorPlan` for a
+hub-split graph) and then runs the vertex-cut dataflow of
+`ops.run_block_program`: at primaries the integers equal the unsplit
+graph's, PageRank is allclose.
+
 Program states are tensors or tuples of tensors on the graph's device.
 """
 from __future__ import annotations
@@ -122,6 +127,12 @@ class TriangleCountProgram(BlockProgram):
         # red[u] = ordered common-neighbor pairs = 2 * triangles at u
         return red // 2, state[1]
 
+    def mirror_state(self, state, primary_row: torch.Tensor):
+        # counts are per-vertex (replicate); neighbor rows are per-ROW
+        # slices — gathering them through primaries would copy the
+        # primary's slice onto every mirror
+        return state[0][primary_row.long()], state[1]
+
 
 class CorenessBlockProgram(BlockProgram):
     """§4.1 min-H coreness on the generic contract (parity witness)."""
@@ -149,14 +160,16 @@ class CorenessBlockProgram(BlockProgram):
 
 def connected_components(
     g: GraphBlocks, backend: str = "auto", max_steps: Optional[int] = None,
-    with_steps: bool = False,
+    with_steps: bool = False, mirror=None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, int]]:
     """Canonical component labels: label[u] = min padded id of u's
     component; (N,) int32 with -1 on padding rows (plus the superstep
-    count when `with_steps=True`).  Identical integers on every backend."""
+    count when `with_steps=True`).  Identical integers on every backend.
+    Under `mirror` replica rows carry their primary's id, so labels stay
+    in the unsplit id space."""
     state, steps = ops.run_block_program(
         g, ConnectedComponentsProgram(), backend=backend, max_steps=max_steps,
-        with_steps=True)
+        with_steps=True, mirror=mirror)
     labels = torch.where(g.node_mask, state, -1)
     return (labels, steps) if with_steps else labels
 
@@ -164,23 +177,30 @@ def connected_components(
 def pagerank(
     g: GraphBlocks, alpha: float = 0.85, tol: Optional[float] = 1e-6,
     max_steps: int = 100, backend: str = "auto", with_steps: bool = False,
+    mirror=None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, int]]:
     """Push-style PageRank over the undirected graph; (N,) float32 ranks,
     0.0 on padding rows.  `tol=None` runs exactly `max_steps` supersteps;
-    otherwise the loop halts once no node moves more than `tol`."""
+    otherwise the loop halts once no node moves more than `tol`.  Under
+    `mirror` the slice partials re-associate the float sums: allclose to
+    the unsplit run, not bit-equal."""
     prog = PageRankProgram(alpha=alpha, tol=tol, max_steps=max_steps)
     (rank, _), steps = ops.run_block_program(g, prog, backend=backend,
-                                             with_steps=True)
+                                             with_steps=True, mirror=mirror)
     return (rank, steps) if with_steps else rank
 
 
 def triangle_counts(
     g: GraphBlocks, backend: str = "auto", with_steps: bool = False,
+    mirror=None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, int]]:
     """Per-node triangle counts ((N,) int32, 0 on padding rows); the
-    global total is `triangle_total(counts)`.  One superstep."""
+    global total is `triangle_total(counts)`.  One superstep.  Under
+    `mirror` the runner routes through `hub_split.run_common_mirror`
+    (canonicalized rows + per-slice corrections)."""
     (counts, _), steps = ops.run_block_program(
-        g, TriangleCountProgram(), backend=backend, with_steps=True)
+        g, TriangleCountProgram(), backend=backend, with_steps=True,
+        mirror=mirror)
     return (counts, steps) if with_steps else counts
 
 
@@ -188,6 +208,7 @@ def fused_analytics(
     g: GraphBlocks, alpha: float = 0.85, steps: int = 30,
     backend: str = "auto", with_steps: bool = False,
     init: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    mirror=None,
 ) -> Union[Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
            Tuple[Tuple[torch.Tensor, torch.Tensor, torch.Tensor], int]]:
     """Coreness + CC labels + PageRank from ONE fused superstep loop.
@@ -205,6 +226,10 @@ def fused_analytics(
     both are fixpoints of their updates, so exact inputs ride through
     unchanged while PageRank, always from its uniform init, runs its
     `steps` iterations.
+
+    `mirror` runs the whole fused loop under the vertex-cut dataflow: one
+    merge per field per superstep, PageRank's init read through the
+    logical view (`ops._mirror_init_view`).
     """
     pr = PageRankProgram(alpha=alpha, tol=None, max_steps=steps)
     prog = MultiProgram(
@@ -214,11 +239,13 @@ def fused_analytics(
     if init is not None:
         core0, labels0 = init
         labels0 = torch.as_tensor(labels0, device=g.device).to(torch.int32)
+        gi = g if mirror is None else ops._mirror_init_view(g, mirror)
         state0 = (torch.as_tensor(core0, device=g.device).to(torch.int32),
                   torch.where(g.node_mask, labels0, INT32_MAX),
-                  pr.init(g))
+                  pr.init(gi))
     state, n = ops.run_block_program(g, prog, backend=backend,
-                                     with_steps=True, state0=state0)
+                                     with_steps=True, state0=state0,
+                                     mirror=mirror)
     core, lab, (rank, _) = state
     results = (core, torch.where(g.node_mask, lab, -1), rank)
     return (results, n) if with_steps else results

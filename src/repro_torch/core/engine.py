@@ -78,6 +78,13 @@ def tree_leaves(tree: Any) -> List[Any]:
     return [tree]
 
 
+def tree_map(fn, tree: Any) -> Any:
+    """`fn` over every tensor leaf of a nested tuple/list (None stays)."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, t) for t in tree)
+    return None if tree is None else fn(tree)
+
+
 def _any_changed(old: Any, new: Any) -> torch.Tensor:
     """Device bool scalar: does any tensor leaf differ bit-wise?"""
     flags = [(a != b).any() for a, b in zip(tree_leaves(old),
@@ -172,6 +179,21 @@ class BlockProgram:
         state'.  Elementwise over the node axis."""
         raise NotImplementedError
 
+    def mirror_state(self, state: Any, primary_row: torch.Tensor) -> Any:
+        """Replicate per-vertex state onto hub mirror rows (vertex cut).
+
+        Under a hub-split graph (`core.hub_split`) every mirror row must
+        carry its primary's state, so neighbors reading a replica see the
+        logical value and replicas advance in lockstep through `update`.
+        The default gathers every tensor leaf through `primary_row`,
+        right whenever all leaves are per-VERTEX (N-leading) values;
+        programs with per-ROW state (triangle counting's neighbor rows)
+        override it.  Must be idempotent: the runner applies it to
+        caller warm starts too.
+        """
+        prow = primary_row.long()
+        return tree_map(lambda a: a[prow], state)
+
     def changed(self, old: Any, new: Any) -> torch.Tensor:
         """Local convergence verdict (device bool scalar).  Default: any
         tensor leaf differs bit-wise."""
@@ -189,7 +211,6 @@ class MultiProgram(BlockProgram):
     the sub-programs alone for the same superstep count.  Sub-program
     combines must come from `kernels.ops.MULTI_COMBINES`.  The fused loop
     runs until EVERY sub-program is quiet or `max_steps` supersteps ran.
-    Not ported yet: `mirror_state` (hub splitting).
     """
 
     combine = "multi"
@@ -227,6 +248,11 @@ class MultiProgram(BlockProgram):
                 new: Tuple[Any, ...]) -> torch.Tensor:
         return torch.stack([p.changed(o, n) for p, o, n in
                             zip(self.programs, old, new)]).any()
+
+    def mirror_state(self, state: Tuple[Any, ...],
+                     primary_row: torch.Tensor) -> Tuple[Any, ...]:
+        return tuple(p.mirror_state(s, primary_row)
+                     for p, s in zip(self.programs, state))
 
 
 class BladygEngine:

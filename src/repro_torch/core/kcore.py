@@ -54,9 +54,23 @@ def coreness_step(
 
 def coreness(
     g: GraphBlocks, max_steps: int = 10_000, backend: str = "auto",
+    mirror=None,
 ) -> torch.Tensor:
     """Coreness of every node (0 on padding rows), (N,) int32, via the
-    chosen backend.  All backends return identical integers."""
+    chosen backend.  All backends return identical integers.
+
+    `mirror` (a `core.hub_split.MirrorPlan` for a split `g`) runs the
+    generic `CorenessBlockProgram` under the vertex-cut dataflow: per-slice
+    h-index partials merge through count histograms, so every row of a
+    replica group carries the hub's coreness, equal at primaries to the
+    unsplit run."""
+    if mirror is not None:
+        from .algorithms import CorenessBlockProgram
+
+        est = ops.run_block_program(g, CorenessBlockProgram(),
+                                    backend=backend, max_steps=max_steps,
+                                    mirror=mirror)
+        return torch.where(g.node_mask, est, 0)
     return ops.coreness_blocks(g, backend=backend, max_steps=max_steps)
 
 

@@ -58,8 +58,10 @@ launch overhead, is later work.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from . import ref
@@ -456,6 +458,120 @@ def live_loop(
     return state, int(steps)
 
 
+# ---------------------------------------------------------------------------
+# Hub mirroring (`core.hub_split`): the merge stage of a mirrored run.
+# Plain PyTorch on every backend, as the JAX package computes it in jnp
+# outside its kernels.
+# ---------------------------------------------------------------------------
+
+
+class MergeIndex(NamedTuple):
+    """A plan's replica groups in the merge's layout (`merge_index`).
+
+    rows:  (R,) int64 — the rows of every split group.
+    gid:   (R,) int64 — each row's group id, in [0, Gmax).
+    table: (Gmax, S) int64 — each group's rows in the plan's order
+           (primary first), padded with N: S is the most slices a group
+           has.  A group's partials are reduced along its table row, in
+           the same order on every run.
+    """
+
+    rows: torch.Tensor
+    gid: torch.Tensor
+    table: torch.Tensor
+
+
+def merge_index(mirror, N: int) -> MergeIndex:
+    """Build a plan's `MergeIndex` on its device: one host read of the
+    plan's (Rp,) group entries, made once per mirrored run."""
+    rows = mirror.grp_rows.cpu().numpy().astype(np.int64)
+    gid = mirror.grp_gid.cpu().numpy().astype(np.int64)
+    live = gid < mirror.Gmax
+    order = np.argsort(gid[live], kind="stable")
+    rows, gid = rows[live][order], gid[live][order]
+    start = np.searchsorted(gid, gid)  # first entry of each row's group
+    pos = np.arange(len(gid)) - start
+    table = np.full((mirror.Gmax, max(1, int(pos.max(initial=0)) + 1)), N,
+                    np.int64)
+    table[gid, pos] = rows
+    dev = mirror.grp_rows.device
+    return MergeIndex(*(torch.from_numpy(a).to(dev)
+                        for a in (rows, gid, table)))
+
+
+def _mirror_merge(red: torch.Tensor, field: torch.Tensor, nbr: torch.Tensor,
+                  mirror, combine: str,
+                  index: Optional[MergeIndex] = None) -> torch.Tensor:
+    """Merge per-slice partial aggregates across each hub replica group.
+
+    Entries of `red` at group rows are replaced by the LOGICAL aggregate
+    of the whole sliced neighborhood; every other row passes through.
+    Returns a new tensor.  Per combine:
+
+      min    — the group's partials reduced along its `MergeIndex.table`
+               row (the slices partition the neighborhood: exact);
+      sum    — the same with a sum, in the table's fixed row order, so
+               repeated runs give the same bits (float sums re-associate
+               against the unsplit graph: allclose, not bit-equal);
+      hindex — partial h values do not compose, so the merge re-reads
+               the group's neighbor values `field[nbr[rows]]` into one
+               (Gmax, Km + 1) int32 histogram (value v counted in bin
+               min(v, Km), values below 1 in bin 0; integer scatter-adds,
+               order-free), gets cnt_t = #{v >= t} from its prefix sums
+               and reads h = #{t in 1..Km : cnt_t >= t}.  Exact because
+               a merged h-index never exceeds the logical degree <= Km.
+               The JAX package compares every value with every threshold
+               in an (Rp, Cd, Km) cube; this reads Rp * Cd values and
+               writes Gmax * (Km + 1) counts.
+
+    `index` is the plan's `merge_index` (built here when None).  Only
+    live group rows are written: the JAX package drops pad entries by
+    scattering past the end, which `index_put` would refuse.
+    """
+    if index is None:
+        index = merge_index(mirror, red.shape[0])
+    if combine in ("min", "sum"):
+        fill = ref._fill(red.dtype) if combine == "min" else 0
+        ext = torch.cat([red, red.new_full((1,), fill)])[index.table]
+        out = ext.amin(dim=1) if combine == "min" else ext.sum(dim=1)
+    elif combine == "hindex":
+        Km = int(mirror.Km)
+        nb = nbr[index.rows].long()
+        vals = torch.where(nb >= 0, field[nb.clamp(min=0)], 0).clamp_(0, Km)
+        bins = (index.gid[:, None] * (Km + 1) + vals).reshape(-1)
+        hist = torch.zeros(mirror.Gmax * (Km + 1), dtype=torch.int32,
+                           device=red.device).scatter_add_(
+            0, bins, torch.ones_like(bins, dtype=torch.int32))
+        # at_most[:, b] = #{v <= b}, so cnt_t = total - at_most[:, t - 1]
+        at_most = hist.view(mirror.Gmax, Km + 1).cumsum(1, dtype=torch.int32)
+        t = torch.arange(1, Km + 1, device=red.device, dtype=torch.int32)
+        out = ((at_most[:, -1:] - at_most[:, :-1]) >= t).sum(dim=1)
+    else:
+        raise ValueError(
+            f"combine {combine!r} has no mirror merge; count_common routes "
+            "through core.hub_split.run_common_mirror")
+    return red.index_put((index.rows,), out[index.gid].to(red.dtype))
+
+
+def _mirror_merged(red, field, nbr, mirror, program, index: MergeIndex):
+    """Apply `_mirror_merge` per field of a (possibly multi-) program."""
+    if program.combine == "multi":
+        return tuple(
+            _mirror_merge(r, f, nbr, mirror, c, index)
+            for r, f, c in zip(red, field, program.combines))
+    return _mirror_merge(red, field, nbr, mirror, program.combine, index)
+
+
+def _mirror_init_view(g, mirror):
+    """Logical facade for `program.init` under a mirrored run: the LOGICAL
+    degrees and the primary mask (init formulas read degrees and the
+    real-node mask, e.g. PageRank's 1/deg and teleport mass); then
+    `program.mirror_state` replicates the per-primary values onto mirror
+    rows."""
+    return dataclasses.replace(g, deg=mirror.ldeg,
+                               node_mask=mirror.primary_mask)
+
+
 def run_block_program(
     g,  # GraphBlocks (duck-typed: .nbr, .deg, .node_mask, .n_real, .device)
     program,  # core.engine.BlockProgram
@@ -464,7 +580,7 @@ def run_block_program(
     with_steps: bool = False,
     state0: Optional[Any] = None,
     executor=None,
-    mirror=None,
+    mirror=None,  # core.hub_split.MirrorPlan for a hub-split graph
 ) -> Union[Any, Tuple[Any, int]]:
     """Run a `BlockProgram` to its halt fixpoint on one device.
 
@@ -478,21 +594,46 @@ def run_block_program(
     plus the superstep count (a host int) when `with_steps=True`.  The
     "dense" backend densifies once per run.
 
-    The real-node count is read on the host once per run.  `executor=`
-    (the mesh runtime) and `mirror=` (hub splitting) are not ported yet.
+    `mirror` (optional) declares `g` a hub-split graph (`core.hub_split`):
+    init runs against the logical degree/mask view, the state replicates
+    onto mirror rows (`program.mirror_state`), the update's ctx carries
+    the LOGICAL degrees `mirror.ldeg` and vertex count while every kernel
+    keeps the split graph's row lengths `g.deg`, and `_mirror_merge`
+    folds per-slice partials per replica group between combine and
+    update.  "count_common" programs route through
+    `hub_split.run_common_mirror`.  Results equal the unsplit graph's
+    (bit for bit for the integer combines).
+
+    The real-node count (or, under a mirror, the plan's group entries) is
+    read on the host once per run.  `executor=` (the mesh runtime) is not
+    ported yet and raises NotImplementedError.
     """
-    if executor is not None or mirror is not None:
+    if executor is not None:
         raise NotImplementedError(
-            "run_block_program's executor= (mesh runtime) and mirror= (hub "
-            "split) are not ported to PyTorch yet; see ROADMAP.md (Queue 1)")
+            "run_block_program's executor= needs the mesh runtime, which is "
+            "not ported to PyTorch yet; see ROADMAP.md (Queue 1 item 6)")
     b = resolve_backend(backend, g.device)
     multi = program.combine == "multi"
     if not multi and program.combine not in COMBINES:
         raise _unknown(program.combine, COMBINES + ("multi",))
+    if mirror is not None and program.combine == "count_common":
+        from ..core.hub_split import run_common_mirror  # lazy: no cycle
+
+        return run_common_mirror(g, mirror, program, backend=b,
+                                 with_steps=with_steps, state0=state0)
     ms = int(program.max_steps if max_steps is None else max_steps)
-    ctx = BlockCtx(deg=g.deg.to(torch.int32), node_mask=g.node_mask,
-                   n_real=int(g.n_real))  # the run's one extra host read
-    state = program.init(g) if state0 is None else state0
+    index = None
+    if mirror is None:
+        ctx = BlockCtx(deg=g.deg.to(torch.int32), node_mask=g.node_mask,
+                       n_real=int(g.n_real))  # the run's one extra host read
+        state = program.init(g) if state0 is None else state0
+    else:
+        ctx = BlockCtx(deg=mirror.ldeg, node_mask=g.node_mask,
+                       n_real=int(mirror.n_logical))
+        state = (program.init(_mirror_init_view(g, mirror))
+                 if state0 is None else state0)
+        state = program.mirror_state(state, mirror.primary_row)
+        index = merge_index(mirror, g.N)
     adj = dense_adj(g, b)
 
     def step(state):
@@ -502,12 +643,14 @@ def run_block_program(
                                           adj=adj)
         elif b == "torch":
             red = neighbor_multi_ell_plain(g.nbr, field, program.combines)
-        elif b == "ell":
+        elif b == "ell":  # the row lengths, never the logical degrees
             red = neighbor_multi_ell(g.nbr, field, program.combines,
-                                     deg=ctx.deg)
+                                     deg=g.deg)
         else:  # one resident adjacency serves every field
             red = tuple(_combine_dense(adj, f, c, g.Cd)
                         for c, f in zip(program.combines, field))
+        if mirror is not None:
+            red = _mirror_merged(red, field, g.nbr, mirror, program, index)
         new = program.update(ctx, state, red)
         return new, program.changed(state, new)
 

@@ -1,8 +1,8 @@
 """Single-device stream runtime of the port (`stream`)."""
 from .stream import (
-    StreamResult, StreamSession, StreamStats, owner_block, route_updates,
-    run_stream,
+    MirrorStream, StreamResult, StreamSession, StreamStats, owner_block,
+    route_updates, run_stream,
 )
 
-__all__ = ["StreamResult", "StreamSession", "StreamStats", "owner_block",
-           "route_updates", "run_stream"]
+__all__ = ["MirrorStream", "StreamResult", "StreamSession", "StreamStats",
+           "owner_block", "route_updates", "run_stream"]

@@ -52,9 +52,10 @@ ingest (`_cur`).
 `result`); `run_stream` drains an iterable through one.  Both return a
 `StreamResult`, a NamedTuple as in the reference: read its named fields;
 unpacking it yields the reference's legacy arity behind its
-DeprecationWarning.  Not ported yet: the mesh executor (`W=`,
-`executor=`, `backend="ell_spmd"` raise NotImplementedError) and
-`MirrorStream` (see ROADMAP.md, Queue 1 items 5 and 6).
+DeprecationWarning.  `MirrorStream` is the sibling session over a
+hub-split graph (`core.hub_split`).  Not ported yet: the mesh executor
+(`W=`, `executor=`, `backend="ell_spmd"` raise NotImplementedError; see
+ROADMAP.md, Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -69,6 +70,7 @@ import torch
 
 from ..core import kcore_dynamic as kd
 from ..core import partition_dynamic as pd
+from ..core import hub_split
 from ..core.algorithms import connected_components, merge_labels
 from ..core.graph import (
     CapacityError, GraphBlocks, add_vertices_host, grow_blocks,
@@ -288,6 +290,9 @@ class StreamSession:
         #: through `_virtual` (their current padded ids)
         self._n_open = g.N
         self._virtual: List[int] = []
+        #: hub-split plan slot: always None here; the service reads
+        #: `.mirror` the same way from either kind of session
+        self.mirror = None
 
     @property
     def windows_applied(self) -> int:
@@ -675,3 +680,187 @@ def run_stream(
     for window in _iter_windows(updates, R):
         session.apply_window(window)
     return session.result()
+
+
+class MirrorStream:
+    """Stream ingestion over a hub-split graph (vertex-cut maintenance).
+
+    `StreamSession`'s sibling for graphs that went through
+    `core.hub_split.split_hubs`: holds the split `GraphBlocks` and its
+    `MirrorPlan` and ingests `(u, v, op)` edit windows whose ids are
+    PRIMARY row ids of the split graph at open.  Each window goes through
+    `hub_split.apply_mirrored_edits` at the host boundary (capacity-routed
+    inserts, on-line splits, mirrored deletes), then the analytics are
+    recomputed mirror-aware — `kcore.coreness(..., mirror=plan)` and, with
+    `cc_labels`, `connected_components(..., mirror=plan)` — which is exact
+    by the split == unsplit parity.  (A candidate-bounded mirrored
+    maintenance pass is future work in the JAX package too.)
+
+    `auto_grow` grows Cn when the replica pool runs dry mid-window: the
+    edit path works on copies, so the failed attempt leaves nothing half
+    applied and the whole window re-applies on the grown graph.
+
+    Duck-types the slice of `StreamSession` the service consumes: `.g`,
+    `.core`, `.labels`, `.backend`, `.executor` (always None),
+    `.windows_applied`, `.mirror` and `result()`.  Every graph and plan
+    it holds is made of fresh tensors (the edit path never writes in
+    place), and `state_dict` clones besides.
+    """
+
+    def __init__(self, g: GraphBlocks, plan, backend: str = "auto",
+                 cc_labels: bool = False, auto_grow: bool = False):
+        self.g = g
+        self.mirror = plan
+        self.backend = backend
+        self.executor = None
+        self._windows = 0
+        self._n_updates = 0
+        self._track_labels = bool(cc_labels)
+        self._auto_grow = bool(auto_grow)
+        self._grows = 0
+        #: open-time row ids -> current (grows rekey every row)
+        self._remap: Optional[np.ndarray] = None
+        self._refresh()
+
+    @property
+    def windows_applied(self) -> int:
+        return self._windows
+
+    def _refresh(self) -> None:
+        """Recompute the maintained analytics mirror-aware."""
+        from ..core.kcore import coreness
+
+        self.core = coreness(self.g, backend=self.backend,
+                             mirror=self.mirror)
+        self.labels = (connected_components(self.g, backend=self.backend,
+                                            mirror=self.mirror)
+                       if self._track_labels else None)
+
+    def grow(self, Cn: Optional[int] = None,
+             Cd: Optional[int] = None) -> np.ndarray:
+        """Capacity escalation under the vertex cut: pad-and-rekey the split
+        graph (`core.graph.grow_blocks`), relocate the plan along
+        (`hub_split.grow_plan`), fold the rekey into the open-time id map
+        and recompute the analytics.  Returns the rekey map."""
+        g2, rekey = grow_blocks(self.g, Cn, Cd)
+        self.mirror = hub_split.grow_plan(self.mirror, rekey, g2)
+        self.g = g2
+        self._remap = (rekey.astype(np.int64) if self._remap is None
+                       else np.where(self._remap >= 0,
+                                     rekey[np.maximum(self._remap, 0)], -1))
+        self._grows += 1
+        self._refresh()
+        return rekey
+
+    def apply_window(self, window: List[Tuple[int, int, int]]) -> None:
+        """Apply one edit window (open-time primary-row ids) and refresh
+        the analytics, growing Cn in flight when auto-grow is armed and
+        the replica pool runs dry."""
+        if not window:
+            return
+        if self._remap is not None:
+            window = [(int(self._remap[u]), int(self._remap[v]), op)
+                      for u, v, op in window]
+        while True:
+            try:
+                g2, plan2 = hub_split.apply_mirrored_edits(
+                    self.g, self.mirror, window)
+                break
+            except CapacityError:
+                if not self._auto_grow:
+                    raise
+                rekey = self.grow(Cn=_pow2_ceil(self.g.Cn + 1))
+                window = [(int(rekey[u]), int(rekey[v]), op)
+                          for u, v, op in window]
+        self.g, self.mirror = g2, plan2
+        self._windows += 1
+        self._n_updates += len(window)
+        self._refresh()
+
+    def state_dict(self):
+        """Snapshot tensors + meta in the JAX package's layout: graph and
+        plan leaves in the flat dict (``g.*``, ``plan.*``), statics and
+        counters in meta.  Every tensor is a clone; ``remap`` is written
+        int32, as the JAX package writes it."""
+        g, p = self.g, self.mirror
+        arrays = {"core": self.core.clone()}
+        arrays.update({f"g.{f}": getattr(g, f).clone()
+                       for f in ("deg", "nbr", "node_mask", "orig_id")})
+        arrays.update({f"plan.{f}": getattr(p, f).clone()
+                       for f in sorted(p.ARRAYS)})
+        if self.labels is not None:
+            arrays["labels"] = self.labels.clone()
+        if self._remap is not None:
+            arrays["remap"] = torch.from_numpy(
+                self._remap.astype(np.int32)).to(g.device)
+        meta = {
+            "kind": "mirror_stream",
+            "P": g.P, "Cn": g.Cn, "Cd": g.Cd,
+            "backend": self.backend,
+            "auto_grow": self._auto_grow,
+            "track_labels": self._track_labels,
+            "has_remap": self._remap is not None,
+            "Gmax": p.Gmax, "Km": p.Km, "threshold": p.threshold,
+            "n_logical": p.n_logical,
+            "windows": self._windows,
+            "n_updates": self._n_updates,
+            "grows": self._grows,
+        }
+        return arrays, meta
+
+    @classmethod
+    def from_state(cls, arrays, meta, backend: Optional[str] = None,
+                   device: DeviceLike = None) -> "MirrorStream":
+        """Rebuild a mirrored session from `state_dict` output, this
+        package's or the JAX package's (tensors or numpy arrays), with
+        copies on `device` (default CUDA, see `device.resolve_device`).
+        The plan gets a fresh uid; the maintained analytics are restored
+        verbatim, the snapshot being the source of truth."""
+        dev = resolve_device(device)
+
+        def tensor(key, dtype):
+            x = arrays[key]
+            if not isinstance(x, torch.Tensor):
+                x = torch.from_numpy(np.asarray(x))
+            return x.to(device=dev, dtype=dtype, copy=True)
+
+        def dtype_of(name):
+            return torch.bool if name.endswith("mask") else torch.int32
+
+        g = GraphBlocks(
+            **{f: tensor(f"g.{f}", dtype_of(f))
+               for f in ("nbr", "deg", "node_mask", "orig_id")},
+            P=int(meta["P"]), Cn=int(meta["Cn"]), Cd=int(meta["Cd"]))
+        plan = hub_split.MirrorPlan(
+            **{f: tensor(f"plan.{f}", dtype_of(f))
+               for f in hub_split.MirrorPlan.ARRAYS},
+            Gmax=int(meta["Gmax"]), Km=int(meta["Km"]),
+            threshold=int(meta["threshold"]),
+            n_logical=int(meta["n_logical"]), uid=hub_split._next_uid())
+        sess = cls(g, plan,
+                   backend=meta["backend"] if backend is None else backend,
+                   cc_labels=bool(meta["track_labels"]),
+                   auto_grow=bool(meta["auto_grow"]))
+        sess.core = tensor("core", torch.int32)
+        if meta["track_labels"]:
+            sess.labels = tensor("labels", torch.int32)
+        sess._remap = (np.asarray(tensor("remap", torch.int64).cpu())
+                       if meta["has_remap"] else None)
+        sess._windows = int(meta["windows"])
+        sess._n_updates = int(meta["n_updates"])
+        sess._grows = int(meta["grows"])
+        return sess
+
+    def result(self) -> StreamResult:
+        """Current state as a `StreamResult`; routing and superstep stats
+        are not metered on the mirrored path and read 0."""
+        stats = StreamStats(
+            updates=self._n_updates, batches=self._windows, block_local=0,
+            escalated_cross_block=0, escalated_spill=0,
+            escalated_conflict=0, bfs_steps=0, recompute_steps=0,
+            per_block=tuple(0 for _ in range(self.g.P)),
+            grows=self._grows)
+        return StreamResult(g=self.g, core=self.core, stats=stats,
+                            labels=self.labels)
+
+    close = result

@@ -17,10 +17,11 @@ epoch (the session's id space when the snapshot was cut; migrations make
 later epochs' spaces differ — `EpochSnapshot.orig_id` maps back to input
 ids).  Out-of-range ids are rejected at submit time by the server;
 padding-row ids are legal and answer with the padding conventions
-(core 0, degree 0, label -1).  A hub-split snapshot would carry a
-host-side `primary` map that queried ids resolve through, and a
-pre-merged `nbr_max` field for `nbr_max_core`; until hub mirroring is
-ported both are None and the resolution is a no-op.
+(core 0, degree 0, label -1).  A hub-split snapshot carries a host-side
+`primary` map that queried ids resolve through (a replica row answers
+with its hub's values) and a pre-merged `nbr_max` field that
+`nbr_max_core` reads; on other snapshots both are None and the
+resolution is a no-op.
 
 Query kinds:
 
@@ -170,8 +171,11 @@ def run_batch(snap: EpochSnapshot, kind: str, queries: List[Query],
     elif kind == "degree":
         out = snap.deg[_pad_ids([us], B, dev)[0]]
     elif kind == "nbr_max_core":
-        out = _batch_nbr_max_core(snap.core, snap.nbr,
-                                  _pad_ids([us], B, dev)[0])
+        if snap.nbr_max is not None:  # hub-split: merged over the slices
+            out = snap.nbr_max[_pad_ids([us], B, dev)[0]]
+        else:
+            out = _batch_nbr_max_core(snap.core, snap.nbr,
+                                      _pad_ids([us], B, dev)[0])
     elif kind == "same_component":
         uv = _pad_ids([us, _resolve(snap, [q.v for q in queries])], B, dev)
         out = snap.labels[uv[0]] == snap.labels[uv[1]]

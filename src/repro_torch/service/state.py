@@ -26,9 +26,12 @@ Double buffering: snapshots are immutable NamedTuples, so "front" and
 snapshot record they started with; `refresh()` builds the next epoch's
 record off to the side and publishes it by a single assignment.
 
-Hub-split sessions (a session whose `.mirror` is set) need hub mirroring,
-which is not ported yet: `refresh` raises NotImplementedError for them,
-and the snapshot's `primary`/`nbr_max` fields stay None.
+Hub-split sessions (`runtime.stream.MirrorStream`, or any session whose
+`.mirror` is a `core.hub_split.MirrorPlan`) refresh through the same
+fused loop under the vertex-cut dataflow: coreness and CC equal the
+unsplit graph's at primaries, PageRank is allclose, and the snapshot
+gains the `primary`/`nbr_max` fields the query layer resolves through
+(see `EpochSnapshot`).
 """
 from __future__ import annotations
 
@@ -50,9 +53,13 @@ class EpochSnapshot(NamedTuple):
     maps back to pre-partition input ids (stable across §4.2
     migrations).
 
-    `primary` (a host row -> primary-row map) and `nbr_max` (the
-    group-merged neighbor-max-coreness field) belong to hub-split
-    sessions; they stay None until hub mirroring is ported.
+    Hub-split sessions publish two extra fields: `primary`, the host
+    row -> primary-row map queries resolve through (a replica row's id
+    answers with its hub's values), and `nbr_max`, the group-merged
+    neighbor-max coreness (a hub's neighbors are spread over its slices,
+    so one row's gather would see only one slice).  `deg` then holds
+    LOGICAL degrees and `rank` is masked to primaries (replica rows read
+    0.0, so top-k never lists a hub twice).  Both stay None otherwise.
 
     Padded row ids are only comparable between two snapshots whose
     `(Cn, grows)` match: a capacity escalation (`StreamSession.grow`)
@@ -66,7 +73,7 @@ class EpochSnapshot(NamedTuple):
     core: torch.Tensor          # (N,) int32 coreness (0 on padding)
     labels: torch.Tensor        # (N,) int32 CC labels (-1 on padding)
     rank: torch.Tensor          # (N,) float32 PageRank (0.0 on padding)
-    deg: torch.Tensor           # (N,) int32 degrees
+    deg: torch.Tensor           # (N,) int32 degrees (logical under mirror)
     nbr: torch.Tensor           # (N, Cd) int32 sorted-ELL adjacency
     node_mask: torch.Tensor     # (N,) bool real-node mask
     orig_id: torch.Tensor       # (N,) int32 original input ids
@@ -122,24 +129,39 @@ class AnalyticsState:
         a reader can never observe a half-built snapshot.
         """
         sess = self._session
-        if getattr(sess, "mirror", None) is not None:
-            raise NotImplementedError(
-                "serving a hub-split session needs hub mirroring, which is "
-                "not ported to PyTorch yet; see ROADMAP.md (Queue 1 item 5)")
         g = sess.g
+        mirror = sess.mirror
         core, labels, rank = fused_analytics(
             g, alpha=self.alpha, steps=self.pr_steps, backend=sess.backend,
-            init=(sess.core, sess.labels))
+            init=(sess.core, sess.labels), mirror=mirror)
+        if mirror is None:
+            deg, primary, nbr_max = g.deg, None, None
+        else:
+            # logical degrees, the primary map, replica ranks masked out
+            # of top-k, and neighbor-max coreness merged over the slices:
+            # one (N, Cd) gather, a scatter-max into the primary rows and
+            # a gather back
+            prow = mirror.primary_row.long()
+            deg = mirror.ldeg
+            rank = torch.where(mirror.primary_mask, rank, 0.0)
+            row_max = torch.where(g.nbr >= 0, core[g.nbr.clamp(min=0).long()],
+                                  -1).amax(dim=1).to(torch.int32)
+            grp_max = torch.full_like(row_max, -1).scatter_reduce(
+                0, prow, row_max, "amax")
+            nbr_max = grp_max[prow]
+            primary = mirror.primary_row.cpu().numpy().astype(np.int32)
         back = EpochSnapshot(
             epoch=0 if self._front is None else self._front.epoch + 1,
             windows=sess.windows_applied,
             core=core.clone(),
             labels=labels.clone(),
             rank=rank.clone(),
-            deg=g.deg.clone(),
+            deg=deg.clone(),
             nbr=g.nbr.clone(),
             node_mask=g.node_mask.clone(),
             orig_id=g.orig_id.clone(),
+            primary=primary,
+            nbr_max=None if nbr_max is None else nbr_max.clone(),
             Cn=int(g.Cn),
             Cd=int(g.Cd),
             grows=int(sess._grows),

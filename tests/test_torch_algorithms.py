@@ -212,9 +212,15 @@ def test_runner_rejects_what_is_not_ported():
     tg = to_port(_graph(30, 40, 2, 4))
     prog = talg.ConnectedComponentsProgram()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ops.run_block_program(tg, prog, mirror=object())
+        ops.run_block_program(tg, prog, executor=object(), mirror=object())
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ops.run_block_program(tg, prog, executor=object())
+    # mirror= is ported (tests/test_torch_hub_split.py): a plan that split
+    # nothing merges nothing, and the run equals the plain one
+    g2, plan = tcore.split_hubs(tg, tg.Cd)
+    assert plan.n_groups == 0
+    assert torch.equal(ops.run_block_program(g2, prog, mirror=plan),
+                       ops.run_block_program(tg, prog))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ops.run_block_program(tg, prog, backend="ell_spmd")
     # "dense" is ported: it runs, equal to the plain backend

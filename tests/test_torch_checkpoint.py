@@ -11,6 +11,9 @@ flat-dict meta, session snapshot round trip, and a snapshot that
 survives later windows (the port writes graphs in place, so a snapshot
 must hold copies).  A reference session saved by the reference's
 `save_session` and restored here continues to the reference's result.
+`MirrorStream` snapshots (kind ``mirror_stream``: the split graph and its
+`MirrorPlan` under ``g.*``/``plan.*``) round-trip in the port and restore
+in either package whichever wrote them.
 """
 import shutil
 
@@ -29,11 +32,13 @@ import repro.core.algorithms as jalg
 import repro.core.partition as jpart
 import repro.core.updates as jupd
 import repro.graphgen as jgen
+from repro.core import hub_split as jhs
 
 import repro_torch.core as tcore
 from repro_torch.checkpoint import (CheckpointManager, remesh_restore,
                                     restore_session, save_session)
-from repro_torch.runtime.stream import StreamSession
+from repro_torch.core import hub_split as ths
+from repro_torch.runtime.stream import MirrorStream, StreamSession
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -297,7 +302,7 @@ def test_restore_session_empty_dir(tmp_path):
     (dict(W=2), "stream_session"),
     (dict(backend="ell_spmd"), "stream_session"),
     (dict(executor=object()), "stream_session"),
-    ({}, "mirror_stream"),
+    (dict(W=2), "mirror_stream"),
 ])
 def test_restore_session_refuses_what_is_not_ported(tmp_path, jg0, kw, kind):
     sess = _open(jg0)
@@ -370,3 +375,129 @@ def test_reference_session_resumes_in_the_port(tmp_path, skewed):
     assert_same_graph(t.g, back.g)
     assert tuple(back.stats()) == tuple(t.stats())
     np.testing.assert_array_equal(np.asarray(back._remap), t._remap)
+
+
+# ---------------------------------------------------------------------------
+# MirrorStream snapshots
+# ---------------------------------------------------------------------------
+
+
+def _split_graph(threshold=8, n=90, seed=2):
+    """A split-worthy graph (tests/test_hub_split.py's): BA skew + two
+    planted hubs, P = 8, room for replicas and on-line splits."""
+    edges = {(0, v) for v in range(1, 1 + threshold * 4)}
+    edges |= {(1, v) for v in range(2 + threshold * 4, 2 + threshold * 5)}
+    for u, v in jgen.barabasi_albert(n, 3, seed=seed):
+        if u != v:
+            edges.add((min(u, v), max(u, v)))
+    edges = np.array(sorted(edges))
+    assign = np.random.default_rng(seed).integers(0, 8, n)
+    return jcore.build_blocks(edges, n, assign, P=8, node_slack=64), edges
+
+
+def _mirror_windows(jg2, jplan, edges, k=4, width=6, seed=5):
+    """k windows of random inserts/deletes in primary-row ids."""
+    pm = np.asarray(jplan.primary_mask)
+    row_of = {int(o): i for i, o in enumerate(np.asarray(jg2.orig_id))
+              if pm[i]}
+    n = len(row_of)
+    cur = set(map(tuple, edges.tolist()))
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(k):
+        w, tried = [], set()
+        while len(w) < width:
+            u, v = (int(x) for x in rng.integers(0, n, 2))
+            e = (min(u, v), max(u, v))
+            if u == v or e in tried:
+                continue
+            tried.add(e)
+            op = -1 if e in cur else +1
+            (cur.discard if op < 0 else cur.add)(e)
+            w.append((row_of[e[0]], row_of[e[1]], op))
+        out.append(w)
+    return out
+
+
+def _same_mirror(t, o):
+    """A port MirrorStream `t` and another session `o` (either package's)
+    hold the same state: graph, plan (all but uid), core, labels, stats
+    and open-time id map."""
+    assert_same_graph(t.g, o.g)
+    for f in ths.MirrorPlan.ARRAYS:
+        np.testing.assert_array_equal(getattr(t.mirror, f).numpy(),
+                                      np.asarray(getattr(o.mirror, f)))
+    for f in ("Gmax", "Km", "threshold", "n_logical"):
+        assert getattr(t.mirror, f) == getattr(o.mirror, f)
+    np.testing.assert_array_equal(t.core.numpy(), np.asarray(o.core))
+    np.testing.assert_array_equal(t.labels.numpy(), np.asarray(o.labels))
+    assert tuple(t.result().stats) == tuple(o.result().stats)
+    np.testing.assert_array_equal(t._remap, np.asarray(o._remap))
+
+
+def _mirror_pair(jg, edges):
+    """The same split graph opened as a reference and a port
+    MirrorStream, both after a window, a Cn grow and another window."""
+    jg2, jplan = jhs.split_hubs(jg, 8)
+    g2, plan = ths.split_hubs(to_port(jg), 8)
+    ws = _mirror_windows(jg2, jplan, edges)
+    j = reference().MirrorStream(jg2, jplan, backend="jnp", cc_labels=True,
+                                 auto_grow=True)
+    t = MirrorStream(g2, plan, backend="torch", cc_labels=True,
+                     auto_grow=True)
+    for sess in (j, t):
+        sess.apply_window(ws[0])
+        sess.grow(Cn=2 * sess.g.Cn)
+        sess.apply_window(ws[1])
+    return j, t, ws[2:]
+
+
+@pytest.mark.parametrize("blocking", [True, False])
+def test_mirror_session_snapshot_roundtrip(tmp_path, blocking):
+    """A MirrorStream saved after windows and a grow restores as a
+    MirrorStream that continues to the reference session's state; the
+    snapshot holds clones."""
+    j, t, rest = _mirror_pair(*_split_graph())
+    mgr = CheckpointManager(str(tmp_path))
+    assert save_session(mgr, t, blocking=blocking) == 2
+    mgr.wait()
+    arrays, _ = t.state_dict()
+    assert arrays["g.nbr"].data_ptr() != t.g.nbr.data_ptr()
+    assert arrays["remap"].dtype == torch.int32
+    step, back, meta = restore_session(mgr, device=CPU)
+    assert step == 2 and meta["kind"] == "mirror_stream"
+    assert isinstance(back, MirrorStream) and back.backend == "torch"
+    assert back.mirror.uid != t.mirror.uid
+    _same_mirror(back, j)
+    for w in rest:
+        back.apply_window(w)
+        j.apply_window(w)
+    _same_mirror(back, j)
+
+
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_mirror_snapshot_restores_in_the_other_package(tmp_path, writer):
+    """A mirror_stream snapshot written by either package's
+    `save_session` restores in the other's `restore_session` and
+    continues to the writer's own result."""
+    from repro.checkpoint import restore_session as j_restore_session
+    from repro.checkpoint import save_session as j_save_session
+
+    j, t, rest = _mirror_pair(*_split_graph())
+    _same_mirror(t, j)
+    if writer == "port":
+        save_session(CheckpointManager(str(tmp_path)), t)
+        _, j, meta = j_restore_session(
+            jmanager.CheckpointManager(str(tmp_path)), backend="jnp")
+        assert meta["backend"] == "torch" and j.backend == "jnp"
+    else:
+        j_save_session(jmanager.CheckpointManager(str(tmp_path)), j)
+        _, t, meta = restore_session(CheckpointManager(str(tmp_path)),
+                                     backend="torch", device=CPU)
+        assert meta["backend"] == "jnp" and t.backend == "torch"
+    assert type(j).__name__ == type(t).__name__ == "MirrorStream"
+    _same_mirror(t, j)
+    for w in rest:
+        t.apply_window(w)
+        j.apply_window(w)
+    _same_mirror(t, j)

@@ -16,7 +16,10 @@ At the reference test's size (BA(140, 3, seed 7), P = 4, `deg_slack=48`,
   graph in place; each answered batch makes one host->device copy of its
   ids and one device->host copy of its answers; admission, submit
   errors, staleness, field lists and config errors are the reference's;
-  a hub-split session raises NotImplementedError.
+* over a hub-split session (`MirrorStream`, split threshold 8), every
+  snapshot equals the reference's (`primary`, `nbr_max`, logical `deg`,
+  ranks masked to primaries) and a mirrored recompute on its epoch, and
+  every answer, at replica rows too, equals the reference's.
 """
 import dataclasses
 import functools
@@ -38,7 +41,9 @@ from repro.graphgen import barabasi_albert
 
 import repro_torch.core as tcore
 import repro_torch.service as tsvc
-from repro_torch.runtime.stream import StreamSession, _iter_windows
+from repro_torch.core import hub_split as ths
+from repro_torch.runtime.stream import (
+    MirrorStream, StreamSession, _iter_windows)
 from repro_torch.service import queries as tq
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -511,9 +516,9 @@ def test_metrics_equal_reference(events):
 
 
 def test_state_needs_labels_and_refuses_mirror():
-    """(j) A session without labels raises the reference's ValueError; a
-    hub-split session (`.mirror` set) raises NotImplementedError, at open
-    and at a later refresh."""
+    """(j) A session without labels, plain or hub-split, raises the
+    reference's ValueError; a hub-split session with labels is served
+    (its snapshot carries `primary` and `nbr_max`, a plain one neither)."""
     jg = _jgraph()
     g = to_port(jg)
     plain = StreamSession(g, tcore.coreness(g), R=R)
@@ -521,16 +526,195 @@ def test_state_needs_labels_and_refuses_mirror():
     want = _raised(lambda: reference_service().AnalyticsState(jplain))
     assert want is not None and want[0] is ValueError
     assert _raised(lambda: tsvc.AnalyticsState(plain)) == want
+    assert plain.mirror is None
 
-    sess = _open(to_port(jg))
-    state = tsvc.AnalyticsState(sess, pr_steps=PR_STEPS)
-    sess.mirror = object()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        state.refresh()
-    with pytest.raises(NotImplementedError, match="hub mirroring"):
-        tsvc.AnalyticsState(sess, pr_steps=PR_STEPS)
-    with pytest.raises(NotImplementedError):
-        tsvc.QueryServer(sess)
+    jg2, jplan, g2, plan = _split_pair()
+    jmir = reference().MirrorStream(jg2, jplan, backend="jnp")
+    mir = MirrorStream(g2, plan, backend="torch")
+    want = _raised(lambda: reference_service().AnalyticsState(jmir))
+    assert want is not None and want[0] is ValueError
+    assert _raised(lambda: tsvc.AnalyticsState(mir)) == want
+
+    snap = tsvc.AnalyticsState(_open(to_port(jg)), pr_steps=PR_STEPS).snapshot
+    assert snap.primary is None and snap.nbr_max is None
+    mir = MirrorStream(g2, plan, backend="torch", cc_labels=True)
+    snap = tsvc.QueryServer(mir).state.snapshot
+    assert snap.primary is not None and snap.nbr_max is not None
+
+
+# ---------------------------------------------------------------------------
+# hub-split sessions
+# ---------------------------------------------------------------------------
+
+
+def _split_pair(threshold=8, n=100, seed=3):
+    """tests/test_hub_split.py's split-worthy graph (BA skew + two
+    planted hubs, P = 8), split by both packages."""
+    from repro.core import hub_split as jhs
+
+    edges = {(0, v) for v in range(1, 1 + threshold * 4)}
+    edges |= {(1, v) for v in range(2 + threshold * 4, 2 + threshold * 5)}
+    for u, v in barabasi_albert(n, 3, seed=seed):
+        if u != v:
+            edges.add((min(u, v), max(u, v)))
+    assign = np.random.default_rng(seed).integers(0, 8, n)
+    jg = jcore.build_blocks(np.array(sorted(edges)), n, assign, P=8,
+                            node_slack=64)
+    jg2, jplan = jhs.split_hubs(jg, threshold)
+    g2, plan = ths.split_hubs(to_port(jg), threshold)
+    return jg2, jplan, g2, plan
+
+
+def _mirror_windows(jplan, edges_of, k=3, width=4, seed=6):
+    """k windows of inserts/deletes between primary rows (hubs among
+    them, so on-line splits and mirrored deletes happen)."""
+    prim = np.flatnonzero(np.asarray(jplan.primary_mask))
+    cur = set(edges_of)
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(k):
+        w, tried = [], set()
+        while len(w) < width:
+            u, v = (int(x) for x in rng.choice(prim, 2))
+            if u == v or (min(u, v), max(u, v)) in tried:
+                continue
+            e = (min(u, v), max(u, v))
+            tried.add(e)
+            op = -1 if e in cur else +1
+            (cur.discard if op < 0 else cur.add)(e)
+            w.append((e[0], e[1], op))
+        out.append(w)
+    return out
+
+
+def _logical_edges(jg2, jplan):
+    """The split graph's edge set between primary rows."""
+    nbr, prow = np.asarray(jg2.nbr), np.asarray(jplan.primary_row)
+    rows, cols = np.nonzero(nbr >= 0)
+    a, b = prow[rows], prow[nbr[rows, cols]]
+    return {(int(x), int(y)) for x, y in zip(a, b) if x < y}
+
+
+def _mirror_oracle(snap, sess):
+    """A mirrored recompute on the snapshot's epoch: core, labels and the
+    neighbor max coreness over each row's LOGICAL neighborhood."""
+    g, plan = sess.g, sess.mirror
+    core = tcore.coreness(g, backend="torch", mirror=plan)
+    labels = tcore.connected_components(g, backend="torch", mirror=plan)
+    prow = plan.primary_row.numpy()
+    nbr, c = g.nbr.numpy(), core.numpy()
+    best = {}
+    for r in range(g.N):
+        vals = [int(c[x]) for x in nbr[r] if x >= 0]
+        best[prow[r]] = max([best.get(prow[r], -1)] + vals)
+    return core, labels, np.array([best[prow[r]] for r in range(g.N)])
+
+
+def test_mirror_snapshots_equal_reference_and_recompute():
+    """Per epoch: the port's snapshot of a MirrorStream equals the
+    reference's (ranks within RANK_ATOL) and a mirrored recompute."""
+    jsvc = reference_service()
+    jg2, jplan, g2, plan = _split_pair()
+    jsess = reference().MirrorStream(jg2, jplan, backend="jnp",
+                                     cc_labels=True)
+    sess = MirrorStream(g2, plan, backend="torch", cc_labels=True)
+    jst = jsvc.AnalyticsState(jsess, alpha=ALPHA, pr_steps=PR_STEPS)
+    st = tsvc.AnalyticsState(sess, alpha=ALPHA, pr_steps=PR_STEPS)
+    windows = _mirror_windows(jplan, _logical_edges(jg2, jplan))
+    for i in range(len(windows) + 1):
+        if i:
+            jsess.apply_window(windows[i - 1])
+            sess.apply_window(windows[i - 1])
+            jst.refresh()
+            st.refresh()
+        js, ts = jst.snapshot, st.snapshot
+        assert ts.epoch == js.epoch == i and ts.windows == js.windows
+        for f in ("core", "labels", "deg", "nbr", "node_mask", "orig_id",
+                  "nbr_max"):
+            np.testing.assert_array_equal(getattr(ts, f).numpy(),
+                                          np.asarray(getattr(js, f)),
+                                          err_msg=f)
+        np.testing.assert_array_equal(ts.primary, js.primary)
+        assert ts.primary.dtype == np.int32
+        np.testing.assert_allclose(ts.rank.numpy(), np.asarray(js.rank),
+                                   atol=RANK_ATOL)
+        assert torch.equal(ts.deg, sess.mirror.ldeg)
+        assert not ts.rank[~sess.mirror.primary_mask].any()
+        core, labels, nbr_max = _mirror_oracle(ts, sess)
+        assert torch.equal(ts.core, core) and torch.equal(ts.labels, labels)
+        np.testing.assert_array_equal(ts.nbr_max.numpy(), nbr_max)
+    assert sess.mirror.n_groups > 1
+
+
+def test_mirror_answers_at_replica_rows_equal_reference():
+    """Every kind, asked at every row (replicas included), answers as the
+    reference does; a replica row answers with its hub's values."""
+    jsvc = reference_service()
+    jg2, jplan, g2, plan = _split_pair()
+    jsess = reference().MirrorStream(jg2, jplan, backend="jnp",
+                                     cc_labels=True)
+    sess = MirrorStream(g2, plan, backend="torch", cc_labels=True)
+    js = jsvc.AnalyticsState(jsess, pr_steps=PR_STEPS).snapshot
+    ts = tsvc.AnalyticsState(sess, pr_steps=PR_STEPS).snapshot
+    N = g2.N
+    rng = np.random.default_rng(0)
+    for kind, make in (("core", "core_of"), ("degree", "degree_of"),
+                       ("nbr_max_core", "nbr_max_core_of")):
+        for lo in range(0, N, 64):
+            ids = range(lo, min(N, lo + 64))
+            jq = [getattr(jsvc, make)(u) for u in ids]
+            tq_ = [getattr(tsvc, make)(u) for u in ids]
+            assert tq.run_batch(ts, kind, tq_) == \
+                jsvc.queries.run_batch(js, kind, jq)
+    pairs = rng.integers(0, N, (64, 2)).tolist()
+    assert tq.run_batch(ts, "same_component",
+                        [tsvc.same_component(u, v) for u, v in pairs]) == \
+        jsvc.queries.run_batch(js, "same_component",
+                               [jsvc.same_component(u, v) for u, v in pairs])
+    got = tq.run_batch(ts, "topk_pagerank", [tsvc.topk_pagerank(8)], k=8)
+    want = jsvc.queries.run_batch(js, "topk_pagerank",
+                                  [jsvc.topk_pagerank(8)], k=8)
+    assert got[0][0] == want[0][0]
+    np.testing.assert_allclose(got[0][1], want[0][1], atol=RANK_ATOL)
+    hub, rows = next((h, r) for h, r in ths.groups_of(plan).items()
+                     if len(r) >= 2)
+    for kind, make in (("core", tsvc.core_of), ("degree", tsvc.degree_of),
+                       ("nbr_max_core", tsvc.nbr_max_core_of)):
+        answers = tq.run_batch(ts, kind, [make(r) for r in rows])
+        assert len(set(answers)) == 1, kind
+    assert tq.run_batch(ts, "degree", [tsvc.degree_of(rows[1])]) == [
+        int(plan.ldeg[hub])]
+    assert not set(got[0][0]) & set(rows[1:])
+
+
+def test_mirror_serving_steps_equal_reference():
+    """`QueryServer.step` over a MirrorStream: the reference's answers,
+    epochs and metrics counts for a seeded feed with replica-row ids."""
+    jsvc = reference_service()
+    jg2, jplan, g2, plan = _split_pair()
+    cfg = dict(refresh_every=1, pr_steps=PR_STEPS, alpha=ALPHA, max_batch=8)
+    js = _recording(jsvc.QueryServer(
+        reference().MirrorStream(jg2, jplan, backend="jnp", cc_labels=True),
+        config=jsvc.ServiceConfig(**cfg)))
+    ts = _recording(tsvc.QueryServer(
+        MirrorStream(g2, plan, backend="torch", cc_labels=True),
+        config=tsvc.ServiceConfig(**cfg)))
+    windows = _mirror_windows(jplan, _logical_edges(jg2, jplan))
+    jfeed, tfeed = _feed(jsvc, g2.N, 5), _feed(tsvc, g2.N, 5)
+    for i, w in enumerate(windows):
+        for srv, feed in ((js, jfeed), (ts, tfeed)):
+            for q in feed(i):
+                srv.submit(q)
+            srv.step(w)
+    _assert_same_answers(js.requests, ts.requests)
+    replicas = set(np.flatnonzero(np.asarray(jg2.node_mask)
+                                  & ~np.asarray(jplan.primary_mask)).tolist())
+    asked = {r.query.u for r in ts.requests if r.query.kind != "topk_pagerank"}
+    assert asked & replicas, "the feed must ask at replica rows"
+    assert (ts.metrics.answered, ts.metrics.batches) == (
+        js.metrics.answered, js.metrics.batches)
+    assert tuple(ts.session.result().stats) == tuple(
+        js.session.result().stats)
 
 
 @needs_cuda
