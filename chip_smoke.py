@@ -77,7 +77,35 @@ Phases (each raises on failure; the script then exits non-zero):
    graph.  `ell_hindex`, `ell_frontier` and `ell_cc` must launch.  Prints
    the host seconds of every move selection, migration and grow, of the
    save and the restore, and the snapshot's bytes.
-8. service_ds1: the query service (`repro_torch.service`) over the DS1
+8. mesh_ds1: the mesh runtime (`runtime/spmd.py`) at W = 1 under a
+   one-rank NCCL process group (warmed by one `all_reduce` first), so the
+   halo exchange and the convergence flag go through the real
+   `all_to_all_single` and `all_reduce`: `coreness_blocks`,
+   `hindex_blocks` and an R = 8 `frontier_blocks` with
+   ``backend="ell_spmd"``, then `k_reachable_batch` and the clamped
+   recompute of the stream's first window, through one `SpmdExecutor`,
+   equal to the single-device "ell" results and superstep counts;
+   `ell_hindex` and `ell_frontier` against their plain versions on the
+   executor's field (shard + halo buffer); the plan maintained through
+   the 25 windows equal to a rebuild, and coreness after them equal to
+   "ell".  Prints `build_halo_plan` host seconds, `apply_updates` host ms
+   a window beside `rebuild`, ms a superstep (host clock over whole
+   fixpoints, and one superstep's device work by CUDA events) beside the
+   single-device loop, and the two kernels' launches (both must launch).
+9. recovery_ds1: crash recovery (`runtime/recovery.py`) over the 200 DS1
+   updates in 25 windows of R = 8 on "ell": an `ElasticCoordinator`
+   checkpoints before window 10; before window 18 block 3 is lost (one
+   block per worker, W_old = P): the live session is killed (a read of it
+   must raise), the snapshot restored, block 3 evacuated (a Cn grow to
+   8,192 first) and the 8 windows of the log tail replayed; the stream
+   goes on.  The result equals a never-crashed run by original ids
+   (coreness and edges) and a fresh recompute, and the same drill on
+   "torch" (graph, coreness, `StreamStats`).  Prints the host seconds of
+   the restore, the evacuation and the replay; `ell_hindex` and
+   `ell_frontier` must launch.  The kernel line gives each of the two
+   kernels' launches on `main_path_ds1`, `mesh_ds1` and `recovery_ds1`
+   (`launches_by_path`).
+10. service_ds1: the query service (`repro_torch.service`) over the DS1
    stream, with the settings of the JAX package's
    `benchmarks/bench_service.py`: the 200 DS1 updates with inserts and
    deletes in turns (25 windows of R = 8, each with both ops),
@@ -98,7 +126,7 @@ Phases (each raises on failure; the script then exits non-zero):
    plain backend, whose answers must equal (ranks allclose at RANK_TOL,
    top-k ids equal up to ties within it); `compute_degrees(g)` equals
    `g.deg` on the card.
-9. skew_egofb: hub mirroring (`core.hub_split`) on the JAX package's
+11. skew_egofb: hub mirroring (`core.hub_split`) on the JAX package's
    `benchmarks/bench_skew.py` graph at the paper's full ego-Facebook size
    (`snap_like("ego-Facebook", 1.0, seed=0)`: 4,039 nodes, 86,121 edges,
    max degree 1,279; `node_random_partition(n, 8, seed=0)`, one padding
@@ -128,13 +156,13 @@ Phases (each raises on failure; the script then exits non-zero):
    recompute, every answer that recompute's read through `primary`
    (replica rows among the ids), `nbr_max` the max coreness over each
    logical neighborhood.
-10. scale: a 2^21-node random ELL graph (Cd = 32, ~256 MB of nbr): static
+12. scale: a 2^21-node random ELL graph (Cd = 32, ~256 MB of nbr): static
    coreness and a 64-update intra-block stream, then CC, PageRank and
    triangle counts, held the same way (the dense adjacency would be
    8.8 TB there); then `ell_cc`, `ell_pagerank`, `ell_multi`,
    `ell_triangles`, `ell_hindex_count` and `ell_allpairs` timed there,
    with `deg` and without (its nbr does not fit the L2).
-11. timing: each kernel and its plain version at the main path's shapes
+13. timing: each kernel and its plain version at the main path's shapes
    (`ell_hindex` at both: the stream's K = Cd and the static fixpoint's
    degree bound, and `ell_frontier` at the first hop, R = 8 and R = 1,
    each with the row lengths `deg` as the main path passes them and
@@ -236,6 +264,9 @@ SKEW_REPORT = dict(Cd_unsplit=1287, Cd_split=64, slots_unsplit=12_437_568,
                    slots_split=618_496, inter_unsplit=150_858,
                    inter_split=132_918, n_groups=461, replica_rows=703,
                    Gmax=512, Km=2048)
+#: the kernels the mesh executor runs on each shard (mesh_ds1), and the
+#: stream of recovery_ds1 runs
+MESH_KERNELS = ("ell_hindex", "ell_frontier")
 #: the kernels the mirrored static analytics launch on "ell"
 SKEW_KERNELS = ("ell_hindex", "ell_cc", "ell_pagerank", "ell_multi",
                 "ell_triangles")
@@ -282,6 +313,11 @@ def main() -> int:
                                       plain_an["tri"]))
     for name, e in elastic_phase(g, core_plain, ups).items():
         parity[name] = max(parity.get(name, 0), e)
+    by_path = {"main_path_ds1": {k: launches[k] for k in MESH_KERNELS}}
+    by_path["mesh_ds1"], mesh_err = mesh_phase(g, core_plain, ups)
+    for name, e in mesh_err.items():
+        parity[name] = max(parity.get(name, 0), e)
+    by_path["recovery_ds1"] = recovery_phase(g, core_plain, ups)
     service_phase(g, core_plain, ups, card)
     for name, e in skew_phase(*skew_graph(dev, card), card).items():
         parity[name] = max(parity.get(name, 0), e)
@@ -290,6 +326,10 @@ def main() -> int:
     kernels += combine_timing(g, fields, parity, launches_an,
                               kernels[0]["launch_floor_ms"], scale)
     kernels += dense_timing(g, core_plain, ups[:R], parity, launches)
+    for k in kernels:
+        if k["name"] in MESH_KERNELS:
+            k["launches_by_path"] = {p: c[k["name"]]
+                                     for p, c in by_path.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -365,16 +405,8 @@ def _edge_rows(dev):
 def _first_hop(g, core, window):
     """The masks of the first hop of the stream's first window, as
     `k_reachable_batch` builds them: (f, eligible, visited), (N, R) bool."""
-    import torch
-
-    us = torch.tensor([u for u, _, _ in window], device=g.device)
-    vs = torch.tensor([v for _, v, _ in window], device=g.device)
-    cols = torch.arange(len(window), device=g.device)
-    ks = torch.minimum(core[us], core[vs])
+    roots, ks = _window_roots(g, core, window)
     elig = ((core[:, None] == ks[None, :]) & g.node_mask[:, None]).contiguous()
-    roots = torch.zeros((g.N, len(window)), dtype=torch.bool, device=g.device)
-    roots[us, cols] = True
-    roots[vs, cols] = True
     f = (roots & elig).contiguous()
     return f, elig, f.clone()
 
@@ -1094,6 +1126,294 @@ def elastic_phase(g, core, ups):
          migrate_seconds=host["migrate_vertices"],
          grow_seconds=host["grow_blocks"], max_abs_err=err, **info)
     return err
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _window_roots(g, core, window):
+    """The k-reachability inputs of a window, as the stream builds them:
+    roots (N, R) at both endpoints of each update, ks = min endpoint
+    coreness."""
+    import torch
+
+    us = torch.tensor([u for u, _, _ in window], device=g.device)
+    vs = torch.tensor([v for _, v, _ in window], device=g.device)
+    cols = torch.arange(len(window), device=g.device)
+    roots = torch.zeros((g.N, len(window)), dtype=torch.bool, device=g.device)
+    roots[us, cols] = True
+    roots[vs, cols] = True
+    return roots, torch.minimum(core[us], core[vs]).to(torch.int32)
+
+
+def _mesh_parity(ex, core, hop):
+    """The two kernels against their plain versions at the executor's
+    shapes: the shard's local-frame rows over a field of S + H + 2 rows
+    (the shard and its halo buffer).  Returns {kernel: max error} (0)."""
+    import torch
+    from repro_torch.kernels.ell_frontier import (
+        frontier_step_ell, frontier_step_ell_plain)
+    from repro_torch.kernels.ell_hindex import hindex_ell, hindex_ell_plain
+
+    est = ex._exchange(core.to(torch.int32).contiguous(), -1)
+    f = ex._exchange(hop[0].to(torch.uint8), 0).view(torch.bool)
+    err = {}
+    for name, got, want in (
+            ("ell_hindex", hindex_ell(ex._rows, est, K=ex._K, deg=ex.deg),
+             hindex_ell_plain(ex._rows, est, ex._K)),
+            ("ell_frontier",
+             frontier_step_ell(ex._rows, f, hop[1], hop[2], K=ex._K,
+                               deg=ex.deg),
+             frontier_step_ell_plain(ex._rows, f, hop[1], hop[2], ex._K))):
+        torch.cuda.synchronize()
+        err[name] = int((got.long() - want.long()).abs().max())
+        if err[name]:
+            raise AssertionError(f"mesh_ds1: {name} differs from plain on "
+                                 "the executor's field")
+    return err
+
+
+def mesh_phase(g, core, ups):
+    """mesh_ds1: the mesh runtime at W = 1 under a one-rank NCCL group, so
+    the halo exchange and the convergence flag go through the real
+    `all_to_all_single` / `all_reduce`.  `coreness_blocks`, one h-index
+    superstep, one R = 8 frontier hop (`hindex_blocks` / `frontier_blocks`
+    with ``backend="ell_spmd"``), `k_reachable_batch` and the clamped
+    recompute of DS1's first window, all through one `SpmdExecutor`, equal
+    the single-device "ell" results and superstep counts bit for bit.
+    Prints the plan's host seconds, `apply_updates` host ms a window
+    against `rebuild`, the fixpoints' ms per superstep against the
+    single-device "ell" loop, and the two kernels' launches.  Returns
+    (launches, parity errors)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import coreness_with_stats
+    from repro_torch.core import kcore_dynamic as kd
+    from repro_torch.core.updates import apply_updates_host
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import (
+        SpmdExecutor, build_halo_plan, make_worker_mesh)
+
+    what = "mesh_ds1"
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+        world_size=1, rank=0)
+    try:
+        # NCCL builds its communicator at the first collective: pay that
+        # here, outside every timed call
+        t0 = time.perf_counter()
+        dist.all_reduce(torch.zeros(1, device=g.device))
+        torch.cuda.synchronize()
+        nccl_init_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        wm = make_worker_mesh(g)
+        plan = build_halo_plan(g, wm)
+        plan_s = time.perf_counter() - t0
+        ex = SpmdExecutor(g, wm=wm, plan=plan)
+        window = ups[:R]
+        roots, ks = _window_roots(g, core, window)
+        hop = _first_hop(g, core, window)
+
+        def walled(fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t
+
+        def path():
+            (c, s), _ = walled(lambda: ops.coreness_blocks(
+                g, backend="ell_spmd", executor=ex, with_steps=True))
+            h = ops.hindex_blocks(g, core, backend="ell_spmd", executor=ex)
+            f = ops.frontier_blocks(g, *hop, backend="ell_spmd", executor=ex)
+            (v, vs), _ = walled(lambda: ex.k_reachable_batch(core, roots,
+                                                             ks))
+            cand = v.any(dim=1)
+            ub = torch.where(cand, torch.minimum(core + 1, g.deg), core)
+            (r, rs), _ = walled(lambda: ex.restricted_recompute(ub, cand))
+            return (c, s), h, f, (v, vs), (r, rs), ub, cand
+
+        ((c, s), h, f, (v, vs), (r, rs), ub, cand), counts = _counted(path)
+        (c1, s1), _ = walled(lambda: coreness_with_stats(g, backend="ell"))
+        v1, vs1 = kd.k_reachable_batch(g, core, roots, ks, backend="ell")
+        r1, rs1 = kd._restricted_recompute(g, ub, cand, backend="ell")
+        checks = {
+            "coreness": torch.equal(c, c1) and s == s1,
+            "hindex": torch.equal(h, ops.hindex_blocks(g, core,
+                                                       backend="ell")),
+            "frontier": torch.equal(f, ops.frontier_blocks(g, *hop,
+                                                           backend="ell")),
+            "k_reachable_batch": torch.equal(v, v1) and vs == vs1,
+            "restricted_recompute": torch.equal(r, r1) and rs == rs1,
+        }
+        if not all(checks.values()):
+            raise AssertionError(f"{what}: differs from the single-device "
+                                 f"ell path: {checks}")
+        err = _mesh_parity(ex, core, hop)
+        # whole fixpoints on the host clock, in turns (ell, ell_spmd,
+        # ell_spmd, ell), the smaller of each pair; and one superstep's
+        # device work by CUDA events (`_time_ms`)
+        walls = {"ell": [], "ell_spmd": []}
+        for b in ("ell", "ell_spmd", "ell_spmd", "ell"):
+            walls[b].append(walled(lambda: ops.coreness_blocks(
+                g, backend=b, executor=ex if b == "ell_spmd" else None))[1])
+        est = torch.where(g.node_mask, g.deg, 0).to(torch.int32)
+        K = ops.degree_bound(g)
+
+        def spmd_step():
+            nxt = torch.minimum(est, ex._hindex_local(est))
+            return ex._any_global(nxt != est)
+
+        def ell_step():
+            nxt = torch.minimum(est, ops.hindex_blocks(g, est, backend="ell",
+                                                       K=K))
+            return (nxt != est).any()
+
+        step_ms = {"ell_spmd": min(_time_ms(spmd_step) for _ in range(2)),
+                   "ell": min(_time_ms(ell_step) for _ in range(2))}
+
+        # the halo plan under the stream's windows, on a copy of the graph
+        gc, upd_ms, reb_ms = g.clone(), [], []
+        for i in range(0, len(ups), R):
+            w = ups[i:i + R]
+            gc = apply_updates_host(gc, w)
+            t = time.perf_counter()
+            ex.apply_updates(gc, w)
+            upd_ms.append((time.perf_counter() - t) * 1e3)
+        maintained = ex.plan
+        for _ in range(3):
+            t = time.perf_counter()
+            ex.rebuild(gc)
+            reb_ms.append((time.perf_counter() - t) * 1e3)
+        if not all(np.array_equal(getattr(maintained, k), getattr(ex.plan, k))
+                   for k in ("send_idx", "recv_pos", "halo_ids",
+                             "nbr_local")):
+            raise AssertionError(f"{what}: maintained plan != rebuild")
+        (c2, s2), _ = walled(lambda: ex.coreness())
+        if not (torch.equal(c2, coreness_with_stats(gc, backend="ell")[0])):
+            raise AssertionError(f"{what}: coreness after the stream's "
+                                 "plan updates != single-device ell")
+        emit(phase=what, W=wm.W, backend=dist.get_backend(), N=g.N,
+             S=wm.S, H=plan.H, K=plan.K, device_elems=plan.device_elems,
+             column_bound=ex._K, static_steps=s, reach_steps=vs,
+             recompute_steps=rs, launches=counts,
+             build_halo_plan_host_seconds=plan_s,
+             apply_updates_host_ms={
+                 "windows": len(upd_ms),
+                 "median": statistics.median(upd_ms), "max": max(upd_ms)},
+             rebuild_host_ms=sorted(reb_ms),
+             nccl_first_collective_seconds=nccl_init_s,
+             coreness_host_ms_per_superstep={
+                 b: min(w) * 1e3 / s for b, w in walls.items()},
+             superstep_device_ms=step_ms,
+             plan_updates=ex.plan_updates, full_rebuilds=ex.full_rebuilds,
+             max_abs_err=err)
+        return counts, err
+    finally:
+        dist.destroy_process_group()
+
+
+def recovery_phase(g, core, ups):
+    """recovery_ds1: an `ElasticCoordinator` over DS1's 200 updates (R = 8,
+    "ell") with a checkpoint before window 10; the session is killed
+    before window 18 (a read of it must raise), block 3 is lost (one block
+    per worker, W_old = P), recovered (restore, evacuation, replay of the
+    log tail) and the stream goes on.  The final graph and coreness equal
+    a never-crashed oracle's logical state (coreness and edges by original
+    id) and a fresh recompute; the `StreamStats` equal the same drill's on
+    the plain backend, and count the oracle's updates and windows.
+    Prints the host seconds of the restore, the evacuation (its moves and
+    grows) and the replay (its entries).  Returns the launches."""
+    import tempfile
+    import numpy as np
+    import torch
+    import repro_torch.checkpoint as ckpt
+    from repro_torch.core import coreness, to_networkx_edges
+    from repro_torch.runtime import StreamSession
+    from repro_torch.runtime import recovery as rec
+
+    what = "recovery_ds1"
+    CKPT_AT, KILL_AT, DEAD, P = 10, 18, 3, g.P
+    windows = [ups[i:i + R] for i in range(0, len(ups), R)]
+
+    def drill(backend):
+        with tempfile.TemporaryDirectory() as d:
+            sess = StreamSession(g.clone(), core.clone(), R=R,
+                                 backend=backend)
+            coord = rec.ElasticCoordinator(sess, ckpt.CheckpointManager(d))
+            info = {}
+            for i, w in enumerate(windows):
+                if i == CKPT_AT:
+                    coord.checkpoint()
+                if i == KILL_AT:
+                    dead = coord.session
+                    grows0 = dead._grows
+                    with _host_timed(ckpt, ("restore_session",)) as t_res, \
+                            _host_timed(rec, ("evacuate_blocks",)) as t_ev, \
+                            _host_timed(rec.WindowLog, ("replay",)) as t_rp:
+                        coord.recover_worker(DEAD, W_old=P)
+                    try:
+                        dead.core.cpu()
+                    except RuntimeError:
+                        pass
+                    else:
+                        raise AssertionError(f"{what}: a read of the killed "
+                                             "session did not raise")
+                    st = coord.session.stats()
+                    info = dict(
+                        restore_seconds=t_res["restore_session"],
+                        evacuate_seconds=t_ev["evacuate_blocks"],
+                        moves=st.migrated_vertices,
+                        grows=coord.session._grows - grows0,
+                        replay_seconds=t_rp["replay"],
+                        replayed_entries=KILL_AT - CKPT_AT,
+                        log_entries=len(coord.log))
+                coord.apply_window(w)
+            torch.cuda.synchronize()
+            return coord.session, info
+
+    t0 = time.perf_counter()
+    (sess, info), counts = _counted(lambda: drill("ell"))
+    secs = time.perf_counter() - t0
+    plain, _ = drill("torch")
+    oracle = StreamSession(g.clone(), core.clone(), R=R, backend="ell")
+    for w in windows:
+        oracle.apply_window(w)
+
+    def by_orig(s):
+        orig, c = s.g.orig_id.cpu().numpy(), s.core.cpu().numpy()
+        out = np.full(int(orig.max()) + 1, -1, c.dtype)
+        out[orig[orig >= 0]] = c[orig >= 0]
+        return out
+
+    st, ost = sess.stats(), oracle.stats()
+    mask = sess.g.node_mask.view(P, sess.g.Cn)
+    checks = {
+        "plain": (torch.equal(sess.core, plain.core)
+                  and torch.equal(sess.g.nbr, plain.g.nbr)
+                  and st == plain.stats()),
+        "oracle_core": np.array_equal(by_orig(sess), by_orig(oracle)),
+        "oracle_edges": np.array_equal(to_networkx_edges(sess.g),
+                                       to_networkx_edges(oracle.g)),
+        "recompute": torch.equal(sess.core, coreness(sess.g,
+                                                     backend="torch")),
+        "counts": (st.updates, st.batches) == (ost.updates, ost.batches)
+        and st.migrations == ost.migrations + 1,
+        "evacuated": not bool(mask[DEAD].any()),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"{what}: {checks}; {st} vs oracle {ost}")
+    emit(phase=what, windows=len(windows), checkpoint_at=CKPT_AT,
+         killed_at=KILL_AT, dead_block=DEAD, N=sess.g.N, Cn=sess.g.Cn,
+         stream_stats=st._asdict(), oracle_stats=ost._asdict(),
+         launches=counts, path_seconds=secs, **info)
+    return counts
 
 
 def _mix_gather(svc, rng, n, count):

@@ -10,14 +10,16 @@ saw.  The layout is the JAX package's: a snapshot of either kind written
 by the JAX package restores here (its backend overridden to one of this
 package's), and this package's flat dicts restore there.
 
-Not ported: restoring onto a worker mesh (`W > 1`, `backend="ell_spmd"`:
-ROADMAP.md Queue 1 item 6).
+Not ported yet: restoring onto a worker mesh (`W > 1`, `executor=`,
+`backend="ell_spmd"` raise NotImplementedError; ROADMAP.md Queue 1 item
+6, step 4).
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 from ..device import DeviceLike
+from ..kernels.ops import refuse_spmd, spmd_not_ported
 from ..runtime.stream import MirrorStream, StreamSession
 from .manager import CheckpointManager
 
@@ -64,11 +66,10 @@ def restore_session(mgr: CheckpointManager, step: Optional[int] = None,
     if meta["kind"] not in kinds:
         raise ValueError(f"unknown snapshot kind {meta['kind']!r}")
     be = meta["backend"] if backend is None else backend
-    if (W is not None and int(W) > 1) or executor is not None \
-            or be == "ell_spmd":
-        raise NotImplementedError(
-            "restoring onto a worker mesh needs the mesh runtime, which is "
-            "not ported to PyTorch yet; see ROADMAP.md (Queue 1 item 6)")
+    refuse_spmd(be, "restore_session", 4)
+    if (W is not None and int(W) > 1) or executor is not None:
+        spmd_not_ported("restore_session onto a worker mesh (W > 1, "
+                        "executor=)", 4)
     arrays = mgr.restore_dict(step, device=device)
     session = kinds[meta["kind"]].from_state(arrays, meta, backend=be,
                                              device=device)

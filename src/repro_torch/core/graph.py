@@ -107,6 +107,24 @@ class GraphBlocks:
     def m_real(self) -> int:
         return int(self.deg.sum()) // 2
 
+    def block_of(self, u):
+        """Owning block of a padded node id (an int or a tensor of ids)."""
+        return u // self.Cn
+
+    def valid_nbr_mask(self) -> torch.Tensor:
+        """(N, Cd) bool: True at the valid (non-PAD) neighbor slots."""
+        return self.nbr >= 0
+
+    def is_boundary(self) -> torch.Tensor:
+        """(N,) bool: True for nodes with a neighbor in another block."""
+        own = (torch.arange(self.N, device=self.device) // self.Cn)[:, None]
+        nb_block = torch.div(self.nbr, self.Cn, rounding_mode="floor")
+        return ((nb_block != own) & (self.nbr >= 0)).any(dim=1)
+
+    def grow(self, Cn: Optional[int] = None, Cd: Optional[int] = None):
+        """Capacity escalation — see `grow_blocks`.  Returns (g2, rekey)."""
+        return grow_blocks(self, Cn, Cd)
+
     def edge_cut(self) -> int:
         """Number of undirected edges crossing blocks."""
         own = (torch.arange(self.N, device=self.device) // self.Cn)[:, None]

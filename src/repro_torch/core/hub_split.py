@@ -526,14 +526,6 @@ def run_common_mirror(g2: GraphBlocks, plan: MirrorPlan, program,
 # ---------------------------------------------------------------------------
 
 
-def mirror_merge_payload(plan: MirrorPlan, n_fields: int = 1) -> int:
-    """Per-superstep collective payload of the mirror merge on a worker
-    mesh, in elements: one dense (Gmax + 1,) per-group table per merged
-    min/sum field (an h-index field moves (Gmax + 1) * Km instead).
-    Counter only; the JAX package keeps it with its halo runtime."""
-    return (int(plan.Gmax) + 1) * int(n_fields)
-
-
 def mirror_report(g: GraphBlocks, g2: GraphBlocks,
                   plan: MirrorPlan) -> Dict[str, float]:
     """Allocation + per-superstep W2W payload, unsplit vs split.
@@ -541,8 +533,10 @@ def mirror_report(g: GraphBlocks, g2: GraphBlocks,
     `slots_*` are the N·Cd ELL allocations (the memory the gather kernels
     sweep); `inter_*`/`intra_*` the cross-/in-block valid neighbor slots
     (`halo_slot_counts`); `merge_payload` the extra per-superstep
-    elements the mirror merge moves (`mirror_merge_payload`).
+    elements the mirror merge moves (`runtime.halo.mirror_merge_payload`).
     """
+    from ..runtime.halo import mirror_merge_payload  # lazy: no cycle
+
     intra_u, inter_u = halo_slot_counts(g)
     intra_s, inter_s = halo_slot_counts(g2)
     return dict(

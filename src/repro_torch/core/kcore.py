@@ -30,7 +30,8 @@ from typing import Tuple
 import torch
 
 from ..kernels import ops
-from ..kernels.ell_hindex import ell_gather
+from ..kernels.ell_hindex import (  # noqa: F401 (hindex_rows: re-export)
+    ell_gather, hindex_rows)
 from .engine import BladygEngine, BladygProgram, Mode
 from .graph import GraphBlocks, halo_slot_counts
 

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from ..kernels.ops import SPMD_BACKEND  # noqa: F401 (re-export)
 from .graph import GraphBlocks, delete_edge, insert_edge
 from .updates import validate_updates
 
@@ -91,8 +92,11 @@ def k_reachable_batch(
     Returns (visited (N, R) bool, supersteps = max over searches).  Each
     hop first adds any(frontier) into a device counter; the host checks
     the frontier once every `ops.SYNC_EVERY` hops.  The "dense" backend
-    densifies once per call, not per hop.
+    densifies once per call, not per hop.  "ell_spmd" raises
+    NotImplementedError (the mesh executor's own `k_reachable_batch` is
+    `runtime.spmd.SpmdExecutor.k_reachable_batch`).
     """
+    ops.refuse_spmd(backend, "kcore_dynamic.k_reachable_batch", 4)
     eligible = (core[:, None] == ks[None, :]) & g.node_mask[:, None]
     visited = roots & eligible
     frontier = visited
@@ -117,7 +121,9 @@ def _restricted_recompute(
     max_steps: int = 10_000, backend: str = "auto",
 ) -> Tuple[torch.Tensor, int]:
     """Clamped min-H iteration: only `cand` nodes move; returns (core', steps).
-    The "dense" backend densifies once per call, not per superstep."""
+    The "dense" backend densifies once per call, not per superstep;
+    "ell_spmd" raises NotImplementedError."""
+    ops.refuse_spmd(backend, "kcore_dynamic._restricted_recompute", 4)
     adj = ops.dense_adj(g, backend)
     return ops.minh_fixpoint(
         est0, lambda e: ops.hindex_blocks(g, e, backend=backend, adj=adj),
@@ -179,6 +185,7 @@ def maintain_batch_host(g, core, updates, backend: str = "auto"):
     is validated first (self-loops, duplicates, missing deletes, capacity).
     Updates `g` in place.
     """
+    ops.refuse_spmd(backend, "maintain_batch_host", 4)
     validate_updates(g, updates)
     stats = []
     for u, v, op in updates:
@@ -290,6 +297,7 @@ def maintain_batch(
     """
     if R < 1:
         raise ValueError(f"R must be >= 1, got {R}")
+    ops.refuse_spmd(backend, "maintain_batch", 4)
     validate_updates(g, updates)
     tot = dict(bfs=0, rec=0, cand=0, batched=0, seq=0, batches=0)
     for start in range(0, len(updates), R):

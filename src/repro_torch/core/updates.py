@@ -21,7 +21,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from .graph import PAD, CapacityError, GraphBlocks
+from .graph import (  # noqa: F401 (insert_edge, delete_edge: re-export)
+    PAD, CapacityError, GraphBlocks, delete_edge, insert_edge)
 
 Update = Tuple[int, int, int]  # (u, v, op)  op=+1 insert, -1 delete
 

@@ -38,26 +38,36 @@ def frontier_step_ell_plain(nbr: torch.Tensor, f: torch.Tensor,
                             ) -> torch.Tensor:
     """The plain PyTorch version: gather whole frontier rows, OR, mask.
     `deg` is accepted and not read: the value does not depend on it."""
-    N = nbr.shape[0]
     C = columns(nbr.shape[1], K)
     f_pad = torch.cat([f.to(torch.bool),
                        torch.zeros((1, f.shape[1]), dtype=torch.bool,
                                    device=f.device)])
     sub = nbr[:, :C]
-    idx = torch.where(sub >= 0, sub, N).long()  # PAD -> the all-False row
+    # PAD -> the all-False row appended after f's last (f may be longer
+    # than nbr, so nbr.shape[0] can be a real row)
+    idx = torch.where(sub >= 0, sub, f.shape[0]).long()
     hit = f_pad[idx].any(dim=1)  # (N, C, R) -> (N, R)
     return hit & eligible.to(torch.bool) & ~visited.to(torch.bool)
 
 
 def _check(nbr, f, eligible, visited) -> None:
+    """Raise unless the kernel can take these: eligible and visited
+    (N, R) and f (M, R) with M >= N (the kernel reads ``f[nbr[u, j]]``
+    with no bound on N, so a worker's rows may index its frontier
+    followed by its halo buffer, `runtime.spmd`), all contiguous bool on
+    nbr's device."""
     if nbr.dim() != 2 or nbr.dtype != torch.int32 or not nbr.is_contiguous():
         raise ValueError("nbr must be a contiguous (N, Cd) int32 tensor")
-    shape = (nbr.shape[0], f.shape[-1] if f.dim() == 2 else -1)
+    N = nbr.shape[0]
+    R = f.shape[-1] if f.dim() == 2 else -1
     for name, t in (("f", f), ("eligible", eligible), ("visited", visited)):
-        if tuple(t.shape) != shape or t.dtype != torch.bool \
+        rows_ok = t.dim() == 2 and (t.shape[0] >= N if name == "f"
+                                    else t.shape[0] == N)
+        if not rows_ok or t.shape[-1] != R or t.dtype != torch.bool \
                 or not t.is_contiguous() or t.device != nbr.device:
+            want = f"({'>= ' if name == 'f' else ''}{N}, {R})"
             raise ValueError(
-                f"{name} must be a contiguous {shape} bool tensor on "
+                f"{name} must be a contiguous {want} bool tensor on "
                 f"{nbr.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
 
 
@@ -68,9 +78,10 @@ def frontier_step_ell(nbr: torch.Tensor, f: torch.Tensor,
     """Next frontier (N, R) bool for frontiers f (N, R) bool.
 
     eligible, visited: (N, R) bool; deg: None or (N,) int32 row lengths.
-    CUDA tensors launch the CUDA kernel (and bump
-    `frontier_step_ell.launches`); CPU tensors take
-    `frontier_step_ell_plain`.
+    `f` may have more rows than `nbr` (a worker's frontier and halo
+    buffer, `runtime.spmd`): the ids in `nbr` index it.  CUDA tensors
+    launch the CUDA kernel (and bump `frontier_step_ell.launches`); CPU
+    tensors take `frontier_step_ell_plain`.
     """
     check_deg(nbr, deg)
     if not on_cuda(nbr, "frontier_step_ell"):

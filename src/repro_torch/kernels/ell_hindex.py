@@ -100,13 +100,16 @@ def hindex_count_ell_plain(nbr: torch.Tensor, est: torch.Tensor,
 
 
 def check_field(nbr: torch.Tensor, field: torch.Tensor,
-                dtype: torch.dtype = torch.int32, name: str = "est") -> None:
+                dtype: torch.dtype = torch.int32, name: str = "est",
+                longer: bool = False) -> None:
     """Raise unless nbr is a contiguous (N, Cd) int32 tensor and field a
     contiguous (N,) tensor of `dtype` on the same device (what the kernels
-    take)."""
+    take).  `longer=True` accepts a field of at least N rows: the h-index
+    kernels read ``est[nbr[u, j]]`` with no bound on N, so a worker's rows
+    may index its field followed by its halo buffer (`runtime.spmd`)."""
     if nbr.dim() != 2 or nbr.dtype != torch.int32 or not nbr.is_contiguous():
         raise ValueError("nbr must be a contiguous (N, Cd) int32 tensor")
-    _check_vector(nbr, field, dtype, name)
+    _check_vector(nbr, field, dtype, name, longer)
 
 
 def check_deg(nbr: torch.Tensor, deg: Optional[torch.Tensor]) -> None:
@@ -121,12 +124,14 @@ def deg_ptr(deg: Optional[torch.Tensor]) -> Optional[int]:
     return None if deg is None else deg.data_ptr()
 
 
-def _check_vector(nbr, field, dtype, name) -> None:
-    if field.shape != (nbr.shape[0],) or field.dtype != dtype \
-            or not field.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous ({nbr.shape[0]},) "
-                         f"{dtype} tensor, got {tuple(field.shape)} "
-                         f"{field.dtype}")
+def _check_vector(nbr, field, dtype, name, longer=False) -> None:
+    N = nbr.shape[0]
+    rows_ok = field.dim() == 1 and (field.shape[0] >= N if longer
+                                    else field.shape[0] == N)
+    if not rows_ok or field.dtype != dtype or not field.is_contiguous():
+        want = f"(>= {N},)" if longer else f"({N},)"
+        raise ValueError(f"{name} must be a contiguous {want} {dtype} "
+                         f"tensor, got {tuple(field.shape)} {field.dtype}")
     if field.device != nbr.device:
         raise ValueError(f"{name} on {field.device}, nbr on {nbr.device}")
 
@@ -148,7 +153,9 @@ def hindex_ell(nbr: torch.Tensor, est: torch.Tensor,
     `hindex_ell.launches`, "count" `hindex_count_ell.launches`); CPU
     tensors take the variant's plain version.  `deg` (optional, (N,)
     int32, each row's valid slots) lets either kernel stop each row at
-    its length; it never changes the result.
+    its length; it never changes the result.  `est` may have more rows
+    than `nbr` (a worker's field and halo buffer, `runtime.spmd`): the
+    ids in `nbr` index it, and the result has `nbr`'s N rows.
     """
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; expected one of "
@@ -181,7 +188,7 @@ def hindex_count_ell(nbr: torch.Tensor, est: torch.Tensor,
 def _launch(kernel: str, nbr: torch.Tensor, est: torch.Tensor,
             K: Optional[int], deg: Optional[torch.Tensor]) -> torch.Tensor:
     """Launch `kernel` on (nbr, est, deg) into a new (N,) int32."""
-    check_field(nbr, est)
+    check_field(nbr, est, longer=True)
     N, Cd = nbr.shape
     out = torch.empty(N, dtype=torch.int32, device=nbr.device)
     _build.launch(kernel, nbr.device, nbr.data_ptr(), est.data_ptr(),

@@ -23,9 +23,18 @@ for float sums, which agree to float32 rounding:
            it is every entry point's default and never picks "dense" (the
            JAX package's dense crossover was measured on a TPU only).
 
-"ell_spmd" is not ported yet and raises NotImplementedError (see
-ROADMAP.md).  `core.kcore`, `core.kcore_dynamic` and `core.algorithms`
-reach the primitives only through this layer.
+  "ell_spmd" the mesh runtime (`runtime.spmd.SpmdExecutor`, one process
+           per worker on `torch.distributed`): each worker runs the ELL
+           kernels on its shard after a halo exchange.  Only
+           `hindex_blocks`, `frontier_blocks` and `coreness_blocks` take
+           it (with `executor=`, as in the JAX package); every other entry
+           point raises NotImplementedError for it, naming the step of
+           ROADMAP.md's Queue 1 item 6 still to come (step 3: the
+           programs and combines; step 4: maintenance, the stream and
+           restore).
+
+`core.kcore`, `core.kcore_dynamic` and `core.algorithms` reach the
+primitives only through this layer.
 
 **Sync policy.**  A min-H fixpoint or a frontier search ends when a
 device-side flag says so, and reading that flag is a host sync.  The
@@ -70,12 +79,16 @@ from .ell_frontier import frontier_step_ell
 from .ell_hindex import VARIANTS as HINDEX_VARIANTS, hindex_ell
 from .ell_multi import neighbor_multi_ell, neighbor_multi_ell_plain
 from .ell_pagerank import neighbor_sum_ell
+from .ell_triangles import VARIANTS as TRIANGLE_VARIANTS  # noqa: F401
 from .ell_triangles import neighbor_common_ell
 from .frontier import frontier_step as frontier_step_dense
 from .kcore_hindex import hindex_counts, matmul_f32, row_chunks
 
 BACKENDS = ("torch", "ell", "dense")
-NOT_PORTED = ("ell_spmd",)
+
+#: the mesh backend: `hindex_blocks`, `frontier_blocks` and
+#: `coreness_blocks` only (see the module docstring)
+SPMD_BACKEND = "ell_spmd"
 
 #: neighbor combines of the BlockProgram contract
 COMBINES = ("min", "sum", "hindex", "count_common")
@@ -101,14 +114,36 @@ def resolve_backend(backend: Optional[str], device: torch.device) -> str:
     """Resolve "auto" (or None) to a concrete backend for a device."""
     if backend in (None, "auto"):
         return "ell" if torch.device(device).type == "cuda" else "torch"
-    if backend in NOT_PORTED:
-        raise NotImplementedError(
-            f"backend {backend!r} is not ported to PyTorch yet: it needs "
-            "the mesh runtime; see ROADMAP.md (Queue 1 item 6)")
+    if backend == SPMD_BACKEND:
+        spmd_not_ported("this entry point", 3)
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
-                         f"{BACKENDS + ('auto',)}")
+                         f"{BACKENDS + ('auto', SPMD_BACKEND)}")
     return backend
+
+
+def spmd_not_ported(what: str, step: int) -> None:
+    """Raise NotImplementedError: `what` has no "ell_spmd" path in the port
+    yet; it comes with `step` of ROADMAP.md's Queue 1 item 6 (3: the mesh
+    programs and combines; 4: maintenance, the stream and restore)."""
+    raise NotImplementedError(
+        f"{what} has no {SPMD_BACKEND!r} path in the PyTorch port yet: the "
+        "mesh runtime runs hindex_blocks, frontier_blocks and "
+        f"coreness_blocks only; see ROADMAP.md (Queue 1 item 6, step {step})")
+
+
+def refuse_spmd(backend: Optional[str], what: str, step: int) -> None:
+    """`spmd_not_ported(what, step)` when `backend` is the mesh backend."""
+    if backend == SPMD_BACKEND:
+        spmd_not_ported(what, step)
+
+
+def column_bound(deg: torch.Tensor, Cd: int) -> int:
+    """pow2-bucketed max of `deg`, capped at Cd (Cd for no rows): one host
+    read.  The column bound K of the kernels over rows of length `deg`."""
+    if deg.numel() == 0:
+        return Cd
+    return min(Cd, _pow2_bucket(max(1, int(deg.max()))))
 
 
 def degree_bound(g) -> int:
@@ -119,10 +154,7 @@ def degree_bound(g) -> int:
     rows; bucketing to a power of two keeps the bound stable while a
     maintenance stream nudges the max degree.  Capped at Cd.
     """
-    if g.N == 0:
-        return g.Cd
-    d = int(g.deg.max())
-    return min(g.Cd, _pow2_bucket(max(1, d)))
+    return column_bound(g.deg, g.Cd)
 
 
 def dense_bytes(N: int) -> int:
@@ -194,7 +226,7 @@ def coreness_dense(
 def hindex_blocks(g, est: torch.Tensor, backend: str = "auto",
                   K: Optional[int] = None,
                   adj: Optional[torch.Tensor] = None,
-                  variant: str = "sort") -> torch.Tensor:
+                  variant: str = "sort", executor=None) -> torch.Tensor:
     """h-index of neighbor estimates for every node, via the chosen backend.
 
     g: a GraphBlocks (duck-typed: .nbr, .deg, .device, .N, .Cd); est:
@@ -205,7 +237,14 @@ def hindex_blocks(g, est: torch.Tensor, backend: str = "auto",
     (None: Cd + 1, exact because h <= deg <= Cd).
     Loops over the dense backend densify once and pass `adj` (see
     `dense_adj`).  `variant` picks the "ell" kernel ("sort" or "count").
+    "ell_spmd" runs one superstep on the worker mesh; loops pass a
+    long-lived `runtime.spmd.SpmdExecutor` as `executor` instead of
+    paying a halo-plan build per call.
     """
+    if backend == SPMD_BACKEND:
+        from ..runtime.spmd import hindex_spmd  # lazy: no import cycle
+
+        return hindex_spmd(g, est, executor=executor)
     b = resolve_backend(backend, g.device)
     if b == "torch":
         return ref.ell_hindex_ref(g.nbr, est)
@@ -229,7 +268,8 @@ def _eligible_cols(eligible: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
 def frontier_blocks(g, f: torch.Tensor, eligible: torch.Tensor,
                     visited: torch.Tensor, backend: str = "auto",
                     K: Optional[int] = None,
-                    adj: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    adj: Optional[torch.Tensor] = None,
+                    executor=None) -> torch.Tensor:
     """One masked BFS hop for R stacked frontiers, via the chosen backend.
 
     f, visited: (N, R) bool; eligible: (N,) shared or (N, R) per column.
@@ -238,9 +278,14 @@ def frontier_blocks(g, f: torch.Tensor, eligible: torch.Tensor,
     over the dense backend densify once and pass `adj`; its kernel takes
     one eligibility per node, so the per-column mask is folded into
     `visited` (a node ineligible for column r can never enter it) and all
-    nodes are passed as eligible.
+    nodes are passed as eligible.  "ell_spmd" runs the hop on the worker
+    mesh, through `executor` when one is given (see `hindex_blocks`).
     """
     elig = _eligible_cols(eligible, f)
+    if backend == SPMD_BACKEND:
+        from ..runtime.spmd import frontier_spmd  # lazy: no import cycle
+
+        return frontier_spmd(g, f, elig, visited, executor=executor)
     b = resolve_backend(backend, g.device)
     if b == "torch":
         return ref.ell_frontier_hop_ref(g.nbr, f, elig, visited)
@@ -280,7 +325,7 @@ def minh_fixpoint(
 
 def coreness_blocks(
     g, backend: str = "auto", max_steps: int = 10_000,
-    with_steps: bool = False, variant: str = "sort",
+    with_steps: bool = False, variant: str = "sort", executor=None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, int]]:
     """Full min-H coreness of every node (0 on padding rows), any backend.
 
@@ -289,10 +334,18 @@ def coreness_blocks(
     degree bound once (`degree_bound`: the "ell" column bound, the "dense"
     threshold bound); "dense" densifies once per call.  `variant` picks
     the "ell" h-index kernel ("sort" or "count"; the same integers).
+    "ell_spmd" runs the fixpoint on the worker mesh (`executor`, or one
+    built for the call), the "sort" kernel on every shard.
     """
     if variant not in HINDEX_VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; expected one of "
                          f"{HINDEX_VARIANTS}")
+    if backend == SPMD_BACKEND:
+        from ..runtime.spmd import SpmdExecutor  # lazy: no import cycle
+
+        ex = executor if executor is not None else SpmdExecutor(g)
+        est, steps = ex.coreness(max_steps=max_steps)
+        return (est, steps) if with_steps else est
     b = resolve_backend(backend, g.device)
     K = degree_bound(g) if b in ("ell", "dense") else None
     adj = dense_adj(g, b)
@@ -408,8 +461,10 @@ def neighbor_combine_blocks(
     values for "min"/"sum"/"hindex", (N, Cd) neighbor rows for
     "count_common".  K (optional) bounds the columns the "ell" path reads,
     and each row stops at its length `g.deg`.  Loops over the dense
-    backend densify once and pass `adj`.
+    backend densify once and pass `adj`.  "ell_spmd" raises
+    NotImplementedError: a mesh combine runs inside a program's superstep.
     """
+    refuse_spmd(backend, "neighbor_combine_blocks", 3)
     b = resolve_backend(backend, g.device)
     if b == "torch":
         return _combine_torch(g.nbr, field, combine)
@@ -433,6 +488,7 @@ def tree_where(cond: torch.Tensor, new: Any, old: Any) -> Any:
 def live_loop(
     step: Callable[[Any], Tuple[Any, torch.Tensor]], state: Any,
     max_steps: int, device: torch.device,
+    live: Optional[torch.Tensor] = None,
 ) -> Tuple[Any, int]:
     """Iterate ``new, changed = step(state)`` under a device ``live`` flag.
 
@@ -441,8 +497,11 @@ def live_loop(
     ``live &= changed``; the host reads ``live`` once per `SYNC_EVERY`
     supersteps.  Returns (state, supersteps) with the count of the JAX
     package's ``while_loop`` (the quiet superstep applied and counted).
+    `live` (a 0-d bool tensor, default True) is the loop condition before
+    the first superstep, as a ``while_loop`` whose carry starts with it.
     """
-    live = torch.ones((), dtype=torch.bool, device=device)
+    if live is None:
+        live = torch.ones((), dtype=torch.bool, device=device)
     steps = torch.zeros((), dtype=torch.int32, device=device)
     done = 0
     while done < max_steps:
@@ -605,13 +664,12 @@ def run_block_program(
     (bit for bit for the integer combines).
 
     The real-node count (or, under a mirror, the plan's group entries) is
-    read on the host once per run.  `executor=` (the mesh runtime) is not
-    ported yet and raises NotImplementedError.
+    read on the host once per run.  `executor=` and "ell_spmd" (a program
+    on the worker mesh) raise NotImplementedError.
     """
+    refuse_spmd(backend, "run_block_program", 3)
     if executor is not None:
-        raise NotImplementedError(
-            "run_block_program's executor= needs the mesh runtime, which is "
-            "not ported to PyTorch yet; see ROADMAP.md (Queue 1 item 6)")
+        spmd_not_ported("run_block_program's executor=", 3)
     b = resolve_backend(backend, g.device)
     multi = program.combine == "multi"
     if not multi and program.combine not in COMBINES:

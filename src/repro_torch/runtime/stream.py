@@ -53,9 +53,10 @@ ingest (`_cur`).
 `StreamResult`, a NamedTuple as in the reference: read its named fields;
 unpacking it yields the reference's legacy arity behind its
 DeprecationWarning.  `MirrorStream` is the sibling session over a
-hub-split graph (`core.hub_split`).  Not ported yet: the mesh executor
-(`W=`, `executor=`, `backend="ell_spmd"` raise NotImplementedError; see
-ROADMAP.md, Queue 1 item 6).
+hub-split graph (`core.hub_split`).  Not ported yet: the stream on the
+worker mesh (`W=`, `executor=` and `backend="ell_spmd"` raise
+NotImplementedError; ROADMAP.md, Queue 1 item 6, step 4 — the mesh
+runtime's executor itself is `runtime.spmd`).
 """
 from __future__ import annotations
 
@@ -78,6 +79,9 @@ from ..core.graph import (
 )
 from ..core.updates import validate_updates
 from ..device import DeviceLike, resolve_device
+from ..kernels.ops import (  # noqa: F401 (SPMD_BACKEND: re-export)
+    SPMD_BACKEND, refuse_spmd, spmd_not_ported)
+from .halo import _pow2_ceil
 
 
 class StreamStats(NamedTuple):
@@ -211,18 +215,13 @@ def _route_window(cand: torch.Tensor, us: torch.Tensor, vs: torch.Tensor,
                       cand_ins, cand_del, per_block)
 
 
-def _pow2_ceil(x: int) -> int:
-    """Smallest power of two >= max(1, x) — the capacity slack policy."""
-    x = max(1, int(x))
-    return 1 << (x - 1).bit_length()
-
-
-def _mesh_not_ported(W=None, executor=None) -> None:
-    """The mesh runtime's arguments: accepted, and refused unless None."""
+def _mesh_not_ported(what: str, W=None, executor=None,
+                     backend: Optional[str] = None) -> None:
+    """The mesh stream's arguments: accepted, and refused unless None (and
+    the backend not "ell_spmd")."""
+    refuse_spmd(backend, what, 4)
     if W is not None or executor is not None:
-        raise NotImplementedError(
-            "W= and executor= need the mesh runtime, which is not ported "
-            "to PyTorch yet; see ROADMAP.md (Queue 1 item 6)")
+        spmd_not_ported(f"{what}'s W= and executor=", 4)
 
 
 def _iter_windows(updates, R: int) -> Iterator[list]:
@@ -251,8 +250,10 @@ class StreamSession:
     `rebalance_threshold` arms the §4.2 protocol after every window (None
     disables it), moving at most `rebalance_max_moves` vertices a round.
     `auto_grow` grows the capacities instead of raising `CapacityError`.
-    `W` and `executor` belong to the mesh runtime, which is not ported:
-    anything but None raises NotImplementedError.
+    `W` and `executor` belong to the stream on the worker mesh, which is
+    not ported: anything but None, or ``backend="ell_spmd"``, raises
+    NotImplementedError.  `.executor` is therefore always None (the
+    service and `runtime.recovery` read it, as in the JAX package).
 
     The graph passed at open is updated IN PLACE until a migration or a
     grow replaces it with a new one; read `.g` back.
@@ -266,9 +267,11 @@ class StreamSession:
                  auto_grow: bool = False):
         if R < 1:
             raise ValueError(f"R must be >= 1, got {R}")
-        _mesh_not_ported(W, executor)
+        _mesh_not_ported("StreamSession", W, executor, backend)
         self.R = int(R)
         self.backend = backend
+        #: the mesh executor slot: always None on one device
+        self.executor = None
         self.g = g
         self.core = torch.as_tensor(core, device=g.device)
         self._tot = dict(bfs=0, rec=0, cand=0, batched=0, seq=0, batches=0)
@@ -555,9 +558,11 @@ class StreamSession:
         session gets copies on `device` (default CUDA, see
         `device.resolve_device`), never the snapshot's storage.
         `backend` overrides the snapshot's; `W`/`executor` raise
-        NotImplementedError unless None (the mesh runtime is not ported).
-        A snapshot's ``rec_dev`` is added to the recompute count."""
-        _mesh_not_ported(W, executor)
+        NotImplementedError unless None, as does "ell_spmd" (the stream on
+        the worker mesh is not ported).  A snapshot's ``rec_dev`` is added
+        to the recompute count."""
+        _mesh_not_ported("StreamSession.from_state", W, executor,
+                         meta["backend"] if backend is None else backend)
         dev = resolve_device(device)
 
         def tensor(key, dtype):
@@ -663,7 +668,8 @@ def run_stream(
     `rebalance_threshold` (e.g. 1.2) arms the §4.2 protocol after every
     window, moving at most `rebalance_max_moves` vertices a round; None
     disables it.  `auto_grow` grows Cd when a window overflows it.
-    `W`/`executor` raise NotImplementedError unless None.
+    `W`/`executor` raise NotImplementedError unless None, as does
+    ``backend="ell_spmd"``.
 
     `cc_labels` (optional): the canonical CC labels of the pre-stream
     graph (as `core.algorithms.connected_components` returns them).  The
@@ -672,6 +678,7 @@ def run_stream(
     `cc_recomputes` count the merge and recompute paths.  Without it,
     `result.labels` is None.
     """
+    _mesh_not_ported("run_stream", W, executor, backend)
     session = StreamSession(
         g, core, R=R, backend=backend, W=W, executor=executor,
         rebalance_threshold=rebalance_threshold,
@@ -709,6 +716,7 @@ class MirrorStream:
 
     def __init__(self, g: GraphBlocks, plan, backend: str = "auto",
                  cc_labels: bool = False, auto_grow: bool = False):
+        refuse_spmd(backend, "MirrorStream", 3)
         self.g = g
         self.mirror = plan
         self.backend = backend

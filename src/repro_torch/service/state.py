@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..core.algorithms import fused_analytics
+from ..kernels.ops import refuse_spmd, spmd_not_ported
 
 
 class EpochSnapshot(NamedTuple):
@@ -91,10 +92,14 @@ class AnalyticsState:
     `cc_labels=connected_components(g)`): label maintenance is what lets
     the refresh warm-start at the fixpoint instead of budgeting its own
     convergence supersteps.  The refresh runs on the session's graph's
-    device with the session's backend.
+    device with the session's backend; a session on the worker mesh
+    ("ell_spmd", or an `executor`) raises NotImplementedError.
     """
 
     def __init__(self, session, alpha: float = 0.85, pr_steps: int = 30):
+        refuse_spmd(session.backend, "the query service", 4)
+        if session.executor is not None:
+            spmd_not_ported("the query service over a mesh session", 4)
         if session.labels is None:
             raise ValueError(
                 "AnalyticsState needs a label-tracking session: open "

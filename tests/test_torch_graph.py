@@ -241,3 +241,36 @@ def test_row_lengths_hold_on_every_mutation_path(path):
         res = run_stream(tg, coreness(tg), ups, R=4)
         _assert_row_lengths(res.g)
         assert res.stats.updates == len(ups)
+
+
+def test_graph_methods_equal_reference():
+    """Queue 3 fault 4: `GraphBlocks.block_of`, `valid_nbr_mask`,
+    `is_boundary` and `grow` with the reference's semantics.  On fault
+    3's graph the reference's boundary rows are 0, 1, 2, 8 and 9."""
+    edges = np.array([[0, 1], [1, 2], [2, 0], [3, 4]])
+    assign = np.arange(8) % 2
+    jg = jgraph.build_blocks(edges, 8, assign, P=2, deg_slack=4)
+    tg = tgraph.GraphBlocks.from_numpy(jg, jg.P, jg.Cn, jg.Cd, device=CPU)
+    assert np.flatnonzero(tg.is_boundary().numpy()).tolist() == \
+        np.flatnonzero(np.asarray(jg.is_boundary())).tolist() == \
+        [0, 1, 2, 8, 9]
+    np.testing.assert_array_equal(tg.valid_nbr_mask().numpy(),
+                                  np.asarray(jg.valid_nbr_mask()))
+    ids = np.arange(tg.N)
+    np.testing.assert_array_equal(tg.block_of(torch.from_numpy(ids)).numpy(),
+                                  np.asarray(jg.block_of(jnp.asarray(ids))))
+    assert tg.block_of(tg.Cn) == jg.block_of(jg.Cn) == 1
+    t2, trekey = tg.grow(Cn=2 * tg.Cn, Cd=8)
+    j2, jrekey = jg.grow(Cn=2 * jg.Cn, Cd=8)
+    assert_same_graph(t2, j2)
+    np.testing.assert_array_equal(np.asarray(trekey), np.asarray(jrekey))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_is_boundary_equals_reference_on_random_graphs(seed):
+    edges = jgen.erdos_renyi(120, 300, seed=seed)
+    assign = jpart.node_random_partition(120, 4, seed=seed)
+    jg = jgraph.build_blocks(edges, 120, assign, P=4, deg_slack=3)
+    tg = tgraph.GraphBlocks.from_numpy(jg, jg.P, jg.Cn, jg.Cd, device=CPU)
+    np.testing.assert_array_equal(tg.is_boundary().numpy(),
+                                  np.asarray(jg.is_boundary()))

@@ -118,3 +118,116 @@ def test_coreness_kernel_path_on_gpu(kind):
                                            backend="ell")
     np.testing.assert_array_equal(got.cpu().numpy(), np.asarray(want))
     assert steps == want_steps
+
+
+def test_hindex_rows_is_re_exported():
+    """Queue 3 fault 4: `hindex_rows` from `core.kcore` and `core`, as the
+    reference re-exports it, with the reference's values."""
+    import repro_torch.core.kcore as tkcore
+    from repro_torch.kernels.ell_hindex import hindex_rows
+
+    assert tkcore.hindex_rows is tcore.hindex_rows is hindex_rows
+    rng = np.random.default_rng(3)
+    vals = rng.integers(-1, 9, (40, 7)).astype(np.int32)
+    np.testing.assert_array_equal(
+        tcore.hindex_rows(torch.from_numpy(vals)).numpy(),
+        np.asarray(jcore.hindex_rows(vals)))
+
+
+#: public names of the reference that the port leaves out on purpose:
+#: the reference's auto-crossover tables (measured on a TPU only), the
+#: Pallas row-chunk tile, the trace and compile counters (eager PyTorch
+#: traces and compiles nothing), the jax mesh's shardings (the process
+#: group stands in for them) and the seed fixtures (ROADMAP.md Queue 1
+#: item 9)
+LEFT_OUT = {
+    "kernels.ops": {"AUTO_CROSSOVER", "JNP_AUTO_MAX", "DENSE_AUTO_MAX",
+                    "MIN_FILL", "gather_trace_count"},
+    "kernels.ell_cc": {"CHUNK"},
+    "kernels.ell_frontier": {"CHUNK"},
+    "service": {"query_trace_count"},
+    "service.queries": {"query_trace_count"},
+    "runtime.spmd": {"step_build_count"},
+    "runtime.mesh.WorkerMesh": {"node_sharding", "replicated"},
+    "checkpoint": {"save_train_state"},
+    "checkpoint.elastic": {"save_train_state"},
+    "configs": {"ARCHS", "ArchConfig", "SHAPES", "SHAPES_BY_NAME",
+                "ShapeConfig", "cell_applicable", "get_arch",
+                "codeqwen1_5_7b", "deepseek_v3_671b", "gemma3_1b",
+                "granite_34b", "internlm2_1_8b", "llama4_scout_17b_a16e",
+                "mamba2_370m", "paligemma_3b", "seamless_m4t_large_v2",
+                "zamba2_7b"},
+}
+#: names still to come with the mesh runtime's step 3 (ROADMAP.md Queue 1
+#: item 6): the program-level executor and what only it uses
+NOT_YET = {
+    "core": {"coreness_via_spmd"},
+    "core.kcore": {"coreness_via_spmd"},
+    "runtime": {"SpmdEngine", "SpmdProgram", "SpmdCorenessProgram",
+                "SpmdBlockProgram"},
+    "runtime.spmd": {"SpmdEngine", "SpmdProgram", "SpmdCorenessProgram",
+                     "SpmdBlockProgram", "LocalCtx", "BlockCtx",
+                     "combine_rows", "hindex_rows", "AXIS"},
+}
+#: where a public name is an import of a library, not the module's own
+_LIBRARIES = ("typing", "numpy", "jax", "jaxlib", "torch", "dataclasses",
+              "functools", "collections", "__future__", "abc", "enum",
+              "pathlib", "threading", "heapq", "itertools", "warnings",
+              "math", "json", "time", "os", "contextlib")
+
+
+def _public(obj):
+    import types
+
+    out = set()
+    for n in dir(obj):
+        if n.startswith("_"):
+            continue
+        v = getattr(obj, n)
+        if isinstance(v, types.ModuleType):
+            continue
+        mod = getattr(v, "__module__", None)
+        if isinstance(mod, str) and mod.split(".")[0] in _LIBRARIES:
+            continue
+        if type(v).__module__.split(".")[0] in ("typing", "__future__"):
+            continue
+        out.add(n)
+    return out
+
+
+def test_public_names_equal_reference():
+    """Queue 3 fault 4: every public name (and every public class member)
+    of each module of the reference that the port ports exists in the
+    port, apart from `LEFT_OUT` and `NOT_YET`; and nothing is listed
+    there that the port has."""
+    import importlib
+    import pkgutil
+    import warnings
+
+    import repro_torch
+
+    missing = {}
+    for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+        rel = info.name[len("repro_torch."):]
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", DeprecationWarning)
+                ref = importlib.import_module("repro." + rel)
+        except ImportError:
+            continue  # the port's own modules (device, kernels._build)
+        port = importlib.import_module(info.name)
+        want, have = _public(ref), _public(port)
+        miss = want - have
+        for n in want & have:
+            rv, pv = getattr(ref, n), getattr(port, n)
+            if isinstance(rv, type) and isinstance(pv, type) \
+                    and rv.__module__ == ref.__name__:
+                m = {a for a in dir(rv) if not a.startswith("_")} - \
+                    {a for a in dir(pv) if not a.startswith("_")}
+                if m:
+                    missing[f"{rel}.{n}"] = m
+        if miss:
+            missing[rel] = miss
+    allowed = {k: LEFT_OUT.get(k, set()) | NOT_YET.get(k, set())
+               for k in set(LEFT_OUT) | set(NOT_YET)}
+    assert missing == allowed

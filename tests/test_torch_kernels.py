@@ -661,6 +661,88 @@ def test_library_names_follow_every_header(tmp_path, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# A field longer than the rows (a mesh worker's shard and halo buffer).
+# ---------------------------------------------------------------------------
+
+
+def _halo_rows(N, M, Cd, seed, shuffled):
+    """(N, Cd) rows whose ids index a field of M > N rows: own rows
+    [0, N) and "halo" rows [N, M - 2), as `runtime.spmd` stages a shard's
+    local-frame rows; PAD = -1 in some slots of most rows."""
+    rng = np.random.default_rng(seed)
+    nbr = np.full((N, Cd), -1, np.int32)
+    for u in range(N):
+        d = int(rng.integers(0, Cd + 1))
+        ids = np.sort(rng.choice(M - 2, size=d, replace=False))
+        if shuffled:
+            nbr[u, rng.choice(Cd, size=d, replace=False)] = ids
+        else:
+            nbr[u, :d] = ids
+    return nbr
+
+
+def _hop_numpy(nbr, f, elig, vis):
+    """next[u, r] = OR over valid slots of f[nbr[u, j], r], masked."""
+    hit = np.zeros(elig.shape, bool)
+    for u in range(nbr.shape[0]):
+        for v in nbr[u]:
+            if v >= 0:
+                hit[u] |= f[v]
+    return hit & elig & ~vis
+
+
+@pytest.mark.parametrize("shuffled", [False, True])
+def test_hindex_takes_a_longer_field(shuffled):
+    """`hindex_ell` on rows indexing a field of more rows than `nbr`
+    equals the JAX package's oracle; `check_field(longer=True)` accepts
+    such a field and still refuses a shorter one."""
+    from repro_torch.kernels.ell_hindex import check_field
+
+    N, M, Cd = 60, 97, 14
+    nbr = _halo_rows(N, M, Cd, 5, shuffled)
+    est = np.random.default_rng(6).integers(-2, 30, M, dtype=np.int32)
+    want = np.asarray(jref.ell_hindex_ref(jnp.asarray(nbr), jnp.asarray(est)))
+    tn, te = torch.as_tensor(nbr), torch.as_tensor(est)
+    deg = torch.as_tensor(_row_lengths(nbr))
+    for variant in ("sort", "count"):
+        got = hindex_ell(tn, te, variant=variant, deg=deg)
+        assert got.shape == (N,)
+        np.testing.assert_array_equal(got.numpy(), want)
+    check_field(tn, te, longer=True)
+    check_field(tn, te[:N].contiguous(), longer=True)
+    with pytest.raises(ValueError, match=r">= 60"):
+        check_field(tn, te[:N - 1].contiguous(), longer=True)
+    with pytest.raises(ValueError):
+        check_field(tn, te)  # the other kernels keep N rows
+
+
+@pytest.mark.parametrize("K", [None, 8])
+def test_frontier_plain_pads_past_a_longer_field(K):
+    """The plain hop maps PAD to a False row appended after the field's
+    LAST row: with a field longer than `nbr`, row N is a real row (here
+    True in every column), which a PAD slot must not read."""
+    from repro_torch.kernels.ell_frontier import _check
+
+    N, M, Cd, R = 50, 83, 10, 4
+    nbr = _halo_rows(N, M, Cd, 8, shuffled=K is None)
+    rng = np.random.default_rng(9)
+    f = rng.random((M, R)) < 0.15
+    f[N:] = True  # every extra row is set, row N included
+    elig, vis = rng.random((N, R)) < 0.8, rng.random((N, R)) < 0.1
+    if K is not None:
+        nbr[:, K:] = -1  # rows fit the K columns (left-filled)
+    want = _hop_numpy(nbr, f, elig, vis)
+    assert (nbr == -1).any() and not want.all()
+    got = frontier_step_ell(*(torch.as_tensor(a)
+                              for a in (nbr, f, elig, vis)), K=K)
+    np.testing.assert_array_equal(got.numpy(), want)
+    t = [torch.as_tensor(a) for a in (nbr, f, elig, vis)]
+    _check(*t)
+    with pytest.raises(ValueError, match="eligible"):
+        _check(t[0], t[1], t[1], t[3])  # only the field may be longer
+
+
+# ---------------------------------------------------------------------------
 # The CUDA kernels against their plain versions (GPU only).
 # ---------------------------------------------------------------------------
 
@@ -982,3 +1064,28 @@ def test_allpairs_kernel_equals_plain_and_merge(N, Cd, K, shuffled, max_deg):
                 (before[0] + 1, before[1])  # its own kernel and count
             assert torch.equal(got, want)
             assert torch.equal(got, neighbor_common_ell(nbr, rows, K, deg=d))
+
+
+@needs_cuda
+@pytest.mark.parametrize("shuffled", [False, True])
+def test_kernels_take_a_longer_field(shuffled):
+    """Both kernels (with and without `deg`) on rows indexing a field of
+    more rows than `nbr`, the mesh runtime's shard and halo buffer, equal
+    their plain versions."""
+    N, M, Cd, R = 300, 611, 40, 8
+    nbr = torch.as_tensor(_halo_rows(N, M, Cd, 11, shuffled)).cuda()
+    deg = torch.as_tensor(_row_lengths(nbr.cpu().numpy())).cuda()
+    est = torch.as_tensor(np.random.default_rng(12).integers(
+        -2, 50, M, dtype=np.int32)).cuda()
+    rng = np.random.default_rng(13)
+    f = rng.random((M, R)) < 0.1
+    f[N:N + 3] = True
+    f, elig, vis = (torch.as_tensor(a).cuda() for a in (
+        f, rng.random((N, R)) < 0.8, rng.random((N, R)) < 0.1))
+    for d in (None, deg):
+        for variant in ("sort", "count"):
+            torch.testing.assert_close(
+                hindex_ell(nbr, est, variant=variant, deg=d),
+                hindex_ell_plain(nbr, est), rtol=0, atol=0)
+        assert torch.equal(frontier_step_ell(nbr, f, elig, vis, deg=d),
+                           frontier_step_ell_plain(nbr, f, elig, vis))

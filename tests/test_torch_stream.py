@@ -211,6 +211,24 @@ def test_stream_stats_are_the_reference_tuple(keep_labels):
     assert res.stats.cc_merges == (1 if keep_labels else 0)
 
 
+def test_stream_session_has_no_executor():
+    """Queue 3 fault 3: the reference's one-device `StreamSession` sets
+    `.executor = None` (the service and recovery read it); the port's had
+    no such attribute.  Also on a session rebuilt by `from_state`."""
+    edges = np.array([[0, 1], [1, 2], [2, 0], [3, 4]])
+    assign = np.arange(8) % 2
+    jg = jcore.build_blocks(edges, 8, assign, P=2, deg_slack=4)
+    core = jcore.coreness(jg, backend="jnp")
+    ref = reference().StreamSession(jg, core, R=2, backend="jnp")
+    sess = tstream.StreamSession(to_port(jg), tensor_of(core), R=2)
+    assert ref.executor is None and sess.executor is None
+    arrays, meta = sess.state_dict()
+    back = tstream.StreamSession.from_state(arrays, meta, device=CPU)
+    assert back.executor is None
+    back.apply_window([(0, 3, +1)])
+    assert back.executor is None
+
+
 def _skewed_graph():
     """tests/test_stream.py's skewed graph: half the nodes (the BA hubs
     among them) on block 0, free node capacity everywhere."""
