@@ -92,6 +92,22 @@ Phases (each raises on failure; the script then exits non-zero):
    a window beside `rebuild`, ms a superstep (host clock over whole
    fixpoints, and one superstep's device work by CUDA events) beside the
    single-device loop, and the two kernels' launches (both must launch).
+   Then mesh_programs_ds1, under the same group: the mesh programs
+   (`SpmdEngine`) through ONE `SpmdExecutor` — CC, PageRank (30 fixed
+   supersteps; tol = 1e-6), triangles, `fused_analytics` warm-started
+   from the coreness and labels, `coreness_via_spmd` (its W2W totals
+   equal `coreness_via_engine`'s metering) — the 200 DS1 updates through
+   a `StreamSession(backend="ell_spmd")` with CC labels, its snapshot after
+   window 12 restored by `restore_session(backend="ell_spmd")` and
+   streamed on, and mirrored coreness on skew_egofb's split graph; each
+   equal to the single-device "ell" run (integers, counts, graph arrays,
+   `StreamStats` but the plan counters; ranks at RANK_TOL), the restored
+   stream to the uninterrupted one in every field.  `ell_hindex`,
+   `ell_frontier`, `ell_cc`, `ell_pagerank`, `ell_multi` and
+   `ell_triangles` must launch, and the four combine kernels equal their
+   plain versions on the executor's field (the triangles' a field of
+   global-id rows).  Prints host ms a superstep (CC, mirrored coreness)
+   and a window (the stream) beside "ell".
 9. recovery_ds1: crash recovery (`runtime/recovery.py`) over the 200 DS1
    updates in 25 windows of R = 8 on "ell": an `ElasticCoordinator`
    checkpoints before window 10; before window 18 block 3 is lost (one
@@ -102,9 +118,9 @@ Phases (each raises on failure; the script then exits non-zero):
    (coreness and edges) and a fresh recompute, and the same drill on
    "torch" (graph, coreness, `StreamStats`).  Prints the host seconds of
    the restore, the evacuation and the replay; `ell_hindex` and
-   `ell_frontier` must launch.  The kernel line gives each of the two
-   kernels' launches on `main_path_ds1`, `mesh_ds1` and `recovery_ds1`
-   (`launches_by_path`).
+   `ell_frontier` must launch.  The kernel line gives each of the six
+   kernels the mesh runs its launches on `main_path_ds1`, `mesh_ds1`,
+   `mesh_programs_ds1` and `recovery_ds1` (`launches_by_path`).
 10. service_ds1: the query service (`repro_torch.service`) over the DS1
    stream, with the settings of the JAX package's
    `benchmarks/bench_service.py`: the 200 DS1 updates with inserts and
@@ -264,9 +280,11 @@ SKEW_REPORT = dict(Cd_unsplit=1287, Cd_split=64, slots_unsplit=12_437_568,
                    slots_split=618_496, inter_unsplit=150_858,
                    inter_split=132_918, n_groups=461, replica_rows=703,
                    Gmax=512, Km=2048)
-#: the kernels the mesh executor runs on each shard (mesh_ds1), and the
-#: stream of recovery_ds1 runs
-MESH_KERNELS = ("ell_hindex", "ell_frontier")
+#: the kernels the mesh runtime runs on each shard (mesh_ds1: the
+#: executor's primitives; mesh_programs_ds1: the programs and the stream),
+#: whose launches the kernel line gives by path
+MESH_KERNELS = ("ell_hindex", "ell_frontier", "ell_cc", "ell_pagerank",
+                "ell_multi", "ell_triangles")
 #: the kernels the mirrored static analytics launch on "ell"
 SKEW_KERNELS = ("ell_hindex", "ell_cc", "ell_pagerank", "ell_multi",
                 "ell_triangles")
@@ -313,13 +331,15 @@ def main() -> int:
                                       plain_an["tri"]))
     for name, e in elastic_phase(g, core_plain, ups).items():
         parity[name] = max(parity.get(name, 0), e)
-    by_path = {"main_path_ds1": {k: launches[k] for k in MESH_KERNELS}}
-    by_path["mesh_ds1"], mesh_err = mesh_phase(g, core_plain, ups)
+    skew = skew_graph(dev, card)
+    by_path = {"main_path_ds1": launches}
+    by_path["mesh_ds1"], by_path["mesh_programs_ds1"], mesh_err = \
+        mesh_phase(g, core_plain, ups, skew)
     for name, e in mesh_err.items():
         parity[name] = max(parity.get(name, 0), e)
     by_path["recovery_ds1"] = recovery_phase(g, core_plain, ups)
     service_phase(g, core_plain, ups, card)
-    for name, e in skew_phase(*skew_graph(dev, card), card).items():
+    for name, e in skew_phase(*skew, card).items():
         parity[name] = max(parity.get(name, 0), e)
     scale = scale_phase(dev)
     kernels = timing(g, core_plain, ups[:R], parity, launches, hindex_split)
@@ -328,7 +348,7 @@ def main() -> int:
     kernels += dense_timing(g, core_plain, ups[:R], parity, launches)
     for k in kernels:
         if k["name"] in MESH_KERNELS:
-            k["launches_by_path"] = {p: c[k["name"]]
+            k["launches_by_path"] = {p: c.get(k["name"], 0)
                                      for p, c in by_path.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1178,7 +1198,7 @@ def _mesh_parity(ex, core, hop):
     return err
 
 
-def mesh_phase(g, core, ups):
+def mesh_phase(g, core, ups, skew):
     """mesh_ds1: the mesh runtime at W = 1 under a one-rank NCCL group, so
     the halo exchange and the convergence flag go through the real
     `all_to_all_single` / `all_reduce`.  `coreness_blocks`, one h-index
@@ -1188,8 +1208,10 @@ def mesh_phase(g, core, ups):
     the single-device "ell" results and superstep counts bit for bit.
     Prints the plan's host seconds, `apply_updates` host ms a window
     against `rebuild`, the fixpoints' ms per superstep against the
-    single-device "ell" loop, and the two kernels' launches.  Returns
-    (launches, parity errors)."""
+    single-device "ell" loop, and the two kernels' launches.  Then, under
+    the same group, `mesh_programs_phase` (mesh_programs_ds1, with
+    `skew` = `skew_graph`'s result).  Returns (mesh_ds1's launches,
+    mesh_programs_ds1's launches, parity errors)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -1314,9 +1336,224 @@ def mesh_phase(g, core, ups):
              superstep_device_ms=step_ms,
              plan_updates=ex.plan_updates, full_rebuilds=ex.full_rebuilds,
              max_abs_err=err)
-        return counts, err
+        prog_counts, prog_err = mesh_programs_phase(g, core, ups, skew)
+        return counts, prog_counts, {**err, **prog_err}
     finally:
         dist.destroy_process_group()
+
+
+def _mesh_field_parity(ex, g, labels, rank):
+    """`ell_cc`, `ell_pagerank`, `ell_multi` and `ell_triangles` against
+    their plain versions on the executor's longer field: the shard's
+    local-frame rows over ``cat([shard, halo buffer])`` (S + H + 2 rows)
+    of the CC labels, the PageRank contributions and, for the triangles,
+    the graph's global-id rows (the exchanged `TriangleCountProgram`
+    field, a tensor other than the rows), with the shard's `deg` and
+    column bounds as the programs pass them.  Returns {kernel: max abs
+    error}; bit-equal, the sum to SUM_TOL."""
+    import torch
+    from repro_torch.kernels.ell_cc import (
+        neighbor_min_ell, neighbor_min_ell_plain)
+    from repro_torch.kernels.ell_multi import (
+        neighbor_multi_ell, neighbor_multi_ell_plain)
+    from repro_torch.kernels.ell_pagerank import (
+        neighbor_sum_ell, neighbor_sum_ell_plain)
+    from repro_torch.kernels.ell_triangles import (
+        neighbor_common_ell, neighbor_common_ell_plain)
+
+    what = "mesh_programs_ds1"
+    rows, K, deg = ex._rows, ex._K, ex.deg
+    contrib = torch.where(g.deg > 0, rank / g.deg.clamp(min=1), 0.0).to(
+        torch.float32)
+    lab = ex._exchange(labels.to(torch.int32), torch.iinfo(torch.int32).max)
+    con = ex._exchange(contrib, 0.0)
+    core = ex._exchange(g.deg.to(torch.int32), -1)
+    nbr_rows = ex._exchange(g.nbr, -1)
+    err = {}
+    multi = neighbor_multi_ell(rows, (core, lab, con),
+                               ("hindex", "min", "sum"), K=K, deg=deg)
+    multi_p = neighbor_multi_ell_plain(rows, (core, lab, con),
+                                       ("hindex", "min", "sum"), K)
+    for name, got, want, exact in (
+            ("ell_cc", neighbor_min_ell(rows, lab, K=K, deg=deg),
+             neighbor_min_ell_plain(rows, lab, K), True),
+            ("ell_pagerank", neighbor_sum_ell(rows, con, K=K, deg=deg),
+             neighbor_sum_ell_plain(rows, con, K), False),
+            ("ell_multi", multi[0], multi_p[0], True),
+            ("ell_multi", multi[1], multi_p[1], True),
+            ("ell_multi", multi[2], multi_p[2], False),
+            ("ell_triangles",
+             neighbor_common_ell(rows, nbr_rows, K=ex.field_bound, deg=deg),
+             neighbor_common_ell_plain(rows, nbr_rows, ex.field_bound),
+             True)):
+        torch.cuda.synchronize()
+        e = float((got.double() - want.double()).abs().max())
+        ok = e == 0 if exact else torch.allclose(got, want, **SUM_TOL)
+        if not ok:
+            raise AssertionError(f"{what}: {name} differs from plain on the "
+                                 f"executor's field by {e}")
+        err[name] = max(err.get(name, 0), e)
+    return err
+
+
+def mesh_programs_phase(g, core, ups, skew):
+    """mesh_programs_ds1, inside mesh_ds1's one-rank NCCL group: the mesh
+    programs (`runtime.spmd.SpmdEngine`) and the stream on the mesh.
+
+    Through ONE `SpmdExecutor` of DS1: CC, PageRank (30 fixed supersteps,
+    and tol = 1e-6), triangles, `fused_analytics` warm-started from the
+    coreness and labels, and `coreness_via_spmd` (its traces' W2W equal to
+    `coreness_via_engine`'s metering); then DS1's 200 updates through a
+    `StreamSession(backend="ell_spmd", cc_labels=)`, snapshotted after
+    window 12, restored by `restore_session(backend="ell_spmd")` and
+    streamed on; and mirrored coreness on skew_egofb's split graph.  Each
+    equals the single-device "ell" run (integers, superstep counts, graph
+    arrays, `StreamStats` but the plan counters, bit for bit; ranks at
+    RANK_TOL), the restored stream the uninterrupted one (every field).
+    `ell_hindex`, `ell_frontier`, `ell_cc`, `ell_pagerank`, `ell_multi`
+    and `ell_triangles` must launch; then the four combine kernels are
+    held against their plain versions on the executor's field.  Prints
+    host ms a superstep (CC, the mirrored coreness) and a window (the
+    stream) against "ell".  Returns (launches, parity errors)."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import (
+        CheckpointManager, restore_session, save_session)
+    from repro_torch.core import (
+        connected_components, coreness, coreness_via_engine,
+        coreness_via_spmd, fused_analytics, pagerank, triangle_counts)
+    from repro_torch.runtime import SpmdExecutor, StreamSession
+
+    from repro_torch.core.algorithms import CorenessBlockProgram
+    from repro_torch.kernels import ops
+
+    what = "mesh_programs_ds1"
+    labels0 = connected_components(g, backend="ell")
+    names = ("ell_hindex", "ell_frontier", "ell_cc", "ell_pagerank",
+             "ell_multi", "ell_triangles")
+    windows = [ups[i:i + R] for i in range(0, len(ups), R)]
+    cut = 12  # windows before the snapshot
+    _, g2, plan, _ = skew
+
+    def walled(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    def analytics(backend, ex=None):
+        kw = dict(backend=backend, executor=ex)
+        r = {}
+        (r["labels"], r["cc_steps"]), r["cc_s"] = walled(
+            lambda: connected_components(g, with_steps=True, **kw))
+        r["rank"], r["pr_steps"] = pagerank(g, tol=None, max_steps=30,
+                                            with_steps=True, **kw)
+        r["rank_tol"], r["pr_tol_steps"] = pagerank(g, tol=1e-6,
+                                                    with_steps=True, **kw)
+        r["tri"], r["tri_steps"] = triangle_counts(g, with_steps=True, **kw)
+        r["fused"] = fused_analytics(g, steps=30, init=(core, r["labels"]),
+                                     **kw)
+        return r
+
+    def stream(backend, tmp=None):
+        sess = StreamSession(g.clone(), core.clone(), R=R, backend=backend,
+                             cc_labels=labels0.clone())
+        t = []
+        for i, w in enumerate(windows):
+            if tmp is not None and i == cut:
+                mgr = CheckpointManager(tmp)
+                save_session(mgr, sess)
+                _, back, _ = restore_session(mgr, backend=backend,
+                                             device=g.device)
+                for w2 in windows[cut:]:
+                    back.apply_window(w2)
+            _, s = walled(lambda: sess.apply_window(w))
+            t.append(s)
+        return sess, (back if tmp is not None else None), t
+
+    def mesh_path(tmp):
+        ex = SpmdExecutor(g)
+        r = analytics("ell_spmd", ex)
+        (r["via_core"], r["via_eng"]), r["via_s"] = walled(
+            lambda: coreness_via_spmd(g))
+        r["sess"], r["back"], r["win_s"] = stream("ell_spmd", tmp)
+        (r["m_core"], r["m_steps"]), r["m_s"] = walled(
+            lambda: ops.run_block_program(g2, CorenessBlockProgram(),
+                                          backend="ell_spmd", mirror=plan,
+                                          with_steps=True))
+        r["ex"] = ex
+        return r
+
+    with tempfile.TemporaryDirectory() as tmp:
+        m, counts = _counted(lambda: mesh_path(tmp), names)
+    e = analytics("ell")
+    e["sess"], _, e["win_s"] = stream("ell")
+    (e["m_core"], e["m_steps"]), e["m_s"] = walled(
+        lambda: ops.run_block_program(g2, CorenessBlockProgram(),
+                                      backend="ell", mirror=plan,
+                                      with_steps=True))
+    via_core, via_eng = coreness_via_engine(g, backend="ell")
+    st, est, bst = m["sess"].stats(), e["sess"].stats(), m["back"].stats()
+    no_plan = dict(plan_updates=0, plan_rebuilds=0)
+    checks = {
+        "cc": torch.equal(m["labels"], e["labels"])
+        and m["cc_steps"] == e["cc_steps"],
+        "pagerank": m["pr_steps"] == e["pr_steps"] == 30
+        and torch.allclose(m["rank"], e["rank"], **RANK_TOL),
+        "pagerank_tol": m["pr_tol_steps"] == e["pr_tol_steps"]
+        and torch.allclose(m["rank_tol"], e["rank_tol"], **RANK_TOL),
+        "triangles": torch.equal(m["tri"], e["tri"])
+        and m["tri_steps"] == e["tri_steps"] == 1,
+        "fused": torch.equal(m["fused"][0], e["fused"][0])
+        and torch.equal(m["fused"][1], e["fused"][1])
+        and torch.allclose(m["fused"][2], e["fused"][2], **RANK_TOL),
+        "coreness_via_spmd": torch.equal(m["via_core"], via_core)
+        and torch.equal(m["via_core"], core)
+        and len(m["via_eng"].traces) == len(via_eng.traces)
+        and m["via_eng"].message_totals()[2:]
+        == via_eng.message_totals()[2:],
+        "stream": torch.equal(m["sess"].core, e["sess"].core)
+        and torch.equal(m["sess"].g.nbr, e["sess"].g.nbr)
+        and torch.equal(m["sess"].labels, e["sess"].labels)
+        and st._replace(**no_plan) == est and st.plan_updates > 0,
+        "restored": torch.equal(m["back"].core, m["sess"].core)
+        and torch.equal(m["back"].g.nbr, m["sess"].g.nbr)
+        and torch.equal(m["back"].labels, m["sess"].labels) and bst == st,
+        "mirrored_coreness": torch.equal(m["m_core"], e["m_core"])
+        and m["m_steps"] == e["m_steps"]
+        and torch.equal(torch.where(g2.node_mask, m["m_core"], 0),
+                        coreness(g2, backend="ell", mirror=plan)),
+        "one_executor": m["ex"].plan_updates == m["ex"].full_rebuilds == 0,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"{what}: differs from single-device ell: "
+                             f"{checks}; {st} vs {est}")
+    err = _mesh_field_parity(m["ex"], g, m["labels"], m["rank"])
+    steps_m = len(m["via_eng"].traces)
+
+    def per(n, s):
+        return s * 1e3 / max(1, n)
+
+    emit(phase=what, W=m["ex"].wm.W, N=g.N, cc_steps=m["cc_steps"],
+         pr_tol_steps=m["pr_tol_steps"], via_spmd_steps=steps_m,
+         via_spmd_totals=m["via_eng"].message_totals()._asdict(),
+         stream_stats=st._asdict(), snapshot_at_window=cut,
+         rank_max_abs_err=float((m["rank"] - e["rank"]).abs().max()),
+         launches=counts,
+         cc_host_ms_per_superstep={"ell_spmd": per(m["cc_steps"], m["cc_s"]),
+                                   "ell": per(e["cc_steps"], e["cc_s"])},
+         stream_host_ms_per_window={
+             "ell_spmd": statistics.median(m["win_s"]) * 1e3,
+             "ell": statistics.median(e["win_s"]) * 1e3},
+         stream_host_seconds={"ell_spmd": sum(m["win_s"]),
+                              "ell": sum(e["win_s"])},
+         mirrored_coreness_steps=m["m_steps"],
+         mirrored_coreness_host_ms_per_superstep={
+             "ell_spmd": per(m["m_steps"], m["m_s"]),
+             "ell": per(e["m_steps"], e["m_s"])},
+         max_abs_err=err)
+    return counts, err
 
 
 def recovery_phase(g, core, ups):

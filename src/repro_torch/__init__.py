@@ -18,6 +18,11 @@ capacities (`core.graph.grow_blocks`) and saves and resumes itself
 between its windows.  Hub mirroring (`core.hub_split`) splits skewed
 graphs' hubs into replica rows, so every workload and the stream
 (`runtime.stream.MirrorStream`) run with `Cd` bounded by a threshold.
+The mesh runtime (`runtime.mesh`, `runtime.halo`, `runtime.spmd`) runs
+the primitives, the programs, maintenance, the stream, restore and the
+service on a `torch.distributed` worker mesh, one process per worker
+(``backend="ell_spmd"``), and `runtime.recovery` brings a stream back
+exact after a worker loss.
 
 This package carries a seed_fixtures note for the JAX package's dead-seed
 import audit: it is not seed substrate but a separate port, which the

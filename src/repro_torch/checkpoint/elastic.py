@@ -10,16 +10,17 @@ saw.  The layout is the JAX package's: a snapshot of either kind written
 by the JAX package restores here (its backend overridden to one of this
 package's), and this package's flat dicts restore there.
 
-Not ported yet: restoring onto a worker mesh (`W > 1`, `executor=`,
-`backend="ell_spmd"` raise NotImplementedError; ROADMAP.md Queue 1 item
-6, step 4).
+Snapshots are topology-independent (global arrays), so a stream session
+restores onto any worker mesh with W | P: `restore_session(W=,
+backend="ell_spmd", executor=)` is also the remesh path
+(`remesh_restore`).  Every rank of the mesh restores the same snapshot
+and stages its shard.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 from ..device import DeviceLike
-from ..kernels.ops import refuse_spmd, spmd_not_ported
 from ..runtime.stream import MirrorStream, StreamSession
 from .manager import CheckpointManager
 
@@ -48,8 +49,9 @@ def restore_session(mgr: CheckpointManager, step: Optional[int] = None,
 
     A ``stream_session`` snapshot comes back as a `StreamSession`, a
     ``mirror_stream`` one as a `MirrorStream`.  `backend` overrides the
-    snapshot's.  `W > 1`, `executor` and the `ell_spmd` backend need the
-    mesh runtime and raise NotImplementedError.  Returns ``(step,
+    snapshot's; a stream session takes `W`/`executor` too (the mesh to
+    restore onto, W | P; see the module docstring), which a mirrored
+    session does not read, as in the JAX package.  Returns ``(step,
     session, meta)``; meta is the manifest meta.
     """
     if step is None:
@@ -66,16 +68,14 @@ def restore_session(mgr: CheckpointManager, step: Optional[int] = None,
     if meta["kind"] not in kinds:
         raise ValueError(f"unknown snapshot kind {meta['kind']!r}")
     be = meta["backend"] if backend is None else backend
-    refuse_spmd(be, "restore_session", 4)
-    if (W is not None and int(W) > 1) or executor is not None:
-        spmd_not_ported("restore_session onto a worker mesh (W > 1, "
-                        "executor=)", 4)
+    mesh = dict(W=W, executor=executor) if kinds[meta["kind"]] \
+        is StreamSession else {}
     arrays = mgr.restore_dict(step, device=device)
     session = kinds[meta["kind"]].from_state(arrays, meta, backend=be,
-                                             device=device)
+                                             device=device, **mesh)
     return step, session, meta
 
 
-#: the JAX package's name for a restore onto another worker count; with
-#: one device it is `restore_session`
+#: restore_session IS the remesh path: the alias names the intent at call
+#: sites that restore onto another worker count after a loss
 remesh_restore = restore_session

@@ -18,7 +18,7 @@ from .algorithms import (
 )
 from .kcore import (
     CorenessProgram, coreness, coreness_step, coreness_via_engine,
-    coreness_with_stats, hindex_rows, max_coreness,
+    coreness_via_spmd, coreness_with_stats, hindex_rows, max_coreness,
 )
 from .kcore_dynamic import (
     BatchMaintenanceStats, MaintenanceStats, delete_edge_maintain,
@@ -47,7 +47,7 @@ __all__ = [
     "TriangleCountProgram", "connected_components", "fused_analytics",
     "merge_labels", "pagerank", "triangle_counts", "triangle_total",
     "CorenessProgram", "coreness", "coreness_step", "coreness_via_engine",
-    "coreness_with_stats", "hindex_rows", "max_coreness",
+    "coreness_via_spmd", "coreness_with_stats", "hindex_rows", "max_coreness",
     "BatchMaintenanceStats", "MaintenanceStats", "delete_edge_maintain",
     "insert_edge_maintain", "k_reachable", "k_reachable_batch",
     "maintain_batch", "maintain_batch_host", "compute_degrees",

@@ -25,7 +25,10 @@ every backend of the kernel registry through `kernels.ops.run_block_program`
 Every entry point takes `mirror=` (a `core.hub_split.MirrorPlan` for a
 hub-split graph) and then runs the vertex-cut dataflow of
 `ops.run_block_program`: at primaries the integers equal the unsplit
-graph's, PageRank is allclose.
+graph's, PageRank is allclose.  On the mesh backend ("ell_spmd") every
+entry point takes `executor=`, a long-lived `runtime.spmd.SpmdExecutor`
+of `g` that one workload after another reuses (one is built per call
+otherwise); the other backends do not read it.
 
 Program states are tensors or tuples of tensors on the graph's device.
 """
@@ -159,8 +162,8 @@ class CorenessBlockProgram(BlockProgram):
 
 
 def connected_components(
-    g: GraphBlocks, backend: str = "auto", max_steps: Optional[int] = None,
-    with_steps: bool = False, mirror=None,
+    g: GraphBlocks, backend: str = "auto", executor=None,
+    max_steps: Optional[int] = None, with_steps: bool = False, mirror=None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, int]]:
     """Canonical component labels: label[u] = min padded id of u's
     component; (N,) int32 with -1 on padding rows (plus the superstep
@@ -168,16 +171,16 @@ def connected_components(
     Under `mirror` replica rows carry their primary's id, so labels stay
     in the unsplit id space."""
     state, steps = ops.run_block_program(
-        g, ConnectedComponentsProgram(), backend=backend, max_steps=max_steps,
-        with_steps=True, mirror=mirror)
+        g, ConnectedComponentsProgram(), backend=backend, executor=executor,
+        max_steps=max_steps, with_steps=True, mirror=mirror)
     labels = torch.where(g.node_mask, state, -1)
     return (labels, steps) if with_steps else labels
 
 
 def pagerank(
     g: GraphBlocks, alpha: float = 0.85, tol: Optional[float] = 1e-6,
-    max_steps: int = 100, backend: str = "auto", with_steps: bool = False,
-    mirror=None,
+    max_steps: int = 100, backend: str = "auto", executor=None,
+    with_steps: bool = False, mirror=None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, int]]:
     """Push-style PageRank over the undirected graph; (N,) float32 ranks,
     0.0 on padding rows.  `tol=None` runs exactly `max_steps` supersteps;
@@ -186,27 +189,28 @@ def pagerank(
     the unsplit run, not bit-equal."""
     prog = PageRankProgram(alpha=alpha, tol=tol, max_steps=max_steps)
     (rank, _), steps = ops.run_block_program(g, prog, backend=backend,
+                                             executor=executor,
                                              with_steps=True, mirror=mirror)
     return (rank, steps) if with_steps else rank
 
 
 def triangle_counts(
-    g: GraphBlocks, backend: str = "auto", with_steps: bool = False,
-    mirror=None,
+    g: GraphBlocks, backend: str = "auto", executor=None,
+    with_steps: bool = False, mirror=None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, int]]:
     """Per-node triangle counts ((N,) int32, 0 on padding rows); the
     global total is `triangle_total(counts)`.  One superstep.  Under
     `mirror` the runner routes through `hub_split.run_common_mirror`
     (canonicalized rows + per-slice corrections)."""
     (counts, _), steps = ops.run_block_program(
-        g, TriangleCountProgram(), backend=backend, with_steps=True,
-        mirror=mirror)
+        g, TriangleCountProgram(), backend=backend, executor=executor,
+        with_steps=True, mirror=mirror)
     return (counts, steps) if with_steps else counts
 
 
 def fused_analytics(
     g: GraphBlocks, alpha: float = 0.85, steps: int = 30,
-    backend: str = "auto", with_steps: bool = False,
+    backend: str = "auto", executor=None, with_steps: bool = False,
     init: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     mirror=None,
 ) -> Union[Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
@@ -244,8 +248,8 @@ def fused_analytics(
                   torch.where(g.node_mask, labels0, INT32_MAX),
                   pr.init(gi))
     state, n = ops.run_block_program(g, prog, backend=backend,
-                                     with_steps=True, state0=state0,
-                                     mirror=mirror)
+                                     executor=executor, with_steps=True,
+                                     state0=state0, mirror=mirror)
     core, lab, (rank, _) = state
     results = (core, torch.where(g.node_mask, lab, -1), rank)
     return (results, n) if with_steps else results

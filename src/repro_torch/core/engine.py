@@ -64,8 +64,9 @@ class SuperstepTrace:
     step: int
     mode: Mode
     stats: MessageStats
-    #: collective phases the step's compute waited on (always 0 on one
-    #: device; the mesh runtime is not ported yet)
+    #: collective phases the step's compute waited on (0 on one device;
+    #: on the mesh 1 when the executor waits on its all-to-all before
+    #: staging the field, `SpmdExecutor(overlap=False)`)
     serialized_collectives: int = 0
 
 

@@ -478,7 +478,8 @@ def run_common_mirror(g2: GraphBlocks, plan: MirrorPlan, program,
         np.where(nbr >= 0, prow_np[np.maximum(nbr, 0)], PAD))
     gc = dataclasses.replace(g2, nbr=_tensor(canon, np.int32, g2.device))
 
-    # 1. the backend's pass on the canonical rows
+    # 1. the backend's pass on the canonical rows (on "ell_spmd" with an
+    #    executor built for it: the halo plan derives from gc's adjacency)
     raw_state = run_block_program(gc, _RawCommonProgram(), backend=backend)
     red = raw_state[0].cpu().numpy().astype(np.int64)
 

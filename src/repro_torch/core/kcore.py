@@ -55,10 +55,12 @@ def coreness_step(
 
 def coreness(
     g: GraphBlocks, max_steps: int = 10_000, backend: str = "auto",
-    mirror=None,
+    executor=None, mirror=None,
 ) -> torch.Tensor:
     """Coreness of every node (0 on padding rows), (N,) int32, via the
-    chosen backend.  All backends return identical integers.
+    chosen backend.  All backends return identical integers.  On the mesh
+    backend ("ell_spmd") pass a long-lived `runtime.spmd.SpmdExecutor` as
+    `executor` to skip the per-call halo plan build.
 
     `mirror` (a `core.hub_split.MirrorPlan` for a split `g`) runs the
     generic `CorenessBlockProgram` under the vertex-cut dataflow: per-slice
@@ -70,9 +72,10 @@ def coreness(
 
         est = ops.run_block_program(g, CorenessBlockProgram(),
                                     backend=backend, max_steps=max_steps,
-                                    mirror=mirror)
+                                    executor=executor, mirror=mirror)
         return torch.where(g.node_mask, est, 0)
-    return ops.coreness_blocks(g, backend=backend, max_steps=max_steps)
+    return ops.coreness_blocks(g, backend=backend, max_steps=max_steps,
+                               executor=executor)
 
 
 def coreness_with_stats(
@@ -120,4 +123,23 @@ def coreness_via_engine(g: GraphBlocks, backend: str = "auto"):
     est0 = torch.where(g.node_mask, g.deg, 0).to(torch.int32)
     eng = BladygEngine(g)
     est, _ = eng.run(CorenessProgram(backend=backend), est0, None)
+    return torch.where(g.node_mask, est, 0), eng
+
+
+def coreness_via_spmd(g: GraphBlocks, W=None):
+    """CorenessProgram routed through the mesh runtime.
+
+    Runs the same min-H supersteps under `runtime.SpmdEngine.run_spmd`
+    (`SpmdCorenessProgram`): the neighbor read is an executed halo
+    exchange on the worker mesh of `W` workers, and the returned engine's
+    traces carry the *executed* W2W counts (`HaloPlan.slot_counts`)
+    instead of the declared payload.  Returns (core, SpmdEngine); core
+    equals `coreness_via_engine`'s.
+    """
+    from ..runtime.spmd import (  # lazy: runtime imports core
+        SpmdCorenessProgram, SpmdEngine)
+
+    est0 = torch.where(g.node_mask, g.deg, 0).to(torch.int32)
+    eng = SpmdEngine(g, W=W)
+    est, _ = eng.run_spmd(SpmdCorenessProgram(), est0, None)
     return torch.where(g.node_mask, est, 0), eng

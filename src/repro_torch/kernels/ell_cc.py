@@ -1,8 +1,11 @@
 """ELL neighbor-min sweep (label propagation): CUDA kernel and plain version.
 
     nbr[N, Cd]  int32   padded neighbor ids (-1 = empty slot)
-    field[N]    int32   current labels
+    field[M]    int32   current labels, M >= N
     out[u] = min{field[v] : v in nbr[u, :C]},  C = min(Cd, K)
+
+The field may have more rows than `nbr` (a mesh worker's shard followed
+by its halo buffer, `runtime.spmd`): the ids in `nbr` index it.
 
 PAD slots and neighborless rows give INT32_MAX (`MIN_FILL`, the min
 combine's absorbing fill); `BlockProgram.update` takes min(own, out), so
@@ -58,7 +61,7 @@ def neighbor_min_ell(nbr: torch.Tensor, field: torch.Tensor,
     check_deg(nbr, deg)
     if not on_cuda(nbr, "neighbor_min_ell"):
         return neighbor_min_ell_plain(nbr, field, K, deg)
-    check_field(nbr, field, torch.int32, "field")
+    check_field(nbr, field, torch.int32, "field", longer=True)
     N, Cd = nbr.shape
     out = torch.empty(N, dtype=torch.int32, device=nbr.device)
     _build.launch("ell_cc", nbr.device, nbr.data_ptr(), field.data_ptr(),

@@ -94,8 +94,9 @@ def neighbor_multi_ell(
 ) -> Tuple[torch.Tensor, ...]:
     """One (N,) reduction per field, off ONE read of `nbr`.
 
-    fields: one (N,) tensor per combine (int32 for "min"/"hindex", float32
-    for "sum").  deg: optional (N,) int32 row lengths; they never change
+    fields: one (M,) tensor per combine, M >= N (int32 for "min"/"hindex",
+    float32 for "sum"; longer than `nbr` on a mesh worker, whose rows
+    index its shard followed by its halo buffer, `runtime.spmd`).  deg: optional (N,) int32 row lengths; they never change
     the result.  CUDA tensors launch the CUDA kernel (and bump
     `neighbor_multi_ell.launches`); CPU tensors take the plain version.
     """
@@ -104,7 +105,7 @@ def neighbor_multi_ell(
         return neighbor_multi_ell_plain(nbr, fields, combines, K, deg)
     _check_combines(fields, combines)
     for c, f in zip(combines, fields):
-        check_field(nbr, f, FIELD_SPEC[c][0], f"{c!r} field")
+        check_field(nbr, f, FIELD_SPEC[c][0], f"{c!r} field", longer=True)
     N, Cd = nbr.shape
     k = len(combines)
     outs = tuple(torch.empty(N, dtype=FIELD_SPEC[c][0], device=nbr.device)

@@ -1,8 +1,11 @@
 """ELL neighbor-sum sweep (PageRank push): CUDA kernel and plain version.
 
     nbr[N, Cd]  int32    padded neighbor ids (-1 = empty slot)
-    field[N]    float32  per-node contribution (rank[u] / deg[u])
+    field[M]    float32  per-node contribution (rank[u] / deg[u]), M >= N
     out[u] = sum{field[v] : v in nbr[u, :C]},  C = min(Cd, K)
+
+The field may have more rows than `nbr` (a mesh worker's shard followed
+by its halo buffer, `runtime.spmd`): the ids in `nbr` index it.
 
 PAD slots add 0.0; neighborless rows give 0.0.  The "sum" combine of
 `ops.COMBINES`: each superstep of `core.algorithms.pagerank`.
@@ -55,7 +58,7 @@ def neighbor_sum_ell(nbr: torch.Tensor, field: torch.Tensor,
     check_deg(nbr, deg)
     if not on_cuda(nbr, "neighbor_sum_ell"):
         return neighbor_sum_ell_plain(nbr, field, K, deg)
-    check_field(nbr, field, torch.float32, "field")
+    check_field(nbr, field, torch.float32, "field", longer=True)
     N, Cd = nbr.shape
     out = torch.empty(N, dtype=torch.float32, device=nbr.device)
     _build.launch("ell_pagerank", nbr.device, nbr.data_ptr(),

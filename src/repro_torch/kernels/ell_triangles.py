@@ -2,9 +2,13 @@
 
     nbr[N, Cd]   int32  padded neighbor ids (-1 = empty slot), the swept
                         adjacency
-    rows[N, Cd]  int32  the per-node row field intersected (`nbr` itself
-                        for whole-graph use)
+    rows[M, Cd]  int32  the per-node row field intersected, M >= N (`nbr`
+                        itself for whole-graph use)
     red[u] = sum over valid j < C of |rows[u, :C] ∩ rows[nbr[u, j], :C]|
+
+u's own set is rows[u], never nbr[u]: on a mesh worker (`runtime.spmd`)
+`nbr` holds local-frame ids into the shard followed by its halo buffer,
+and `rows` holds the global ids the intersection compares.
 
 with C = min(Cd, K) bounding both column axes, and the intersection
 counted as a multiset (duplicate ids count as in the JAX package).  For an
@@ -69,11 +73,15 @@ def _check_variant(variant: str) -> None:
 
 
 def _check_rows(nbr: torch.Tensor, rows: torch.Tensor) -> None:
+    """Raise unless nbr is a contiguous (N, Cd) int32 tensor and rows an
+    (M, Cd) int32 tensor on its device with M >= N (a mesh worker's shard
+    and halo rows, indexed by its local-frame `nbr`)."""
     if nbr.dim() != 2 or nbr.dtype != torch.int32 or not nbr.is_contiguous():
         raise ValueError("nbr must be a contiguous (N, Cd) int32 tensor")
-    if rows.shape != nbr.shape or rows.dtype != torch.int32 \
-            or rows.device != nbr.device:
-        raise ValueError(f"rows must be a {tuple(nbr.shape)} int32 tensor on "
+    N, Cd = nbr.shape
+    if rows.dim() != 2 or rows.shape[0] < N or rows.shape[1] != Cd \
+            or rows.dtype != torch.int32 or rows.device != nbr.device:
+        raise ValueError(f"rows must be a (>= {N}, {Cd}) int32 tensor on "
                          f"{nbr.device}, got {tuple(rows.shape)} {rows.dtype} "
                          f"on {rows.device}")
 
@@ -155,7 +163,8 @@ def common_allpairs_ell_plain(nbr: torch.Tensor, rows: torch.Tensor,
         j = nb[s:s + step]
         theirs = field[j.clamp(min=0).long()]                 # (b, C, C)
         theirs = torch.where((j >= 0)[:, :, None] & (theirs >= 0), theirs, -2)
-        match = own[s:s + step, None, :, None] == theirs[:, :, None, :]
+        # u's own rows only: the field may run past N (a mesh worker's halo)
+        match = own[s:s + j.shape[0], None, :, None] == theirs[:, :, None, :]
         out[s:s + step] = match.sum(dim=(1, 2, 3)).to(torch.int32)
     return out
 

@@ -23,15 +23,15 @@ for float sums, which agree to float32 rounding:
            it is every entry point's default and never picks "dense" (the
            JAX package's dense crossover was measured on a TPU only).
 
-  "ell_spmd" the mesh runtime (`runtime.spmd.SpmdExecutor`, one process
-           per worker on `torch.distributed`): each worker runs the ELL
-           kernels on its shard after a halo exchange.  Only
-           `hindex_blocks`, `frontier_blocks` and `coreness_blocks` take
-           it (with `executor=`, as in the JAX package); every other entry
-           point raises NotImplementedError for it, naming the step of
-           ROADMAP.md's Queue 1 item 6 still to come (step 3: the
-           programs and combines; step 4: maintenance, the stream and
-           restore).
+  "ell_spmd" the mesh runtime (`runtime.spmd`, one process per worker on
+           `torch.distributed`): each worker runs the ELL kernels on its
+           shard after a halo exchange.  `hindex_blocks`,
+           `frontier_blocks`, `coreness_blocks` and `run_block_program`
+           take it, with a long-lived `runtime.spmd.SpmdExecutor` as
+           `executor=` (one is built per call otherwise), as in the JAX
+           package; `neighbor_combine_blocks` refuses it with the JAX
+           package's ValueError (a mesh combine only exists inside a
+           program's superstep).  Never picked by "auto".
 
 `core.kcore`, `core.kcore_dynamic` and `core.algorithms` reach the
 primitives only through this layer.
@@ -84,10 +84,9 @@ from .ell_triangles import neighbor_common_ell
 from .frontier import frontier_step as frontier_step_dense
 from .kcore_hindex import hindex_counts, matmul_f32, row_chunks
 
-BACKENDS = ("torch", "ell", "dense")
+BACKENDS = ("torch", "ell", "dense", "ell_spmd")
 
-#: the mesh backend: `hindex_blocks`, `frontier_blocks` and
-#: `coreness_blocks` only (see the module docstring)
+#: the mesh backend (see the module docstring)
 SPMD_BACKEND = "ell_spmd"
 
 #: neighbor combines of the BlockProgram contract
@@ -114,28 +113,10 @@ def resolve_backend(backend: Optional[str], device: torch.device) -> str:
     """Resolve "auto" (or None) to a concrete backend for a device."""
     if backend in (None, "auto"):
         return "ell" if torch.device(device).type == "cuda" else "torch"
-    if backend == SPMD_BACKEND:
-        spmd_not_ported("this entry point", 3)
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
-                         f"{BACKENDS + ('auto', SPMD_BACKEND)}")
+                         f"{BACKENDS + ('auto',)}")
     return backend
-
-
-def spmd_not_ported(what: str, step: int) -> None:
-    """Raise NotImplementedError: `what` has no "ell_spmd" path in the port
-    yet; it comes with `step` of ROADMAP.md's Queue 1 item 6 (3: the mesh
-    programs and combines; 4: maintenance, the stream and restore)."""
-    raise NotImplementedError(
-        f"{what} has no {SPMD_BACKEND!r} path in the PyTorch port yet: the "
-        "mesh runtime runs hindex_blocks, frontier_blocks and "
-        f"coreness_blocks only; see ROADMAP.md (Queue 1 item 6, step {step})")
-
-
-def refuse_spmd(backend: Optional[str], what: str, step: int) -> None:
-    """`spmd_not_ported(what, step)` when `backend` is the mesh backend."""
-    if backend == SPMD_BACKEND:
-        spmd_not_ported(what, step)
 
 
 def column_bound(deg: torch.Tensor, Cd: int) -> int:
@@ -461,15 +442,20 @@ def neighbor_combine_blocks(
     values for "min"/"sum"/"hindex", (N, Cd) neighbor rows for
     "count_common".  K (optional) bounds the columns the "ell" path reads,
     and each row stops at its length `g.deg`.  Loops over the dense
-    backend densify once and pass `adj`.  "ell_spmd" raises
-    NotImplementedError: a mesh combine runs inside a program's superstep.
+    backend densify once and pass `adj`.  "ell_spmd" raises ValueError, as
+    in the JAX package: a mesh combine only exists downstream of a halo
+    exchange, inside a program's superstep (`run_block_program`).
     """
-    refuse_spmd(backend, "neighbor_combine_blocks", 3)
     b = resolve_backend(backend, g.device)
     if b == "torch":
         return _combine_torch(g.nbr, field, combine)
     if b == "ell":
         return _combine_ell(g.nbr, field, combine, K, g.deg)
+    if b == SPMD_BACKEND:
+        raise ValueError(
+            "neighbor_combine_blocks has no ell_spmd path: mesh combines "
+            "only exist inside a halo-exchange superstep — run the whole "
+            "program via run_block_program(backend='ell_spmd').")
     if adj is None:
         adj = ref.ell_to_dense(g.nbr, g.N)
     return _combine_dense(adj, field, combine, g.Cd)
@@ -560,7 +546,8 @@ def merge_index(mirror, N: int) -> MergeIndex:
 
 def _mirror_merge(red: torch.Tensor, field: torch.Tensor, nbr: torch.Tensor,
                   mirror, combine: str,
-                  index: Optional[MergeIndex] = None) -> torch.Tensor:
+                  index: Optional[MergeIndex] = None,
+                  all_reduce: Optional[Callable] = None) -> torch.Tensor:
     """Merge per-slice partial aggregates across each hub replica group.
 
     Entries of `red` at group rows are replaced by the LOGICAL aggregate
@@ -586,6 +573,14 @@ def _mirror_merge(red: torch.Tensor, field: torch.Tensor, nbr: torch.Tensor,
     `index` is the plan's `merge_index` (built here when None).  Only
     live group rows are written: the JAX package drops pad entries by
     scattering past the end, which `index_put` would refuse.
+
+    On a mesh worker (`runtime.spmd`) `red`, `field` and `nbr` are the
+    worker's shard, its exchanged field and its local-frame rows, `index`
+    holds the group rows resident in the shard (the table maps the others
+    to the fill slot ``red.shape[0]``), and ``all_reduce(table, op)``
+    (op "min" or "sum") merges each worker's partial table — the (Gmax,)
+    reductions or the histogram — with one collective, before every
+    worker writes the merged values back to its own group rows.
     """
     if index is None:
         index = merge_index(mirror, red.shape[0])
@@ -593,6 +588,8 @@ def _mirror_merge(red: torch.Tensor, field: torch.Tensor, nbr: torch.Tensor,
         fill = ref._fill(red.dtype) if combine == "min" else 0
         ext = torch.cat([red, red.new_full((1,), fill)])[index.table]
         out = ext.amin(dim=1) if combine == "min" else ext.sum(dim=1)
+        if all_reduce is not None:
+            out = all_reduce(out, combine)
     elif combine == "hindex":
         Km = int(mirror.Km)
         nb = nbr[index.rows].long()
@@ -601,6 +598,8 @@ def _mirror_merge(red: torch.Tensor, field: torch.Tensor, nbr: torch.Tensor,
         hist = torch.zeros(mirror.Gmax * (Km + 1), dtype=torch.int32,
                            device=red.device).scatter_add_(
             0, bins, torch.ones_like(bins, dtype=torch.int32))
+        if all_reduce is not None:
+            hist = all_reduce(hist, "sum")
         # at_most[:, b] = #{v <= b}, so cnt_t = total - at_most[:, t - 1]
         at_most = hist.view(mirror.Gmax, Km + 1).cumsum(1, dtype=torch.int32)
         t = torch.arange(1, Km + 1, device=red.device, dtype=torch.int32)
@@ -612,13 +611,15 @@ def _mirror_merge(red: torch.Tensor, field: torch.Tensor, nbr: torch.Tensor,
     return red.index_put((index.rows,), out[index.gid].to(red.dtype))
 
 
-def _mirror_merged(red, field, nbr, mirror, program, index: MergeIndex):
+def _mirror_merged(red, field, nbr, mirror, program, index: MergeIndex,
+                   all_reduce: Optional[Callable] = None):
     """Apply `_mirror_merge` per field of a (possibly multi-) program."""
     if program.combine == "multi":
         return tuple(
-            _mirror_merge(r, f, nbr, mirror, c, index)
+            _mirror_merge(r, f, nbr, mirror, c, index, all_reduce)
             for r, f, c in zip(red, field, program.combines))
-    return _mirror_merge(red, field, nbr, mirror, program.combine, index)
+    return _mirror_merge(red, field, nbr, mirror, program.combine, index,
+                         all_reduce)
 
 
 def _mirror_init_view(g, mirror):
@@ -641,7 +642,7 @@ def run_block_program(
     executor=None,
     mirror=None,  # core.hub_split.MirrorPlan for a hub-split graph
 ) -> Union[Any, Tuple[Any, int]]:
-    """Run a `BlockProgram` to its halt fixpoint on one device.
+    """Run a `BlockProgram` to its halt fixpoint.
 
     Each superstep is halo field -> backend combine -> block-local update
     -> halt verdict, with the sync policy of the module docstring: a
@@ -652,6 +653,16 @@ def run_block_program(
     state (same structure as `program.init`'s).  Returns the final state,
     plus the superstep count (a host int) when `with_steps=True`.  The
     "dense" backend densifies once per run.
+
+    "ell_spmd" runs the same program on the worker mesh
+    (`runtime.spmd.SpmdEngine.run_spmd` over a `SpmdBlockProgram`): the
+    halo field crosses workers by the executor's all-to-all, each worker
+    runs the program's combine through the ELL kernels on its shard and
+    its update, and the halt verdict is the all-gathered per-worker flag.
+    Pass a long-lived `executor` (a `runtime.spmd.SpmdExecutor` of `g`);
+    one is built for the call otherwise.  On the other backends
+    `executor` is not read, as in the JAX package.  The superstep count is
+    the engine's trace count.
 
     `mirror` (optional) declares `g` a hub-split graph (`core.hub_split`):
     init runs against the logical degree/mask view, the state replicates
@@ -664,12 +675,8 @@ def run_block_program(
     (bit for bit for the integer combines).
 
     The real-node count (or, under a mirror, the plan's group entries) is
-    read on the host once per run.  `executor=` and "ell_spmd" (a program
-    on the worker mesh) raise NotImplementedError.
+    read on the host once per run.
     """
-    refuse_spmd(backend, "run_block_program", 3)
-    if executor is not None:
-        spmd_not_ported("run_block_program's executor=", 3)
     b = resolve_backend(backend, g.device)
     multi = program.combine == "multi"
     if not multi and program.combine not in COMBINES:
@@ -680,18 +687,27 @@ def run_block_program(
         return run_common_mirror(g, mirror, program, backend=b,
                                  with_steps=with_steps, state0=state0)
     ms = int(program.max_steps if max_steps is None else max_steps)
-    index = None
-    if mirror is None:
-        ctx = BlockCtx(deg=g.deg.to(torch.int32), node_mask=g.node_mask,
-                       n_real=int(g.n_real))  # the run's one extra host read
-        state = program.init(g) if state0 is None else state0
-    else:
-        ctx = BlockCtx(deg=mirror.ldeg, node_mask=g.node_mask,
-                       n_real=int(mirror.n_logical))
-        state = (program.init(_mirror_init_view(g, mirror))
-                 if state0 is None else state0)
-        state = program.mirror_state(state, mirror.primary_row)
-        index = merge_index(mirror, g.N)
+    # the run's one extra host read: the (logical) real-node count
+    n_real = int(g.n_real) if mirror is None else int(mirror.n_logical)
+    if state0 is None:
+        state0 = program.init(g if mirror is None
+                              else _mirror_init_view(g, mirror))
+    if mirror is not None:
+        state0 = program.mirror_state(state0, mirror.primary_row)
+    if b == SPMD_BACKEND:
+        from ..runtime.spmd import (  # lazy: no import cycle
+            SpmdBlockProgram, SpmdEngine, SpmdExecutor)
+
+        ex = executor if executor is not None else SpmdExecutor(g)
+        eng = SpmdEngine(g, executor=ex)
+        state, _ = eng.run_spmd(
+            SpmdBlockProgram(program, n_real, mirror=mirror), state0, None,
+            max_supersteps=ms)
+        steps = len(eng.traces)
+        return (state, steps) if with_steps else state
+    deg = g.deg.to(torch.int32) if mirror is None else mirror.ldeg
+    ctx = BlockCtx(deg=deg, node_mask=g.node_mask, n_real=n_real)
+    index = None if mirror is None else merge_index(mirror, g.N)
     adj = dense_adj(g, b)
 
     def step(state):
@@ -712,5 +728,5 @@ def run_block_program(
         new = program.update(ctx, state, red)
         return new, program.changed(state, new)
 
-    state, steps = live_loop(step, state, ms, g.device)
+    state, steps = live_loop(step, state0, ms, g.device)
     return (state, steps) if with_steps else state

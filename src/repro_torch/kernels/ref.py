@@ -187,8 +187,9 @@ def ell_common_ref(nbr: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
         red[u] = sum over valid slots j of |rows[u] ∩ rows[nbr[u, j]]|
 
     counted as a multiset intersection (duplicate ids count as in the JAX
-    package's all-pairs match).  `rows` is the (N, Cr) row field (`nbr`
-    itself for whole-graph use).  Rows are keyed and sorted once; then,
+    package's all-pairs match).  `rows` is the (M, Cr) row field, M >= N
+    (`nbr` itself for whole-graph use; a mesh worker's shard followed by
+    its halo rows, which its local-frame `nbr` indexes).  Rows are keyed and sorted once; then,
     over chunks of rows, every element of u's row is located in each
     neighbor's sorted row by a lower and an upper `searchsorted`, whose
     difference is its count there.  Memory is O(chunk * C * Cr), never
@@ -202,11 +203,12 @@ def ell_common_ref(nbr: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     step = max(1, _COMMON_CHUNK // max(1, C * Cr))
     for s in range(0, N, step):
         nb = nbr[s:s + step]
+        e = s + nb.shape[0]  # u's own rows, never the field's rows past N
         v_rows = keyed[nb.clamp(min=0).long()]                  # (b, C, Cr)
-        own = keyed[s:s + step, None, :].expand_as(v_rows).contiguous()
+        own = keyed[s:e, None, :].expand_as(v_rows).contiguous()
         lo = torch.searchsorted(v_rows, own)
         hi = torch.searchsorted(v_rows, own, right=True)
-        occ = torch.where(own_ok[s:s + step, None, :], hi - lo, 0).sum(dim=2)
+        occ = torch.where(own_ok[s:e, None, :], hi - lo, 0).sum(dim=2)
         out[s:s + step] = torch.where(nb >= 0, occ, 0).sum(dim=1).to(
             torch.int32)
     return out

@@ -4,7 +4,7 @@ BLADYG's coordinator treats worker join/leave as first-class protocol
 (Aridhi et al. §4): when a worker disappears, its blocks are re-assigned
 across the survivors and processing resumes.  This module is that
 protocol over the elastic stream (`runtime.stream.StreamSession`) and
-its checkpoints (`checkpoint`), on one device:
+its checkpoints (`checkpoint`), on one device or on the worker mesh:
 
   * `WindowLog` — the coordinator's record of every mutation it fed the
     session since open (edit windows and vertex arrivals, in order).
@@ -33,9 +33,10 @@ every tensor operation on one and every conversion of one raises
 RuntimeError, and the last references to the tensors go, so the
 device's memory is freed.
 
-On one device only: restoring onto a worker mesh (`W > 1`), a session
-with a live `executor`, and `backend="ell_spmd"` raise
-NotImplementedError (ROADMAP.md, Queue 1 item 6, step 4).
+On the mesh (``backend="ell_spmd"``) the restore may target another
+worker count (`recover_worker(W=)`, W | P; every rank restores the same
+snapshot), and the coordinator reads the old fold `W_old` from the live
+session's executor, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -45,7 +46,6 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..core.graph import CapacityError
-from ..kernels.ops import refuse_spmd, spmd_not_ported
 from .halo import _pow2_ceil
 
 
@@ -203,8 +203,9 @@ def recover_worker(mgr, log: WindowLog, dead_worker: int,
     """The coordinator's failure drill, as a standalone function.
 
     1. restore the last committed snapshot from `mgr` on `device`
-       (default CUDA, see `device.resolve_device`) — torn
-       ``step_XXXX.tmp`` directories are never considered;
+       (default CUDA, see `device.resolve_device`), onto the surviving
+       mesh of `W` workers on "ell_spmd" (default: the process group's
+       size) — torn ``step_XXXX.tmp`` directories are never considered;
     2. evacuate the blocks worker `dead_worker` owned under the old
        `W_old`-worker fold (default: one block per worker, the paper's
        deployment) across the survivors;
@@ -212,17 +213,12 @@ def recover_worker(mgr, log: WindowLog, dead_worker: int,
 
     Returns ``(session, replayed)``.  Exactness: the snapshot is exact,
     `migrate_vertices` is a pure permutation, and replay runs the same
-    maintenance path on the same values.  `W > 1` and
-    `backend="ell_spmd"` (a restore onto the worker mesh) raise
-    NotImplementedError.
+    maintenance path on the same values.
     """
     from ..checkpoint import restore_session
 
-    refuse_spmd(backend, "recover_worker", 4)
-    if W is not None and int(W) > 1:
-        spmd_not_ported(f"recover_worker onto W={W} workers", 4)
     step, session, meta = restore_session(
-        mgr, step=step, backend=backend, device=device)
+        mgr, step=step, W=W, backend=backend, device=device)
     P = session.g.P
     W_old = P if W_old is None else int(W_old)
     evacuate_blocks(session, blocks_of_worker(int(dead_worker), P, W_old))
@@ -269,12 +265,11 @@ class ElasticCoordinator:
                        backend: Optional[str] = None):
         """Drop worker `dead_worker`'s shards (the live session is killed —
         see `kill_session`), restore on the live session's device,
-        evacuate, replay.  The recovered session replaces `self.session`
-        and is returned."""
+        evacuate, replay.  `W_old` defaults to the live session's
+        executor's worker count on the mesh.  The recovered session
+        replaces `self.session` and is returned."""
         if W_old is None and self.session.executor is not None:
-            spmd_not_ported(
-                "recovering a mesh session (W_old from its executor's "
-                f"W={self.session.executor.wm.W})", 4)
+            W_old = self.session.executor.wm.W
         device = self.session.g.device
         kill_session(self.session)
         session, _ = recover_worker(

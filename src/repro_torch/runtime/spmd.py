@@ -7,18 +7,23 @@ the halo plan (`runtime.halo`) staged on each worker's device:
   W2W   — `_exchange`: gather the send buffer ``x[send_idx[rank]]``,
           `dist.all_to_all_single`, scatter into the (H + 2, ...) halo
           buffer at ``recv_pos[rank]`` (the dump slot H and the PAD
-          sentinel H + 1 pinned at the fill value).  At W = 1 with no
-          process group the exchange is the identity copy a one-rank
-          all-to-all is.
+          sentinel H + 1 pinned at the fill value).  Any per-node field
+          crosses: (S,) vectors, (S, Cd) neighbor rows, bool as bytes,
+          and a tuple of fields as one exchange each with its own fill.
+          At W = 1 with no process group the exchange is the identity
+          copy a one-rank all-to-all is.
   W2M   — `_any_global`: an `all_reduce(MAX)` of an int32 flag on the
-          device, so every rank reads the same convergence verdict.
-  Local — the hand-written kernels on the shard: `ell_hindex` ("sort")
-          and `ell_frontier` read the field ``cat([x_local, halo_buf])``
-          of S + H + 2 rows through the shard's local-frame rows
-          (`HaloPlan.nbr_local` with the PAD sentinel mapped back to -1,
-          so the kernels' PAD rule and the sorted-ELL prefix hold), with
-          the shard's row lengths `deg` and K the pow2 bucket of the
-          shard's degree bound (`ops.column_bound`).
+          device, so every rank reads the same convergence verdict; a
+          program's per-worker summaries are all-gathered (`_gather`).
+  Local — the hand-written kernels on the shard: `ell_hindex` ("sort"),
+          `ell_frontier`, and a program's combine (`ell_cc`,
+          `ell_pagerank`, `ell_multi`, `ell_triangles`) read the field
+          ``cat([x_local, halo_buf])`` of S + H + 2 rows through the
+          shard's local-frame rows (`HaloPlan.nbr_local` with the PAD
+          sentinel mapped back to -1, so the kernels' PAD rule and the
+          sorted-ELL prefix hold), with the shard's row lengths `deg` and
+          K the pow2 bucket of the shard's degree bound
+          (`ops.column_bound`).
 
 `overlap=True` (the default) issues the all-to-all with ``async_op=True``
 and stages the local part of the field before ``wait()``;
@@ -30,36 +35,50 @@ after the wait, so what overlaps the collective is the staging copy.)
 Public methods take and return global (N,) / (N, R) tensors on every
 rank, as the JAX package's sharded arrays read; inside, each rank works
 on its (S,) shard.  The fixpoints (`coreness`, `k_reachable_batch`,
-`restricted_recompute`) keep their state sharded and all-gather once at
-the end.  They follow the port's sync policy (`kernels.ops.live_loop`):
-one host read of the all-reduced flag every `ops.SYNC_EVERY`
-supersteps, so all ranks stop together, and the superstep counts equal
-the JAX package's ``while_loop`` counts.
+`restricted_recompute`, `SpmdEngine.run_spmd`) keep their state sharded
+and all-gather once at the end.  They follow the port's sync policy
+(`kernels.ops.live_loop`): one host read of the all-reduced flag every
+`ops.SYNC_EVERY` supersteps, so all ranks stop together, and the
+superstep counts equal the JAX package's ``while_loop`` counts.
+
+`SpmdEngine.run_spmd` is the program-level executor (the mesh
+counterpart of `core.engine.BladygEngine.run`): it drives an
+`SpmdProgram`'s worker/master ops and records per-superstep
+`SuperstepTrace`s whose W2W numbers come from the executed halo plan
+(`HaloPlan.slot_counts`).  `SpmdBlockProgram` runs any
+`core.engine.BlockProgram` there (``backend="ell_spmd"`` of
+`ops.run_block_program`), hub mirroring included: the replica-group
+merge folds each worker's resident group rows into a partial table and
+merges the tables with one `all_reduce` per field (`ops._mirror_merge`).
 
 Bit-exactness: all math is int32/bool, so `coreness_spmd` equals
 `ops.coreness_blocks` on one device exactly for any worker count,
-including the blocks-per-worker fold and W = 1.
+including the blocks-per-worker fold and W = 1; so do the integer
+programs (CC, triangles, coreness, mirrored or not).  Float sums
+(PageRank) are allclose: the mirror merge adds per-worker partials.
 
-Not ported yet (ROADMAP.md, Queue 1 item 6): the program-level executor
-(`SpmdEngine`, `SpmdProgram`, `SpmdCorenessProgram`, `SpmdBlockProgram`)
-is step 3; the maintenance, stream and restore paths on the mesh are
-step 4.  The JAX package's `step_build_count` has no counterpart: eager
-PyTorch builds no compiled step functions.
+Left out on purpose: the JAX package's compiled-step cache
+(`SpmdEngine._step_cache`) and `step_build_count` — eager PyTorch
+compiles no step functions.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..core.engine import (
+    BladygEngine, MessageStats, Mode, SuperstepTrace, tree_map)
 from ..core.graph import PAD
 from ..kernels import ops
 from ..kernels.ell_frontier import frontier_step_ell
 from ..kernels.ell_hindex import hindex_ell
+from ..kernels.ops import BlockCtx  # noqa: F401 (the reference's name)
+from ..kernels.ref import combine_rows, hindex_rows  # noqa: F401 (ditto)
 from .halo import HaloPlan, build_halo_plan
-from .mesh import WorkerMesh, make_worker_mesh
+from .mesh import AXIS, WorkerMesh, make_worker_mesh  # noqa: F401
 
 
 class SpmdExecutor:
@@ -116,6 +135,9 @@ class SpmdExecutor:
             plan.recv_pos[wm.rank].reshape(-1).astype(np.int64)).to(dev)
         #: the kernels' column bound on this shard
         self._K = ops.column_bound(self.deg, g.Cd)
+        #: the column bound of every row of the graph: a row field (the
+        #: triangles' neighbor rows) holds other shards' rows in its halo
+        self.field_bound = ops.column_bound(g.deg, g.Cd)
 
     def apply_updates(self, g, edits) -> None:
         """Incrementally maintain the halo plan after edge `edits`.
@@ -177,12 +199,32 @@ class SpmdExecutor:
             dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.wm.group)
         return flag[0] > 0
 
-    def _exchange(self, x: torch.Tensor, fill: int) -> torch.Tensor:
+    def _all_reduce(self, x: torch.Tensor, op: str) -> torch.Tensor:
+        """Element-wise "min" or "sum" of `x` over the ranks, on every rank
+        (in place; the identity without a process group)."""
+        if self.wm.group is not None:
+            red = dist.ReduceOp.MIN if op == "min" else dist.ReduceOp.SUM
+            dist.all_reduce(x, op=red, group=self.wm.group)
+        return x
+
+    def _exchange_field(self, x: Any, fill: Any) -> Any:
+        """`_exchange` of a field or of a tuple of fields, one exchange per
+        field with its own fill (a `MultiProgram`'s)."""
+        if isinstance(x, (tuple, list)):
+            return tuple(self._exchange(f, fl) for f, fl in zip(x, fill))
+        return self._exchange(x, fill)
+
+    def _exchange(self, x: torch.Tensor, fill: Any) -> torch.Tensor:
         """W2W: this rank's field ``cat([x, halo_buf])``, (S + H + 2, ...).
 
         The halo buffer gets each sender's values at ``recv_pos[rank]``;
-        its dump slot H and PAD sentinel H + 1 hold `fill`.
+        its dump slot H and PAD sentinel H + 1 hold `fill`.  A bool field
+        crosses as bytes.
         """
+        if x.dtype == torch.bool:
+            return self._exchange(x.to(torch.uint8), int(bool(fill))).view(
+                torch.bool)
+        x = x.contiguous()
         S, H = self.wm.S, self.plan.H
         sendbuf = x[self._send]  # (W * K, ...): receiver r's K values at r
         recvbuf = torch.empty_like(sendbuf)
@@ -217,7 +259,7 @@ class SpmdExecutor:
                         vis: torch.Tensor) -> torch.Tensor:
         """One masked hop of this shard's rows after one W2W round (the
         frontier crosses as bytes): (S, R) bool."""
-        field = self._exchange(f.to(torch.uint8), 0).view(torch.bool)
+        field = self._exchange(f, False)
         return frontier_step_ell(self._rows, field, elig, vis, K=self._K,
                                  deg=self.deg)
 
@@ -291,6 +333,306 @@ class SpmdExecutor:
         move = self._shard(cand.to(torch.bool)) & self.node_mask
         return self._minh(self._shard(torch.as_tensor(est0).to(torch.int32)),
                           move, max_steps)
+
+
+# ---------------------------------------------------------------------------
+# Program-level executor: the mesh BladygEngine.
+# ---------------------------------------------------------------------------
+
+
+class LocalCtx(NamedTuple):
+    """Per-shard context handed to `SpmdProgram.worker_local`.
+
+    The JAX package's fields (deg, node_mask, B, Cn, Cd), plus what the
+    port's local step hands the kernels: the shard's local-frame rows
+    with PAD = -1, their column bound, the shard's first global row and
+    the executor (its collectives and `field_bound`).
+    """
+
+    deg: torch.Tensor        # (S,) int32 row lengths of the shard
+    node_mask: torch.Tensor  # (S,) bool
+    B: int                   # blocks on this worker (fold)
+    Cn: int                  # nodes per block
+    Cd: int
+    rows: Optional[torch.Tensor] = None  # (S, Cd) int32 local-frame rows
+    K: Optional[int] = None              # column bound of `rows`
+    base: int = 0                        # global id of the shard's row 0
+    ex: Any = None                       # the SpmdExecutor
+
+
+class SpmdProgram:
+    """A BLADYG program in per-shard form.
+
+    `worker_local` sees only this worker's rows plus its exchanged field
+    (the shard followed by the halo buffer, which the local-frame rows
+    `ctx.rows` index; the JAX package hands the gathered (S, Cd, ...)
+    neighbor values instead, the port's kernels gather themselves);
+    `master_compute` runs replicated on the all-gathered per-worker
+    summaries, exactly the paper's masterCompute.
+    """
+
+    #: value PAD / dump slots read as (must match the field dtype)
+    halo_fill = -1
+
+    #: True iff worker_local and master_compute keep the structure of the
+    #: master state and directive across supersteps: `SpmdEngine.run_spmd`
+    #: then runs the loop under `ops.live_loop` (one host read per
+    #: `ops.SYNC_EVERY` supersteps); others read `halt` every superstep.
+    fusable = False
+
+    def halo_field(self, wstate) -> torch.Tensor:
+        """The (S, ...) per-node tensor whose values neighbors read (W2W)."""
+        return wstate
+
+    def worker_local(self, ctx: LocalCtx, wstate, field, directive):
+        """(ctx, local state, exchanged (S + H + 2, ...) field, directive)
+        -> (local state', per-block summary with leading axis B)."""
+        raise NotImplementedError
+
+    def master_compute(self, mstate, summary):
+        """(master state, gathered (P, ...) summaries)
+        -> (master state', directive, halt)."""
+        raise NotImplementedError
+
+
+class SpmdCorenessProgram(SpmdProgram):
+    """min-H coreness as an SPMD program (`core.kcore.CorenessProgram`
+    routed through the mesh): the estimate vector is the exchanged field,
+    the per-block changed flags are the W2M summary (P per superstep), the
+    halt decision is the replicated M2W directive.  Each superstep runs
+    `ell_hindex` on the shard."""
+
+    halo_fill = -1
+    fusable = True
+
+    # stateless: any two instances are interchangeable
+    def __hash__(self):
+        return hash(type(self))
+
+    def __eq__(self, other):
+        return type(other) is type(self)
+
+    def worker_local(self, ctx, est, field, directive):
+        h = hindex_ell(ctx.rows, field, K=ctx.K, deg=ctx.deg)
+        new = torch.where(ctx.node_mask, torch.minimum(est, h), est)
+        changed = (new != est).view(ctx.B, ctx.Cn).any(dim=1)  # per block
+        return new, changed
+
+    def master_compute(self, mstate, summary):
+        return mstate, None, torch.logical_not(summary.any())
+
+
+def _shard_merge_index(index: ops.MergeIndex, lo: int,
+                       S: int) -> ops.MergeIndex:
+    """A plan's `ops.MergeIndex` restricted to the shard of rows
+    [lo, lo + S): its resident group rows in local ids, and the table with
+    every other entry sent to the fill slot S."""
+    mine = (index.rows >= lo) & (index.rows < lo + S)
+    local = (index.table >= lo) & (index.table < lo + S)
+    return ops.MergeIndex(index.rows[mine] - lo, index.gid[mine],
+                          torch.where(local, index.table - lo, S))
+
+
+class SpmdBlockProgram(SpmdProgram):
+    """Adapter: any `core.engine.BlockProgram` as an SPMD program.
+
+    This is the "ell_spmd" execution of the structured superstep
+    contract: the program's halo field is the exchanged W2W payload (a
+    `MultiProgram`'s fields one exchange each, with their own fills), its
+    combine runs through the ELL kernels on the shard's local-frame rows
+    over the exchanged field ("min" `ell_cc`, "sum" `ell_pagerank`,
+    "hindex" `ell_hindex`, "count_common" `ell_triangles`, "multi"
+    `ell_multi`) with the shard's row lengths, its update is per-shard
+    workerCompute, and its local changed verdict is the (1,) W2M summary
+    that the replicated master folds into the halt decision.
+
+    `mirror` (a `core.hub_split.MirrorPlan`) arms the vertex-cut
+    dataflow: the update ctx carries the worker's slice of the LOGICAL
+    degrees `mirror.ldeg`, every kernel the split graph's `deg`, and the
+    replica-group merge (`ops._mirror_merge` with the executor's
+    `all_reduce`) folds per-slice partials between combine and update.
+
+    Hash/eq delegate to the wrapped program, the real-node count and the
+    plan's uid, as in the JAX package.
+    """
+
+    fusable = True
+
+    def __init__(self, prog, n_real: int, mirror=None):
+        self.prog = prog
+        self.n_real = int(n_real)
+        self.halo_fill = prog.halo_fill
+        self.mirror = mirror
+        self.mirror_uid = None if mirror is None else mirror.uid
+        #: the shard's MergeIndex and logical degrees, made at first use
+        self._shard_mirror = None
+
+    def __hash__(self):
+        return hash((type(self), self.prog, self.n_real, self.mirror_uid))
+
+    def __eq__(self, other):
+        return (type(other) is type(self) and other.prog == self.prog
+                and other.n_real == self.n_real
+                and other.mirror_uid == self.mirror_uid)
+
+    def summary_shape(self) -> torch.Tensor:
+        """The W2M summary's shape and dtype, as a "meta" tensor: the
+        per-worker changed flag, (1,) bool (what the JAX package meters on
+        its fused loop)."""
+        return torch.empty((1,), dtype=torch.bool, device="meta")
+
+    def halo_field(self, wstate):
+        return self.prog.halo_field(wstate)
+
+    def worker_local(self, ctx: LocalCtx, state, field, directive):
+        prog = self.prog
+        if prog.combine == "multi":
+            red = ops.neighbor_multi_ell(ctx.rows, field, prog.combines,
+                                         K=ctx.K, deg=ctx.deg)
+        else:
+            # a row field holds other shards' rows: bound by every row's
+            K = ctx.ex.field_bound if prog.combine == "count_common" \
+                else ctx.K
+            red = ops._combine_ell(ctx.rows, field, prog.combine, K,
+                                   ctx.deg)
+        deg = ctx.deg
+        if self.mirror is not None:
+            if self._shard_mirror is None:
+                S, lo, m = ctx.deg.shape[0], ctx.base, self.mirror
+                self._shard_mirror = (
+                    _shard_merge_index(
+                        ops.merge_index(m, m.primary_row.shape[0]), lo, S),
+                    m.ldeg[lo:lo + S].to(ctx.deg.device, torch.int32))
+            index, deg = self._shard_mirror
+            red = ops._mirror_merged(red, field, ctx.rows, self.mirror, prog,
+                                     index, all_reduce=ctx.ex._all_reduce)
+        bctx = BlockCtx(deg=deg, node_mask=ctx.node_mask, n_real=self.n_real)
+        new = prog.update(bctx, state, red)
+        return new, prog.changed(state, new).reshape(1)  # per-worker W2M
+
+    def master_compute(self, mstate, summary):
+        return mstate, None, torch.logical_not(summary.any())
+
+
+class SpmdEngine:
+    """Superstep scheduler over the worker mesh (cf. `BladygEngine`).
+
+    Differences from the single-device engine: workerCompute runs on each
+    worker's shard after a real halo exchange, and the recorded
+    per-superstep W2W counts come from the executed `HaloPlan`
+    (`plan.slot_counts()`), not from declared shapes.  States go in and
+    come out global on every rank.
+    """
+
+    def __init__(self, g, W: Optional[int] = None,
+                 executor: Optional[SpmdExecutor] = None):
+        self.g = g
+        self.ex = executor if executor is not None else SpmdExecutor(g, W=W)
+        self.traces = []
+
+    def _ctx(self) -> LocalCtx:
+        ex, wm = self.ex, self.ex.wm
+        return LocalCtx(deg=ex.deg, node_mask=ex.node_mask, B=wm.B,
+                        Cn=wm.Cn, Cd=ex._rows.shape[1], rows=ex._rows,
+                        K=ex._K, base=wm.rank * wm.S, ex=ex)
+
+    def _summary_shape(self, program: SpmdProgram, summary):
+        """The gathered W2M summary at coordinator granularity (leading
+        axis W x the per-worker one), as "meta" tensors, for the fused
+        loop's traces; a program may declare it (`summary_shape`)."""
+        hint = getattr(program, "summary_shape", None)
+        if hint is not None:
+            return hint()
+        W = self.ex.wm.W
+        return tree_map(lambda x: torch.empty(
+            (W * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
+            device="meta"), summary)
+
+    def run_spmd(
+        self,
+        program: SpmdProgram,
+        wstate: Any,
+        mstate: Any,
+        directive: Any = None,
+        max_supersteps: int = 10_000,
+        fuse: Optional[bool] = None,
+    ) -> Tuple[Any, Any]:
+        """Execute the program; worker steps run on the shards.
+
+        `wstate` is the global state (tensors or tuples of tensors, N
+        leading) on every rank; the returned one too.  `fuse=None`
+        follows `program.fusable`: fusable programs run under
+        `ops.live_loop` (each superstep all-gathers the summaries and
+        runs masterCompute on every rank; the host reads the halt flag
+        once per `ops.SYNC_EVERY` supersteps), the rest read `halt` every
+        superstep.  Either way the trace's W2W numbers are the executed
+        halo plan's slot counts, and the fused loop's traces meter the
+        initial directive and the declared summary shape, as the JAX
+        package's do.
+        """
+        ex = self.ex
+        w2w = ex.plan.slot_counts()
+        modes = getattr(program, "modes",
+                        Mode.LOCAL | Mode.M2W | Mode.W2M | Mode.W2W)
+        # collective phases the compute waited on per superstep
+        ser = 0 if ex.overlap else 1
+        if fuse is None:
+            fuse = getattr(program, "fusable", False)
+        ctx = self._ctx()
+        dev = ex.wm.device
+        local = tree_map(ex._shard, wstate)
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+
+        def superstep(w, d):
+            field = ex._exchange_field(program.halo_field(w),
+                                       program.halo_fill)
+            return program.worker_local(ctx, w, field, d)
+
+        if fuse:
+            first = []
+
+            def step(s):
+                w, m, d = s
+                w2, summary = superstep(w, d)
+                if not first:
+                    first.append(summary)
+                m2, d2, halt = program.master_compute(
+                    m, tree_map(ex._gather, summary))
+                if d2 is None:  # keep carrying the placeholder
+                    d2 = d
+                return (w2, m2, d2), ~torch.as_tensor(halt, device=dev)
+
+            d0 = directive if directive is not None else zero
+            (local, mstate, _), n = ops.live_loop(
+                step, (local, mstate, d0), max_supersteps, dev)
+            if n:
+                stats = BladygEngine._meter(
+                    self._summary_shape(program, first[0]), directive, w2w)
+                self.traces.extend(
+                    SuperstepTrace(s, modes, stats,
+                                   serialized_collectives=ser)
+                    for s in range(n))
+            return tree_map(ex._gather, local), mstate
+
+        it = 0
+        while it < max_supersteps:
+            local, summary = superstep(
+                local, directive if directive is not None else zero)
+            summary = tree_map(ex._gather, summary)
+            mstate, directive, halt = program.master_compute(mstate, summary)
+            self.traces.append(SuperstepTrace(
+                it, modes, BladygEngine._meter(summary, directive, w2w),
+                serialized_collectives=ser))
+            it += 1
+            if bool(halt):
+                break
+        return tree_map(ex._gather, local), mstate
+
+    def message_totals(self) -> MessageStats:
+        tot = MessageStats()
+        for t in self.traces:
+            tot = tot + t.stats
+        return tot
 
 
 # ---------------------------------------------------------------------------

@@ -53,10 +53,17 @@ ingest (`_cur`).
 `StreamResult`, a NamedTuple as in the reference: read its named fields;
 unpacking it yields the reference's legacy arity behind its
 DeprecationWarning.  `MirrorStream` is the sibling session over a
-hub-split graph (`core.hub_split`).  Not ported yet: the stream on the
-worker mesh (`W=`, `executor=` and `backend="ell_spmd"` raise
-NotImplementedError; ROADMAP.md, Queue 1 item 6, step 4 — the mesh
-runtime's executor itself is `runtime.spmd`).
+hub-split graph (`core.hub_split`).
+
+With ``backend="ell_spmd"`` the stream runs on the worker mesh
+(`runtime.spmd`): every superstep of every window (the batched candidate
+search, the joint recompute, the coordinator path, CC recomputes) goes
+through ONE long-lived `SpmdExecutor` (`executor=`, or one of `W`
+workers built at open), whose halo plan is maintained incrementally per
+window (`apply_updates`), rebuilt after a migration (`rebuild`), refit
+after a grow (`grow`) and re-staged after a vertex arrival
+(`refresh_fields`); `StreamStats.plan_updates` / `plan_rebuilds` count
+them.  Every rank of the mesh runs the same session on the same windows.
 """
 from __future__ import annotations
 
@@ -79,8 +86,7 @@ from ..core.graph import (
 )
 from ..core.updates import validate_updates
 from ..device import DeviceLike, resolve_device
-from ..kernels.ops import (  # noqa: F401 (SPMD_BACKEND: re-export)
-    SPMD_BACKEND, refuse_spmd, spmd_not_ported)
+from ..kernels.ops import SPMD_BACKEND
 from .halo import _pow2_ceil
 
 
@@ -96,9 +102,8 @@ class StreamStats(NamedTuple):
     bfs_steps: int               # frontier supersteps (all paths)
     recompute_steps: int         # clamped min-H supersteps (all paths)
     per_block: Tuple[int, ...]   # block-local updates applied per block
-    plan_updates: int = 0        # incremental halo-plan maintenances (mesh
-                                 # runtime; 0 until it is ported)
-    plan_rebuilds: int = 0       # full halo-plan rebuilds (mesh runtime)
+    plan_updates: int = 0        # incremental halo-plan maintenances (mesh)
+    plan_rebuilds: int = 0       # full halo-plan rebuilds (mesh)
     migrations: int = 0          # §4.2 rebalance rounds executed
     migrated_vertices: int = 0   # vertices moved across blocks in total
     cc_merges: int = 0           # CC labels maintained by O(1) label merges
@@ -215,15 +220,6 @@ def _route_window(cand: torch.Tensor, us: torch.Tensor, vs: torch.Tensor,
                       cand_ins, cand_del, per_block)
 
 
-def _mesh_not_ported(what: str, W=None, executor=None,
-                     backend: Optional[str] = None) -> None:
-    """The mesh stream's arguments: accepted, and refused unless None (and
-    the backend not "ell_spmd")."""
-    refuse_spmd(backend, what, 4)
-    if W is not None or executor is not None:
-        spmd_not_ported(f"{what}'s W= and executor=", 4)
-
-
 def _iter_windows(updates, R: int) -> Iterator[list]:
     it = iter(updates)
     while True:
@@ -250,10 +246,12 @@ class StreamSession:
     `rebalance_threshold` arms the §4.2 protocol after every window (None
     disables it), moving at most `rebalance_max_moves` vertices a round.
     `auto_grow` grows the capacities instead of raising `CapacityError`.
-    `W` and `executor` belong to the stream on the worker mesh, which is
-    not ported: anything but None, or ``backend="ell_spmd"``, raises
-    NotImplementedError.  `.executor` is therefore always None (the
-    service and `runtime.recovery` read it, as in the JAX package).
+    ``backend="ell_spmd"`` runs the session on the worker mesh through
+    `.executor`: `executor` (a `runtime.spmd.SpmdExecutor` of `g`), or
+    one of `W` workers built here; `executor` with any other backend
+    raises ValueError, as in the JAX package (its plan would go stale).
+    `.executor` is None on one device (the service and
+    `runtime.recovery` read it).
 
     The graph passed at open is updated IN PLACE until a migration or a
     grow replaces it with a new one; read `.g` back.
@@ -267,11 +265,20 @@ class StreamSession:
                  auto_grow: bool = False):
         if R < 1:
             raise ValueError(f"R must be >= 1, got {R}")
-        _mesh_not_ported("StreamSession", W, executor, backend)
+        spmd = backend == SPMD_BACKEND
+        if executor is not None and not spmd:
+            raise ValueError(
+                f"executor= requires backend={SPMD_BACKEND!r} (got "
+                f"{backend!r}); a non-mesh stream would leave the "
+                "executor's halo plan stale.")
         self.R = int(R)
         self.backend = backend
-        #: the mesh executor slot: always None on one device
-        self.executor = None
+        self._W = W
+        #: the mesh executor (None on one device)
+        self.executor = kd._spmd_executor(g, W, executor) if spmd else None
+        # the executor's counters at open: the stats count from here
+        self._ex_updates0 = self.executor.plan_updates if spmd else 0
+        self._ex_rebuilds0 = self.executor.full_rebuilds if spmd else 0
         self.g = g
         self.core = torch.as_tensor(core, device=g.device)
         self._tot = dict(bfs=0, rec=0, cand=0, batched=0, seq=0, batches=0)
@@ -325,6 +332,7 @@ class StreamSession:
                 window = [(int(rekey[u]), int(rekey[v]), op)
                           for u, v, op in window]
         g, core, tot, backend = self.g, self.core, self._tot, self.backend
+        W, ex = self._W, self.executor
         tot["batches"] += 1
         R, n = self.R, len(window)
         self._n_updates += n
@@ -341,7 +349,7 @@ class StreamSession:
         us_d, vs_d, ops_d, valid_d = (torch.as_tensor(a, device=dev)
                                       for a in (us, vs, ops_, valid))
         cand, steps = kd._batch_candidates(g, core, us_d, vs_d, valid_d,
-                                           backend=backend)
+                                           backend=backend, executor=ex)
         route = _route_window(cand, us_d, vs_d, ops_d, valid_d, Cn=g.Cn)
         # ONE transfer per window pulls the compact verdict
         verdict = torch.cat([
@@ -361,14 +369,15 @@ class StreamSession:
             acc = np.flatnonzero(accept)
             g, core, rec = kd._apply_and_recompute(
                 g, core, us[acc], vs[acc], ops_[acc], route.cand_ins,
-                route.cand_del, backend=backend)
+                route.cand_del, backend=backend, W=W, ex=ex)
             tot["rec"] += rec
             self._n_local += len(acc)
             self._per_block += nblk.astype(np.int64)
 
         # coordinator path, original stream order within the window
         for r in np.flatnonzero(cross | spl | conf):
-            g, core = kd._maintain_one(g, core, window[r], tot, backend)
+            g, core = kd._maintain_one(g, core, window[r], tot, backend,
+                                       W=W, ex=ex)
 
         # §4.2 repartition-threshold protocol, live: per-block load
         # summaries -> threshold + move selection -> a node migration
@@ -384,6 +393,8 @@ class StreamSession:
                 self._migrations += 1
                 self._migrated += len(moves)
                 migrated_now = True
+                if ex is not None:
+                    ex.rebuild(g)
 
         # CC labels on the post-window graph: inserts only ever JOIN
         # components, so an insert-only window is an on-device label merge;
@@ -392,7 +403,8 @@ class StreamSession:
         if self.labels is not None:
             ins = valid & (ops_ > 0)
             if (valid & (ops_ < 0)).any() or migrated_now:
-                self.labels = connected_components(g, backend=backend)
+                self.labels = connected_components(g, backend=backend,
+                                                   executor=ex)
                 self._cc_recomputes += 1
             elif ins.any():
                 self.labels = merge_labels(
@@ -437,8 +449,9 @@ class StreamSession:
         blocks to (Cn, Cd) (`core.graph.grow_blocks`), relocating the
         maintained coreness and CC labels along (label *values* are padded
         ids, so they ride the same monotone rekey and stay canonical), and
-        folding the rekey into the open-time id map.  Returns the rekey
-        map (host int64)."""
+        folding the rekey into the open-time id map; on the mesh the
+        executor refits to the grown graph (`SpmdExecutor.grow`).  Returns
+        the rekey map (host int64)."""
         g2, rekey = grow_blocks(self.g, Cn, Cd)
         dev = g2.device
         core = relocate_rows(self.core.cpu().numpy(), rekey, g2.N, 0)
@@ -449,6 +462,8 @@ class StreamSession:
             self.labels = torch.from_numpy(lab.astype(np.int32)).to(dev)
         self._compose_perm(rekey)
         self.g = g2
+        if self.executor is not None:
+            self.executor.grow(g2)
         self._grows += 1
         return rekey
 
@@ -469,6 +484,8 @@ class StreamSession:
                     raise
                 self.grow(Cn=_pow2_ceil(self.g.Cn + 1))
         self.g = g2
+        if self.executor is not None:
+            self.executor.refresh_fields(g2)
         if self.labels is not None:
             # a fresh isolated vertex is its own component (canonical
             # label == own padded id); coreness 0 already holds
@@ -481,15 +498,19 @@ class StreamSession:
     def migrate(self, moves) -> np.ndarray:
         """Execute an explicit vertex migration (caller-chosen moves).
         Same machinery as the §4.2 rebalance: a node-axis permutation
-        composed into the id map, and one CC re-propagation when labels
-        are kept.  Returns the permutation (host int64)."""
+        composed into the id map, a plan rebuild on the mesh, and one CC
+        re-propagation when labels are kept.  Returns the permutation
+        (host int64)."""
         g, perm, core = migrate_vertices(self.g, moves, self.core)
         self.g, self.core = g, core
         self._compose_perm(perm)
         self._migrations += 1
         self._migrated += len(moves)
+        if self.executor is not None:
+            self.executor.rebuild(g)
         if self.labels is not None:
-            self.labels = connected_components(g, backend=self.backend)
+            self.labels = connected_components(g, backend=self.backend,
+                                               executor=self.executor)
             self._cc_recomputes += 1
         return perm
 
@@ -506,6 +527,7 @@ class StreamSession:
         zero and the count rides in ``meta["tot"]``.  ``remap`` is int32
         on disk, as the JAX package writes it."""
         g = self.g
+        plan_updates, plan_rebuilds = self._plan_counts()
         arrays = {
             "core": self.core.clone(),
             "g.deg": g.deg.clone(),
@@ -542,12 +564,21 @@ class StreamSession:
                 "cc_merges": self._cc_merges,
                 "cc_recomputes": self._cc_recomputes,
                 "grows": self._grows,
-                "plan_updates": 0,
-                "plan_rebuilds": 0,
+                "plan_updates": plan_updates,
+                "plan_rebuilds": plan_rebuilds,
                 "per_block": [int(x) for x in self._per_block],
             },
         }
         return arrays, meta
+
+    def _plan_counts(self) -> Tuple[int, int]:
+        """(plan updates, full plan rebuilds) of the executor since open
+        (both 0 on one device)."""
+        if self.executor is None:
+            return 0, 0
+        ex = self.executor
+        return (ex.plan_updates - self._ex_updates0,
+                ex.full_rebuilds - self._ex_rebuilds0)
 
     @classmethod
     def from_state(cls, arrays, meta, W=None, backend: Optional[str] = None,
@@ -557,12 +588,12 @@ class StreamSession:
         the JAX package's (arrays may be tensors or numpy arrays).  The
         session gets copies on `device` (default CUDA, see
         `device.resolve_device`), never the snapshot's storage.
-        `backend` overrides the snapshot's; `W`/`executor` raise
-        NotImplementedError unless None, as does "ell_spmd" (the stream on
-        the worker mesh is not ported).  A snapshot's ``rec_dev`` is added
-        to the recompute count."""
-        _mesh_not_ported("StreamSession.from_state", W, executor,
-                         meta["backend"] if backend is None else backend)
+        `backend` overrides the snapshot's, and `W`/`executor` give the
+        mesh to restore onto (the remesh path: the arrays are global, so
+        any W with W | P adopts them; every rank restores the same
+        snapshot and stages its shard).  A snapshot's ``rec_dev`` is added
+        to the recompute count, and the plan counters carry on from the
+        snapshot's."""
         dev = resolve_device(device)
 
         def tensor(key, dtype):
@@ -580,6 +611,7 @@ class StreamSession:
         sess = cls(
             g, tensor("core", torch.int32), R=int(meta["R"]),
             backend=meta["backend"] if backend is None else backend,
+            W=W, executor=executor,
             rebalance_threshold=meta["rebalance_threshold"],
             rebalance_max_moves=int(meta["rebalance_max_moves"]),
             cc_labels=(tensor("labels", torch.int32)
@@ -603,12 +635,20 @@ class StreamSession:
         sess._cc_recomputes = int(c["cc_recomputes"])
         sess._grows = int(c["grows"])
         sess._per_block = np.asarray(c["per_block"], np.int64)
+        if sess.executor is not None:
+            # re-base the executor offsets: the counts go on from the
+            # snapshot's totals
+            sess._ex_updates0 = (sess.executor.plan_updates
+                                 - int(c["plan_updates"]))
+            sess._ex_rebuilds0 = (sess.executor.full_rebuilds
+                                  - int(c["plan_rebuilds"]))
         return sess
 
     def stats(self) -> StreamStats:
         """Routing/superstep accounting over every window applied so far.
-        `plan_updates` and `plan_rebuilds` count the mesh runtime's halo
-        plans: 0 until it is ported."""
+        `plan_updates` and `plan_rebuilds` count the executor's halo-plan
+        maintenance on the mesh (0 on one device)."""
+        plan_updates, plan_rebuilds = self._plan_counts()
         return StreamStats(
             updates=self._n_updates,
             batches=self._tot["batches"],
@@ -619,6 +659,8 @@ class StreamSession:
             bfs_steps=self._tot["bfs"],
             recompute_steps=self._tot["rec"],
             per_block=tuple(int(x) for x in self._per_block),
+            plan_updates=plan_updates,
+            plan_rebuilds=plan_rebuilds,
             migrations=self._migrations,
             migrated_vertices=self._migrated,
             cc_merges=self._cc_merges,
@@ -663,13 +705,14 @@ def run_stream(
     coreness equals sequential per-update maintenance — under live
     rebalancing up to the node-axis permutation, i.e. equal when read
     through `orig_id`.  `g` is updated in place until a migration or grow
-    replaces it; use the returned graph.
+    replaces it; use the returned graph.  With ``backend="ell_spmd"``
+    every superstep runs on the worker mesh through ONE long-lived
+    executor (`executor`, to thread one across calls, or one of `W`
+    workers) whose halo plan is maintained incrementally per window.
 
     `rebalance_threshold` (e.g. 1.2) arms the §4.2 protocol after every
     window, moving at most `rebalance_max_moves` vertices a round; None
     disables it.  `auto_grow` grows Cd when a window overflows it.
-    `W`/`executor` raise NotImplementedError unless None, as does
-    ``backend="ell_spmd"``.
 
     `cc_labels` (optional): the canonical CC labels of the pre-stream
     graph (as `core.algorithms.connected_components` returns them).  The
@@ -678,7 +721,6 @@ def run_stream(
     `cc_recomputes` count the merge and recompute paths.  Without it,
     `result.labels` is None.
     """
-    _mesh_not_ported("run_stream", W, executor, backend)
     session = StreamSession(
         g, core, R=R, backend=backend, W=W, executor=executor,
         rebalance_threshold=rebalance_threshold,
@@ -700,8 +742,10 @@ class MirrorStream:
     inserts, on-line splits, mirrored deletes), then the analytics are
     recomputed mirror-aware — `kcore.coreness(..., mirror=plan)` and, with
     `cc_labels`, `connected_components(..., mirror=plan)` — which is exact
-    by the split == unsplit parity.  (A candidate-bounded mirrored
-    maintenance pass is future work in the JAX package too.)
+    by the split == unsplit parity; on ``backend="ell_spmd"`` each
+    recompute runs on the worker mesh with an executor built for it, as
+    in the JAX package (`.executor` stays None).  (A candidate-bounded
+    mirrored maintenance pass is future work in the JAX package too.)
 
     `auto_grow` grows Cn when the replica pool runs dry mid-window: the
     edit path works on copies, so the failed attempt leaves nothing half
@@ -716,7 +760,6 @@ class MirrorStream:
 
     def __init__(self, g: GraphBlocks, plan, backend: str = "auto",
                  cc_labels: bool = False, auto_grow: bool = False):
-        refuse_spmd(backend, "MirrorStream", 3)
         self.g = g
         self.mirror = plan
         self.backend = backend

@@ -41,7 +41,6 @@ import numpy as np
 import torch
 
 from ..core.algorithms import fused_analytics
-from ..kernels.ops import refuse_spmd, spmd_not_ported
 
 
 class EpochSnapshot(NamedTuple):
@@ -92,14 +91,11 @@ class AnalyticsState:
     `cc_labels=connected_components(g)`): label maintenance is what lets
     the refresh warm-start at the fixpoint instead of budgeting its own
     convergence supersteps.  The refresh runs on the session's graph's
-    device with the session's backend; a session on the worker mesh
-    ("ell_spmd", or an `executor`) raises NotImplementedError.
+    device with the session's backend; over a session on the worker mesh
+    it runs through the session's executor (``backend="ell_spmd"``).
     """
 
     def __init__(self, session, alpha: float = 0.85, pr_steps: int = 30):
-        refuse_spmd(session.backend, "the query service", 4)
-        if session.executor is not None:
-            spmd_not_ported("the query service over a mesh session", 4)
         if session.labels is None:
             raise ValueError(
                 "AnalyticsState needs a label-tracking session: open "
@@ -138,7 +134,8 @@ class AnalyticsState:
         mirror = sess.mirror
         core, labels, rank = fused_analytics(
             g, alpha=self.alpha, steps=self.pr_steps, backend=sess.backend,
-            init=(sess.core, sess.labels), mirror=mirror)
+            executor=sess.executor, init=(sess.core, sess.labels),
+            mirror=mirror)
         if mirror is None:
             deg, primary, nbr_max = g.deg, None, None
         else:

@@ -2,12 +2,14 @@
 runtime (`repro_torch.runtime.spmd` under `torch.distributed`'s gloo
 backend, on the CPU).
 
-`spawn_mesh(W, case, out_dir)` starts W processes
+`spawn_mesh(W, case, out_dir, body)` starts W processes
 (`torch.multiprocessing.spawn`), each joining a gloo group of W ranks on
 a free localhost port with a 60 s collective timeout, and waits for them
 with a time limit: a rank that fails or hangs ends the test instead of
-hanging the suite.  Each rank runs `run_case` on the graph and inputs in
-`case` (a dict of numpy arrays) and writes its results to
+hanging the suite.  Each rank runs `body` (the name of a function here:
+`run_case`, the executor's primitives, or `run_programs`, the programs
+and the mesh paths of maintenance, the stream and restore) on the graph
+and inputs in `case` (a dict of numpy arrays) and writes its results to
 ``out_dir/rank{r}.npz``; `spawn_mesh` returns them, one dict per rank.
 
 This module imports only torch, numpy and the port, so a rank starts in
@@ -75,7 +77,106 @@ def run_case(case: dict) -> dict:
     return out
 
 
-def _rank(rank: int, W: int, port: int, case_path: str, out_dir: str):
+def stats_array(stats) -> np.ndarray:
+    """A `StreamStats` / `BatchMaintenanceStats` as one int64 vector (the
+    per-block tuple flattened in place)."""
+    out = []
+    for f in stats:
+        out.extend(f if isinstance(f, tuple) else (f,))
+    return np.asarray(out, np.int64)
+
+
+def run_programs(case: dict) -> dict:
+    """The mesh programs and the mesh paths of maintenance, the stream and
+    restore, on `case`'s graph, through this rank's process group (or
+    alone at W = 1): CC, PageRank (with a tolerance and 30 fixed
+    supersteps), triangles and `fused_analytics` through one executor,
+    `coreness_via_spmd` with its traces, mirrored coreness, CC, PageRank
+    and triangles on the graph split at `case["threshold"]`,
+    `maintain_batch`, and a windowed `StreamSession` whose snapshot after
+    `case["restore_at"]` windows is restored and streamed on."""
+    from repro_torch.checkpoint import (
+        CheckpointManager, restore_session, save_session)
+    from repro_torch.core import (
+        connected_components, coreness, coreness_via_spmd, fused_analytics,
+        maintain_batch, pagerank, split_hubs, triangle_counts)
+    from repro_torch.core.graph import GraphBlocks
+    from repro_torch.runtime.spmd import SpmdExecutor
+    from repro_torch.runtime.stream import StreamSession
+
+    import torch.distributed as dist
+
+    sp = "ell_spmd"
+    g = GraphBlocks.from_numpy(case, int(case["P"]), int(case["Cn"]),
+                               int(case["Cd"]), device="cpu")
+    core0 = torch.from_numpy(np.array(case["core"]))
+    ups = [tuple(int(x) for x in e) for e in case["ups"]]
+    out = {}
+    ex = SpmdExecutor(g)
+    out["W"] = np.asarray(ex.wm.W)
+    for name, (val, steps) in {
+            "cc": connected_components(g, backend=sp, executor=ex,
+                                       with_steps=True),
+            "pr": pagerank(g, backend=sp, executor=ex, with_steps=True),
+            "pr30": pagerank(g, tol=None, max_steps=30, backend=sp,
+                             executor=ex, with_steps=True),
+            "tri": triangle_counts(g, backend=sp, executor=ex,
+                                   with_steps=True)}.items():
+        out[name], out[name + "_steps"] = val.numpy(), np.asarray(steps)
+    (fc, fl, fr), n = fused_analytics(g, steps=int(case["pr_steps"]),
+                                      backend=sp, executor=ex,
+                                      with_steps=True)
+    out.update(fused_core=fc.numpy(), fused_labels=fl.numpy(),
+               fused_rank=fr.numpy(), fused_steps=np.asarray(n))
+    out["plan_builds"] = np.asarray(ex.plan_updates + ex.full_rebuilds)
+    core, eng = coreness_via_spmd(g)
+    out["via_spmd"] = core.numpy()
+    out["via_spmd_traces"] = np.asarray(len(eng.traces))
+    out["via_spmd_totals"] = np.asarray(tuple(eng.message_totals()))
+
+    gs = GraphBlocks.from_numpy({k[2:]: case[k] for k in case
+                                 if k.startswith("s_")},
+                                int(case["P"]), int(case["s_Cn"]),
+                                int(case["s_Cd"]), device="cpu")
+    g2, plan = split_hubs(gs, int(case["threshold"]))
+    ex2 = SpmdExecutor(g2)
+    out["m_core"] = coreness(g2, backend=sp, executor=ex2,
+                             mirror=plan).numpy()
+    out["m_cc"] = connected_components(g2, backend=sp, executor=ex2,
+                                       mirror=plan).numpy()
+    out["m_pr"] = pagerank(g2, tol=None, max_steps=int(case["pr_steps"]),
+                           backend=sp, executor=ex2, mirror=plan).numpy()
+    out["m_tri"] = triangle_counts(g2, backend=sp, mirror=plan).numpy()
+
+    g3, core3, st = maintain_batch(g.clone(), core0.clone(), ups, R=4,
+                                   backend=sp)
+    out.update(mb_core=core3.numpy(), mb_nbr=g3.nbr.numpy(),
+               mb_stats=stats_array(st))
+
+    labels0 = torch.from_numpy(np.array(case["labels"]))
+    ws = [ups[i:i + 4] for i in range(0, len(ups), 4)]
+    sess = StreamSession(g.clone(), core0.clone(), R=4, backend=sp,
+                         cc_labels=labels0.clone())
+    at = int(case["restore_at"])
+    for w in ws[:at]:
+        sess.apply_window(w)
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    mgr = CheckpointManager(str(Path(case["out_dir"].item())
+                                / f"ckpt_rank{rank}"))
+    save_session(mgr, sess)
+    _, back, _ = restore_session(mgr, backend=sp, device="cpu")
+    for w in ws[at:]:
+        back.apply_window(w)
+        sess.apply_window(w)
+    for p, s in (("st_", sess), ("rs_", back)):
+        out.update({p + "core": s.core.numpy(), p + "labels": s.labels.numpy(),
+                    p + "nbr": s.g.nbr.numpy(),
+                    p + "stats": stats_array(s.stats())})
+    return out
+
+
+def _rank(rank: int, W: int, port: int, case_path: str, out_dir: str,
+          body: str = "run_case"):
     import torch.distributed as dist
 
     torch.set_num_threads(1)
@@ -85,24 +186,24 @@ def _rank(rank: int, W: int, port: int, case_path: str, out_dir: str):
     try:
         with np.load(case_path) as z:
             case = dict(z)
-        out = run_case(case)
+        out = globals()[body](case)
         np.savez(Path(out_dir) / f"rank{rank}.npz", **out)
     finally:
         dist.destroy_process_group()
 
 
 def spawn_mesh(W: int, case: dict, out_dir: Path,
-               timeout: float = JOB_TIMEOUT) -> list:
-    """Run `run_case` on W gloo ranks; returns each rank's result dict.
-    Raises if a rank fails or the job outlives `timeout` seconds (its
-    processes are then killed)."""
+               timeout: float = JOB_TIMEOUT, body: str = "run_case") -> list:
+    """Run `body` (`run_case` or `run_programs`) on W gloo ranks; returns
+    each rank's result dict.  Raises if a rank fails or the job outlives
+    `timeout` seconds (its processes are then killed)."""
     import torch.multiprocessing as mp
 
     out_dir = Path(out_dir)
     case_path = out_dir / "case.npz"
     np.savez(case_path, **case)
     ctx = mp.spawn(_rank, args=(W, _free_port(), str(case_path),
-                                str(out_dir)),
+                                str(out_dir), body),
                    nprocs=W, join=False)
     deadline = time.monotonic() + timeout
     try:

@@ -104,3 +104,50 @@ def needs_cuda(fn):
     The test module must import `require_cuda` too, so pytest finds the
     fixture."""
     return pytest.mark.cuda(pytest.mark.usefixtures("require_cuda")(fn))
+
+
+#: float tolerance of `assert_same_state` (PageRank: the JAX tests' bar
+#: across backends)
+FLOAT_ATOL = 2e-6
+
+
+def host_state(x):
+    """A comparable host form of a result of either package: tensors and
+    jax arrays to numpy; graphs (anything with `.nbr`) to their four
+    arrays; stream sessions (`.stats()`) to graph, coreness, labels and
+    stats; NamedTuples and tuples element-wise (fields read by name, so a
+    `StreamResult` is never unpacked); ints and None as they are."""
+    if isinstance(x, torch.Tensor) or hasattr(x, "__array__") and not \
+            isinstance(x, (tuple, list)) and not hasattr(x, "nbr"):
+        return np.array(x.cpu() if isinstance(x, torch.Tensor) else x)
+    if hasattr(x, "nbr") and hasattr(x, "deg"):
+        return tuple(np.array(np_of(getattr(x, f)))
+                     for f in ("nbr", "deg", "node_mask", "orig_id"))
+    if hasattr(x, "stats") and callable(x.stats):
+        return (host_state(x.g), host_state(x.core), host_state(x.labels),
+                tuple(x.stats()))
+    if hasattr(x, "_fields"):
+        return tuple(host_state(getattr(x, f)) for f in x._fields)
+    if isinstance(x, (tuple, list)):
+        return tuple(host_state(v) for v in x)
+    return x
+
+
+def assert_same_state(a, b, what: str = "") -> None:
+    """`host_state(a)` equals `host_state(b)`: integers and bools exactly,
+    floats to `FLOAT_ATOL`."""
+    a, b = host_state(a), host_state(b)
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.shape == b.shape, (what, a.shape, b.shape)
+        if a.dtype.kind == "f" or b.dtype.kind == "f":
+            np.testing.assert_allclose(a, b, rtol=0, atol=FLOAT_ATOL,
+                                       err_msg=what)
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=what)
+    elif isinstance(a, tuple):
+        assert isinstance(b, tuple) and len(a) == len(b), (what, a, b)
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_same_state(x, y, f"{what}[{i}]")
+    else:
+        assert a == b, (what, a, b)

@@ -209,20 +209,32 @@ def test_merge_labels_equals_reference_and_recompute(seed):
 
 
 def test_runner_rejects_what_is_not_ported():
-    tg = to_port(_graph(30, 40, 2, 4))
+    """What the runner takes and refuses, as the JAX package's runner does:
+    a plan that is no MirrorPlan fails the same way in both; `executor=`
+    off the mesh is not read (the run equals the plain one); "ell_spmd"
+    runs the program on the worker mesh, equal to the JAX package's."""
+    jg = _graph(30, 40, 2, 4)
+    tg = to_port(jg)
     prog = talg.ConnectedComponentsProgram()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    jprog = jalg.ConnectedComponentsProgram()
+    with pytest.raises(AttributeError):
+        jops.run_block_program(jg, jprog, executor=object(), mirror=object())
+    with pytest.raises(AttributeError):
         ops.run_block_program(tg, prog, executor=object(), mirror=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ops.run_block_program(tg, prog, executor=object())
+    assert torch.equal(ops.run_block_program(tg, prog, executor=object()),
+                       ops.run_block_program(tg, prog))
     # mirror= is ported (tests/test_torch_hub_split.py): a plan that split
     # nothing merges nothing, and the run equals the plain one
     g2, plan = tcore.split_hubs(tg, tg.Cd)
     assert plan.n_groups == 0
     assert torch.equal(ops.run_block_program(g2, prog, mirror=plan),
                        ops.run_block_program(tg, prog))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ops.run_block_program(tg, prog, backend="ell_spmd")
+    got, steps = ops.run_block_program(tg, prog, backend="ell_spmd",
+                                       with_steps=True)
+    want, jsteps = jops.run_block_program(jg, jprog, backend="ell_spmd",
+                                          with_steps=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert steps == int(jsteps)
     # "dense" is ported: it runs, equal to the plain backend
     assert torch.equal(ops.run_block_program(tg, prog, backend="dense"),
                        ops.run_block_program(tg, prog, backend="torch"))

@@ -304,16 +304,60 @@ def test_restore_session_empty_dir(tmp_path):
     (dict(executor=object()), "stream_session"),
     (dict(W=2), "mirror_stream"),
 ])
-def test_restore_session_refuses_what_is_not_ported(tmp_path, jg0, kw, kind):
-    sess = _open(jg0)
-    mgr = CheckpointManager(str(tmp_path))
-    arrays, meta = sess.state_dict()
-    mgr.save(1, arrays, meta=dict(meta, kind=kind))
-    with pytest.raises(NotImplementedError, match="Queue 1 item"):
-        restore_session(mgr, device=CPU, **kw)
-    if kind == "stream_session" and "W" in kw:
-        with pytest.raises(NotImplementedError):
-            remesh_restore(mgr, device=CPU, **kw)
+def test_restore_session_refuses_what_is_not_ported(tmp_path, jg0, kw,
+                                                     kind):
+    """The mesh arguments of `restore_session` act as the JAX package's
+    do on the same snapshot: `executor=` off the mesh raises ValueError in
+    both; W off the mesh, and any mesh argument of a mirrored session, is
+    not read; "ell_spmd" restores onto the W = 1 mesh.  A restored pair
+    holds the same state, and keeps it over two more windows (the plan
+    counters included)."""
+    from repro.checkpoint import restore_session as j_restore_session
+    from repro.checkpoint import save_session as j_save_session
+
+    if kind == "stream_session":
+        ws = _windows(to_port(jg0))
+        t = _open(jg0)
+        jg = jax.tree.map(  # the JAX session donates its graph's buffers
+            lambda x: jnp.copy(x) if hasattr(x, "dtype") else x, jg0)
+        j = reference().StreamSession(
+            jg, jcore.coreness(jg, backend="jnp"), R=4, backend="jnp",
+            cc_labels=jalg.connected_components(jg, backend="jnp"))
+        for w in ws[:2]:
+            t.apply_window(w)
+            j.apply_window(w)
+        rest, same = ws[2:4], _same_as_reference
+    else:
+        j, t, rest = _mirror_pair(*_split_graph())
+        same = _same_mirror
+    save_session(CheckpointManager(str(tmp_path / "t")), t)
+    j_save_session(jmanager.CheckpointManager(str(tmp_path / "j")), j)
+    try:
+        _, jr, _ = j_restore_session(
+            jmanager.CheckpointManager(str(tmp_path / "j")), **kw)
+    except ValueError:
+        with pytest.raises(ValueError, match="executor"):
+            restore_session(CheckpointManager(str(tmp_path / "t")),
+                            device=CPU, **kw)
+        assert "executor" in kw
+        return
+    _, tr, _ = restore_session(CheckpointManager(str(tmp_path / "t")),
+                               device=CPU, **kw)
+    assert (tr.executor is None) == (kw.get("backend") != "ell_spmd")
+    same(tr, jr)
+    for w in rest:
+        tr.apply_window(w)
+        jr.apply_window(w)
+        same(tr, jr)
+    assert remesh_restore is restore_session
+
+
+def _same_as_reference(t, j):
+    """A port StreamSession and a JAX one hold the same state."""
+    assert_same_graph(t.g, j.g)
+    np.testing.assert_array_equal(t.core.numpy(), np.asarray(j.core))
+    np.testing.assert_array_equal(t.labels.numpy(), np.asarray(j.labels))
+    assert tuple(t.stats()) == tuple(j.stats())
 
 
 def test_snapshot_survives_later_windows(tmp_path, jg0):

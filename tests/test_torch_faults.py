@@ -21,9 +21,11 @@ JAX package's recovery on the same inputs:
   * the single-device form of the e2e elasticity drill on
     ``backend="torch"``: triple the edges by auto-grow, checkpoint, lose
     block 0 (W_old = P), recover, stream on; core, labels and PageRank
-    equal a recompute.  Its `ell_spmd` form and the restore across mesh
-    shapes wait for the stream on the mesh (ROADMAP.md, Queue 1 item 6,
-    step 4).
+    equal a recompute.  Its `ell_spmd` form is
+    tests/test_torch_spmd_engine.py::test_e2e_recovery_drill_on_the_mesh;
+    here the mesh arguments of `recover_worker` and the coordinator
+    (`W`, ``backend="ell_spmd"``, `W_old` from the session's executor)
+    are held against the JAX package's on the same snapshot.
 """
 import shutil
 import tempfile
@@ -335,17 +337,38 @@ def test_chaos_worker_loss_recovery(seed):
 
 
 def test_recover_refuses_the_mesh(tmp_path):
-    sess = _session(_jgraph())
-    mgr = CheckpointManager(str(tmp_path))
-    coord = trec.ElasticCoordinator(sess, mgr)
-    coord.checkpoint()
+    """Recovery's mesh arguments act as the JAX package's do, on the same
+    snapshot and log: W=2 off the mesh is not read; "ell_spmd" restores
+    onto the W = 1 mesh, evacuates and replays there; and the coordinator
+    takes W_old from its live session's executor (here one of W = 2: the
+    dead worker 0 then owns blocks 0..3).  Every recovered session equals
+    the JAX package's."""
+    jg = _jgraph(node_slack=4)
+    ws = _windows(jg, 4, seed=3)
+    mgr = CheckpointManager(str(tmp_path / "t"))
+    jmgr = jckpt.CheckpointManager(str(tmp_path / "j"))
+    coord = trec.ElasticCoordinator(_session(jg), mgr)
+    jcoord = jrec.ElasticCoordinator(_jsession(jg), jmgr)
+    for i, w in enumerate(ws):
+        if i == 2:
+            coord.checkpoint()
+            jcoord.checkpoint()
+        coord.apply_window(w)
+        jcoord.apply_window(w)
     for kw in (dict(W=2), dict(backend="ell_spmd")):
-        with pytest.raises(NotImplementedError,
-                           match="Queue 1 item 6, step 4"):
-            trec.recover_worker(mgr, coord.log, 0, device=CPU, **kw)
-    sess.executor = type("Ex", (), {"wm": type("Wm", (), {"W": 2})})()
-    with pytest.raises(NotImplementedError, match="executor's W=2"):
-        coord.recover_worker(0)
+        sess, n = trec.recover_worker(mgr, coord.log, 0, device=CPU, **kw)
+        jsess, jn = jrec.recover_worker(jmgr, jcoord.log, 0, **kw)
+        assert n == jn == 2
+        _assert_same_session(sess, jsess)
+        assert (sess.executor is None) == ("backend" not in kw)
+    fake = type("Ex", (), {"wm": type("Wm", (), {"W": 2})})()
+    coord.session.executor = fake
+    jcoord.session.executor = fake
+    coord.recover_worker(0)
+    jcoord.recover_worker(0)
+    _assert_same_session(coord.session, jcoord.session)
+    mask = coord.session.g.node_mask.view(P, -1)
+    assert not mask[:P // 2].any()  # W_old = 2: worker 0 held 4 blocks
 
 
 # ---------------------------------------------------------------------------

@@ -349,10 +349,28 @@ def test_kernels_get_row_lengths_not_logical_degrees(monkeypatch):
 
 
 def test_run_block_program_still_refuses_executor():
+    """`executor=` under a mirror: off the mesh it is not read, as in the
+    JAX package (the run equals the reference's); on "ell_spmd" a
+    long-lived executor of the split graph serves every mirrored
+    workload, equal to the reference's mirrored runs."""
+    from repro_torch.runtime.spmd import SpmdExecutor
+
+    _, jg2, jplan = _split(8)
     g2, plan = _port_split(8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        ops.run_block_program(g2, talg.ConnectedComponentsProgram(),
-                              executor=object(), mirror=plan)
+    prog = talg.ConnectedComponentsProgram()
+    want = np.asarray(jops.run_block_program(
+        jg2, jalg.ConnectedComponentsProgram(), backend="jnp", mirror=jplan))
+    np.testing.assert_array_equal(ops.run_block_program(
+        g2, prog, executor=object(), mirror=plan).numpy(), want)
+    ex = SpmdExecutor(g2)
+    np.testing.assert_array_equal(ops.run_block_program(
+        g2, prog, backend="ell_spmd", executor=ex, mirror=plan).numpy(),
+        want)
+    np.testing.assert_array_equal(
+        tcore.coreness(g2, backend="ell_spmd", executor=ex,
+                       mirror=plan).numpy(),
+        np.asarray(jcore.coreness(jg2, backend="jnp", mirror=jplan)))
+    assert ex.full_rebuilds == ex.plan_updates == 0
 
 
 # ---------------------------------------------------------------------------

@@ -158,17 +158,9 @@ LEFT_OUT = {
                 "mamba2_370m", "paligemma_3b", "seamless_m4t_large_v2",
                 "zamba2_7b"},
 }
-#: names still to come with the mesh runtime's step 3 (ROADMAP.md Queue 1
-#: item 6): the program-level executor and what only it uses
-NOT_YET = {
-    "core": {"coreness_via_spmd"},
-    "core.kcore": {"coreness_via_spmd"},
-    "runtime": {"SpmdEngine", "SpmdProgram", "SpmdCorenessProgram",
-                "SpmdBlockProgram"},
-    "runtime.spmd": {"SpmdEngine", "SpmdProgram", "SpmdCorenessProgram",
-                     "SpmdBlockProgram", "LocalCtx", "BlockCtx",
-                     "combine_rows", "hindex_rows", "AXIS"},
-}
+#: names still to come: none (the mesh runtime's program-level executor,
+#: the last of them, is ported)
+NOT_YET = {}
 #: where a public name is an import of a library, not the module's own
 _LIBRARIES = ("typing", "numpy", "jax", "jaxlib", "torch", "dataclasses",
               "functools", "collections", "__future__", "abc", "enum",

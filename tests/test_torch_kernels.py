@@ -14,10 +14,14 @@ K < Cd on sorted, left-filled rows; Cd in {1, 37, 130}; R in {1, 8, 13};
 empty and full rows; `hindex_ell`, `frontier_step_ell`,
 `neighbor_min_ell`, `neighbor_sum_ell`, `neighbor_multi_ell` and
 `neighbor_common_ell` with the row lengths `deg` and without (the same
-output), and the registry handing `deg` to every ELL combine.  The CUDA
-kernels themselves are held against the plain versions, on the same cases
-and on rows longer than the kernels' register paths (Cd = 300), by the
-tests marked `cuda` (they skip without a GPU).
+output), the registry handing `deg` to every ELL combine, and every ELL
+wrapper on local-frame rows over a field longer than them (a mesh
+worker's shard and halo buffer; for the triangles a row field of global
+ids, unlike `nbr`'s), against the JAX package's post-halo reduce.  The
+CUDA kernels themselves are held against the plain versions, on the same
+cases, on rows longer than the kernels' register paths (Cd = 300) and
+on the longer fields, by the tests marked `cuda` (they skip without a
+GPU).
 """
 import numpy as np
 import pytest
@@ -267,9 +271,12 @@ def test_registry_resolution():
     assert ops.resolve_backend(None, torch.device("cuda")) == "ell"
     assert ops.resolve_backend("ell", cpu) == "ell"
     assert ops.resolve_backend("dense", cpu) == "dense"  # never by "auto"
-    assert ops.BACKENDS == ("torch", "ell", "dense")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ops.resolve_backend("ell_spmd", cpu)
+    # the mesh backend resolves to itself and is listed, as in the JAX
+    # package (whose "jnp" is the port's "torch"); "auto" never picks it
+    assert ops.BACKENDS == ("torch", "ell", "dense", "ell_spmd")
+    assert ops.resolve_backend("ell_spmd", cpu) == "ell_spmd" == \
+        jops.resolve_backend("ell_spmd", 64)
+    assert "ell_spmd" in jops.BACKENDS
     with pytest.raises(ValueError):
         ops.resolve_backend("jnp", cpu)
     assert [ops._pow2_bucket(x) for x in (1, 32, 33, 85, 300)] == \
@@ -716,6 +723,77 @@ def test_hindex_takes_a_longer_field(shuffled):
         check_field(tn, te)  # the other kernels keep N rows
 
 
+def _halo_case(N, M, Cd, seed, shuffled):
+    """Local-frame rows (N, Cd) over a field of M > N rows, as a mesh
+    worker holds them: min/sum fields of M values, and an (M, Cd) row
+    field of GLOBAL ids (drawn from [0, 4M), PAD -1, sorted and
+    duplicate-free like a graph's rows) — so the ids in `nbr` and in the
+    row field differ, and u's own set must come from rows[u]."""
+    rng = np.random.default_rng(seed)
+    nbr = _halo_rows(N, M, Cd, seed, shuffled)
+    ints = rng.integers(-5, 2 * M, M).astype(np.int32)
+    floats = rng.random(M).astype(np.float32)
+    rows = np.full((M, Cd), -1, np.int32)
+    for u in range(M):
+        d = int(rng.integers(0, Cd + 1))
+        rows[u, :d] = np.sort(rng.choice(4 * M // 3, d, replace=False))
+    return nbr, ints, floats, rows
+
+
+def _mesh_reduce(combine, field, nbr, fill):
+    """The JAX package's post-halo local reduce of a mesh worker
+    (`ref.combine_rows` on the neighbor values gathered through the
+    local-frame rows, PAD slots at the combine's fill)."""
+    N = nbr.shape[0]
+    nb = jnp.asarray(nbr)
+    f = jnp.asarray(field)
+    pad = (nb < 0) if f.ndim == 1 else (nb < 0)[:, :, None]
+    vals = jnp.where(pad, jnp.asarray(fill, f.dtype), f[jnp.clip(nb, 0)])
+    return np.asarray(jref.combine_rows(combine, f[:N], vals))
+
+
+@pytest.mark.parametrize("shuffled", [False, True])
+def test_combines_take_a_longer_field(shuffled):
+    """`neighbor_min_ell`, `neighbor_sum_ell`, `neighbor_multi_ell` and
+    `neighbor_common_ell` (both variants) on local-frame rows over a
+    field of more rows than `nbr` (a mesh worker's shard and halo buffer)
+    equal the JAX package's post-halo reduce; the triangles' row field
+    holds global ids unlike `nbr`'s, and u's own set is rows[u].  A
+    field shorter than `nbr` is refused."""
+    from repro_torch.kernels.ell_hindex import check_field
+    from repro_torch.kernels.ell_triangles import _check_rows
+
+    N, M, Cd = 60, 97, 14
+    nbr, ints, floats, rows = _halo_case(N, M, Cd, 21, shuffled)
+    tn = torch.as_tensor(nbr)
+    deg = torch.as_tensor(_row_lengths(nbr))
+    ti, tf, tr = (torch.as_tensor(a) for a in (ints, floats, rows))
+    want = {"min": _mesh_reduce("min", ints, nbr, MIN_FILL),
+            "sum": _mesh_reduce("sum", floats, nbr, 0.0),
+            "hindex": _mesh_reduce("hindex", ints, nbr, -1),
+            "count_common": _mesh_reduce("count_common", rows, nbr, -1)}
+    np.testing.assert_array_equal(
+        neighbor_min_ell(tn, ti, deg=deg).numpy(), want["min"])
+    np.testing.assert_allclose(neighbor_sum_ell(tn, tf, deg=deg).numpy(),
+                               want["sum"], rtol=1e-6)
+    got = neighbor_multi_ell(tn, (ti, tf, ti), ("min", "sum", "hindex"),
+                             deg=deg)
+    np.testing.assert_array_equal(got[0].numpy(), want["min"])
+    np.testing.assert_allclose(got[1].numpy(), want["sum"], rtol=1e-6)
+    np.testing.assert_array_equal(got[2].numpy(), want["hindex"])
+    assert want["count_common"].any()
+    for variant in ("merge", "allpairs"):
+        np.testing.assert_array_equal(
+            neighbor_common_ell(tn, tr, variant=variant, deg=deg).numpy(),
+            want["count_common"])
+    check_field(tn, ti, longer=True)
+    _check_rows(tn, tr)
+    with pytest.raises(ValueError, match=r">= 60"):
+        _check_rows(tn, tr[:N - 1])
+    with pytest.raises(ValueError):
+        _check_rows(tn, tr[:, :Cd - 1])
+
+
 @pytest.mark.parametrize("K", [None, 8])
 def test_frontier_plain_pads_past_a_longer_field(K):
     """The plain hop maps PAD to a False row appended after the field's
@@ -1089,3 +1167,38 @@ def test_kernels_take_a_longer_field(shuffled):
                 hindex_ell_plain(nbr, est), rtol=0, atol=0)
         assert torch.equal(frontier_step_ell(nbr, f, elig, vis, deg=d),
                            frontier_step_ell_plain(nbr, f, elig, vis))
+
+
+@needs_cuda
+@pytest.mark.parametrize("shuffled", [False, True])
+def test_combine_kernels_take_a_longer_field(shuffled):
+    """`ell_cc`, `ell_pagerank`, `ell_multi`, `ell_triangles` and
+    `ell_allpairs` (with and without `deg`) on local-frame rows over a
+    field of more rows than `nbr`, the mesh runtime's shard and halo
+    buffer, equal their plain versions bit for bit (the sums to float32
+    rounding against plain); for the triangles the row field holds global
+    ids, unlike `nbr`, and is a different tensor (its lengths are not
+    `deg`, `field_deg` gives None)."""
+    N, M, Cd = 300, 611, 40
+    nbr, ints, floats, rows = _halo_case(N, M, Cd, 23, shuffled)
+    deg = torch.as_tensor(_row_lengths(nbr)).cuda()
+    tn, ti, tf, tr = (torch.as_tensor(a).cuda()
+                      for a in (nbr, ints, floats, rows))
+    assert field_deg(tn, tr, deg) is None
+    want_tri = neighbor_common_ell_plain(tn, tr)
+    assert bool(want_tri.any())
+    for d in (None, deg):
+        assert torch.equal(neighbor_min_ell(tn, ti, deg=d),
+                           neighbor_min_ell_plain(tn, ti))
+        torch.testing.assert_close(neighbor_sum_ell(tn, tf, deg=d),
+                                   neighbor_sum_ell_plain(tn, tf),
+                                   rtol=1e-5, atol=1e-6)
+        got = neighbor_multi_ell(tn, (ti, tf, ti), ("min", "sum", "hindex"),
+                                 deg=d)
+        assert torch.equal(got[0], neighbor_min_ell(tn, ti, deg=d))
+        assert torch.equal(got[1], neighbor_sum_ell(tn, tf, deg=d))
+        assert torch.equal(got[2], hindex_ell(tn, ti, deg=d))
+        for variant in ("merge", "allpairs"):
+            assert torch.equal(
+                neighbor_common_ell(tn, tr, variant=variant, deg=d),
+                want_tri)

@@ -17,20 +17,24 @@
   * each local superstep runs the port's kernel wrappers (`hindex_ell`,
     `frontier_step_ell`) on the shard's rows and a field longer than
     them;
-  * every other entry point that takes a backend raises
-    NotImplementedError for "ell_spmd", naming the step still to come.
+  * every other entry point that takes a backend does with "ell_spmd"
+    what the JAX package does at W = 1: the same values and counts, or
+    the same exception type where it refuses.  (The programs, workloads,
+    maintenance, stream, restore and service on the mesh are held further
+    in tests/test_torch_spmd_engine.py, W = 1, and
+    tests/test_torch_mesh_programs.py, W = 2, 4, 8.)
 
 Run alone: ``PYTHONPATH=src python -m pytest -q tests/test_torch_mesh.py``.
 """
-import types
-
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from _torch_port import (  # noqa: F401 (fixtures)
-    CPU, np_of, one_torch_thread, reference, to_port)
+    CPU, assert_same_state, np_of, one_torch_thread, reference,
+    reference_service, tensor_of, to_port)
 import _torch_mesh_worker as mesh_worker
 
 import repro.core as jcore
@@ -38,6 +42,7 @@ import repro.core.kcore_dynamic as jkd
 import repro.core.partition as jpart
 import repro.core.updates as jupd
 import repro.graphgen as jgen
+from repro.core import hub_split as jhs
 from repro.kernels import ops as jops
 
 import repro_torch.core as tcore
@@ -49,7 +54,7 @@ from repro_torch.kernels import ops
 from repro_torch.runtime import mesh as tmesh
 from repro_torch.runtime import spmd as tspmd
 from repro_torch.runtime import stream as tstream
-from repro_torch.service import AnalyticsState
+import repro_torch.service as tsvc
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -328,93 +333,207 @@ def test_gloo_mesh_equals_single_device_reference(W, case, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# what "ell_spmd" does not run yet
+# "ell_spmd" on every other entry point that takes a backend
 # ---------------------------------------------------------------------------
 
 
-def _session_stub():
-    return types.SimpleNamespace(backend="ell_spmd", executor=None,
-                                 labels=torch.zeros(1), mirror=None)
+#: every entry point that refused "ell_spmd" before the mesh runtime's
+#: programs and mesh maintenance were ported; each case now holds the
+#: port against the JAX package at W = 1 (`test_ell_spmd_refused_elsewhere`)
+REFUSED = ("run_block_program", "neighbor_combine_blocks",
+           "connected_components", "pagerank", "triangle_counts",
+           "coreness(mirror=)", "MirrorStream", "k_reachable_batch",
+           "_restricted_recompute", "insert_edge_maintain", "maintain_batch",
+           "maintain_batch_host", "StreamSession", "run_stream",
+           "StreamSession.from_state", "restore_session",
+           "the query service")
+
+#: (port, JAX package) exception types of the cases that refuse the mesh:
+#: the JAX package's own refusals, and its host loop, which takes no
+#: backend (TypeError) where the port names `maintain_batch` (ValueError);
+#: every other case runs in both
+EXPECTED_RAISE = {"neighbor_combine_blocks": (ValueError, ValueError),
+                  "insert_edge_maintain": (ValueError, ValueError),
+                  "maintain_batch_host": (ValueError, TypeError)}
 
 
-#: every entry point that takes a backend and has no ell_spmd path in the
-#: port, with the step of Queue 1 item 6 that brings it
-REFUSED = {
-    "run_block_program": 3, "neighbor_combine_blocks": 3,
-    "connected_components": 3, "pagerank": 3, "triangle_counts": 3,
-    "coreness(mirror=)": 3, "MirrorStream": 3,
-    "k_reachable_batch": 4, "_restricted_recompute": 4,
-    "insert_edge_maintain": 4, "maintain_batch": 4,
-    "maintain_batch_host": 4, "StreamSession": 4, "run_stream": 4,
-    "StreamSession.from_state": 4, "restore_session": 4,
-    "the query service": 4,
-}
+def _jclone(jg):
+    return jax.tree.map(lambda x: jnp.copy(x) if hasattr(x, "dtype") else x,
+                        jg)
 
 
-def _refusals():
-    """{name: call(tmp_path)} for every entry point of `REFUSED`."""
+def _jsplit():
+    """A BA graph with padding rows, split at 12 by both packages."""
+    edges = jgen.barabasi_albert(120, 4, seed=13)
+    n = int(edges.max()) + 1
+    jg = jcore.build_blocks(edges, n, jpart.node_random_partition(
+        n, 4, seed=3), P=4, node_slack=24)
+    jg2, jplan = jhs.split_hubs(jg, threshold=12)
+    g2, plan = thub.split_hubs(to_port(jg), 12)
+    assert plan.n_groups > 0
+    return (g2, plan), (jg2, jplan)
+
+
+def _mesh_cases():
+    """{name: (port call, reference call)}, each call taking tmp_path;
+    every call makes its own copies of the inputs."""
+    jstream = reference()
+    jsvc = reference_service()
+    from repro.checkpoint import CheckpointManager as JManager
+    from repro.checkpoint import restore_session as jrestore
+    from repro.checkpoint import save_session as jsave
+    from repro_torch.checkpoint import save_session
+
     jg = _jgraph("ba", 4)
     g = to_port(jg)
-    core = tcore.coreness(g)
-    roots = torch.zeros((g.N, 1), dtype=torch.bool)
-    ks = torch.zeros(1, dtype=torch.int32)
-    ins = jupd.sample_insertions(jg, 1, "intra", seed=1)
-    prog = talg.ConnectedComponentsProgram()
-    g2, plan = thub.split_hubs(g, g.Cd)
+    jc = jops.coreness_blocks(jg, backend="jnp")
+    core = tensor_of(jc)
     sp = "ell_spmd"
+    x = _inputs(jg, seed=4)
+    t = {k: torch.from_numpy(v) for k, v in x.items()}
+    ups = [tuple(int(v) for v in e) for e in x["window"]]
+    (g2, plan), (jg2, jplan) = _jsplit()
+    jlab = jcore.connected_components(jg, backend="jnp")
 
-    def restore(tmp):
-        sess = tstream.StreamSession(g.clone(), core, R=2, backend="torch")
-        mgr = CheckpointManager(str(tmp))
-        arrays, meta = sess.state_dict()
-        mgr.save(1, arrays, meta=dict(meta, backend=sp))
-        return restore_session(mgr, device=CPU)
+    def tsess(backend=sp):
+        return tstream.StreamSession(
+            g.clone(), core.clone(), R=3, backend=backend,
+            cc_labels=tcore.connected_components(g))
 
-    def from_state(tmp):
-        arrays, meta = tstream.StreamSession(g.clone(), core).state_dict()
-        return tstream.StreamSession.from_state(
-            arrays, dict(meta, backend=sp), device=CPU)
+    def jsess(backend=sp):
+        return jstream.StreamSession(_jclone(jg), jnp.copy(jc), R=3,
+                                     backend=backend, cc_labels=jlab)
 
+    def windows(s, undo=False):
+        """The window's updates in windows of 3 (undo: reversed, each op
+        negated, which takes them back out)."""
+        seq = [(u, v, -op) for u, v, op in ups[::-1]] if undo else ups
+        for i in range(0, len(seq), 3):
+            s.apply_window(seq[i:i + 3])
+        return s
+
+    def t_from_state(tmp):
+        arrays, meta = tsess("torch").state_dict()
+        return windows(tstream.StreamSession.from_state(
+            arrays, meta, backend=sp, device=CPU))
+
+    def j_from_state(tmp):
+        arrays, meta = jsess("jnp").state_dict()
+        return windows(jstream.StreamSession.from_state(arrays, meta,
+                                                        backend=sp))
+
+    def t_restore(tmp):
+        mgr = CheckpointManager(str(tmp / "port"))
+        save_session(mgr, windows(tsess()))
+        _, s, _ = restore_session(mgr, backend=sp, device=CPU)
+        return windows(s, undo=True)
+
+    def j_restore(tmp):
+        mgr = JManager(str(tmp / "ref"))
+        jsave(mgr, windows(jsess()))
+        _, s, _ = jrestore(mgr, backend=sp)
+        return windows(s, undo=True)
+
+    def snapshot(svc, s):
+        state = svc.AnalyticsState(s, pr_steps=8)
+        windows(s)
+        return state.refresh()
+
+    jroots, jks = jnp.asarray(x["roots"]), jnp.asarray(x["ks"])
     return {
-        "run_block_program":
-            lambda tmp: ops.run_block_program(g, prog, backend=sp),
-        "neighbor_combine_blocks":
+        "run_block_program": (
+            lambda tmp: ops.run_block_program(
+                g, talg.ConnectedComponentsProgram(), backend=sp,
+                with_steps=True),
+            lambda tmp: jops.run_block_program(
+                jg, jcore.ConnectedComponentsProgram(), backend=sp,
+                with_steps=True)),
+        "neighbor_combine_blocks": (
             lambda tmp: ops.neighbor_combine_blocks(g, core, "min",
                                                     backend=sp),
-        "connected_components":
-            lambda tmp: tcore.connected_components(g, backend=sp),
-        "pagerank": lambda tmp: tcore.pagerank(g, backend=sp),
-        "triangle_counts": lambda tmp: tcore.triangle_counts(g, backend=sp),
-        "coreness(mirror=)":
+            lambda tmp: jops.neighbor_combine_blocks(jg, jc, "min",
+                                                     backend=sp)),
+        "connected_components": (
+            lambda tmp: tcore.connected_components(g, backend=sp,
+                                                   with_steps=True),
+            lambda tmp: jcore.connected_components(jg, backend=sp,
+                                                   with_steps=True)),
+        "pagerank": (
+            lambda tmp: tcore.pagerank(g, backend=sp, with_steps=True),
+            lambda tmp: jcore.pagerank(jg, backend=sp, with_steps=True)),
+        "triangle_counts": (
+            lambda tmp: tcore.triangle_counts(g, backend=sp,
+                                              with_steps=True),
+            lambda tmp: jcore.triangle_counts(jg, backend=sp,
+                                              with_steps=True)),
+        "coreness(mirror=)": (
             lambda tmp: tcore.coreness(g2, backend=sp, mirror=plan),
-        "MirrorStream":
-            lambda tmp: tstream.MirrorStream(g2, plan, backend=sp),
-        "k_reachable_batch":
-            lambda tmp: tkd.k_reachable_batch(g, core, roots, ks, backend=sp),
-        "_restricted_recompute":
-            lambda tmp: tkd._restricted_recompute(g, core, roots[:, 0],
+            lambda tmp: jcore.coreness(jg2, backend=sp, mirror=jplan)),
+        "MirrorStream": (
+            lambda tmp: tstream.MirrorStream(g2.clone(), plan, backend=sp,
+                                             cc_labels=True).result(),
+            lambda tmp: jstream.MirrorStream(_jclone(jg2), jplan,
+                                             backend=sp,
+                                             cc_labels=True).result()),
+        "k_reachable_batch": (
+            lambda tmp: tkd.k_reachable_batch(g, t["core"], t["roots"],
+                                              t["ks"], backend=sp),
+            lambda tmp: jkd.k_reachable_batch(
+                jg, jnp.asarray(x["core"]), jroots, jks, backend=sp)),
+        "_restricted_recompute": (
+            lambda tmp: tkd._restricted_recompute(g, t["est0"], t["cand"],
                                                   backend=sp),
-        "insert_edge_maintain":
+            lambda tmp: jkd._restricted_recompute(
+                jg, jnp.asarray(x["est0"]), jnp.asarray(x["cand"]),
+                backend=sp)),
+        "insert_edge_maintain": (
             lambda tmp: tkd.insert_edge_maintain(g.clone(), core,
-                                                 *ins[0][:2], backend=sp),
-        "maintain_batch":
-            lambda tmp: tkd.maintain_batch(g.clone(), core, ins, backend=sp),
-        "maintain_batch_host":
-            lambda tmp: tkd.maintain_batch_host(g.clone(), core, ins,
+                                                 *ups[0][:2], backend=sp),
+            lambda tmp: jkd.insert_edge_maintain(
+                _jclone(jg), jc, jnp.int32(ups[0][0]), jnp.int32(ups[0][1]),
+                backend=sp)),
+        "maintain_batch": (
+            lambda tmp: tkd.maintain_batch(g.clone(), core, ups, R=3,
+                                           backend=sp),
+            lambda tmp: jkd.maintain_batch(_jclone(jg), jc, ups, R=3,
+                                           backend=sp)),
+        "maintain_batch_host": (
+            lambda tmp: tkd.maintain_batch_host(g.clone(), core, ups,
                                                 backend=sp),
-        "StreamSession":
-            lambda tmp: tstream.StreamSession(g, core, backend=sp),
-        "run_stream":
-            lambda tmp: tstream.run_stream(g, core, ins, backend=sp),
-        "StreamSession.from_state": from_state,
-        "restore_session": restore,
-        "the query service": lambda tmp: AnalyticsState(_session_stub()),
+            lambda tmp: jkd.maintain_batch_host(_jclone(jg), jc, ups,
+                                                backend=sp)),
+        "StreamSession": (lambda tmp: windows(tsess()),
+                          lambda tmp: windows(jsess())),
+        "run_stream": (
+            lambda tmp: tstream.run_stream(g.clone(), core, ups, R=3,
+                                           backend=sp),
+            lambda tmp: jstream.run_stream(_jclone(jg), jc, ups, R=3,
+                                           backend=sp)),
+        "StreamSession.from_state": (t_from_state, j_from_state),
+        "restore_session": (t_restore, j_restore),
+        "the query service": (
+            lambda tmp: snapshot(tsvc, tsess()),
+            lambda tmp: snapshot(jsvc, jsess())),
     }
+
+
+def _outcome(call, tmp):
+    try:
+        return call(tmp), None
+    except Exception as e:  # the refusal, compared by type
+        return None, type(e)
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_ell_spmd_refused_elsewhere(name, tmp_path):
-    call = _refusals()[name]
-    with pytest.raises(NotImplementedError,
-                       match=f"Queue 1 item 6, step {REFUSED[name]}"):
-        call(tmp_path)
+    """Each entry point that used to refuse "ell_spmd" in the port now
+    does what the JAX package does at W = 1: the same values and counts
+    (sessions: graph, coreness, labels and every `StreamStats` field, the
+    plan counters included), or the same exception type where the JAX
+    package refuses (`EXPECTED_RAISE` where the two differ by design)."""
+    port, ref = _mesh_cases()[name]
+    got, got_exc = _outcome(port, tmp_path)
+    want, want_exc = _outcome(ref, tmp_path)
+    assert (got_exc, want_exc) == EXPECTED_RAISE.get(name, (None, None))
+    if want_exc is None:
+        assert_same_state(got, want, name)

@@ -12,8 +12,8 @@ must be EQUAL.  `StreamResult` and `StreamStats` are the reference's
 NamedTuples: the same fields in the same order, length, indexing and
 legacy unpacking, and whole stats tuples compare equal.  With
 `rebalance_threshold=` (§4.2 live rebalancing) both packages migrate the
-same vertices and end on the same arrays; the mesh runtime's arguments
-raise NotImplementedError.  Also: with no backend
+same vertices and end on the same arrays; the mesh arguments (`W`,
+`executor`, ``backend="ell_spmd"``) act as the JAX package's do.  Also: with no backend
 given, the entry points take the plain versions on a CPU graph and the
 CUDA kernels on a CUDA graph; they raise without CUDA unless the caller
 asks for the CPU; and no module of the port (nor chip_smoke.py) imports
@@ -329,11 +329,30 @@ def test_session_migrate_equals_reference():
 @pytest.mark.parametrize("kw", [dict(W=2), dict(executor=object()),
                                 dict(backend="ell_spmd")])
 def test_mesh_arguments_raise_not_implemented(kw):
+    """The stream's mesh arguments do what the JAX package's do (one
+    process, W = 1): `executor=` off the mesh raises ValueError in both;
+    W=2 off the mesh is not read; "ell_spmd" runs, equal to the JAX
+    package's mesh stream (graph, coreness, every `StreamStats` field,
+    the plan counters included)."""
     jg = _skewed_graph()
-    core = tensor_of(jcore.coreness(jg, backend="jnp"))
-    with pytest.raises(NotImplementedError):
-        tstream.run_stream(to_port(jg), core, _mixed_updates(jg)[:2],
-                           R=2, **kw)
+    tg = to_port(jg)
+    jc = jcore.coreness(jg, backend="jnp")
+    core = tensor_of(jc)
+    ups = _mixed_updates(jg)
+    ref_kw = dict(kw, backend=kw.get("backend", "jnp"))
+    try:
+        want = reference().run_stream(jg, jc, ups, R=4, **ref_kw)
+    except ValueError:
+        with pytest.raises(ValueError, match="executor"):
+            tstream.run_stream(tg, core, ups, R=4, **kw)
+        return
+    got = tstream.run_stream(tg, core, ups, R=4, **kw)
+    assert_same_graph(got.g, want.g)
+    np.testing.assert_array_equal(got.core.numpy(), np.asarray(want.core))
+    assert tuple(got.stats) == tuple(want.stats)
+    mesh = kw.get("backend") == "ell_spmd"
+    assert (got.stats.plan_updates > 0) == mesh
+    assert got.stats.plan_rebuilds == 0
 
 
 def test_defaults_equal_torch_backend_on_cpu():
