@@ -195,6 +195,20 @@ Phases (each raises on failure; the script then exits non-zero):
    the median, beside the bytes bound at 3.35 TB/s and, where it is the
    larger, the operations bound.
 
+14. audit_ds1: the port's tracelint (`repro_torch.analysis`): its CLI
+   with ``--check --no-audit`` on the checkout (the AST rules, the
+   dead-seed and port-import audits); then every entry of its `MANIFEST`
+   on the card, on the tiny graph and on DS1 (the clean-window entries on
+   the first R = 8 window of the 200-update stream that routes clean,
+   else on its first update that does; the escalated-window entry on the
+   stream's first window, the main path's), each under the host-read
+   counter and CUDA's sync detector (``set_sync_debug_mode("warn")``),
+   the pure entries also under ``"error"``.  One line per entry: host
+   reads, CUDA syncs, both budgets and the JAX package's, supersteps,
+   wall ms, the kernels' launches and where each read and sync sits.
+   Raises on any finding; `ell_hindex`, `ell_frontier`, `ell_cc`,
+   `ell_multi` and `ell_pagerank` must launch on DS1.
+
 Earlier lines are JSON objects; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 With no CUDA device, or without the repo's `src/repro_torch` beside it,
@@ -288,6 +302,9 @@ MESH_KERNELS = ("ell_hindex", "ell_frontier", "ell_cc", "ell_pagerank",
 #: the kernels the mirrored static analytics launch on "ell"
 SKEW_KERNELS = ("ell_hindex", "ell_cc", "ell_pagerank", "ell_multi",
                 "ell_triangles")
+#: the kernels the entry-point audit's manifest launches on DS1
+AUDIT_KERNELS = ("ell_hindex", "ell_frontier", "ell_cc", "ell_multi",
+                 "ell_pagerank")
 
 
 def emit(**obj) -> None:
@@ -346,10 +363,12 @@ def main() -> int:
     kernels += combine_timing(g, fields, parity, launches_an,
                               kernels[0]["launch_floor_ms"], scale)
     kernels += dense_timing(g, core_plain, ups[:R], parity, launches)
+    audit = audit_phase(g, ups, dev)
     for k in kernels:
         if k["name"] in MESH_KERNELS:
             k["launches_by_path"] = {p: c.get(k["name"], 0)
                                      for p, c in by_path.items()}
+        k["launches_audit_ds1"] = audit.get(k["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1650,6 +1669,70 @@ def recovery_phase(g, core, ups):
          killed_at=KILL_AT, dead_block=DEAD, N=sess.g.N, Cn=sess.g.Cn,
          stream_stats=st._asdict(), oracle_stats=ost._asdict(),
          launches=counts, path_seconds=secs, **info)
+    return counts
+
+
+def _audit_world(world, what):
+    """Every manifest entry on `world`, each with the kernels' launch
+    counts set to 0 just before and read just after; one line each.
+    Raises on any finding.  Returns the launches summed over the
+    entries."""
+    import torch
+    from repro_torch.analysis import entrypoints as audit
+
+    total = {name: 0 for name in KERNELS}
+    failed = []
+    for ep in audit.MANIFEST:
+        for name in KERNELS:
+            _wrapper(name).launches = 0
+        res = audit.audit_entry(ep, world)
+        torch.cuda.synchronize()
+        counts = {name: _wrapper(name).launches for name in KERNELS}
+        for name, c in counts.items():
+            total[name] += c
+        emit(phase=what, graph=world.name, entry=ep.name,
+             host_reads=res.host_reads, cuda_syncs=res.cuda_syncs,
+             read_budget=res.read_budget, sync_budget=res.sync_budget,
+             reference_budget=ep.reference_budget, steps=res.steps,
+             ms=res.ms, probe=res.probe, error=res.error,
+             launches={n: c for n, c in counts.items() if c},
+             read_sites=res.read_sites, sync_sites=res.sync_sites)
+        failed += [str(f) for f in res.findings(ep)]
+    if failed:
+        raise AssertionError(f"{what} on {world.name}: " + "\n".join(failed))
+    return total
+
+
+def audit_phase(g, ups, dev):
+    """audit_ds1: the port's tracelint on the checkout (its CLI with
+    ``--check``, the static part), then the manifest on the tiny graph and
+    on DS1, every count within its budget.  Returns the kernels' launches
+    on DS1."""
+    from repro_torch.analysis import entrypoints as audit
+    from repro_torch.analysis.__main__ import main as tracelint
+
+    what = "audit_ds1"
+    t0 = time.perf_counter()
+    rc = tracelint(["--check", "--no-audit"])
+    if rc != 0:
+        raise AssertionError(f"{what}: tracelint --check exited {rc}")
+    lint_seconds = time.perf_counter() - t0
+    _audit_world(audit.tiny_world(dev), what)
+    window = audit.clean_window(g, ups, R)
+    if window is None:
+        raise AssertionError(f"{what}: no window of the DS1 stream routes "
+                             "clean")
+    window, escalated = ([tuple(int(x) for x in u) for u in w]
+                         for w in (window, ups[:R]))
+    world = audit.World(g.clone(), window, R=R, name="ds1",
+                        escalated=escalated)
+    counts = _audit_world(world, what)
+    missing = [k for k in AUDIT_KERNELS if counts[k] < 1]
+    if missing:
+        raise AssertionError(f"{what}: {missing} never launched on DS1")
+    emit(phase=what, lint_seconds=lint_seconds, window=window,
+         escalated=escalated, launches=counts,
+         seconds=time.perf_counter() - t0)
     return counts
 
 

@@ -111,11 +111,13 @@ def neighbor_multi_ell(
     outs = tuple(torch.empty(N, dtype=FIELD_SPEC[c][0], device=nbr.device)
                  for c in combines)
     pad = [None] * (MAX_FIELDS - k)  # NULL for the unused slots
+    ins = [f.data_ptr() for f in fields] + pad
+    outp = [o.data_ptr() for o in outs] + pad
     codes = [FIELD_SPEC[c][2] for c in combines] + [0] * (MAX_FIELDS - k)
+    # one argument each (MAX_FIELDS = 3), as `_build.SOURCES` declares them
     _build.launch("ell_multi", nbr.device, nbr.data_ptr(), deg_ptr(deg),
-                  *[f.data_ptr() for f in fields], *pad,
-                  *[o.data_ptr() for o in outs], *pad,
-                  *codes, k, N, Cd, columns(Cd, K))
+                  ins[0], ins[1], ins[2], outp[0], outp[1], outp[2],
+                  codes[0], codes[1], codes[2], k, N, Cd, columns(Cd, K))
     neighbor_multi_ell.launches += 1
     return outs
 

@@ -24,7 +24,7 @@ batches against versioned epoch snapshots of the maintained analytics:
 The JAX package also exports `query_trace_count`, a count of jit traces;
 eager PyTorch traces nothing, so the port has no counterpart.
 """
-from ..configs.service import ServiceConfig
+from ..configs import ServiceConfig
 from .metrics import ServiceMetrics
 from .queries import (
     KINDS,

@@ -138,9 +138,18 @@ def test_hindex_rows_is_re_exported():
 #: the reference's auto-crossover tables (measured on a TPU only), the
 #: Pallas row-chunk tile, the trace and compile counters (eager PyTorch
 #: traces and compiles nothing), the jax mesh's shardings (the process
-#: group stands in for them) and the seed fixtures (ROADMAP.md Queue 1
-#: item 9)
+#: group stands in for them), the seed fixtures (ROADMAP.md Queue 1
+#: item 9), and tracelint's jax-only pieces: the `jax.device_get` counter
+#: and the jaxpr scan (eager PyTorch has no transfer function every read
+#: goes through and no program to scan before it runs: `count_host_reads`
+#: and `probe_syncs` take their places), the Pallas rule (`cuda-kernel`
+#: takes its place) and the jit-factory inventory (nothing is jitted)
 LEFT_OUT = {
+    "analysis": {"count_device_gets"},
+    "analysis.entrypoints": {"count_device_gets", "forbidden_primitives",
+                             "FORBIDDEN_FRAGMENTS"},
+    "analysis.rules": {"PallasKernelRule"},
+    "analysis.config": {"JIT_FACTORIES"},
     "kernels.ops": {"AUTO_CROSSOVER", "JNP_AUTO_MAX", "DENSE_AUTO_MAX",
                     "MIN_FILL", "gather_trace_count"},
     "kernels.ell_cc": {"CHUNK"},
