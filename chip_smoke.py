@@ -208,6 +208,25 @@ Phases (each raises on failure; the script then exits non-zero):
    wall ms, the kernels' launches and where each read and sync sits.
    Raises on any finding; `ell_hindex`, `ell_frontier`, `ell_cc`,
    `ell_multi` and `ell_pagerank` must launch on DS1.
+15. serve_lm: the LM substrate's serve path (`repro_torch.models`, which
+   reaches no CUDA kernel of the port) at full width and full depth in
+   bfloat16, for internlm2-1.8b and gemma3-1b: `build`, `init` on the
+   card from a seed, a block prefill of 4 seeded prompts of 1,024 tokens
+   into a full cache through `decode_fn`, 32 greedy decode steps, and
+   `prefill_fn(last_only=True)` (for gemma3 the banded path: 2 windows
+   of 512).  Raises unless (a) the prefill and decode logits match
+   `prefill_fn` on the same 1,056 tokens, (b) the `last_only` logits the
+   last row of the full ones, (c) gemma3's banded prefill the masked-full
+   one (``REPRO_NO_BANDED=1`` set inside the phase and restored; the
+   banded path must run once per local layer), (d) gemma3's ring and
+   full caches agree over 576 token-by-token steps — (a)-(d) within
+   SERVE_BF16_TOL of the largest |logit| — (e) each model's reduced
+   float32 config gives the CPU's logits on the card with the same
+   parameters (forward, block prefill, 4 decode steps; SERVE_F32_TOL),
+   and (f) every logit is finite.  One line per model: prefill seconds
+   and tokens/s, decode ms a step (median; min, max) and tokens/s beside
+   the parameter bytes at 3.35 TB/s, peak device bytes while serving,
+   the errors, the card.
 
 Earlier lines are JSON objects; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -217,6 +236,7 @@ the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -364,6 +384,7 @@ def main() -> int:
                               kernels[0]["launch_floor_ms"], scale)
     kernels += dense_timing(g, core_plain, ups[:R], parity, launches)
     audit = audit_phase(g, ups, dev)
+    serve_lm_phase(card)
     for k in kernels:
         if k["name"] in MESH_KERNELS:
             k["launches_by_path"] = {p: c.get(k["name"], 0)
@@ -1734,6 +1755,221 @@ def audit_phase(g, ups, dev):
          escalated=escalated, launches=counts,
          seconds=time.perf_counter() - t0)
     return counts
+
+
+#: serve_lm: the LM substrate's serve path, full width and full depth, bf16
+SERVE_MODELS = ("internlm2-1.8b", "gemma3-1b")
+SERVE_BATCH = 4          # prompts served together
+SERVE_PROMPT = 1024      # tokens a prompt; gemma3: 2 windows of 512
+SERVE_STEPS = 32         # greedy decode steps after the block prefill
+SERVE_SEED = 0           # parameters; SERVE_SEED + 1 the prompts
+SERVE_RING_STEPS = 576   # gemma3 ring vs full caches: window + 64 steps
+#: bf16 logits against another bf16 route to the same logits (decode vs
+#: forward, banded vs masked, ring vs full), relative to the largest
+#: |logit|: bf16 keeps 8 bits, and the two routes round at other points
+SERVE_BF16_TOL = 5e-2
+#: float32 logits of a reduced config, card against CPU, same parameters
+SERVE_F32_TOL = 1e-4
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over max |want|, taken one leading row at a time
+    (a model's logits at full vocabulary are GBs in float32)."""
+    num = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    den = max(float(w.float().abs().max()) for w in want)
+    return num / den
+
+
+def _all_finite(what, *tensors) -> None:
+    import torch
+
+    for t in tensors:
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{what}: a logit is not finite")
+
+
+def _serve_model(name, card, dev):
+    """One model of serve_lm: parameters drawn on the card, a block
+    prefill of SERVE_BATCH prompts into a full cache and SERVE_STEPS
+    greedy decode steps, then checks (a)-(d) and (f)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build, layers, param_count
+    from repro_torch.models.scan_util import tree_leaves
+
+    what = f"serve_lm[{name}]"
+    cfg = get_arch(name)
+    b = build(cfg)
+    B, S, G = SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS
+    t0 = time.perf_counter()
+    params = b.init(SERVE_SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(params)
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SERVE_SEED + 1)
+    prompts = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+
+    # warm-up: one block prefill into a cache of its own
+    b.decode_fn(params, prompts, b.cache_init(B, S + G, device=dev), 0)
+    torch.cuda.synchronize()
+    start_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    caches = b.cache_init(B, S + G, device=dev)
+    t0 = time.perf_counter()
+    pre, caches = b.decode_fn(params, prompts, caches, 0)
+    tok = torch.argmax(pre[:, -1], dim=-1)[:, None]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    fed, outs, step_ms = [], [pre], []
+    for i in range(G):
+        t0 = time.perf_counter()
+        fed.append(tok)
+        lg, caches = b.decode_fn(params, tok, caches, S + i)
+        tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(lg)
+    serve_peak = torch.cuda.max_memory_allocated()
+    decode_ms = statistics.median(step_ms)
+    served = torch.cat(outs, dim=1)
+    _all_finite(what, served)
+    del outs, pre, caches
+
+    # (a) block prefill + decode against the forward on the same tokens
+    seq = torch.cat([prompts] + fed, dim=1)
+    full, _ = b.prefill_fn(params, {"tokens": seq})
+    _all_finite(what, full)
+    err_a = _rel_err(served, full)
+    del served, full
+    # (b) the serving forward's last_only logits against the last row
+    banded = []
+    real_banded = layers.sdpa_banded
+    layers.sdpa_banded = lambda *a, **k: banded.append(1) or \
+        real_banded(*a, **k)
+    try:
+        full_p, _ = b.prefill_fn(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, _ = b.prefill_fn(params, {"tokens": prompts}, last_only=True)
+        torch.cuda.synchronize()
+        last_s = time.perf_counter() - t0
+    finally:
+        layers.sdpa_banded = real_banded
+    _all_finite(what, full_p, last)
+    err_b = _rel_err(last, full_p[:, -1:])
+    del full_p
+    line = dict(phase="serve_lm", model=name, params=n_params,
+                param_bytes=param_bytes, batch=B, prompt=S, decode_steps=G,
+                init_s=init_s, prefill_s=prefill_s,
+                prefill_tok_s=B * S / prefill_s,
+                prefill_fn_last_only_s=last_s, decode_ms=decode_ms,
+                decode_ms_min=min(step_ms), decode_ms_max=max(step_ms),
+                decode_tok_s=B / (decode_ms / 1e3),
+                decode_bound_ms=param_bytes / HBM_BYTES_PER_S * 1e3,
+                serve_peak_bytes=serve_peak, start_bytes=start_bytes,
+                banded_calls=len(banded) // 2)
+    errs = {"decode_vs_forward": err_a, "last_only": err_b}
+    if cfg.sliding_window:
+        # (c) the banded prefill against the masked-full one
+        local = cfg.n_layers - cfg.n_layers // cfg.local_global_period
+        if len(banded) != 2 * local:
+            raise AssertionError(f"{what}: the banded path ran "
+                                 f"{len(banded)} times in 2 forwards")
+        old = os.environ.get("REPRO_NO_BANDED")
+        os.environ["REPRO_NO_BANDED"] = "1"
+        try:
+            masked, _ = b.prefill_fn(params, {"tokens": prompts},
+                                     last_only=True)
+        finally:
+            if old is None:
+                del os.environ["REPRO_NO_BANDED"]
+            else:
+                os.environ["REPRO_NO_BANDED"] = old
+        _all_finite(what, masked)
+        errs["banded_vs_masked"] = _rel_err(last, masked)
+        # (d) ring and full caches, token by token past the window
+        T = SERVE_RING_STEPS
+        ring = b.cache_init(B, T, ring=True, device=dev)
+        flat = b.cache_init(B, T, device=dev)
+        cache_bytes = {k: sum(t.numel() * t.element_size()
+                              for t in tree_leaves(c))
+                       for k, c in (("ring", ring), ("full", flat))}
+        num = torch.zeros((), device=dev)
+        den = torch.zeros((), device=dev)
+        bad = torch.zeros((), dtype=torch.bool, device=dev)
+        ring_ms = []
+        for t in range(T):
+            t0 = time.perf_counter()
+            lr, ring = b.decode_fn(params, prompts[:, t:t + 1], ring, t)
+            torch.cuda.synchronize()
+            ring_ms.append((time.perf_counter() - t0) * 1e3)
+            lf, flat = b.decode_fn(params, prompts[:, t:t + 1], flat, t)
+            num = torch.maximum(num, (lr.float() - lf.float()).abs().max())
+            den = torch.maximum(den, lf.float().abs().max())
+            bad |= ~(torch.isfinite(lr).all() & torch.isfinite(lf).all())
+        if bool(bad):
+            raise AssertionError(f"{what}: a ring or full logit is not "
+                                 "finite")
+        errs["ring_vs_full"] = float(num / den)
+        line.update(ring_steps=T, ring_decode_ms=statistics.median(ring_ms),
+                    cache_bytes=cache_bytes)
+    line.update(errors=errs, tol=SERVE_BF16_TOL, card=card)
+    emit(**line)
+    over = {k: e for k, e in errs.items() if not e <= SERVE_BF16_TOL}
+    if over:
+        raise AssertionError(f"{what}: {over} above {SERVE_BF16_TOL}")
+
+
+def _serve_cpu_parity(name, dev):
+    """(e): the reduced float32 config on the card against the CPU, same
+    parameters: the forward, a block prefill and 4 decode steps."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build
+    from repro_torch.models.scan_util import tree_map
+
+    b = build(get_arch(name).reduced())
+    cpu = torch.device("cpu")
+    params = b.init(SERVE_SEED, device=cpu)
+    on_card = tree_map(lambda t: t.to(dev), params)
+    toks = torch.from_numpy(np.random.default_rng(SERVE_SEED).integers(
+        0, b.cfg.vocab, (2, 48)))
+    err = 0.0
+    want, _ = b.prefill_fn(params, {"tokens": toks})
+    got, _ = b.prefill_fn(on_card, {"tokens": toks.to(dev)})
+    err = max(err, _rel_err(got.cpu(), want))
+    cc, cd = b.cache_init(2, 48, device=cpu), b.cache_init(2, 48, device=dev)
+    want, cc = b.decode_fn(params, toks[:, :44], cc, 0)
+    got, cd = b.decode_fn(on_card, toks[:, :44].to(dev), cd, 0)
+    err = max(err, _rel_err(got.cpu(), want))
+    for t in range(44, 48):
+        want, cc = b.decode_fn(params, toks[:, t:t + 1], cc, t)
+        got, cd = b.decode_fn(on_card, toks[:, t:t + 1].to(dev), cd, t)
+        err = max(err, _rel_err(got.cpu(), want))
+    if not err <= SERVE_F32_TOL:
+        raise AssertionError(f"serve_lm[{name}]: card vs CPU {err} above "
+                             f"{SERVE_F32_TOL}")
+    return err
+
+
+def serve_lm_phase(card):
+    """serve_lm (module docstring, phase 15): each of SERVE_MODELS at full
+    width and depth in bf16, then the card against the CPU at float32."""
+    import torch
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    for name in SERVE_MODELS:
+        _serve_model(name, card, dev)
+        torch.cuda.empty_cache()
+    cpu_err = {name: _serve_cpu_parity(name, dev) for name in SERVE_MODELS}
+    emit(phase="serve_lm", card_vs_cpu_f32=cpu_err, tol=SERVE_F32_TOL,
+         seconds=time.perf_counter() - t0)
 
 
 def _mix_gather(svc, rng, n, count):

@@ -24,6 +24,13 @@ service on a `torch.distributed` worker mesh, one process per worker
 (``backend="ell_spmd"``), and `runtime.recovery` brings a stream back
 exact after a worker loss.
 
+Beside the graph system, the JAX package's seed LM substrate: its
+architecture configs are ported (`configs`: `ARCHS`, `get_arch`,
+`SHAPES`, `GRAPH_TASKS`), and `models` serves the dense decoder family
+(internlm2, codeqwen, granite, gemma3, the paligemma prefix-LM) through
+`build(cfg)`: `init`, `cache_init`, `prefill_fn`, `decode_fn`.  No module
+of the graph system imports `models`.
+
 This package carries a seed_fixtures note for the JAX package's dead-seed
 import audit: it is not seed substrate but a separate port, which the
 audit of `repro` cannot reach because no module of `repro` imports it.

@@ -2,8 +2,9 @@
 
 * ``dead-seed`` — every module of the port must be reachable from the
   product packages (`config.REACHABILITY_ROOTS`), or sit in a package
-  whose ``__init__`` carries a ``seed_fixtures`` note.  The port carries
-  no seed substrate, so in practice every module must be wired in.  The
+  whose ``__init__`` carries a ``seed_fixtures`` note.  The port's one
+  seed package is the LM substrate (`repro_torch.models`); every other
+  module must be wired in.  The
   port's ROOT ``__init__`` carries that note for the JAX package's own
   audit (no module of `repro` imports the port); read here as a marker it
   would quarantine the whole port and make this audit vacuous, so the

@@ -1,0 +1,20 @@
+"""internlm2-1.8b — dense GQA LM.
+
+[arXiv:2403.17297; hf] 24L d_model=2048 16H (GQA kv=8) d_ff=8192 vocab=92544.
+"""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="internlm2-1.8b",
+    family="dense",
+    n_layers=24,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=8,
+    d_ff=8192,
+    vocab=92544,
+    rope_theta=1e6,
+    supports_long_context=False,
+    source="arXiv:2403.17297; hf",
+    notes="GQA 2:1",
+)

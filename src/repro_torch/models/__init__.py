@@ -1,0 +1,24 @@
+"""The LM substrate's serve path on PyTorch (the JAX package's `models`).
+
+Dict-of-tensors parameters with each block's layers stacked on a leading
+axis, as the reference's pytrees; `build(cfg)` serves the dense decoder
+family (`dense_uniform`, `gemma_period`, the prefix-LM stub) and refuses
+the rest until their step of ROADMAP.md Queue 1 item 9.  The JAX
+package's `attention`, `moe`, `ssm` and `encdec` modules are not ported
+yet.
+
+seed_fixtures: quarantined seed substrate, as in the JAX package — held
+against it by `tests/test_torch_models.py` and run on the card by
+`chip_smoke.py`'s `serve_lm` phase, never imported by the port's product
+packages (`repro_torch.{core,kernels,runtime,service}`).
+"""
+from .model_zoo import (
+    build, ModelBundle, cross_entropy, param_count, params_from_numpy,
+    params_to_numpy,
+)
+from . import layers, transformer
+
+__all__ = [
+    "build", "ModelBundle", "cross_entropy", "param_count",
+    "params_from_numpy", "params_to_numpy", "layers", "transformer",
+]

@@ -1,0 +1,151 @@
+"""Unified model API: build(config) -> ModelBundle with init/step functions.
+
+The JAX package's `models.model_zoo` for the decoder-only assembly
+(`transformer.py`): the dense family — internlm2, codeqwen, granite,
+gemma3 and the paligemma prefix-LM stub — is served; `build` refuses the
+MoE, MLA, SSM and encoder-decoder configs with `NotImplementedError`
+naming their step of ROADMAP.md Queue 1 item 9.
+
+A user serves like this: `b = build(cfg)`, `params = b.init(seed)`,
+`caches = b.cache_init(B, max_seq)`, a block prefill of the prompts
+through `b.decode_fn(params, prompts, caches, 0)`, then one-token
+`decode_fn` steps; `b.prefill_fn(params, batch, last_only=True)` is the
+serving forward.  Everything runs on the card unless the caller passes
+``device="cpu"`` to `init` and `cache_init`.
+
+`loss_fn` is a forward evaluation; its gradient is the training step's.
+
+`params_from_numpy` carries a parameter tree of numpy arrays (the JAX
+package's `init` output, bf16 leaves as `ml_dtypes.bfloat16`) into the
+port's tree, bit for bit; `params_to_numpy` the other way.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve_device
+from . import transformer as T
+from .scan_util import tree_leaves, tree_map
+
+Params = Dict[str, Any]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token CE; logits (B,S,V), labels (B,S) (already shifted)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
+    return torch.mean(logz - ll)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelBundle:
+    cfg: Any
+    init: Callable[..., Params]
+    loss_fn: Callable[..., Tuple[torch.Tensor, torch.Tensor]]  # (params, batch) -> (loss, aux)
+    prefill_fn: Optional[Callable] = None
+    decode_fn: Optional[Callable] = None
+    cache_init: Optional[Callable] = None
+
+
+def _generator(seed_or_generator: Union[int, torch.Generator],
+               device: DeviceLike) -> torch.Generator:
+    """A generator on the resolved device: a new one seeded with an int,
+    or the caller's, which must lie on that device."""
+    dev = resolve_device(device)
+    if isinstance(seed_or_generator, torch.Generator):
+        gen = seed_or_generator
+        if gen.device != dev:
+            raise ValueError(f"a generator on {gen.device} cannot draw "
+                             f"parameters on {dev}")
+        return gen
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed_or_generator))
+    return gen
+
+
+def _decoder_bundle(cfg) -> ModelBundle:
+    T.check_ported(cfg)
+    prefix = cfg.n_prefix_tokens > 0
+
+    def init(seed_or_generator, device: DeviceLike = None):
+        return T.init_lm(_generator(seed_or_generator, device), cfg)
+
+    def loss_fn(params, batch, *, moe_path="capacity", remat=True):
+        tokens = batch["tokens"]
+        labels = batch["labels"]
+        pfx = batch.get("prefix_embeds") if prefix else None
+        logits, aux = T.lm_forward(params, cfg, tokens, prefix_embeds=pfx,
+                                   moe_path=moe_path, remat=remat)
+        if prefix:
+            logits = logits[:, cfg.n_prefix_tokens:]
+        loss = cross_entropy(logits[:, :-1], labels[:, 1:])
+        return loss + 0.01 * aux, aux
+
+    def cache_init(batch, max_seq, ring=False, device: DeviceLike = None):
+        return T.init_lm_cache(cfg, batch, max_seq, ring=ring,
+                               device=resolve_device(device))
+
+    def prefill_fn(params, batch, last_only=False):
+        """Forward over the prompt; returns (logits, aux).  `last_only`:
+        serving semantics — logits for the final position only."""
+        pfx = batch.get("prefix_embeds") if prefix else None
+        return T.lm_forward(params, cfg, batch["tokens"], prefix_embeds=pfx,
+                            moe_path="capacity", remat=False,
+                            last_only=last_only)
+
+    def decode_fn(params, token, caches, pos, *, mla_absorbed=False,
+                  moe_path="capacity", prefix_embeds=None):
+        return T.lm_decode_step(params, cfg, token, caches, pos,
+                                mla_absorbed=mla_absorbed, moe_path=moe_path,
+                                prefix_embeds=prefix_embeds)
+
+    return ModelBundle(cfg, init, loss_fn, prefill_fn, decode_fn, cache_init)
+
+
+def _encdec_bundle(cfg) -> ModelBundle:
+    raise T._not_ported(f"{cfg.name}: the encoder-decoder", "encdec")
+
+
+def build(cfg) -> ModelBundle:
+    return _encdec_bundle(cfg) if cfg.is_encdec else _decoder_bundle(cfg)
+
+
+def param_count(params: Params) -> int:
+    return sum(int(x.numel()) for x in tree_leaves(params))
+
+
+def _tensor_of(a, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes: torch.from_numpy refuses it
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.to(device)
+
+
+def params_from_numpy(tree, device: DeviceLike = None):
+    """A tree of numpy arrays (dicts and lists, as the JAX package's
+    `init` gives it) -> the same tree of tensors on the resolved device,
+    bit for bit (bf16 through its 16-bit pattern)."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _tensor_of(a, dev), tree)
+
+
+def _numpy_of(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # numpy has no bfloat16 of its own
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_to_numpy(tree):
+    """The inverse of `params_from_numpy`: host numpy arrays, bf16 leaves
+    as `ml_dtypes.bfloat16`."""
+    return tree_map(_numpy_of, tree)

@@ -1,0 +1,54 @@
+"""Layer loops over stacked parameters, and the tree helpers they need.
+
+The JAX package scans (`lax.scan`) a block's layer body over parameters
+stacked on a leading axis, so one compiled body serves every layer.
+Eager PyTorch compiles nothing: `scan` is a Python loop over that axis
+with `lax.scan`'s contract, and the parameter tree keeps the reference's
+stacked layout so weights carry across leaf for leaf.
+
+Trees are nested dicts, lists and tuples with tensors at the leaves.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List, Optional, Tuple
+
+import torch
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """`fn` over the leaves of `tree` (and the same leaves of `rest`),
+    keeping the nesting."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [tree_map(fn, v, *(r[i] for r in rest))
+               for i, v in enumerate(tree)]
+        return type(tree)(out)
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of `tree`, in the order `tree_map` visits them."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_stack(trees: List[Any]) -> Any:
+    """Stack a list of same-shaped trees on a new leading axis."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def scan(f: Callable, init: Any, xs: Any,
+         length: Optional[int] = None) -> Tuple[Any, None]:
+    """`carry, _ = f(carry, xs[i])` for each i of the leading axis; returns
+    (the last carry, None).  No body of the port emits a per-step output
+    (decode writes its caches in place), so none is stacked."""
+    n = length if length is not None else tree_leaves(xs)[0].shape[0]
+    carry = init
+    for i in range(n):
+        carry, _ = f(carry, tree_map(lambda a: a[i], xs))
+    return carry, None
