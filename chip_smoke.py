@@ -209,24 +209,45 @@ Phases (each raises on failure; the script then exits non-zero):
    Raises on any finding; `ell_hindex`, `ell_frontier`, `ell_cc`,
    `ell_multi` and `ell_pagerank` must launch on DS1.
 15. serve_lm: the LM substrate's serve path (`repro_torch.models`, which
-   reaches no CUDA kernel of the port) at full width and full depth in
-   bfloat16, for internlm2-1.8b and gemma3-1b: `build`, `init` on the
-   card from a seed, a block prefill of 4 seeded prompts of 1,024 tokens
-   into a full cache through `decode_fn`, 32 greedy decode steps, and
-   `prefill_fn(last_only=True)` (for gemma3 the banded path: 2 windows
-   of 512).  Raises unless (a) the prefill and decode logits match
-   `prefill_fn` on the same 1,056 tokens, (b) the `last_only` logits the
-   last row of the full ones, (c) gemma3's banded prefill the masked-full
-   one (``REPRO_NO_BANDED=1`` set inside the phase and restored; the
-   banded path must run once per local layer), (d) gemma3's ring and
-   full caches agree over 576 token-by-token steps — (a)-(d) within
-   SERVE_BF16_TOL of the largest |logit| — (e) each model's reduced
+   reaches no CUDA kernel of the port) at published widths in bfloat16,
+   for internlm2-1.8b and gemma3-1b at full depth, deepseek-v3-671b at 5
+   of 61 layers (its 3 dense MLA layers and 2 MoE layers) and
+   llama4-scout-17b-a16e at 12 of 48 (`SERVE_DEPTH`: the published depth
+   does not fit one card; each line lists the cut under `reduced`),
+   mamba2-370m and zamba2-7b at full depth: `build`, `init` on the card
+   from a seed, then 4 seeded prompts of 1,024 tokens.  Attention models
+   block-prefill them into a full cache through `decode_fn` and take 32
+   greedy decode steps on the capacity MoE path; mamba models time
+   `prefill_fn(last_only=True)` (the chunked scan) over them, build their
+   caches token by token over the first 64 tokens and take the 32 steps
+   from there.  Raises unless (a) the served logits match the forward on
+   the same tokens (the dense models: all 1,056; the MoE models: a fresh
+   64-token block and 32 steps on the dense MoE path, whose decode and
+   forward keep the same tokens, the forward's routers picking the
+   experts the decode picked — bf16 rounding moves near-tied tokens to
+   other experts, and the tokens whose own pick differs are counted;
+   the mamba models: their 64 + 32, within SERVE_BF16_SSM_TOL), (b)
+   the `last_only` logits the last row of the full ones, (c) gemma3's
+   banded prefill the masked-full one (``REPRO_NO_BANDED=1`` set inside
+   the phase and restored; the banded path must run once per local
+   layer), (d) gemma3's ring and full caches agree over 576
+   token-by-token steps, (g) one full-width MoE layer of each MoE model
+   gives `moe_dense`'s output through `moe_capacity` with capacity T·k,
+   (h) deepseek's absorbed decode its naive decode over the 32 served
+   tokens from the prompt's cache (the dense MoE path, as the reference's
+   test, the naive run's experts replayed; the absorbed serving steps
+   are timed) — (a)-(d), (g), (h)
+   within SERVE_BF16_TOL of the largest |logit| — (i) zamba2's shared
+   block runs in each of its 13 periods of a forward and of a step on
+   one parameter set (the same data_ptrs), (e) each model's reduced
    float32 config gives the CPU's logits on the card with the same
-   parameters (forward, block prefill, 4 decode steps; SERVE_F32_TOL),
-   and (f) every logit is finite.  One line per model: prefill seconds
-   and tokens/s, decode ms a step (median; min, max) and tokens/s beside
-   the parameter bytes at 3.35 TB/s, peak device bytes while serving,
-   the errors, the card.
+   parameters (forward, the prompt into the cache, 4 decode steps;
+   SERVE_F32_TOL), and (f) every logit is finite.  One line per model:
+   prefill seconds and tokens/s, decode ms a step (median; min, max) and
+   tokens/s beside the parameter bytes at 3.35 TB/s (with the caches';
+   MoE models also the bytes of a dispatch that read only the chosen
+   experts), peak device bytes while serving, the errors, the tokens
+   the compared runs routed to other experts, the card.
 
 Earlier lines are JSON objects; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -235,6 +256,7 @@ the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -1757,17 +1779,38 @@ def audit_phase(g, ups, dev):
     return counts
 
 
-#: serve_lm: the LM substrate's serve path, full width and full depth, bf16
-SERVE_MODELS = ("internlm2-1.8b", "gemma3-1b")
+#: serve_lm: the LM substrate's serve path at published widths in bf16
+SERVE_MODELS = ("internlm2-1.8b", "gemma3-1b", "deepseek-v3-671b",
+                "llama4-scout-17b-a16e", "mamba2-370m", "zamba2-7b")
+#: layers held on the card where the published depth does not fit it
+#: (671.0e9 and 107.8e9 parameters): deepseek's 3 dense MLA layers and 2
+#: MoE layers (23.0 GB each in bf16), llama4's first 12 of 48 (4.4 GB
+#: each); every width as published
+SERVE_DEPTH = {"deepseek-v3-671b": 5, "llama4-scout-17b-a16e": 12}
 SERVE_BATCH = 4          # prompts served together
 SERVE_PROMPT = 1024      # tokens a prompt; gemma3: 2 windows of 512
-SERVE_STEPS = 32         # greedy decode steps after the block prefill
+SERVE_STEPS = 32         # greedy decode steps after the prompt
 SERVE_SEED = 0           # parameters; SERVE_SEED + 1 the prompts
 SERVE_RING_STEPS = 576   # gemma3 ring vs full caches: window + 64 steps
+#: check (a) of the MoE and mamba models: decode against the forward on
+#: the first SERVE_CHECK_PROMPT tokens of each prompt and SERVE_STEPS
+#: greedy steps (MoE on the dense path, whose decode and forward keep the
+#: same tokens; a mamba cache is built one token at a time)
+SERVE_CHECK_PROMPT = 64
+#: check (g): (B, S) tokens through one MoE layer, capacity T·k vs dense
+SERVE_MOE_TOKENS = (4, 16)
 #: bf16 logits against another bf16 route to the same logits (decode vs
 #: forward, banded vs masked, ring vs full), relative to the largest
 #: |logit|: bf16 keeps 8 bits, and the two routes round at other points
 SERVE_BF16_TOL = 5e-2
+#: (a) of the mamba models (mamba2, zamba2): token-by-token decode
+#: against the chunked forward in bf16.  The reference's two forms round
+#: bf16 at other points in each of 48 (81) layers — `_causal_conv` and
+#: its silu in bf16 in the chunked form, in float32 in `mamba_step` —
+#: and measured 6.46e-2 and 6.89e-2 (mamba2), 7.92e-2 and 8.65e-2
+#: (zamba2) on the H100 against 5.9e-6 and 1.1e-5 in float32 with the
+#: same weights (PERF.md, PR 25; `tools/serve_lm.py --f32-check`)
+SERVE_BF16_SSM_TOL = 0.15
 #: float32 logits of a reduced config, card against CPU, same parameters
 SERVE_F32_TOL = 1e-4
 
@@ -1789,18 +1832,227 @@ def _all_finite(what, *tensors) -> None:
             raise AssertionError(f"{what}: a logit is not finite")
 
 
-def _serve_model(name, card, dev):
-    """One model of serve_lm: parameters drawn on the card, a block
-    prefill of SERVE_BATCH prompts into a full cache and SERVE_STEPS
-    greedy decode steps, then checks (a)-(d) and (f)."""
-    import torch
+def _serve_config(name):
+    """(the config served, its `reduced` record: depth cuts only)."""
     from repro_torch.configs import get_arch
-    from repro_torch.models import build, layers, param_count
+
+    cfg = get_arch(name)
+    if name not in SERVE_DEPTH:
+        return cfg, {}
+    return (dataclasses.replace(cfg, n_layers=SERVE_DEPTH[name]),
+            {"n_layers": [cfg.n_layers, SERVE_DEPTH[name]]})
+
+
+def _prefill(b, params, prompts, caches, block, **kw):
+    """The prompts into `caches` through `decode_fn`, `block` positions a
+    call (the whole prompt; 1 for a mamba cache).  Returns (the prompt's
+    logits, seconds)."""
+    import torch
+
+    S = prompts.shape[1]
+    t0 = time.perf_counter()
+    pre = []
+    for s0 in range(0, S, block):
+        lg, caches = b.decode_fn(params, prompts[:, s0:s0 + block], caches,
+                                 s0, **kw)
+        pre.append(lg)
+    pre = pre[0] if len(pre) == 1 else torch.cat(pre, dim=1)
+    torch.cuda.synchronize()
+    return pre, time.perf_counter() - t0
+
+
+def _decode(b, params, last, caches, pos, G, feed=None, **kw):
+    """G greedy decode steps from the logits `last` at position `pos` (or
+    the tokens `feed`).  Returns (each step's logits, the fed tokens, each
+    step's ms)."""
+    import torch
+
+    tok = torch.argmax(last[:, -1], dim=-1)[:, None]
+    fed, outs, step_ms = [], [], []
+    for i in range(G):
+        t0 = time.perf_counter()
+        if feed is not None:
+            tok = feed[i]
+        fed.append(tok)
+        lg, caches = b.decode_fn(params, tok, caches, pos + i, **kw)
+        tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(lg)
+    return outs, fed, step_ms
+
+
+def _flips(a_calls, b_calls) -> int:
+    """Tokens routed to another expert set, router call by router call
+    (each call's (T, k) ids; equal T in both runs)."""
+    return sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+               for x, y in zip(a_calls, b_calls))
+
+
+def _per_layer(dec_calls, n_moe, B):
+    """A served sequence's router calls (a prompt block, then one token a
+    step: `n_moe` calls each) as one (B·S, k) call a MoE layer, in the
+    forward's token order."""
+    import torch
+
+    k = dec_calls[0].shape[-1]
+    calls = [dec_calls[i:i + n_moe] for i in range(0, len(dec_calls), n_moe)]
+    return [torch.cat([c[l].reshape(B, -1, k) for c in calls],
+                      dim=1).reshape(-1, k) for l in range(n_moe)]
+
+
+def _routes_of(fn, replay=None):
+    """(fn()'s result, the expert ids its router calls picked).  With
+    `replay` (one (T, k) id tensor a router call), each call takes those
+    ids instead, weighted by its own renormalised probabilities: two runs
+    that round bf16 at other points then agree on which experts serve
+    each token, and differ only by that rounding."""
+    import torch
+    from repro_torch.models import moe
+
+    own = []
+    real = moe._router
+    todo = iter(replay) if replay is not None else None
+
+    def router(p, cfg, x):
+        topv, topi, aux = real(p, cfg, x)
+        own.append(topi)
+        if todo is None:
+            return topv, topi, aux
+        ids = next(todo)
+        probs = torch.softmax(x.float() @ p["router"]["w"].float(), dim=-1)
+        w = probs.gather(1, ids)
+        return w / w.sum(-1, keepdim=True), ids, aux
+    moe._router = router
+    try:
+        out = fn()
+    finally:
+        moe._router = real
+    return out, own
+
+
+def _check_decode(b, params, prompts, dev, replay=True):
+    """(a) of a MoE or mamba model: SERVE_CHECK_PROMPT tokens of each
+    prompt into a fresh cache (a block; a mamba cache one token a step)
+    and SERVE_STEPS greedy steps, against the forward over the same
+    tokens, MoE layers on the dense path and, with `replay`, the
+    forward's routers picking the experts the decode picked.  Returns
+    (error, tokens whose forward router picked other experts)."""
+    import torch
+    from repro_torch.models import transformer
+
+    B, P, G = prompts.shape[0], SERVE_CHECK_PROMPT, SERVE_STEPS
+    n_moe = sum(blk.count for blk in transformer.layer_plan(b.cfg)
+                if blk.moe)
+    block = 1 if b.cfg.mixer == "mamba" else P
+    caches = b.cache_init(B, P + G, device=dev)
+
+    def serve():
+        pre, _ = _prefill(b, params, prompts[:, :P], caches, block,
+                          moe_path="dense")
+        return (pre,) + _decode(b, params, pre, caches, P, G,
+                                moe_path="dense")[:2]
+    (pre, outs, fed), dec_routes = _routes_of(serve)
+    routes = _per_layer(dec_routes, n_moe, B) if n_moe else []
+    seq = torch.cat([prompts[:, :P]] + fed, dim=1)
+    (full, _), fwd_routes = _routes_of(
+        lambda: transformer.lm_forward(params, b.cfg, seq, moe_path="dense"),
+        routes if replay else None)
+    served = torch.cat([pre] + outs, dim=1)
+    _all_finite(f"serve_lm[{b.cfg.name}]", served, full)
+    return _rel_err(served, full), _flips(fwd_routes, routes)
+
+
+def _check_absorbed(b, params, pre, snap, fed, pos, replay=True):
+    """(h): from the cache `snap` right after the prompt, the served tokens
+    `fed` decoded naive and absorbed on the dense MoE path (the
+    reference's `test_mla_absorbed_equals_naive`; with `replay`, the
+    absorbed run's routers pick the naive run's experts), and absorbed on
+    the serving (capacity) path, timed.  Returns (error of absorbed
+    against naive, tokens whose absorbed router picked other experts,
+    the absorbed serving steps' ms)."""
+    import torch
+    from repro_torch.models.scan_util import tree_map
+
+    G = len(fed)
+    (naive, _, _), r_naive = _routes_of(lambda: _decode(
+        b, params, pre, tree_map(torch.clone, snap), pos, G, feed=fed,
+        moe_path="dense"))
+    (absorbed, _, _), r_abs = _routes_of(lambda: _decode(
+        b, params, pre, tree_map(torch.clone, snap), pos, G, feed=fed,
+        moe_path="dense", mla_absorbed=True), r_naive if replay else None)
+    served, _, ms = _decode(b, params, pre, snap, pos, G, feed=fed,
+                            mla_absorbed=True)
+    _all_finite(f"serve_lm[{b.cfg.name}]", *naive, *absorbed, *served)
+    return (_rel_err(torch.cat(absorbed, dim=1), torch.cat(naive, dim=1)),
+            _flips(r_abs, r_naive), ms)
+
+
+def _moe_layer_check(params, cfg, dev):
+    """(g): the first MoE layer at full width, `moe_capacity` with
+    capacity T·k (nothing dropped) against `moe_dense`."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.scan_util import tree_map
+
+    p = tree_map(lambda t: t[0], params["blocks"][-1]["moe"])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SERVE_SEED + 2)
+    x = torch.randn(SERVE_MOE_TOKENS + (cfg.d_model,), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    T = x.shape[0] * x.shape[1]
+    yd, _ = moe.moe_dense(p, cfg, x)
+    yc, _ = moe.moe_capacity(p, cfg, x, capacity=T * cfg.top_k)
+    _all_finite("serve_lm: moe layer", yd, yc)
+    return _rel_err(yc, yd)
+
+
+def _shared_block_check(b, params, prompts, dev):
+    """(i): zamba2's shared block is one parameter set: every period of a
+    forward and of a decode step applies the tensors at the data_ptrs of
+    `params["shared_block"]`."""
+    from repro_torch.models import transformer
     from repro_torch.models.scan_util import tree_leaves
 
+    want = [t.data_ptr() for t in tree_leaves(params["shared_block"])]
+    seen = []
+    real = transformer._apply_shared_block
+
+    def shared_block(p, *a, **k):
+        seen.append([t.data_ptr() for t in tree_leaves(p)])
+        return real(p, *a, **k)
+    transformer._apply_shared_block = shared_block
+    try:
+        b.prefill_fn(params, {"tokens": prompts[:, :16]}, last_only=True)
+        caches = b.cache_init(prompts.shape[0], 1, device=dev)
+        b.decode_fn(params, prompts[:, :1], caches, 0)
+    finally:
+        transformer._apply_shared_block = real
+    periods = transformer.layer_plan(b.cfg)[0].count
+    if len(seen) != 2 * periods or any(s != want for s in seen):
+        raise AssertionError(
+            f"serve_lm[{b.cfg.name}]: the shared block ran {len(seen)} "
+            f"times in a forward and a step ({2 * periods} wanted), "
+            f"{sum(s != want for s in seen)} of them on other tensors")
+    return {"shared_block_calls": len(seen),
+            "shared_block_data_ptrs": len(set(map(tuple, seen)))}
+
+
+def _serve_model(name, card, dev):
+    """One model of serve_lm: parameters drawn on the card, the prompts
+    served (a block prefill into a full cache and SERVE_STEPS greedy
+    steps; a mamba model times its chunked `prefill_fn` and decodes after
+    a token-by-token cache build), then the model's checks."""
+    import torch
+    from repro_torch.models import build, layers, moe, param_count
+    from repro_torch.models import transformer
+    from repro_torch.models.scan_util import tree_leaves, tree_map
+
     what = f"serve_lm[{name}]"
-    cfg = get_arch(name)
+    cfg, reduced = _serve_config(name)
     b = build(cfg)
+    mamba = cfg.mixer == "mamba"
+    n_moe = sum(blk.count for blk in transformer.layer_plan(cfg) if blk.moe)
     B, S, G = SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS
     t0 = time.perf_counter()
     params = b.init(SERVE_SEED, device=dev)
@@ -1812,67 +2064,130 @@ def _serve_model(name, card, dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(SERVE_SEED + 1)
     prompts = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+    line = dict(phase="serve_lm", model=name, reduced=reduced,
+                layers=cfg.n_layers, params=n_params, param_bytes=param_bytes,
+                batch=B, prompt=S, decode_steps=G, init_s=init_s)
+    errs, flips = {}, {}
 
-    # warm-up: one block prefill into a cache of its own
-    b.decode_fn(params, prompts, b.cache_init(B, S + G, device=dev), 0)
-    torch.cuda.synchronize()
-    start_bytes = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    caches = b.cache_init(B, S + G, device=dev)
-    t0 = time.perf_counter()
-    pre, caches = b.decode_fn(params, prompts, caches, 0)
-    tok = torch.argmax(pre[:, -1], dim=-1)[:, None]
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    fed, outs, step_ms = [], [pre], []
-    for i in range(G):
-        t0 = time.perf_counter()
-        fed.append(tok)
-        lg, caches = b.decode_fn(params, tok, caches, S + i)
-        tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+    if mamba:
+        # the serving forward: the chunked scan over the whole prompts
+        b.prefill_fn(params, {"tokens": prompts}, last_only=True)  # warm-up
         torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        outs.append(lg)
-    serve_peak = torch.cuda.max_memory_allocated()
-    decode_ms = statistics.median(step_ms)
-    served = torch.cat(outs, dim=1)
-    _all_finite(what, served)
-    del outs, pre, caches
-
-    # (a) block prefill + decode against the forward on the same tokens
-    seq = torch.cat([prompts] + fed, dim=1)
-    full, _ = b.prefill_fn(params, {"tokens": seq})
-    _all_finite(what, full)
-    err_a = _rel_err(served, full)
-    del served, full
-    # (b) the serving forward's last_only logits against the last row
-    banded = []
-    real_banded = layers.sdpa_banded
-    layers.sdpa_banded = lambda *a, **k: banded.append(1) or \
-        real_banded(*a, **k)
-    try:
-        full_p, _ = b.prefill_fn(params, {"tokens": prompts})
-        torch.cuda.synchronize()
+        start_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         last, _ = b.prefill_fn(params, {"tokens": prompts}, last_only=True)
         torch.cuda.synchronize()
-        last_s = time.perf_counter() - t0
-    finally:
-        layers.sdpa_banded = real_banded
-    _all_finite(what, full_p, last)
-    err_b = _rel_err(last, full_p[:, -1:])
-    del full_p
-    line = dict(phase="serve_lm", model=name, params=n_params,
-                param_bytes=param_bytes, batch=B, prompt=S, decode_steps=G,
-                init_s=init_s, prefill_s=prefill_s,
-                prefill_tok_s=B * S / prefill_s,
-                prefill_fn_last_only_s=last_s, decode_ms=decode_ms,
-                decode_ms_min=min(step_ms), decode_ms_max=max(step_ms),
+        prefill_s = time.perf_counter() - t0
+        # decode: the cache built one token a step, then greedy steps
+        P = SERVE_CHECK_PROMPT
+        caches = b.cache_init(B, P + G, device=dev)
+        pre, build_s = _prefill(b, params, prompts[:, :P], caches, 1)
+        outs, fed, step_ms = _decode(b, params, pre, caches, P, G)
+        serve_peak = torch.cuda.max_memory_allocated()
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for t in tree_leaves(caches))
+        served = torch.cat([pre] + outs, dim=1)
+        _all_finite(what, served, last)
+        line.update(prefill_s=prefill_s, prefill_tok_s=B * S / prefill_s,
+                    prefill_form="prefill_fn(last_only=True), chunked scan",
+                    cache_prompt=P, cache_build_s=build_s)
+        # (a) the token-by-token decode against the forward
+        seq = torch.cat([prompts[:, :P]] + fed, dim=1)
+        full, _ = b.prefill_fn(params, {"tokens": seq})
+        _all_finite(what, full)
+        errs["decode_vs_forward"] = _rel_err(served, full)
+        del served, full
+        full_p, _ = b.prefill_fn(params, {"tokens": prompts})
+        _all_finite(what, full_p)
+        errs["last_only"] = _rel_err(last, full_p[:, -1:])
+        del full_p
+        if cfg.shared_attn_period:
+            line.update(_shared_block_check(b, params, prompts, dev))
+    else:
+        _prefill(b, params, prompts, b.cache_init(B, S + G, device=dev),
+                 S)  # warm-up
+        torch.cuda.synchronize()
+        start_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        caches = b.cache_init(B, S + G, device=dev)
+        pre, prefill_s = _prefill(b, params, prompts, caches, S)
+        snap = (tree_map(torch.clone, caches)
+                if cfg.attn_impl == "mla" else None)
+        outs, fed, step_ms = _decode(b, params, pre, caches, S, G)
+        serve_peak = torch.cuda.max_memory_allocated()
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for t in tree_leaves(caches))
+        served = torch.cat([pre] + outs, dim=1)
+        _all_finite(what, served)
+        line.update(prefill_s=prefill_s, prefill_tok_s=B * S / prefill_s)
+        del outs, caches
+        if snap is not None:
+            # (h) the absorbed decode against the naive one
+            err, n, a_ms = _check_absorbed(b, params, pre, snap, fed, S)
+            errs["absorbed_vs_naive"], flips["absorbed_vs_naive"] = err, n
+            line.update(absorbed_decode_ms=statistics.median(a_ms),
+                        absorbed_decode_ms_min=min(a_ms),
+                        absorbed_decode_ms_max=max(a_ms),
+                        absorbed_check_moe_path="dense",
+                        absorbed_check_routes="replayed")
+            del snap
+        del pre
+        if n_moe:
+            # (a) on the dense path: decode against the forward
+            err, n = _check_decode(b, params, prompts, dev)
+            errs["decode_vs_forward"], flips["decode_vs_forward"] = err, n
+            line.update(check_prompt=SERVE_CHECK_PROMPT,
+                        check_moe_path="dense", check_routes="replayed")
+            # (g) one MoE layer: capacity T·k against dense
+            errs["moe_capacity_vs_dense"] = _moe_layer_check(params, cfg,
+                                                             dev)
+        else:
+            # (a) block prefill + decode against the forward, same tokens
+            seq = torch.cat([prompts] + fed, dim=1)
+            full, _ = b.prefill_fn(params, {"tokens": seq})
+            _all_finite(what, full)
+            errs["decode_vs_forward"] = _rel_err(served, full)
+            del full
+        del served
+        # (b) the serving forward's last_only logits against the last row
+        banded = []
+        real_banded = layers.sdpa_banded
+        layers.sdpa_banded = lambda *a, **k: banded.append(1) or \
+            real_banded(*a, **k)
+        try:
+            full_p, _ = b.prefill_fn(params, {"tokens": prompts})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last, _ = b.prefill_fn(params, {"tokens": prompts},
+                                   last_only=True)
+            torch.cuda.synchronize()
+            last_s = time.perf_counter() - t0
+        finally:
+            layers.sdpa_banded = real_banded
+        _all_finite(what, full_p, last)
+        errs["last_only"] = _rel_err(last, full_p[:, -1:])
+        del full_p
+        line.update(prefill_fn_last_only_s=last_s,
+                    banded_calls=len(banded) // 2)
+
+    decode_ms = statistics.median(step_ms)
+    line.update(decode_ms=decode_ms, decode_ms_min=min(step_ms),
+                decode_ms_max=max(step_ms),
                 decode_tok_s=B / (decode_ms / 1e3),
                 decode_bound_ms=param_bytes / HBM_BYTES_PER_S * 1e3,
-                serve_peak_bytes=serve_peak, start_bytes=start_bytes,
-                banded_calls=len(banded) // 2)
-    errs = {"decode_vs_forward": err_a, "last_only": err_b}
+                decode_bound_ms_with_cache=(param_bytes + cache_bytes)
+                / HBM_BYTES_PER_S * 1e3,
+                cache_bytes_served=cache_bytes,
+                serve_peak_bytes=serve_peak, start_bytes=start_bytes)
+    if n_moe:
+        # a dispatch reading only the chosen experts: at most B·k of E
+        E, k = cfg.n_experts, cfg.top_k
+        expert_bytes = 3 * cfg.d_model * cfg.moe_d_ff * 2
+        active = param_bytes - n_moe * (E - min(E, B * k)) * expert_bytes
+        line.update(active_param_bytes=active,
+                    decode_active_bound_ms=active / HBM_BYTES_PER_S * 1e3,
+                    route_flips=flips)
     if cfg.sliding_window:
         # (c) the banded prefill against the masked-full one
         local = cfg.n_layers - cfg.n_layers // cfg.local_global_period
@@ -1917,16 +2232,21 @@ def _serve_model(name, card, dev):
         errs["ring_vs_full"] = float(num / den)
         line.update(ring_steps=T, ring_decode_ms=statistics.median(ring_ms),
                     cache_bytes=cache_bytes)
+    tols = {k: SERVE_BF16_TOL for k in errs}
+    if mamba:
+        tols["decode_vs_forward"] = SERVE_BF16_SSM_TOL
+        line.update(tol_decode_vs_forward=SERVE_BF16_SSM_TOL)
     line.update(errors=errs, tol=SERVE_BF16_TOL, card=card)
     emit(**line)
-    over = {k: e for k, e in errs.items() if not e <= SERVE_BF16_TOL}
+    over = {k: e for k, e in errs.items() if not e <= tols[k]}
     if over:
-        raise AssertionError(f"{what}: {over} above {SERVE_BF16_TOL}")
+        raise AssertionError(f"{what}: {over} above {tols}")
 
 
 def _serve_cpu_parity(name, dev):
     """(e): the reduced float32 config on the card against the CPU, same
-    parameters: the forward, a block prefill and 4 decode steps."""
+    parameters: the forward, the prompt into the cache (a block of 44; a
+    mamba model's cache one token a step) and 4 decode steps."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
@@ -1934,6 +2254,7 @@ def _serve_cpu_parity(name, dev):
     from repro_torch.models.scan_util import tree_map
 
     b = build(get_arch(name).reduced())
+    block = 1 if b.cfg.mixer == "mamba" else 44
     cpu = torch.device("cpu")
     params = b.init(SERVE_SEED, device=cpu)
     on_card = tree_map(lambda t: t.to(dev), params)
@@ -1944,9 +2265,11 @@ def _serve_cpu_parity(name, dev):
     got, _ = b.prefill_fn(on_card, {"tokens": toks.to(dev)})
     err = max(err, _rel_err(got.cpu(), want))
     cc, cd = b.cache_init(2, 48, device=cpu), b.cache_init(2, 48, device=dev)
-    want, cc = b.decode_fn(params, toks[:, :44], cc, 0)
-    got, cd = b.decode_fn(on_card, toks[:, :44].to(dev), cd, 0)
-    err = max(err, _rel_err(got.cpu(), want))
+    for s0 in range(0, 44, block):
+        want, cc = b.decode_fn(params, toks[:, s0:s0 + block], cc, s0)
+        got, cd = b.decode_fn(on_card, toks[:, s0:s0 + block].to(dev), cd,
+                              s0)
+        err = max(err, _rel_err(got.cpu(), want))
     for t in range(44, 48):
         want, cc = b.decode_fn(params, toks[:, t:t + 1], cc, t)
         got, cd = b.decode_fn(on_card, toks[:, t:t + 1].to(dev), cd, t)
@@ -1957,17 +2280,17 @@ def _serve_cpu_parity(name, dev):
     return err
 
 
-def serve_lm_phase(card):
-    """serve_lm (module docstring, phase 15): each of SERVE_MODELS at full
-    width and depth in bf16, then the card against the CPU at float32."""
+def serve_lm_phase(card, models=SERVE_MODELS):
+    """serve_lm (module docstring, phase 15): each of `models` at
+    published widths in bf16, then the card against the CPU at float32."""
     import torch
 
     t0 = time.perf_counter()
     dev = torch.device("cuda", 0)
-    for name in SERVE_MODELS:
+    for name in models:
         _serve_model(name, card, dev)
         torch.cuda.empty_cache()
-    cpu_err = {name: _serve_cpu_parity(name, dev) for name in SERVE_MODELS}
+    cpu_err = {name: _serve_cpu_parity(name, dev) for name in models}
     emit(phase="serve_lm", card_vs_cpu_f32=cpu_err, tol=SERVE_F32_TOL,
          seconds=time.perf_counter() - t0)
 

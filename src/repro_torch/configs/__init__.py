@@ -3,10 +3,10 @@ service's `ServiceConfig`, as in the JAX package.
 
   * **Seed fixtures** (`ARCHS`): the 10 LLM architecture configs below,
     with `ShapeConfig`/`SHAPES` and `cell_applicable`, copied field for
-    field.  `repro_torch.models` serves the dense family of them
-    (`dense_uniform`, `gemma_period`, the prefix-LM stub); the rest are
-    refused there until their step of ROADMAP.md Queue 1 item 9.  Nothing
-    in `repro_torch.core`/`runtime`/`service` may import them.
+    field.  `repro_torch.models` serves the eight decoder-only ones; the
+    encoder-decoder is refused there until its step of ROADMAP.md Queue 1
+    item 9.  Nothing in `repro_torch.core`/`runtime`/`service` may import
+    them.
   * **Service configs** (`service.ServiceConfig`): the graph-side knobs of
     the query-serving layer (`repro_torch.service`).
   * **Graph tasks** (`bladyg_graph.GRAPH_TASKS`): the paper's datasets

@@ -1,11 +1,11 @@
 """The LM substrate's serve path on PyTorch (the JAX package's `models`).
 
 Dict-of-tensors parameters with each block's layers stacked on a leading
-axis, as the reference's pytrees; `build(cfg)` serves the dense decoder
-family (`dense_uniform`, `gemma_period`, the prefix-LM stub) and refuses
-the rest until their step of ROADMAP.md Queue 1 item 9.  The JAX
-package's `attention`, `moe`, `ssm` and `encdec` modules are not ported
-yet.
+axis, as the reference's pytrees; `build(cfg)` serves every decoder-only
+architecture (`dense_uniform`, `gemma_period`, the prefix-LM stub,
+`moe_uniform` with GQA or MLA attention, `mamba_uniform`, `zamba_period`)
+and refuses the encoder-decoder until its step of ROADMAP.md Queue 1
+item 9.  The JAX package's `encdec` module is not ported yet.
 
 seed_fixtures: quarantined seed substrate, as in the JAX package — held
 against it by `tests/test_torch_models.py` and run on the card by
@@ -16,9 +16,10 @@ from .model_zoo import (
     build, ModelBundle, cross_entropy, param_count, params_from_numpy,
     params_to_numpy,
 )
-from . import layers, transformer
+from . import attention, layers, moe, ssm, transformer
 
 __all__ = [
     "build", "ModelBundle", "cross_entropy", "param_count",
-    "params_from_numpy", "params_to_numpy", "layers", "transformer",
+    "params_from_numpy", "params_to_numpy", "attention", "layers", "moe",
+    "ssm", "transformer",
 ]

@@ -1,16 +1,21 @@
 """Unified model API: build(config) -> ModelBundle with init/step functions.
 
 The JAX package's `models.model_zoo` for the decoder-only assembly
-(`transformer.py`): the dense family — internlm2, codeqwen, granite,
-gemma3 and the paligemma prefix-LM stub — is served; `build` refuses the
-MoE, MLA, SSM and encoder-decoder configs with `NotImplementedError`
-naming their step of ROADMAP.md Queue 1 item 9.
+(`transformer.py`), which serves eight architectures: the dense family
+(internlm2, codeqwen, granite, gemma3, the paligemma prefix-LM stub), the
+MoE models (deepseek-v3 with MLA, llama4-scout), mamba2 and the zamba2
+hybrid.  `build` refuses the encoder-decoder (seamless-m4t) with
+`NotImplementedError` naming its step of ROADMAP.md Queue 1 item 9.
 
 A user serves like this: `b = build(cfg)`, `params = b.init(seed)`,
 `caches = b.cache_init(B, max_seq)`, a block prefill of the prompts
 through `b.decode_fn(params, prompts, caches, 0)`, then one-token
 `decode_fn` steps; `b.prefill_fn(params, batch, last_only=True)` is the
-serving forward.  Everything runs on the card unless the caller passes
+serving forward.  A mamba model's cache takes one token a step, so its
+prompt goes into the cache token by token (its serving forward is
+`prefill_fn`, the chunked scan).  `decode_fn` takes `moe_path`
+("capacity" or the "dense" oracle) and `mla_absorbed`; `loss_fn` takes
+`moe_path`.  Everything runs on the card unless the caller passes
 ``device="cpu"`` to `init` and `cache_init`.
 
 `loss_fn` is a forward evaluation; its gradient is the training step's.

@@ -12,8 +12,6 @@ from __future__ import annotations
 
 from typing import Any, Callable, List, Optional, Tuple
 
-import torch
-
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     """`fn` over the leaves of `tree` (and the same leaves of `rest`),
@@ -35,11 +33,6 @@ def tree_leaves(tree: Any) -> List[Any]:
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
-
-
-def tree_stack(trees: List[Any]) -> Any:
-    """Stack a list of same-shaped trees on a new leading axis."""
-    return tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
 def scan(f: Callable, init: Any, xs: Any,

@@ -162,13 +162,8 @@ LEFT_OUT = {
     "models.scan_util": {"unrolling"},
 }
 #: names still to come, by their step of ROADMAP.md Queue 1 item 9: the
-#: MLA, MoE and Mamba2 layers that `models.transformer` imports (steps 2
-#: and 3), and the training state's checkpoint (step 5)
+#: training state's checkpoint (step 5)
 NOT_YET = {
-    "models.transformer": {"init_mla", "mla_attention", "init_mla_cache",
-                           "init_moe", "moe_dense", "moe_capacity",
-                           "init_mamba", "mamba_chunked", "mamba_step",
-                           "init_mamba_cache"},
     "checkpoint": {"save_train_state"},
     "checkpoint.elastic": {"save_train_state"},
 }

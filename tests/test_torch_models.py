@@ -1,8 +1,14 @@
 """PyTorch port vs the JAX package: the LM substrate's serve path.
 
-`repro_torch.configs` and `repro_torch.models` (the dense decoder family:
-`dense_uniform`, `gemma_period`, the paligemma prefix-LM stub) against
-`repro.configs` and `repro.models`, at the reduced configs on the CPU.
+`repro_torch.configs` and `repro_torch.models` (every decoder-only
+architecture: `dense_uniform`, `gemma_period`, the paligemma prefix-LM
+stub, `moe_uniform` with GQA or MLA attention, `mamba_uniform`,
+`zamba_period`) against `repro.configs` and `repro.models`, at the
+reduced configs on the CPU.  MoE models are held to the reference on
+its default capacity path, and decode against the forward on the
+"dense" path (the two paths' capacities drop different tokens), as the
+reference's own `test_decode_matches_forward` does.  A mamba cache takes
+one token a step, so mamba prompts go into the cache token by token.
 Weights are the JAX package's `init` output carried across through
 `params_from_numpy`; inputs are made from a seed with numpy.
 
@@ -15,7 +21,7 @@ Tolerances (relative to the largest magnitude of the reference's output):
 * the model at float32 (`lm_forward`, `prefill_fn(last_only=True)`,
   `cross_entropy`, `loss_fn`, block prefill then decode, the prefix-LM,
   ring and full caches past the window): 5e-5, the bar of the reference's
-  own `test_decode_matches_forward`;
+  own `test_decode_matches_forward`; the MoE aux loss: rtol 1e-5;
 * the model in bfloat16: BF16_TOL (below), against JAX's bfloat16 run.
 """
 import dataclasses
@@ -34,6 +40,7 @@ import repro.configs.bladyg_graph as jgraph
 from repro.models import build as jbuild
 from repro.models import layers as JL
 from repro.models import model_zoo as JZ
+from repro.models import moe as JM
 from repro.models import transformer as JT
 
 import repro_torch.configs as tcfg
@@ -41,14 +48,21 @@ import repro_torch.configs.bladyg_graph as tgraph
 from repro_torch.models import (
     build, cross_entropy, param_count, params_from_numpy, params_to_numpy)
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 DENSE = ["internlm2-1.8b", "codeqwen1.5-7b", "granite-34b", "gemma3-1b",
          "paligemma-3b"]
-REFUSED = ["deepseek-v3-671b", "llama4-scout-17b-a16e", "mamba2-370m",
-           "zamba2-7b", "seamless-m4t-large-v2"]
+#: the architectures of MoE, MLA, Mamba2 and the hybrid
+NEW = ["deepseek-v3-671b", "llama4-scout-17b-a16e", "mamba2-370m",
+       "zamba2-7b"]
+DECODERS = DENSE + NEW
+MOE = {"deepseek-v3-671b", "llama4-scout-17b-a16e"}
+MAMBA = {"mamba2-370m", "zamba2-7b"}
+REFUSED = ["seamless-m4t-large-v2"]
+AUX_RTOL = 1e-5
 LAYER_TOL = 1e-5
 MODEL_TOL = 5e-5
 #: bfloat16 bar, relative to the largest |logit|.  The two packages round
@@ -153,8 +167,22 @@ def _structure(tree):
     return (tuple(tree.shape), str(tree.dtype).replace("torch.", ""))
 
 
+def _first_input_linear(tree):
+    """The first linear that reads the residual stream: `wq` (GQA), `wq_a`
+    (MLA) or a mamba layer's `in_proj`."""
+    if isinstance(tree, dict):
+        for k in ("wq", "wq_a", "in_proj"):
+            if k in tree:
+                return tree[k]["w"]
+        for v in tree.values():
+            w = _first_input_linear(v)
+            if w is not None:
+                return w
+    return None
+
+
 @pytest.mark.parametrize("dtype", [None, "bfloat16"])
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DECODERS)
 def test_param_tree_equals_reference(name, dtype):
     """The port's own init: the reference's tree, shapes, dtypes and
     count, and the reference's distributions (norms ones, embedding std
@@ -171,8 +199,7 @@ def test_param_tree_equals_reference(name, dtype):
     assert torch.all(tp["final_norm"]["scale"] == 1)
     std = float(tp["embed"]["w"].float().std())
     assert abs(std - 0.02) < 0.002, std
-    wq = tp["blocks"][0]["attn"]["wq"]["w"] if "attn" in tp["blocks"][0] \
-        else tp["blocks"][0]["global"]["attn"]["wq"]["w"]
+    wq = _first_input_linear(tp["blocks"][0])
     want = 1 / np.sqrt(cfg.d_model)
     assert abs(float(wq.float().std()) - want) < 0.1 * want
     # a seed gives the same tree, another seed another
@@ -193,6 +220,51 @@ def test_params_numpy_round_trip_is_bit_exact(dtype):
                     jax.tree_util.tree_leaves(host)):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", NEW)
+def test_params_numpy_round_trip_new_leaves(name, dtype):
+    """The MoE experts' (E, d, f) leaves and float32 router, the SSM's
+    float32 leaves and zamba's top-level shared block carry across both
+    ways bit for bit."""
+    cfg, _, jp, _, tp = _model(name, dtype=dtype)
+    host = jax.tree_util.tree_map(np.asarray, jp)
+    back = params_to_numpy(tp)
+    assert jax.tree_util.tree_structure(back) == \
+        jax.tree_util.tree_structure(host)
+    for a, b in zip(jax.tree_util.tree_leaves(back),
+                    jax.tree_util.tree_leaves(host)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+    last = tp["blocks"][-1]
+    if name in MOE:
+        assert last["moe"]["w_gate"]["w"].shape == \
+            (last["ln1"]["scale"].shape[0], cfg.n_experts, cfg.d_model,
+             cfg.moe_d_ff)
+        assert last["moe"]["router"]["w"].dtype == torch.float32
+    else:
+        m = last["mamba"]["mamba"] if "mamba" in last["mamba"] \
+            else last["mamba"]
+        for leaf in ("A_log", "D", "dt_bias"):
+            assert m[leaf].dtype == torch.float32
+    assert ("shared_block" in tp) == (name == "zamba2-7b")
+
+
+@pytest.mark.parametrize("name", NEW)
+def test_cache_tree_equals_reference(name):
+    """deepseek-v3, llama4-scout, mamba2 and zamba2 build, full and
+    reduced, and their caches have the reference's tree, shapes and
+    dtypes (MLA and mamba caches ignore `ring`, as there)."""
+    for cfg in (jcfg.ARCHS[name], jcfg.ARCHS[name].reduced()):
+        jb = jbuild(cfg)
+        tb = build(tcfg.get_arch(name) if cfg.n_layers ==
+                   jcfg.ARCHS[name].n_layers
+                   else tcfg.get_arch(name).reduced())
+        for ring in (False, True):
+            want = jax.eval_shape(lambda: jb.cache_init(2, 16, ring=ring))
+            got = tb.cache_init(2, 16, ring=ring, device="meta")
+            assert _structure(got) == _structure(want), (cfg.name, ring)
 
 
 @pytest.mark.parametrize("name", REFUSED)
@@ -349,15 +421,27 @@ def test_attention_cache_writes_clamp_like_dynamic_update_slice():
 # the model at float32
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DECODERS)
 def test_forward_matches_reference(name):
+    """The forward, its aux loss (the MoE layers' added up), the serving
+    forward, the loss and the cross-entropy; MoE models on both paths."""
     cfg, jb, jp, tb, tp = _model(name)
     jt, tt = _tokens(cfg, 2, 12)
     jpf, tpf = _prefix(cfg, 2)
     want, waux = JT.lm_forward(jp, cfg, jt, prefix_embeds=jpf, remat=False)
     got, aux = T.lm_forward(tp, tb.cfg, tt, prefix_embeds=tpf)
     assert _rel(got, want) < MODEL_TOL
-    assert float(aux) == float(waux) == 0.0 and aux.dtype == torch.float32
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    if name in MOE:
+        assert float(waux) > 0
+        np.testing.assert_allclose(float(aux), float(waux), rtol=AUX_RTOL)
+        dwant, dwaux = JT.lm_forward(jp, cfg, jt, moe_path="dense",
+                                     remat=False)
+        dgot, daux = T.lm_forward(tp, tb.cfg, tt, moe_path="dense")
+        assert _rel(dgot, dwant) < MODEL_TOL
+        np.testing.assert_allclose(float(daux), float(dwaux), rtol=AUX_RTOL)
+    else:
+        assert float(aux) == float(waux) == 0.0
     batch_j = {"tokens": jt, "labels": jt}
     batch_t = {"tokens": tt, "labels": tt}
     if jpf is not None:
@@ -370,6 +454,7 @@ def test_forward_matches_reference(name):
     loss, laux = tb.loss_fn(tp, batch_t)
     jloss, _ = jb.loss_fn(jp, batch_j)
     assert abs(float(loss) - float(jloss)) < MODEL_TOL * abs(float(jloss))
+    assert float(laux) == float(aux)
     P = cfg.n_prefix_tokens
     ce = cross_entropy(got[:, P:-1], tt[:, 1:])
     jce = JZ.cross_entropy(want[:, P:-1], jt[:, 1:])
@@ -397,16 +482,19 @@ def test_gemma3_forward_same_with_and_without_banded(monkeypatch):
     assert _rel(opt, jopt) < MODEL_TOL and _rel(base, jbase) < MODEL_TOL
 
 
-def _jdecode(jb):
-    return jax.jit(lambda p, t, c, pos: jb.decode_fn(p, t, c, pos))
+def _jdecode(jb, **kw):
+    return jax.jit(lambda p, t, c, pos: jb.decode_fn(p, t, c, pos, **kw))
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", [n for n in DECODERS if n not in MAMBA])
 def test_serve_block_prefill_then_decode_matches_reference(name):
     """examples/serve_lm.py's path: the prompts prefilled into the cache
     in one block, then single-token decode; every step's logits against
-    the reference's, and against the port's own forward."""
+    the reference's, and against the port's own forward (MoE models on
+    the dense path: the capacity path's decode and forward drop other
+    tokens)."""
     cfg, jb, jp, tb, tp = _model(name, seed=5)
+    mp = "dense" if name in MOE else "capacity"
     B, Sp, G = 2, 10, 6
     P = cfg.n_prefix_tokens
     jt, tt = _tokens(cfg, B, Sp + G, seed=5)
@@ -414,37 +502,39 @@ def test_serve_block_prefill_then_decode_matches_reference(name):
     jc = jb.cache_init(B, P + Sp + G)
     tc = tb.cache_init(B, P + Sp + G, device="cpu")
     want, jc = jb.decode_fn(jp, jt[:, :Sp], jc, jnp.int32(0),
-                            prefix_embeds=jpf)
-    got, tc2 = tb.decode_fn(tp, tt[:, :Sp], tc, 0, prefix_embeds=tpf)
+                            prefix_embeds=jpf, moe_path=mp)
+    got, tc2 = tb.decode_fn(tp, tt[:, :Sp], tc, 0, prefix_embeds=tpf,
+                            moe_path=mp)
     assert tc2 is tc
     assert _rel(got, want) < MODEL_TOL
     outs = [got]
-    dec = _jdecode(jb)
+    dec = _jdecode(jb, moe_path=mp)
     for t in range(Sp, Sp + G):
         want, jc = dec(jp, jt[:, t:t + 1], jc, jnp.int32(P + t))
-        got, tc = tb.decode_fn(tp, tt[:, t:t + 1], tc, P + t)
+        got, tc = tb.decode_fn(tp, tt[:, t:t + 1], tc, P + t, moe_path=mp)
         assert _rel(got, want) < MODEL_TOL, t
         outs.append(got)
-    fwd, _ = T.lm_forward(tp, tb.cfg, tt, prefix_embeds=tpf)
+    fwd, _ = T.lm_forward(tp, tb.cfg, tt, prefix_embeds=tpf, moe_path=mp)
     assert _rel(torch.cat(outs, 1), fwd) < MODEL_TOL
     for a, b in zip(jax.tree_util.tree_leaves(jc),
                     jax.tree_util.tree_leaves(tc)):
         assert _rel(b, a) < MODEL_TOL
 
 
-@pytest.mark.parametrize("name", [n for n in DENSE if n != "paligemma-3b"])
+@pytest.mark.parametrize("name",
+                         [n for n in DECODERS if n != "paligemma-3b"])
 def test_decode_matches_forward_token_by_token(name):
     """The reference's `test_decode_matches_forward` on the port: decode
-    from position 0, one token at a time, equals the forward (the
-    prefix-LM decodes after its prefix block:
+    from position 0, one token at a time, equals the forward, both on the
+    dense MoE path (the prefix-LM decodes after its prefix block:
     `test_prefix_lm_prefill_then_decode`)."""
     cfg, jb, jp, tb, tp = _model(name, seed=3)
     jt, tt = _tokens(cfg, 2, 12, seed=3)
-    want, _ = JT.lm_forward(jp, cfg, jt, remat=False)
+    want, _ = JT.lm_forward(jp, cfg, jt, moe_path="dense", remat=False)
     tc = tb.cache_init(2, 12, device="cpu")
     outs = []
     for t in range(12):
-        lg, tc = tb.decode_fn(tp, tt[:, t:t + 1], tc, t)
+        lg, tc = tb.decode_fn(tp, tt[:, t:t + 1], tc, t, moe_path="dense")
         outs.append(lg[:, 0])
     assert _rel(torch.stack(outs, 1), want) < MODEL_TOL
 
@@ -506,10 +596,75 @@ def test_block_caches_are_distinct_layers():
         assert int(t.sum()) == first.numel()
 
 
+@pytest.mark.parametrize("name", NEW)
+def test_new_block_caches_are_distinct_layers(name):
+    """The MLA, mamba and zamba caches are stacked zeros too: a write into
+    the first layer's (or period's) slice leaves the rest zero."""
+    tb = build(tcfg.get_arch(name).reduced())
+    caches = tb.cache_init(1, 4, device="cpu")
+    for t in jax.tree_util.tree_leaves(caches):
+        assert 0 not in t.stride()
+        assert int(t.count_nonzero()) == 0
+        t[0].fill_(1)
+        assert int(t.sum()) == t[0].numel()
+
+
+def test_zamba_shared_block_is_one_parameter_set(monkeypatch):
+    """zamba2's shared attention + MLP block is one parameter set: every
+    period of the forward and of decode applies the same tensors (one
+    storage).  At 2 periods and a tail of 3 mamba layers (the full
+    model's plan, 13 periods + 3, in small) the port equals the
+    reference."""
+    cfg = dataclasses.replace(jcfg.ARCHS["zamba2-7b"].reduced(),
+                              n_layers=15)
+    tc = dataclasses.replace(tcfg.get_arch("zamba2-7b").reduced(),
+                             n_layers=15)
+    assert [(b.kind, b.count) for b in T.layer_plan(tc)] == \
+        [("zamba_period", 2), ("mamba_uniform", 3)]
+    jb, tb = jbuild(cfg), build(tc)
+    jp = jb.init(jax.random.PRNGKey(12))
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                           device="cpu")
+    assert _structure(tb.init(0, device="cpu")) == _structure(tp)
+    seen = []
+    real = T._apply_shared_block
+    monkeypatch.setattr(T, "_apply_shared_block",
+                        lambda p, *a, **k: seen.append(p) or real(p, *a, **k))
+    jt, tt = _tokens(cfg, 2, 8, seed=12)
+    want, _ = JT.lm_forward(jp, cfg, jt, remat=False)
+    got, _ = T.lm_forward(tp, tc, tt)
+    assert _rel(got, want) < MODEL_TOL
+    caches = tb.cache_init(2, 8, device="cpu")
+    outs, _ = _fill(tb.decode_fn, tp, tt, caches, "zamba2-7b")
+    assert _rel(outs, want) < MODEL_TOL
+    assert len(seen) == 2 * (1 + 8)  # 2 periods: the forward, 8 steps
+    shared = jax.tree_util.tree_leaves(tp["shared_block"])
+    for p in seen:
+        for a, b in zip(jax.tree_util.tree_leaves(p), shared):
+            assert a is b and a.data_ptr() == b.data_ptr()
+
+
+def _fill(decode, params, toks, caches, name, pos=int, **kw):
+    """The prompt into the caches: one block, or for a mamba model token
+    by token (a mamba cache takes one token a step, in both packages).
+    Returns (logits of every prompt position, caches)."""
+    if name not in MAMBA:
+        return decode(params, toks, caches, pos(0), **kw)
+    outs = []
+    for t in range(toks.shape[1]):
+        lg, caches = decode(params, toks[:, t:t + 1], caches, pos(t), **kw)
+        outs.append(lg)
+    cat = torch.cat if isinstance(outs[0], torch.Tensor) else \
+        jnp.concatenate
+    return cat(outs, 1), caches
+
+
 @pytest.mark.parametrize("name", ["internlm2-1.8b", "gemma3-1b",
-                                  "paligemma-3b"])
+                                  "paligemma-3b"] + NEW)
 def test_greedy_ids_equal_reference(name):
-    """8 greedy steps after a block prefill: the same token ids."""
+    """8 greedy steps after the prompt (a block prefill; mamba models
+    token by token): the same token ids.  MoE models on the capacity
+    path."""
     cfg, jb, jp, tb, tp = _model(name, seed=6)
     B, Sp, G = 3, 9, 8
     P = cfg.n_prefix_tokens
@@ -517,9 +672,12 @@ def test_greedy_ids_equal_reference(name):
     jpf, tpf = _prefix(cfg, B, seed=6)
     jc = jb.cache_init(B, P + Sp + G)
     tc = tb.cache_init(B, P + Sp + G, device="cpu")
-    jl, jc = jb.decode_fn(jp, jt, jc, jnp.int32(0), prefix_embeds=jpf)
-    tl, tc = tb.decode_fn(tp, tt, tc, 0, prefix_embeds=tpf)
     dec = _jdecode(jb)
+    kw = {"prefix_embeds": jpf} if P else {}
+    jl, jc = _fill(dec if name in MAMBA else jb.decode_fn, jp, jt, jc,
+                   name, jnp.int32, **kw)
+    tl, tc = _fill(tb.decode_fn, tp, tt, tc, name,
+                   prefix_embeds=tpf)
     jids, tids = [], []
     for t in range(P + Sp, P + Sp + G):
         jn = jnp.argmax(jl[:, -1], axis=-1)[:, None].astype(jnp.int32)
@@ -536,36 +694,98 @@ def test_greedy_ids_equal_reference(name):
 # bfloat16
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["internlm2-1.8b", "gemma3-1b"])
-def test_bf16_matches_reference(name):
+class _Replay:
+    """For a MoE model: record the expert ids the reference's router picks
+    (an ordered `jax.debug.callback`, so they arrive from inside its layer
+    scan in layer order) and make the port's router pick the same ids,
+    call for call, weighted by its own probabilities.  Without experts, a
+    plain call."""
+
+    def __init__(self, monkeypatch, moe: bool):
+        self.ids = []
+        if not moe:
+            return
+        real_j, real_t = JM._router, M._router
+
+        def ref_router(p, cfg, x):
+            out = real_j(p, cfg, x)
+            jax.debug.callback(self._record, out[1], ordered=True)
+            return out
+
+        def port_router(p, cfg, x):
+            _, _, aux = real_t(p, cfg, x)
+            topi = torch.from_numpy(self.ids.pop(0)).to(x.device)
+            probs = torch.softmax(x.float() @ p["router"]["w"].float(), -1)
+            topv = probs.gather(1, topi)
+            return topv / topv.sum(-1, keepdim=True), topi, aux
+        monkeypatch.setattr(JM, "_router", ref_router)
+        monkeypatch.setattr(M, "_router", port_router)
+
+    def _record(self, ids):
+        if self.keep:
+            self.ids.append(np.array(ids))
+
+    def ref(self, fn, keep=True):
+        """The reference's fn(); with `keep`, its routes are kept for the
+        port's next run."""
+        self.keep = keep
+        out = fn()
+        jax.effects_barrier()
+        return out
+
+    def port(self, fn):
+        out = fn()
+        assert not self.ids, "the port ran fewer MoE layers"
+        return out
+
+
+@pytest.mark.parametrize("name", ["internlm2-1.8b", "gemma3-1b"] + NEW)
+def test_bf16_matches_reference(name, monkeypatch):
     """The reduced config in bfloat16 against JAX's bfloat16 run: the
-    forward, a block prefill and 4 decode steps, within BF16_TOL of the
-    largest |logit|; and the forward no further from a float32 run of the
-    same weights than BF16_VS_F32 times the reference's own distance.
+    forward, the prompt into the cache (a block; mamba token by token)
+    and 4 decode steps, within BF16_TOL of the largest |logit|; and the
+    forward no further from a float32 run of the same weights than
+    BF16_VS_F32 times the reference's own distance.
     Measured on the CPU at seed 7 (forward): port vs JAX 8.9e-3
     (internlm2) and 3.98e-2 (gemma3); against float32, the port 1.05e-2
-    and 3.36e-2, JAX 1.25e-2 and 3.57e-2."""
+    and 3.36e-2, JAX 1.25e-2 and 3.57e-2.
+
+    MoE models run the dense path with the port's router picking the
+    reference's experts (`_Replay`): where a token's k-th and (k+1)-th
+    router probabilities nearly tie, bf16 rounding in either package may
+    pick another expert, and that token's logits then differ by that
+    expert's share, and its successors' through attention (deepseek at
+    seeds 7, 5, 8: a token of 32 in one MoE layer, 0.12-0.27 of the
+    largest |logit| there, up to 0.096 at the next positions, 0.5-1.5e-2
+    elsewhere).  Which experts the router picks is held exactly at
+    float32 (`tests/test_torch_moe.py`)."""
     cfg, jb, jp, tb, tp = _model(name, seed=7, dtype="bfloat16")
     assert tp["embed"]["w"].dtype == torch.bfloat16
+    kw = {"moe_path": "dense"} if name in MOE else {}
+    rp = _Replay(monkeypatch, name in MOE)
     jt, tt = _tokens(cfg, 2, 16, seed=7)
-    want, _ = JT.lm_forward(jp, cfg, jt, remat=False)
-    got, _ = T.lm_forward(tp, tb.cfg, tt)
+    want, _ = rp.ref(lambda: JT.lm_forward(jp, cfg, jt, remat=False, **kw))
+    got, _ = rp.port(lambda: T.lm_forward(tp, tb.cfg, tt, **kw))
     assert got.dtype == torch.bfloat16
     assert _rel(_np(got), _np(want)) < BF16_TOL
     f32 = dataclasses.replace(cfg, dtype="float32")
-    truth, _ = JT.lm_forward(
+    truth, _ = rp.ref(lambda: JT.lm_forward(
         jax.tree_util.tree_map(lambda a: a.astype(jnp.float32), jp), f32,
-        jt, remat=False)
+        jt, remat=False, **kw), keep=False)
     assert _rel(_np(got), _np(truth)) <= \
         BF16_VS_F32 * _rel(_np(want), _np(truth))
     jc = jb.cache_init(2, 16)
     tc = tb.cache_init(2, 16, device="cpu")
-    jl, jc = jb.decode_fn(jp, jt[:, :12], jc, jnp.int32(0))
-    tl, tc = tb.decode_fn(tp, tt[:, :12], tc, 0)
+    jl, jc = rp.ref(lambda: _fill(jb.decode_fn, jp, jt[:, :12], jc,
+                                  name, jnp.int32, **kw))
+    tl, tc = rp.port(lambda: _fill(tb.decode_fn, tp, tt[:, :12], tc,
+                                   name, **kw))
     assert _rel(_np(tl), _np(jl)) < BF16_TOL
     for t in range(12, 16):
-        jl, jc = jb.decode_fn(jp, jt[:, t:t + 1], jc, jnp.int32(t))
-        tl, tc = tb.decode_fn(tp, tt[:, t:t + 1], tc, t)
+        jl, jc = rp.ref(lambda: jb.decode_fn(jp, jt[:, t:t + 1], jc,
+                                             jnp.int32(t), **kw))
+        tl, tc = rp.port(lambda: tb.decode_fn(tp, tt[:, t:t + 1], tc, t,
+                                              **kw))
         assert _rel(_np(tl), _np(jl)) < BF16_TOL, t
 
 
@@ -574,9 +794,10 @@ def test_bf16_matches_reference(name):
 # ---------------------------------------------------------------------------
 
 @needs_cuda
-@pytest.mark.parametrize("name", ["internlm2-1.8b", "gemma3-1b"])
+@pytest.mark.parametrize("name", ["internlm2-1.8b", "gemma3-1b"] + NEW)
 def test_card_matches_cpu(name):
-    """The reduced float32 config on the card gives the CPU's logits."""
+    """The reduced float32 config on the card gives the CPU's logits (a
+    mamba model's cache built token by token)."""
     tb = build(tcfg.get_arch(name).reduced())
     tp = tb.init(0, device="cpu")
     dev = torch.device("cuda", 0)
@@ -587,5 +808,8 @@ def test_card_matches_cpu(name):
     got, _ = T.lm_forward(tpd, tb.cfg, tt.to(dev))
     assert _rel(got.cpu(), want) < 1e-4
     tc = tb.cache_init(2, 40, device=dev)
-    lg, tc = tb.decode_fn(tpd, tt[:, :32].to(dev), tc, 0)
+    mp = "dense" if name in MOE else "capacity"
+    want, _ = T.lm_forward(tp, tb.cfg, tt, moe_path=mp)
+    lg, tc = _fill(tb.decode_fn, tpd, tt[:, :32].to(dev), tc, name,
+                   moe_path=mp)
     assert _rel(lg.cpu(), want[:, :32]) < 1e-4
