@@ -210,12 +210,22 @@ Phases (each raises on failure; the script then exits non-zero):
    `ell_multi` and `ell_pagerank` must launch on DS1.
 15. serve_lm: the LM substrate's serve path (`repro_torch.models`, which
    reaches no CUDA kernel of the port) at published widths in bfloat16,
-   for internlm2-1.8b and gemma3-1b at full depth, deepseek-v3-671b at 5
-   of 61 layers (its 3 dense MLA layers and 2 MoE layers) and
-   llama4-scout-17b-a16e at 12 of 48 (`SERVE_DEPTH`: the published depth
-   does not fit one card; each line lists the cut under `reduced`),
-   mamba2-370m and zamba2-7b at full depth: `build`, `init` on the card
-   from a seed, then 4 seeded prompts of 1,024 tokens.  Attention models
+   for all ten architectures: internlm2-1.8b, gemma3-1b, codeqwen1.5-7b
+   and paligemma-3b at full depth, deepseek-v3-671b at 5 of 61 layers
+   (its 3 dense MLA layers and 2 MoE layers), llama4-scout-17b-a16e at
+   12 of 48 and granite-34b at 52 of 88 (`SERVE_DEPTH`: the published
+   depth does not fit one card; each line lists the cut under
+   `reduced`), mamba2-370m, zamba2-7b and seamless-m4t-large-v2 (24
+   encoder and 24 decoder layers) at full depth: `build`, `init` on the
+   card from a seed, then 4 seeded prompts of 1,024 tokens (paligemma:
+   after 256 seeded stub patch embeddings of width 1,152, prefilled with
+   them at position 0; decode from 256 + 1,024).  seamless instead times
+   `prefill_fn` (the encoder) over 4 x 4,096 seeded stub frame
+   embeddings and `encdec_prime_cross`, feeds 64 decoder tokens one a
+   step and takes 32 greedy steps; its (a) holds every served logit
+   against `encdec_forward` on the fed tokens, and its line gives decode
+   ms beside the bytes of the decoder's layers, lm_head and primed cross
+   K/V at 3.35 TB/s.  Attention models
    block-prefill them into a full cache through `decode_fn` and take 32
    greedy decode steps on the capacity MoE path; mamba models time
    `prefill_fn(last_only=True)` (the chunked scan) over them, build their
@@ -248,6 +258,23 @@ Phases (each raises on failure; the script then exits non-zero):
    MoE models also the bytes of a dispatch that read only the chosen
    experts), peak device bytes while serving, the errors, the tokens
    the compared runs routed to other experts, the card.
+16. train_parts: training's parts that need no launcher
+   (`repro_torch.optim`, `checkpoint.save_train_state`).  One AdamW
+   `update` of internlm2-1.8b's whole bf16 parameter tree (from the
+   serve seed) with seeded bf16 gradients (std 1e-3, above the clip
+   norm), timed on the host clock (median of 3) and by CUDA events,
+   beside its bytes (the gradients read twice, master, m and v read and
+   written, the params written: 30 bytes a parameter) at 3.35 TB/s;
+   sampled rows of every leaf against a float64 host recompute
+   (TRAIN_TOL, the step in float32 ulps of the master), the params the
+   new master in bf16 exactly, the float32 global norm against float64
+   (TRAIN_NORM_TOL).  Then the reduced model's float32 tree through
+   three updates on the card and on the CPU (TRAIN_TOL), `quantize_int8`
+   on the card bit-equal to the CPU (ties included),
+   `compressed_psum_mean` on a one-rank NCCL group bit-equal to the
+   CPU's quantizer, and `save_train_state` of the reduced card state
+   (float32, and bf16 with bf16 moments, the second written
+   asynchronously) restored on the CPU bit for bit.
 
 Earlier lines are JSON objects; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -407,6 +434,7 @@ def main() -> int:
     kernels += dense_timing(g, core_plain, ups[:R], parity, launches)
     audit = audit_phase(g, ups, dev)
     serve_lm_phase(card)
+    train_parts_phase(card, dev)
     for k in kernels:
         if k["name"] in MESH_KERNELS:
             k["launches_by_path"] = {p: c.get(k["name"], 0)
@@ -1779,14 +1807,20 @@ def audit_phase(g, ups, dev):
     return counts
 
 
-#: serve_lm: the LM substrate's serve path at published widths in bf16
+#: serve_lm: the LM substrate's serve path at published widths in bf16,
+#: all ten architectures of `configs/`
 SERVE_MODELS = ("internlm2-1.8b", "gemma3-1b", "deepseek-v3-671b",
-                "llama4-scout-17b-a16e", "mamba2-370m", "zamba2-7b")
+                "llama4-scout-17b-a16e", "mamba2-370m", "zamba2-7b",
+                "codeqwen1.5-7b", "granite-34b", "paligemma-3b",
+                "seamless-m4t-large-v2")
 #: layers held on the card where the published depth does not fit it
-#: (671.0e9 and 107.8e9 parameters): deepseek's 3 dense MLA layers and 2
-#: MoE layers (23.0 GB each in bf16), llama4's first 12 of 48 (4.4 GB
-#: each); every width as published
-SERVE_DEPTH = {"deepseek-v3-671b": 5, "llama4-scout-17b-a16e": 12}
+#: (671.0e9, 107.8e9 and 47.25e9 parameters): deepseek's 3 dense MLA
+#: layers and 2 MoE layers (23.0 GB each in bf16), llama4's first 12 of
+#: 48 (4.4 GB each), granite's first 52 of 88 (1.07 GB each: 28.2e9
+#: parameters, 56.3 GB, leaving room for the prompts' activations and
+#: the check's forward); every width as published
+SERVE_DEPTH = {"deepseek-v3-671b": 5, "llama4-scout-17b-a16e": 12,
+               "granite-34b": 52}
 SERVE_BATCH = 4          # prompts served together
 SERVE_PROMPT = 1024      # tokens a prompt; gemma3: 2 windows of 512
 SERVE_STEPS = 32         # greedy decode steps after the prompt
@@ -1863,11 +1897,12 @@ def _prefill(b, params, prompts, caches, block, **kw):
 
 def _decode(b, params, last, caches, pos, G, feed=None, **kw):
     """G greedy decode steps from the logits `last` at position `pos` (or
-    the tokens `feed`).  Returns (each step's logits, the fed tokens, each
-    step's ms)."""
+    the tokens `feed`, `last` then unread).  Returns (each step's logits,
+    the fed tokens, each step's ms)."""
     import torch
 
-    tok = torch.argmax(last[:, -1], dim=-1)[:, None]
+    tok = None if feed is not None else \
+        torch.argmax(last[:, -1], dim=-1)[:, None]
     fed, outs, step_ms = [], [], []
     for i in range(G):
         t0 = time.perf_counter()
@@ -2038,6 +2073,12 @@ def _shared_block_check(b, params, prompts, dev):
             "shared_block_data_ptrs": len(set(map(tuple, seen)))}
 
 
+def _tree_bytes(tree) -> int:
+    from repro_torch.models.scan_util import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
 def _serve_model(name, card, dev):
     """One model of serve_lm: parameters drawn on the card, the prompts
     served (a block prefill into a full cache and SERVE_STEPS greedy
@@ -2046,7 +2087,7 @@ def _serve_model(name, card, dev):
     import torch
     from repro_torch.models import build, layers, moe, param_count
     from repro_torch.models import transformer
-    from repro_torch.models.scan_util import tree_leaves, tree_map
+    from repro_torch.models.scan_util import tree_map
 
     what = f"serve_lm[{name}]"
     cfg, reduced = _serve_config(name)
@@ -2059,14 +2100,21 @@ def _serve_model(name, card, dev):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = param_count(params)
-    param_bytes = sum(t.numel() * t.element_size()
-                      for t in tree_leaves(params))
+    param_bytes = _tree_bytes(params)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SERVE_SEED + 1)
     prompts = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+    # a prefix-LM's stub patch embeddings (paligemma: 256 of width 1152),
+    # prefilled at position 0 with the prompts; decode starts at P + S
+    P = cfg.n_prefix_tokens
+    extra = {"prefix_embeds": torch.randn((B, P, cfg.prefix_dim),
+                                          generator=gen, device=dev)} \
+        if P else {}
     line = dict(phase="serve_lm", model=name, reduced=reduced,
                 layers=cfg.n_layers, params=n_params, param_bytes=param_bytes,
                 batch=B, prompt=S, decode_steps=G, init_s=init_s)
+    if P:
+        line.update(prefix_tokens=P, prefix_dim=cfg.prefix_dim)
     errs, flips = {}, {}
 
     if mamba:
@@ -2085,8 +2133,7 @@ def _serve_model(name, card, dev):
         pre, build_s = _prefill(b, params, prompts[:, :P], caches, 1)
         outs, fed, step_ms = _decode(b, params, pre, caches, P, G)
         serve_peak = torch.cuda.max_memory_allocated()
-        cache_bytes = sum(t.numel() * t.element_size()
-                          for t in tree_leaves(caches))
+        cache_bytes = _tree_bytes(caches)
         served = torch.cat([pre] + outs, dim=1)
         _all_finite(what, served, last)
         line.update(prefill_s=prefill_s, prefill_tok_s=B * S / prefill_s,
@@ -2105,19 +2152,18 @@ def _serve_model(name, card, dev):
         if cfg.shared_attn_period:
             line.update(_shared_block_check(b, params, prompts, dev))
     else:
-        _prefill(b, params, prompts, b.cache_init(B, S + G, device=dev),
-                 S)  # warm-up
+        _prefill(b, params, prompts, b.cache_init(B, P + S + G, device=dev),
+                 S, **extra)  # warm-up
         torch.cuda.synchronize()
         start_bytes = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        caches = b.cache_init(B, S + G, device=dev)
-        pre, prefill_s = _prefill(b, params, prompts, caches, S)
+        caches = b.cache_init(B, P + S + G, device=dev)
+        pre, prefill_s = _prefill(b, params, prompts, caches, S, **extra)
         snap = (tree_map(torch.clone, caches)
                 if cfg.attn_impl == "mla" else None)
-        outs, fed, step_ms = _decode(b, params, pre, caches, S, G)
+        outs, fed, step_ms = _decode(b, params, pre, caches, P + S, G)
         serve_peak = torch.cuda.max_memory_allocated()
-        cache_bytes = sum(t.numel() * t.element_size()
-                          for t in tree_leaves(caches))
+        cache_bytes = _tree_bytes(caches)
         served = torch.cat([pre] + outs, dim=1)
         _all_finite(what, served)
         line.update(prefill_s=prefill_s, prefill_tok_s=B * S / prefill_s)
@@ -2145,7 +2191,7 @@ def _serve_model(name, card, dev):
         else:
             # (a) block prefill + decode against the forward, same tokens
             seq = torch.cat([prompts] + fed, dim=1)
-            full, _ = b.prefill_fn(params, {"tokens": seq})
+            full, _ = b.prefill_fn(params, {"tokens": seq, **extra})
             _all_finite(what, full)
             errs["decode_vs_forward"] = _rel_err(served, full)
             del full
@@ -2156,10 +2202,10 @@ def _serve_model(name, card, dev):
         layers.sdpa_banded = lambda *a, **k: banded.append(1) or \
             real_banded(*a, **k)
         try:
-            full_p, _ = b.prefill_fn(params, {"tokens": prompts})
+            full_p, _ = b.prefill_fn(params, {"tokens": prompts, **extra})
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            last, _ = b.prefill_fn(params, {"tokens": prompts},
+            last, _ = b.prefill_fn(params, {"tokens": prompts, **extra},
                                    last_only=True)
             torch.cuda.synchronize()
             last_s = time.perf_counter() - t0
@@ -2210,9 +2256,7 @@ def _serve_model(name, card, dev):
         T = SERVE_RING_STEPS
         ring = b.cache_init(B, T, ring=True, device=dev)
         flat = b.cache_init(B, T, device=dev)
-        cache_bytes = {k: sum(t.numel() * t.element_size()
-                              for t in tree_leaves(c))
-                       for k, c in (("ring", ring), ("full", flat))}
+        cache_bytes = {"ring": _tree_bytes(ring), "full": _tree_bytes(flat)}
         num = torch.zeros((), device=dev)
         den = torch.zeros((), device=dev)
         bad = torch.zeros((), dtype=torch.bool, device=dev)
@@ -2245,8 +2289,9 @@ def _serve_model(name, card, dev):
 
 def _serve_cpu_parity(name, dev):
     """(e): the reduced float32 config on the card against the CPU, same
-    parameters: the forward, the prompt into the cache (a block of 44; a
-    mamba model's cache one token a step) and 4 decode steps."""
+    parameters: the forward, the prompt into the cache (a block of 44,
+    with a prefix-LM's stub embeddings; a mamba model's cache one token a
+    step) and 4 decode steps."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
@@ -2258,19 +2303,147 @@ def _serve_cpu_parity(name, dev):
     cpu = torch.device("cpu")
     params = b.init(SERVE_SEED, device=cpu)
     on_card = tree_map(lambda t: t.to(dev), params)
-    toks = torch.from_numpy(np.random.default_rng(SERVE_SEED).integers(
-        0, b.cfg.vocab, (2, 48)))
+    rng = np.random.default_rng(SERVE_SEED)
+    toks = torch.from_numpy(rng.integers(0, b.cfg.vocab, (2, 48)))
+    # a prefix-LM's stub embeddings go in with the first block
+    P = b.cfg.n_prefix_tokens
+    pfx = torch.from_numpy(rng.standard_normal(
+        (2, P, b.cfg.prefix_dim)).astype(np.float32)) if P else None
+    kc = {"prefix_embeds": pfx} if P else {}
+    kd = {"prefix_embeds": pfx.to(dev)} if P else {}
     err = 0.0
-    want, _ = b.prefill_fn(params, {"tokens": toks})
-    got, _ = b.prefill_fn(on_card, {"tokens": toks.to(dev)})
+    want, _ = b.prefill_fn(params, {"tokens": toks, **kc})
+    got, _ = b.prefill_fn(on_card, {"tokens": toks.to(dev), **kd})
     err = max(err, _rel_err(got.cpu(), want))
-    cc, cd = b.cache_init(2, 48, device=cpu), b.cache_init(2, 48, device=dev)
+    cc = b.cache_init(2, P + 48, device=cpu)
+    cd = b.cache_init(2, P + 48, device=dev)
     for s0 in range(0, 44, block):
-        want, cc = b.decode_fn(params, toks[:, s0:s0 + block], cc, s0)
+        first = s0 == 0
+        pos = 0 if first else P + s0
+        want, cc = b.decode_fn(params, toks[:, s0:s0 + block], cc, pos,
+                               **(kc if first else {}))
         got, cd = b.decode_fn(on_card, toks[:, s0:s0 + block].to(dev), cd,
-                              s0)
+                              pos, **(kd if first else {}))
         err = max(err, _rel_err(got.cpu(), want))
     for t in range(44, 48):
+        want, cc = b.decode_fn(params, toks[:, t:t + 1], cc, P + t)
+        got, cd = b.decode_fn(on_card, toks[:, t:t + 1].to(dev), cd, P + t)
+        err = max(err, _rel_err(got.cpu(), want))
+    if not err <= SERVE_F32_TOL:
+        raise AssertionError(f"serve_lm[{name}]: card vs CPU {err} above "
+                             f"{SERVE_F32_TOL}")
+    return err
+
+
+def _serve_encdec(name, card, dev):
+    """serve_lm for the encoder-decoder: parameters drawn on the card,
+    SERVE_BATCH sequences of `mem_len` stub frame embeddings through
+    `prefill_fn` (the encoder) and `encdec_prime_cross`, both timed; then
+    SERVE_CHECK_PROMPT decoder tokens fed one a step and SERVE_STEPS greedy
+    steps; (a) the served logits against `encdec_forward` on the fed
+    sequence (SERVE_BF16_TOL), (f) every logit finite."""
+    import torch
+    from repro_torch.models import build, encdec, param_count
+
+    what = f"serve_lm[{name}]"
+    cfg, reduced = _serve_config(name)
+    b = build(cfg)
+    B, Sm, P, G = SERVE_BATCH, cfg.mem_len, SERVE_CHECK_PROMPT, SERVE_STEPS
+    t0 = time.perf_counter()
+    params = b.init(SERVE_SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SERVE_SEED + 1)
+    src = torch.randn((B, Sm, cfg.d_model), generator=gen, device=dev)
+    prompts = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=dev)
+
+    def prefill():
+        memory, _ = b.prefill_fn(params, {"src_embeds": src})
+        torch.cuda.synchronize()
+        return memory
+
+    encdec.encdec_prime_cross(params, cfg, prefill(),
+                              b.cache_init(B, P + G, device=dev))  # warm-up
+    torch.cuda.synchronize()
+    start_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    memory = prefill()
+    encode_s = time.perf_counter() - t0
+    caches = b.cache_init(B, P + G, device=dev)
+    t0 = time.perf_counter()
+    caches = encdec.encdec_prime_cross(params, cfg, memory, caches)
+    torch.cuda.synchronize()
+    prime_s = time.perf_counter() - t0
+    feed = [prompts[:, i:i + 1] for i in range(P)]
+    pre, _, feed_ms = _decode(b, params, None, caches, 0, P, feed=feed)
+    outs, fed, step_ms = _decode(b, params, pre[-1], caches, P, G)
+    serve_peak = torch.cuda.max_memory_allocated()
+    served = torch.cat(pre + outs, dim=1)
+    seq = torch.cat([prompts] + fed, dim=1)
+    full, _ = encdec.encdec_forward(params, cfg, src, seq)
+    _all_finite(what, served, full, memory)
+    errs = {"decode_vs_forward": _rel_err(served, full)}
+    del served, full
+    # a decode step reads the decoder's layers, the final norm and the
+    # lm_head, the primed cross K/V and the self caches (one embedding row)
+    dec_bytes = _tree_bytes({k: params[k] for k in
+                             ("dec", "final_norm", "lm_head")})
+    cross_bytes = _tree_bytes(caches["cross"])
+    self_bytes = _tree_bytes(caches["self"])
+    decode_ms = statistics.median(step_ms)
+    emit(phase="serve_lm", model=name, reduced=reduced,
+         layers=cfg.n_layers, enc_layers=cfg.enc_layers,
+         params=param_count(params), param_bytes=_tree_bytes(params),
+         batch=B, frames=Sm, prompt=P, decode_steps=G, init_s=init_s,
+         prefill_s=encode_s + prime_s, encode_s=encode_s, prime_s=prime_s,
+         encode_frames_s=B * Sm / encode_s,
+         prefill_form="prefill_fn (encode) then encdec_prime_cross",
+         prompt_feed_ms=statistics.median(feed_ms),
+         decode_ms=decode_ms, decode_ms_min=min(step_ms),
+         decode_ms_max=max(step_ms), decode_tok_s=B / (decode_ms / 1e3),
+         decoder_param_bytes=dec_bytes, cross_cache_bytes=cross_bytes,
+         self_cache_bytes=self_bytes,
+         decode_bound_ms=(dec_bytes + cross_bytes) / HBM_BYTES_PER_S * 1e3,
+         decode_bound_ms_with_cache=(dec_bytes + cross_bytes + self_bytes)
+         / HBM_BYTES_PER_S * 1e3,
+         serve_peak_bytes=serve_peak, start_bytes=start_bytes,
+         errors=errs, tol=SERVE_BF16_TOL, card=card)
+    over = {k: e for k, e in errs.items() if not e <= SERVE_BF16_TOL}
+    if over:
+        raise AssertionError(f"{what}: {over} above {SERVE_BF16_TOL}")
+
+
+def _encdec_cpu_parity(name, dev):
+    """(e) for the encoder-decoder: the reduced float32 config on the card
+    against the CPU, same parameters: the forward, the encoder memory and
+    8 decode steps against primed cross caches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build, encdec
+    from repro_torch.models.scan_util import tree_map
+
+    b = build(get_arch(name).reduced())
+    cpu = torch.device("cpu")
+    params = b.init(SERVE_SEED, device=cpu)
+    on_card = tree_map(lambda t: t.to(dev), params)
+    rng = np.random.default_rng(SERVE_SEED)
+    src = torch.from_numpy(rng.standard_normal(
+        (2, b.cfg.mem_len, b.cfg.d_model)).astype(np.float32))
+    toks = torch.from_numpy(rng.integers(0, b.cfg.vocab, (2, 8)))
+    want, _ = encdec.encdec_forward(params, b.cfg, src, toks)
+    got, _ = encdec.encdec_forward(on_card, b.cfg, src.to(dev), toks.to(dev))
+    err = _rel_err(got.cpu(), want)
+    mc, _ = b.prefill_fn(params, {"src_embeds": src})
+    md, _ = b.prefill_fn(on_card, {"src_embeds": src.to(dev)})
+    err = max(err, _rel_err(md.cpu(), mc))
+    cc = encdec.encdec_prime_cross(params, b.cfg, mc,
+                                   b.cache_init(2, 8, device=cpu))
+    cd = encdec.encdec_prime_cross(on_card, b.cfg, md,
+                                   b.cache_init(2, 8, device=dev))
+    for t in range(8):
         want, cc = b.decode_fn(params, toks[:, t:t + 1], cc, t)
         got, cd = b.decode_fn(on_card, toks[:, t:t + 1].to(dev), cd, t)
         err = max(err, _rel_err(got.cpu(), want))
@@ -2284,15 +2457,278 @@ def serve_lm_phase(card, models=SERVE_MODELS):
     """serve_lm (module docstring, phase 15): each of `models` at
     published widths in bf16, then the card against the CPU at float32."""
     import torch
+    from repro_torch.configs import get_arch
 
     t0 = time.perf_counter()
     dev = torch.device("cuda", 0)
+    encdec = {name for name in models if get_arch(name).is_encdec}
     for name in models:
-        _serve_model(name, card, dev)
+        (_serve_encdec if name in encdec else _serve_model)(name, card, dev)
         torch.cuda.empty_cache()
-    cpu_err = {name: _serve_cpu_parity(name, dev) for name in models}
+    cpu_err = {name: (_encdec_cpu_parity if name in encdec
+                      else _serve_cpu_parity)(name, dev) for name in models}
     emit(phase="serve_lm", card_vs_cpu_f32=cpu_err, tol=SERVE_F32_TOL,
          seconds=time.perf_counter() - t0)
+
+
+#: train_parts: training's parts that need no launcher (`repro_torch.optim`,
+#: `checkpoint.save_train_state`), on the card
+TRAIN_MODEL = "internlm2-1.8b"   # the whole tree, bf16, from SERVE_SEED
+TRAIN_GRAD_STD = 1e-3            # seeded bf16 gradients (SERVE_SEED + 3)
+TRAIN_REPS = 3                   # timed updates
+#: the sampled rows of the full-width update against a float64 host
+#: recompute from the same inputs (the card's own clip scale), relative
+#: to each leaf's largest |value|: float32 rounds each of the few
+#: operations once
+TRAIN_TOL = 1e-6
+#: ... and the step itself (new master - master, ~3e-4 against masters up
+#: to 1.0), in float32 ulps of the leaf's largest |master|: the new
+#: master's rounding, half an ulp, and the step's own float32 error
+TRAIN_STEP_ULPS = 1.0
+#: the float32 global norm over 1.89e9 squares against float64: each
+#: leaf's sum is a tree reduction, the leaves are added one by one
+TRAIN_NORM_TOL = 1e-5
+
+
+def _sampled_rows(t, rows):
+    """Rows `rows` of `t` seen as (-1, last dim), as float64 on the host."""
+    return t.reshape(-1, t.shape[-1])[rows].double().cpu()
+
+
+def _full_update_check(cfg_opt, grads, state, new_params, new_state, scale):
+    """The sampled rows of every leaf of one update from step 0 (a
+    zero-warm-up config) against a float64 recompute of AdamW from the
+    same rows.  Returns the largest relative error of master, m and v,
+    and the step's error in float32 ulps of the largest |master|."""
+    import math
+
+    import torch
+    from repro_torch.models.scan_util import tree_leaves
+
+    # step 1 of `cosine_lr` without warm-up, in float64
+    t = 1 / max(1, cfg_opt.total_steps - cfg_opt.warmup_steps)
+    lr = cfg_opt.lr_min + 0.5 * (cfg_opt.lr_peak - cfg_opt.lr_min) * (
+        1 + math.cos(math.pi * t))
+    b1, b2 = cfg_opt.b1, cfg_opt.b2
+    errs = dict(master=0.0, m=0.0, v=0.0, step=0.0)
+    gen = torch.Generator()
+    gen.manual_seed(SERVE_SEED + 4)
+    leaves = zip(*(tree_leaves(x) for x in (
+        grads, state.master, state.m, state.v, new_state.master,
+        new_state.m, new_state.v, new_params)))
+    for g, ma, m0, v0, ma1, m1, v1, p1 in leaves:
+        if not torch.equal(p1, ma1.to(p1.dtype)):
+            raise AssertionError("train_parts: params are not the new "
+                                 "master in the compute dtype")
+        n = g.reshape(-1, g.shape[-1]).shape[0]
+        rows = torch.tensor(sorted({0, n // 2, n - 1, int(torch.randint(
+            n, (1,), generator=gen))}))
+        g, ma, m0, v0, ma1, m1, v1 = (_sampled_rows(x, rows) for x in (
+            g, ma, m0, v0, ma1, m1, v1))
+        gs = g * scale
+        m = b1 * m0 + (1 - b1) * gs
+        v = b2 * v0 + (1 - b2) * gs * gs
+        mhat, vhat = m / (1 - b1), v / (1 - b2)
+        step = -lr * (mhat / (vhat.sqrt() + cfg_opt.eps)
+                      + cfg_opt.weight_decay * ma)
+        ulp = float(ma1.abs().max()) * torch.finfo(torch.float32).eps
+        for k, got, want, den in (
+                ("master", ma1, ma + step, float((ma + step).abs().max())),
+                ("m", m1, m, float(m.abs().max())),
+                ("v", v1, v, float(v.abs().max())),
+                ("step", ma1 - ma, step, ulp)):
+            if den:
+                errs[k] = max(errs[k], float((got - want).abs().max()) / den)
+    return errs
+
+
+def _reduced_card_vs_cpu(dev):
+    """Three AdamW updates of the reduced model's float32 tree from seeded
+    gradients (the second above the clip norm), on the card and on the
+    CPU.  Returns (the largest error relative to a leaf's largest |value|,
+    the card's (params, state), the CPU's)."""
+    import numpy as np
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build
+    from repro_torch.models.scan_util import tree_leaves, tree_map
+
+    ocfg = optim.AdamWConfig(lr_peak=1e-2, warmup_steps=2, total_steps=10)
+    params = build(get_arch(TRAIN_MODEL).reduced()).init(
+        SERVE_SEED, device="cpu")
+    rng = np.random.default_rng(SERVE_SEED)
+    grads = [tree_map(lambda t: torch.from_numpy((rng.standard_normal(
+        tuple(t.shape)) * s).astype(np.float32)), params)
+        for s in (0.01, 0.5, 0.02)]
+    runs = {}
+    for where in ("cpu", dev):
+        p = tree_map(lambda t: t.to(where), params)
+        st = optim.init(p, ocfg)
+        for g in grads:
+            p, st = optim.update(tree_map(lambda t: t.to(where), g), st, ocfg,
+                                 torch.float32)
+        runs[str(where)] = (p, st)
+    err = 0.0
+    for a, b in zip(tree_leaves(runs[str(dev)]), tree_leaves(runs["cpu"])):
+        if a.dtype == torch.int32:
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError("train_parts: the step counts differ")
+            continue
+        den = float(b.abs().max())
+        if den:
+            err = max(err, float((a.cpu() - b).abs().max()) / den)
+    return err, runs[str(dev)], grads
+
+
+def _compress_checks(dev, grads):
+    """`quantize_int8` on the card bit-equal to the CPU (a seeded normal
+    and ties at both signs); `compressed_psum_mean` on a one-rank NCCL
+    group equal, bit for bit, to the CPU's dequantized values and error
+    feedback.  Returns the seconds of the NCCL warm-up."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models.scan_util import tree_leaves, tree_map
+    from repro_torch.optim import (
+        compressed_psum_mean, dequantize_int8, quantize_int8)
+
+    rng = np.random.default_rng(SERVE_SEED + 5)
+    ties = np.array([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5],
+                    np.float32)
+    for x in (torch.from_numpy(rng.standard_normal(1 << 20).astype(
+            np.float32)), torch.from_numpy(ties)):
+        qc, sc = quantize_int8(x)
+        qd, sd = quantize_int8(x.to(dev))
+        if not (torch.equal(qd.cpu(), qc) and torch.equal(sd.cpu(), sc)):
+            raise AssertionError("train_parts: quantize_int8 on the card "
+                                 "differs from the CPU")
+    ef = tree_map(lambda t: torch.from_numpy((rng.standard_normal(
+        tuple(t.shape)) * 0.01).astype(np.float32)), grads)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+        world_size=1, rank=0)
+    try:
+        t0 = time.perf_counter()
+        dist.all_reduce(torch.zeros(1, device=dev))
+        torch.cuda.synchronize()
+        nccl_init_s = time.perf_counter() - t0
+        red, ef2 = compressed_psum_mean(tree_map(lambda t: t.to(dev), grads),
+                                        tree_map(lambda t: t.to(dev), ef))
+    finally:
+        dist.destroy_process_group()
+    for g, e, r, e2 in zip(*(tree_leaves(x) for x in (grads, ef, red, ef2))):
+        target = g + e
+        deq = dequantize_int8(*quantize_int8(target))
+        if not (torch.equal(r.cpu(), deq) and torch.equal(e2.cpu(),
+                                                         target - deq)):
+            raise AssertionError("train_parts: compressed_psum_mean on one "
+                                 "rank differs from the CPU's quantizer")
+    return nccl_init_s
+
+
+def _ckpt_check(card_state):
+    """`save_train_state` of the reduced card state (float32, and a
+    bfloat16 copy with bfloat16 moments), restored on the CPU bit for
+    bit.  Returns the leaves checked."""
+    import tempfile
+
+    import torch
+    from repro_torch import optim
+    from repro_torch.checkpoint import CheckpointManager, save_train_state
+    from repro_torch.models.scan_util import tree_leaves, tree_map
+
+    p, st = card_state
+    pb = tree_map(lambda t: t.to(torch.bfloat16), p)
+    bcfg = optim.AdamWConfig(moments_dtype="bfloat16")
+    pb2, stb = optim.update(pb, optim.init(pb, bcfg), bcfg)
+    checked = 0
+    with tempfile.TemporaryDirectory() as d:
+        for i, (params, state) in enumerate(((p, st), (pb2, stb))):
+            mgr = CheckpointManager(f"{d}/run{i}")
+            save_train_state(mgr, 3, params, state, blocking=i == 0)
+            for sub, like in (("params", params), ("opt", state)):
+                sm = CheckpointManager(f"{d}/run{i}/{sub}")
+                sm.wait()
+                back = sm.restore(3, like, device="cpu")
+                for a, b in zip(tree_leaves(back), tree_leaves(like)):
+                    if not (a.dtype == b.dtype and torch.equal(a, b.cpu())):
+                        raise AssertionError(
+                            f"train_parts: {sub} of run {i} did not "
+                            "restore bit for bit")
+                    checked += 1
+    return checked
+
+
+def train_parts_phase(card, dev):
+    """train_parts (module docstring, phase 16)."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build, param_count
+    from repro_torch.models.scan_util import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    params = build(get_arch(TRAIN_MODEL)).init(SERVE_SEED, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SERVE_SEED + 3)
+    grads = tree_map(lambda t: (torch.randn(
+        t.shape, generator=gen, device=dev) * TRAIN_GRAD_STD).to(t.dtype),
+        params)
+    ocfg = optim.AdamWConfig(warmup_steps=0)
+    state = optim.init(params, ocfg)
+    torch.cuda.synchronize()
+    start_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    # one update's outputs at a time: the state and its update are 49 GB
+    device_ms = _time_ms(lambda: optim.update(grads, state, ocfg),
+                         reps=TRAIN_REPS, warmup=1)
+    host_ms = []
+    for _ in range(TRAIN_REPS):
+        t0 = time.perf_counter()
+        new_params, new_state = optim.update(grads, state, ocfg)
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        if len(host_ms) < TRAIN_REPS:
+            del new_params, new_state
+    peak = torch.cuda.max_memory_allocated()
+    gnorm = optim.global_norm(grads)
+    scale = float(torch.clamp(ocfg.clip_norm / (gnorm + 1e-9), max=1.0))
+    gnorm64 = sum(float((g.double() ** 2).sum())
+                  for g in tree_leaves(grads)) ** 0.5
+    norm_err = abs(float(gnorm) - gnorm64) / gnorm64
+    errs = _full_update_check(ocfg, grads, state, new_params, new_state,
+                              scale)
+    # the bytes one update must move: the gradients read twice (the norm,
+    # the update), master, m and v read and written, the params written
+    gb, sb = _tree_bytes(grads), _tree_bytes(state[1:])
+    nbytes = 2 * gb + 2 * sb + _tree_bytes(new_params)
+    n_params = param_count(params)
+    del params, grads, state, new_params, new_state
+    torch.cuda.empty_cache()
+    errs["reduced_card_vs_cpu"], card_state, red_grads = \
+        _reduced_card_vs_cpu(dev)
+    nccl_init_s = _compress_checks(dev, red_grads)
+    checked = _ckpt_check(card_state)
+    tols = dict(master=TRAIN_TOL, m=TRAIN_TOL, v=TRAIN_TOL,
+                step=TRAIN_STEP_ULPS, reduced_card_vs_cpu=TRAIN_TOL)
+    emit(phase="train_parts", model=TRAIN_MODEL, params=n_params,
+         update_ms=statistics.median(host_ms), update_ms_min=min(host_ms),
+         update_ms_max=max(host_ms), update_device_ms=device_ms,
+         update_bytes=nbytes, bytes_per_param=nbytes / n_params,
+         update_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+         start_bytes=start_bytes, update_peak_bytes=peak,
+         grad_norm=float(gnorm), grad_norm_rel_err=norm_err,
+         clip_scale=scale, errors=errs, tols=tols,
+         norm_tol=TRAIN_NORM_TOL, quantize_int8="bit-equal",
+         psum_one_rank_nccl="bit-equal", nccl_init_s=nccl_init_s,
+         ckpt_leaves_restored=checked,
+         seconds=time.perf_counter() - t_phase, card=card)
+    over = {k: e for k, e in errs.items() if not e <= tols[k]}
+    if over or not norm_err <= TRAIN_NORM_TOL:
+        raise AssertionError(f"train_parts: {over} above {tols}, or the "
+                             f"norm's {norm_err} above {TRAIN_NORM_TOL}")
 
 
 def _mix_gather(svc, rng, n, count):

@@ -14,9 +14,10 @@ device-loop invariants:
 * `CACHE_SCHEMAS` — every cache of the port and the names its key must
   contain.  A cache site (an `lru_cache`, or a `*cache*` dict) that is
   not registered here is itself a finding.
-* `SEED_PREFIXES` — the port's seed substrate, the LM models (as in the
-  JAX package, whose `configs` also hold the service's knobs and stay
-  scanned here).
+* `SEED_PREFIXES` — the port's seed substrate: the LM models, the
+  optimizer, the token pipelines and the fault harness (as in the JAX
+  package, whose `configs` also hold the service's knobs and stay scanned
+  here).
 
 Paths are POSIX-relative to the scan root (the directory containing the
 `repro_torch` package), e.g. ``repro_torch/runtime/spmd.py``.
@@ -38,7 +39,12 @@ SYNC_SCOPE: Tuple[str, ...] = (
 
 #: quarantined seed substrate — excluded from every AST rule; the
 #: dead-seed audit checks these carry a `seed_fixtures` note instead
-SEED_PREFIXES: Tuple[str, ...] = ("repro_torch/models/",)
+SEED_PREFIXES: Tuple[str, ...] = (
+    "repro_torch/models/",
+    "repro_torch/optim/",
+    "repro_torch/data/",
+    "repro_torch/distributed/",
+)
 
 #: reachability roots for the dead-seed import audit: everything in these
 #: packages is product surface; a port module outside them must be

@@ -10,6 +10,11 @@ saw.  The layout is the JAX package's: a snapshot of either kind written
 by the JAX package restores here (its backend overridden to one of this
 package's), and this package's flat dicts restore there.
 
+`save_train_state` writes a model's parameters and optimizer state as
+sibling sub-checkpoints (``params/`` and ``opt/``), in the JAX package's
+layout, so either package restores the other's train state with
+`CheckpointManager.restore` and a template.
+
 Snapshots are topology-independent (global arrays), so a stream session
 restores onto any worker mesh with W | P: `restore_session(W=,
 backend="ell_spmd", executor=)` is also the remesh path
@@ -79,3 +84,13 @@ def restore_session(mgr: CheckpointManager, step: Optional[int] = None,
 #: restore_session IS the remesh path: the alias names the intent at call
 #: sites that restore onto another worker count after a loss
 remesh_restore = restore_session
+
+
+def save_train_state(mgr: CheckpointManager, step: int, params, opt_state,
+                     blocking: bool = True):
+    """Save params and optimizer state (an `optim.AdamWState`) as sibling
+    sub-checkpoints ``<dir>/params`` and ``<dir>/opt`` at `step`."""
+    CheckpointManager(str(mgr.dir / "params"), mgr.keep_n).save(
+        step, params, blocking=blocking)
+    CheckpointManager(str(mgr.dir / "opt"), mgr.keep_n).save(
+        step, opt_state, blocking=blocking)

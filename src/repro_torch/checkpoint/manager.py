@@ -18,6 +18,11 @@ flat dict of tensors also records its keys, so it restores with no
 template (`restore_dict`) — and a flat-dict checkpoint written by either
 package restores in the other.
 
+A bfloat16 leaf is written as the JAX package writes one (its 16-bit
+patterns in an ``.npy`` of numpy's 2-byte void type, "bfloat16" in the
+manifest) and restored through the manifest's dtype; numpy has no
+bfloat16 of its own, so no ml_dtypes is needed either way.
+
 Async: `save(..., blocking=False)` copies every tensor to host memory
 before it returns (the caller may update the live tensors in place right
 after) and writes the files on a daemon thread; `wait` joins it.
@@ -96,10 +101,43 @@ def _unflatten(like, leaves):
 
 def _to_host(x) -> np.ndarray:
     """A host COPY of a leaf: the caller may write the tensor in place as
-    soon as `save` returns."""
+    soon as `save` returns.  A bfloat16 tensor comes back as its 16-bit
+    patterns in numpy's 2-byte void type."""
     if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", copy=True).numpy()
+        t = x.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.dtype("V2"))
+        return t.numpy()
     return np.array(x, copy=True)
+
+
+def _dtype_name(x, leaf: np.ndarray) -> str:
+    """The manifest's dtype of a leaf, as the JAX package names it."""
+    if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
+        return "bfloat16"
+    return str(leaf.dtype)
+
+
+def _save_leaf(path: Path, leaf: np.ndarray, dtype_name: str) -> None:
+    """`np.save`, but a "bfloat16" leaf under the header the JAX package's
+    `np.save` of an `ml_dtypes.bfloat16` array writes ('<V2'), so the
+    files are the same bytes."""
+    if dtype_name != "bfloat16":
+        np.save(path, leaf)
+        return
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": "<V2", "fortran_order": False, "shape": leaf.shape})
+        f.write(np.ascontiguousarray(leaf).tobytes())
+
+
+def _load_leaf(path: Path, dtype_name: str) -> torch.Tensor:
+    """A leaf file as a CPU tensor; a "bfloat16" leaf from its 16-bit
+    patterns."""
+    arr = np.load(path)
+    if dtype_name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def _shape(x) -> tuple:
@@ -144,6 +182,7 @@ class CheckpointManager:
         """
         flat = _flatten(tree)
         host_leaves = [_to_host(x) for x in flat]
+        dtypes = [_dtype_name(x, h) for x, h in zip(flat, host_leaves)]
         structure = _structure(tree)
         keys = (sorted(str(k) for k in tree)
                 if isinstance(tree, dict) and len(tree) == len(flat)
@@ -164,10 +203,10 @@ class CheckpointManager:
             if meta is not None:
                 manifest["meta"] = meta
             for i, leaf in enumerate(host_leaves):
-                np.save(tmp / f"leaf_{i:05d}.npy", leaf)
+                _save_leaf(tmp / f"leaf_{i:05d}.npy", leaf, dtypes[i])
                 manifest["leaves"].append(
                     {"i": i, "shape": list(leaf.shape),
-                     "dtype": str(leaf.dtype)})
+                     "dtype": dtypes[i]})
             (tmp / "manifest.json").write_text(json.dumps(manifest))
             (tmp / "COMMIT").write_text("ok")
             if final.exists():
@@ -234,7 +273,8 @@ class CheckpointManager:
                 "restore(step, like) with a structure template")
         dev = resolve_device(device)
         d = self.dir / f"step_{step:08d}"
-        return {k: torch.from_numpy(np.load(d / f"leaf_{i:05d}.npy")).to(dev)
+        return {k: _load_leaf(d / f"leaf_{i:05d}.npy",
+                              manifest["leaves"][i]["dtype"]).to(dev)
                 for i, k in enumerate(keys)}
 
     def restore(self, step: int, like: Tree,
@@ -252,9 +292,10 @@ class CheckpointManager:
         d = self.dir / f"step_{step:08d}"
         out = []
         for i, ref in enumerate(flat_like):
-            arr = np.load(d / f"leaf_{i:05d}.npy")
-            if tuple(arr.shape) != _shape(ref):
+            t = _load_leaf(d / f"leaf_{i:05d}.npy",
+                           manifest["leaves"][i]["dtype"])
+            if tuple(t.shape) != _shape(ref):
                 raise ValueError(
-                    f"leaf {i}: shape {arr.shape} != {_shape(ref)}")
-            out.append(torch.from_numpy(arr).to(dev, _torch_dtype(ref)))
+                    f"leaf {i}: shape {tuple(t.shape)} != {_shape(ref)}")
+            out.append(t.to(dev, _torch_dtype(ref)))
         return _unflatten(like, iter(out))

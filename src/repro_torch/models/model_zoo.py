@@ -1,22 +1,24 @@
 """Unified model API: build(config) -> ModelBundle with init/step functions.
 
-The JAX package's `models.model_zoo` for the decoder-only assembly
-(`transformer.py`), which serves eight architectures: the dense family
-(internlm2, codeqwen, granite, gemma3, the paligemma prefix-LM stub), the
-MoE models (deepseek-v3 with MLA, llama4-scout), mamba2 and the zamba2
-hybrid.  `build` refuses the encoder-decoder (seamless-m4t) with
-`NotImplementedError` naming its step of ROADMAP.md Queue 1 item 9.
+The JAX package's `models.model_zoo`.  All ten architectures are served by
+two assemblies: the decoder-only one (`transformer.py`: the dense family —
+internlm2, codeqwen, granite, gemma3, the paligemma prefix-LM stub — the
+MoE models, deepseek-v3 with MLA and llama4-scout, mamba2 and the zamba2
+hybrid) and the encoder-decoder (`encdec.py`: seamless-m4t).
 
-A user serves like this: `b = build(cfg)`, `params = b.init(seed)`,
-`caches = b.cache_init(B, max_seq)`, a block prefill of the prompts
-through `b.decode_fn(params, prompts, caches, 0)`, then one-token
+A user serves a decoder like this: `b = build(cfg)`, `params =
+b.init(seed)`, `caches = b.cache_init(B, max_seq)`, a block prefill of the
+prompts through `b.decode_fn(params, prompts, caches, 0)`, then one-token
 `decode_fn` steps; `b.prefill_fn(params, batch, last_only=True)` is the
 serving forward.  A mamba model's cache takes one token a step, so its
 prompt goes into the cache token by token (its serving forward is
 `prefill_fn`, the chunked scan).  `decode_fn` takes `moe_path`
 ("capacity" or the "dense" oracle) and `mla_absorbed`; `loss_fn` takes
-`moe_path`.  Everything runs on the card unless the caller passes
-``device="cpu"`` to `init` and `cache_init`.
+`moe_path`.  The encoder-decoder's `prefill_fn(params, {"src_embeds":
+...})` returns the encoder memory, as the reference's, and the caller
+primes the cross caches with `encdec.encdec_prime_cross`; its `decode_fn`
+takes one token a step.  Everything runs on the card unless the caller
+passes ``device="cpu"`` to `init` and `cache_init`.
 
 `loss_fn` is a forward evaluation; its gradient is the training step's.
 
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from . import encdec as ED
 from . import transformer as T
 from .scan_util import tree_leaves, tree_map
 
@@ -74,7 +77,6 @@ def _generator(seed_or_generator: Union[int, torch.Generator],
 
 
 def _decoder_bundle(cfg) -> ModelBundle:
-    T.check_ported(cfg)
     prefix = cfg.n_prefix_tokens > 0
 
     def init(seed_or_generator, device: DeviceLike = None):
@@ -113,7 +115,30 @@ def _decoder_bundle(cfg) -> ModelBundle:
 
 
 def _encdec_bundle(cfg) -> ModelBundle:
-    raise T._not_ported(f"{cfg.name}: the encoder-decoder", "encdec")
+    def init(seed_or_generator, device: DeviceLike = None):
+        return ED.init_encdec(_generator(seed_or_generator, device), cfg)
+
+    def loss_fn(params, batch, *, moe_path="capacity", remat=True):
+        logits, aux = ED.encdec_forward(params, cfg, batch["src_embeds"],
+                                        batch["tokens"], remat=remat)
+        loss = cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+        return loss, aux
+
+    def cache_init(batch, max_seq, device: DeviceLike = None):
+        return ED.init_encdec_cache(cfg, batch, max_seq, cfg.mem_len,
+                                    device=resolve_device(device))
+
+    def prefill_fn(params, batch):
+        """The encoder memory and a float32 zero, as the reference's: the
+        caller primes the cross caches (`encdec.encdec_prime_cross`)."""
+        memory = ED.encode(params, cfg, batch["src_embeds"])
+        return memory, torch.zeros((), dtype=torch.float32,
+                                   device=memory.device)
+
+    def decode_fn(params, token, caches, pos, **_):
+        return ED.encdec_decode_step(params, cfg, token, caches, pos)
+
+    return ModelBundle(cfg, init, loss_fn, prefill_fn, decode_fn, cache_init)
 
 
 def build(cfg) -> ModelBundle:

@@ -6,7 +6,8 @@ Eager PyTorch compiles nothing: `scan` is a Python loop over that axis
 with `lax.scan`'s contract, and the parameter tree keeps the reference's
 stacked layout so weights carry across leaf for leaf.
 
-Trees are nested dicts, lists and tuples with tensors at the leaves.
+Trees are nested dicts, lists and tuples (NamedTuples too, such as the
+optimizer's `AdamWState`) with tensors at the leaves.
 """
 from __future__ import annotations
 
@@ -22,7 +23,9 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         out = [tree_map(fn, v, *(r[i] for r in rest))
                for i, v in enumerate(tree)]
-        return type(tree)(out)
+        # a NamedTuple takes its fields as arguments, not one iterable
+        return type(tree)(*out) if hasattr(tree, "_fields") \
+            else type(tree)(out)
     return fn(tree, *rest)
 
 

@@ -12,9 +12,8 @@ turn (`scan_util.scan`):
   mamba_uniform  — Mamba2 blocks                              [mamba2]
   zamba_period   — (6 Mamba2 + 1 weight-SHARED attn/MLP)      [zamba2]
 
-`layer_plan` gives every config's plan, as the reference's.  Every
-decoder kind is ported; the encoder-decoder raises `NotImplementedError`
-naming its step of ROADMAP.md Queue 1 item 9.
+`layer_plan` gives every config's plan, as the reference's.  The
+encoder-decoder (seamless-m4t) is `encdec.py`'s.
 
 Decode caches are stacked like the parameters and written in place: a
 decode step returns the caches it was given.  A mamba layer's cache is
@@ -41,19 +40,8 @@ from .attention import init_mla, mla_attention, init_mla_cache
 from .moe import init_moe, moe_dense, moe_capacity
 from .ssm import init_mamba, mamba_chunked, mamba_step, init_mamba_cache
 
-#: the later steps of ROADMAP.md Queue 1 item 9, by what they port
-LATER_STEPS = {
-    "encdec": "step 4 (the encoder-decoder: models/encdec.py)",
-}
-
 KINDS = ("dense_uniform", "moe_uniform", "gemma_period", "mamba_uniform",
          "zamba_period")
-
-
-def _not_ported(what: str, key: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md Queue 1 item 9, "
-        f"{LATER_STEPS[key]}")
 
 
 # ---------------------------------------------------------------------------
@@ -96,13 +84,6 @@ def layer_plan(cfg) -> List[Block]:
         return plan
     return [Block("dense_uniform", cfg.n_layers, window=cfg.sliding_window,
                   d_ff=cfg.d_ff)]
-
-
-def check_ported(cfg) -> None:
-    """Raise `NotImplementedError` for a config the port does not serve
-    yet: the encoder-decoder."""
-    if cfg.is_encdec:
-        raise _not_ported(f"{cfg.name}: the encoder-decoder", "encdec")
 
 
 def _check_kind(kind: str) -> None:
@@ -380,7 +361,6 @@ def apply_block_decode(
 
 def init_lm(gen, cfg) -> Params:
     """The model's parameters, drawn from `gen` on its device."""
-    check_ported(cfg)
     dtype = _dtype(cfg.dtype)
     params: Params = {
         "embed": init_embedding(gen, cfg.vocab, cfg.d_model, dtype),

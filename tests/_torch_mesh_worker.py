@@ -9,7 +9,8 @@ with a time limit: a rank that fails or hangs ends the test instead of
 hanging the suite.  Each rank runs `body` (the name of a function here:
 `run_case`, the executor's primitives, or `run_programs`, the programs
 and the mesh paths of maintenance, the stream and restore) on the graph
-and inputs in `case` (a dict of numpy arrays) and writes its results to
+and inputs in `case` (a dict of numpy arrays), or `run_compress`, the
+int8 compressed gradient mean, and writes its results to
 ``out_dir/rank{r}.npz``; `spawn_mesh` returns them, one dict per rank.
 
 This module imports only torch, numpy and the port, so a rank starts in
@@ -175,6 +176,27 @@ def run_programs(case: dict) -> dict:
     return out
 
 
+def run_compress(case: dict) -> dict:
+    """`optim.compressed_psum_mean` over this rank's process group: the
+    tree ``{"x": g{rank}_x, "y": [g{rank}_y]}`` with error feedback
+    ``e{rank}_*``, and the reference test's ``same`` gradient (equal on
+    every rank) with zero error feedback."""
+    import torch.distributed as dist
+
+    from repro_torch.optim import compressed_psum_mean, init_error_feedback
+
+    r = dist.get_rank()
+    t = {k: torch.from_numpy(np.array(v)) for k, v in case.items()}
+    grads = {"x": t[f"g{r}_x"], "y": [t[f"g{r}_y"]]}
+    ef = {"x": t[f"e{r}_x"], "y": [t[f"e{r}_y"]]}
+    red, ef2 = compressed_psum_mean(grads, ef)
+    same = {"w": t["same"]}
+    red_s, ef_s = compressed_psum_mean(same, init_error_feedback(same))
+    return {"red_x": red["x"].numpy(), "red_y": red["y"][0].numpy(),
+            "ef_x": ef2["x"].numpy(), "ef_y": ef2["y"][0].numpy(),
+            "red_same": red_s["w"].numpy(), "ef_same": ef_s["w"].numpy()}
+
+
 def _rank(rank: int, W: int, port: int, case_path: str, out_dir: str,
           body: str = "run_case"):
     import torch.distributed as dist
@@ -194,7 +216,8 @@ def _rank(rank: int, W: int, port: int, case_path: str, out_dir: str,
 
 def spawn_mesh(W: int, case: dict, out_dir: Path,
                timeout: float = JOB_TIMEOUT, body: str = "run_case") -> list:
-    """Run `body` (`run_case` or `run_programs`) on W gloo ranks; returns
+    """Run `body` (`run_case`, `run_programs` or `run_compress`) on W gloo
+    ranks; returns
     each rank's result dict.  Raises if a rank fails or the job outlives
     `timeout` seconds (its processes are then killed)."""
     import torch.multiprocessing as mp

@@ -161,12 +161,6 @@ LEFT_OUT = {
     "runtime.mesh.WorkerMesh": {"node_sharding", "replicated"},
     "models.scan_util": {"unrolling"},
 }
-#: names still to come, by their step of ROADMAP.md Queue 1 item 9: the
-#: training state's checkpoint (step 5)
-NOT_YET = {
-    "checkpoint": {"save_train_state"},
-    "checkpoint.elastic": {"save_train_state"},
-}
 #: where a public name is an import of a library, not the module's own
 _LIBRARIES = ("typing", "numpy", "jax", "jaxlib", "torch", "dataclasses",
               "functools", "collections", "__future__", "abc", "enum",
@@ -196,8 +190,8 @@ def _public(obj):
 def test_public_names_equal_reference():
     """Queue 3 fault 4: every public name (and every public class member)
     of each module of the reference that the port ports exists in the
-    port, apart from `LEFT_OUT` and `NOT_YET`; and nothing is listed
-    there that the port has."""
+    port, apart from `LEFT_OUT`; and nothing is listed there that the
+    port has."""
     import importlib
     import pkgutil
     import warnings
@@ -226,6 +220,4 @@ def test_public_names_equal_reference():
                     missing[f"{rel}.{n}"] = m
         if miss:
             missing[rel] = miss
-    allowed = {k: LEFT_OUT.get(k, set()) | NOT_YET.get(k, set())
-               for k in set(LEFT_OUT) | set(NOT_YET)}
-    assert missing == allowed
+    assert missing == LEFT_OUT

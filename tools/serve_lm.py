@@ -8,15 +8,17 @@ kernel is built: the serve path reaches none of the port's CUDA kernels):
                               [--f32-check NAME[:LAYERS],...]
 
 Runs `chip_smoke.py`'s `serve_lm` phase for `--models` (default: all of
-its models; its lines, its checks; it raises on a failure).  Then, for
-each of those models at the phase's widths and depths in bf16, puts the
-same 4 seeded prompts into the cache (a block prefill of 1,024 tokens; a
-mamba model's cache token by token over 64), runs 2 decode steps to warm
-up, 8 timed on the host clock and 8 under `torch.profiler`, and prints
-one JSON line: the wall ms a step without and with the profiler, the
-device ms a step summed over every kernel, memcpy and memset of the
-profiled steps, the device's busy share of their wall, device operations
-a step, and the top kernels.
+its ten models; its lines, its checks; it raises on a failure).  Then,
+for each of those models at the phase's widths and depths in bf16, puts
+the same 4 seeded prompts into the cache (a block prefill of 1,024
+tokens, paligemma's after its 256 stub patch embeddings; a mamba model's
+cache token by token over 64; seamless-m4t's encoder over 4 x 4,096 stub
+frame embeddings, its cross caches primed, then 64 decoder tokens one a
+step), runs 2 decode steps to warm up, 8 timed on the host clock and 8
+under `torch.profiler`, and prints one JSON line: the wall ms a step
+without and with the profiler, the device ms a step summed over every
+kernel, memcpy and memset of the profiled steps, the device's busy share
+of their wall, device operations a step, and the top kernels.
 
 `--f32-check NAME[:LAYERS],...` first runs the phase's decode-vs-forward
 check (a) (and deepseek's absorbed-vs-naive check (h)) on NAME at LAYERS
@@ -61,6 +63,9 @@ def f32_check(cs, name, layers, card, dev):
     from repro_torch.models.scan_util import tree_map
 
     cfg, _ = cs._serve_config(name)
+    if cfg.is_encdec:
+        raise ValueError(f"--f32-check takes a decoder-only model, not "
+                         f"{name}")
     cfg = dataclasses.replace(cfg, n_layers=layers or cfg.n_layers)
     params = build(cfg).init(cs.SERVE_SEED, device=dev)
     gen = torch.Generator(device=dev)
@@ -97,20 +102,41 @@ def profile_decode(cs, name, card, dev):
     """Decode steps of `name` timed, then profiled: one JSON line."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import build
+    from repro_torch.models import build, encdec
 
     cfg, reduced = cs._serve_config(name)
     b = build(cfg)
     params = b.init(cs.SERVE_SEED, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(cs.SERVE_SEED + 1)
-    B, S = cs.SERVE_BATCH, cs.SERVE_PROMPT
-    block = S
-    if cfg.mixer == "mamba":  # its cache takes one token a step
-        S, block = cs.SERVE_CHECK_PROMPT, 1
-    prompts = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
-    caches = b.cache_init(B, S + 3 * STEPS, device=dev)
-    logits, _ = cs._prefill(b, params, prompts, caches, block)
+    B, S, P = cs.SERVE_BATCH, cs.SERVE_PROMPT, cfg.n_prefix_tokens
+    if cfg.is_encdec:
+        # the encoder over the frames, the cross caches primed, then the
+        # decoder's prompt one token a step
+        S = cs.SERVE_CHECK_PROMPT
+        src = torch.randn((B, cfg.mem_len, cfg.d_model), generator=gen,
+                          device=dev)
+        prompts = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                device=dev)
+        memory, _ = b.prefill_fn(params, {"src_embeds": src})
+        caches = encdec.encdec_prime_cross(
+            params, cfg, memory, b.cache_init(B, S + 3 * STEPS, device=dev))
+        del memory
+        outs, _, _ = cs._decode(b, params, None, caches, 0, S,
+                                feed=[prompts[:, i:i + 1] for i in range(S)])
+        logits = outs[-1]
+    else:
+        block = S
+        if cfg.mixer == "mamba":  # its cache takes one token a step
+            S, block = cs.SERVE_CHECK_PROMPT, 1
+        prompts = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                device=dev)
+        kw = {"prefix_embeds": torch.randn((B, P, cfg.prefix_dim),
+                                           generator=gen, device=dev)} \
+            if P else {}
+        caches = b.cache_init(B, P + S + 3 * STEPS, device=dev)
+        logits, _ = cs._prefill(b, params, prompts, caches, block, **kw)
+        S += P
     pos = S
 
     def steps(n):
