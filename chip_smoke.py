@@ -275,6 +275,32 @@ Phases (each raises on failure; the script then exits non-zero):
    CPU's quantizer, and `save_train_state` of the reduced card state
    (float32, and bf16 with bf16 moments, the second written
    asynchronously) restored on the CPU bit for bit.
+17. train_lm: training end to end (`repro_torch.launch.train`).  (a)
+   internlm2-1.8b and (b) mamba2-370m at published width and depth in
+   bf16, random weights from TRAIN_LM_SEED: TRAIN_LM_STEPS steps of
+   `make_step` (the loss with remat, its backward, the AdamW update) on
+   B x S = 4 x 1,024 `SyntheticTokens`, the first a warm-up; step ms
+   (median, min, max; host clock around work ending in a synchronize),
+   tokens/s and each loss (finite) beside the bound: 8 x the matmul
+   parameters x tokens (6 x without remat) plus 4 x (3 x) the causal
+   attention's or the SSD scan's forward products at the H100's dense
+   bf16 peak (989 TFLOP/s, NVIDIA's data sheet), plus the update's 30
+   bytes a parameter at 3.35 TB/s; the step's peak bytes, and the loss
+   and backward's peak with remat and without, which must be higher.
+   (c) Every architecture's reduced float32 config, TRAIN_LM_RED_STEPS
+   steps on the card against the CPU: losses, m and v within
+   TRAIN_LM_TOL of their values, params and master by the update they
+   took from the start, within TRAIN_LM_UPDATE_TOL of the leaf's
+   largest update (entries whose gradient is within float32 noise of
+   zero excepted, counted and bounded: TRAIN_LM_FLIP).  (d) The fault
+   drill through the CLI on the card (`--simulate-failure 6` exits 42,
+   `--resume auto` prints ``[resume] restored step 6`` and exits 0),
+   its final checkpoint against an uninterrupted run's (bit-equal or
+   within the same bounds, no entry excepted; reported), and a
+   `--grad-compression` run on the launcher's one-rank NCCL group.  MoE
+   models train here at reduced size only: llama4-scout's embeddings
+   and one layer are 4.3·10⁹ parameters, 51 GB of float32 master, m
+   and v.
 
 Earlier lines are JSON objects; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -285,6 +311,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -435,6 +462,7 @@ def main() -> int:
     audit = audit_phase(g, ups, dev)
     serve_lm_phase(card)
     train_parts_phase(card, dev)
+    train_lm_phase(card, dev)
     for k in kernels:
         if k["name"] in MESH_KERNELS:
             k["launches_by_path"] = {p: c.get(k["name"], 0)
@@ -2729,6 +2757,382 @@ def train_parts_phase(card, dev):
     if over or not norm_err <= TRAIN_NORM_TOL:
         raise AssertionError(f"train_parts: {over} above {tols}, or the "
                              f"norm's {norm_err} above {TRAIN_NORM_TOL}")
+
+
+#: train_lm: training end to end on the card (`repro_torch.launch.train`)
+TRAIN_LM_MODELS = ("internlm2-1.8b", "mamba2-370m")  # published widths
+TRAIN_LM_BATCH = 4
+TRAIN_LM_SEQ = 1024
+TRAIN_LM_STEPS = 5           # timed steps; the first is the warm-up
+TRAIN_LM_SEED = 0            # parameters and SyntheticTokens
+#: (c) the reduced float32 configs: TRAIN_LM_RED_STEPS steps of B x S on
+#: the card against the same steps on the CPU.  Losses, and each leaf of
+#: m and v, within TRAIN_LM_TOL of the leaf's largest |value| (float32
+#: sums in another order; measured at most 5.0e-6, zamba2-7b); params
+#: and master by their update from the start, beyond one float32 ulp of
+#: the value a step, within TRAIN_LM_UPDATE_TOL of the leaf's largest
+#: update.  AdamW divides each entry's step by that entry's own gradient
+#: size, so the gradients' float32 noise grows where a gradient is
+#: small: measured at most 1.08e-3 (zamba2-7b); a missing, halved or
+#: reversed last step is 0.2 or more
+TRAIN_LM_RED_STEPS = 3
+TRAIN_LM_RED_SHAPE = (2, 32)
+TRAIN_LM_TOL = 1e-4
+TRAIN_LM_UPDATE_TOL = 5e-3
+#: ... except entries whose CPU gradient at some step is within
+#: TRAIN_LM_NEAR of the leaf's largest |g|: AdamW's step there, lr · m̂ /
+#: (sqrt(v̂) + eps), hangs on float32 noise, so they may move up to
+#: TRAIN_LM_FLIP times the summed learning rates; at most
+#: TRAIN_LM_FLIP_SHARE of the entries may need that
+TRAIN_LM_NEAR = 2e-5
+TRAIN_LM_FLIP = 2.0
+TRAIN_LM_FLIP_SHARE = 1e-4
+#: dense bf16 peak of one H100 SXM (NVIDIA's data sheet, without
+#: sparsity), the FLOP term of the step's bound
+BF16_PEAK_FLOPS = 989e12
+#: seconds one launcher subprocess of the drill may take
+TRAIN_LM_CLI_TIMEOUT = 300
+
+
+def _step_flops(cfg, n_matmul: int, tokens: int, B: int, S: int) -> dict:
+    """The training step's FLOPs: 6 x the matmul parameters x tokens (8 x
+    with remat's recomputed forward) plus the sequence mixer's own
+    products (causal attention's QK^T and PV, or the SSD chunk scan's
+    quadratic and state terms), 3 x the forward's (4 x with remat)."""
+    from repro_torch.models.ssm import _dims
+    from repro_torch.models.transformer import layer_plan
+
+    if cfg.mixer == "mamba":
+        d_in, H, P, N, G, _ = _dims(cfg)
+        Q = min(128, S)  # mamba_chunked's chunk
+        mixer = cfg.n_layers * (2 * B * S * Q * H * (N + P)
+                                + 4 * B * S * H * P * N)
+    else:
+        layers = sum(blk.count for blk in layer_plan(cfg))
+        mixer = layers * 2 * B * cfg.n_heads * S * S * cfg.hd  # causal half
+    return {"dense": 6 * n_matmul * tokens, "dense_remat": 8 * n_matmul
+            * tokens, "mixer": 3 * mixer, "mixer_remat": 4 * mixer}
+
+
+def _train_full(name, card, dev):
+    """(a)/(b) of train_lm: TRAIN_LM_STEPS steps of `launch.train.make_step`
+    at published width and depth in bf16, then the loss and backward's peak
+    bytes with remat and without."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch.train import make_step
+    from repro_torch.models import build, param_count, value_and_grad
+    from repro_torch.models.scan_util import tree_leaves
+
+    what = f"train_lm[{name}]"
+    cfg = get_arch(name)
+    bundle = build(cfg)
+    B, S = TRAIN_LM_BATCH, TRAIN_LM_SEQ
+    ocfg = optim.AdamWConfig()
+    params = bundle.init(TRAIN_LM_SEED, device=dev)
+    state = optim.init(params, ocfg)
+    n_params = param_count(params)
+    n_matmul = n_params - (0 if cfg.tie_embeddings
+                           else params["embed"]["w"].numel())
+    step = make_step(bundle, ocfg, cfg, False, None)
+    data = SyntheticTokens(cfg.vocab, S, B, seed=TRAIN_LM_SEED)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                data.batch(i).items()} for i in range(TRAIN_LM_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    step_peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses) or not all(
+            bool(torch.isfinite(t).all()) for t in tree_leaves(params)):
+        raise AssertionError(f"{what}: a loss or a parameter is not "
+                             f"finite: {losses}")
+
+    # the loss and its backward alone, with remat and without: the update
+    # after it peaks alike either way (params, state and their new copies)
+    grad_peak = {}
+    for remat in (True, False):
+        grad = value_and_grad(
+            lambda p, b, r=remat: bundle.loss_fn(p, b, remat=r)[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss, g = grad(params, batches[-1])
+        torch.cuda.synchronize()
+        grad_peak[remat] = torch.cuda.max_memory_allocated()
+        del loss, g
+        torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    if not grad_peak[True] < grad_peak[False]:
+        raise AssertionError(f"{what}: remat's peak {grad_peak[True]} is "
+                             f"not below {grad_peak[False]}")
+    tokens = B * S
+    flops = _step_flops(cfg, n_matmul, tokens, B, S)
+    # the update's bytes (train_parts): the gradients read twice, master,
+    # m and v read and written, the params written
+    upd_bytes = n_params * (3 * params["embed"]["w"].element_size() + 24)
+    upd_ms = upd_bytes / HBM_BYTES_PER_S * 1e3
+    flop_ms = (flops["dense_remat"] + flops["mixer_remat"]) \
+        / BF16_PEAK_FLOPS * 1e3
+    med = statistics.median(step_ms[1:])
+    emit(phase="train_lm", model=name, params=n_params, matmul_params=n_matmul,
+         batch=B, seq=S, dtype=cfg.dtype, steps=len(step_ms),
+         step_ms=med, step_ms_min=min(step_ms[1:]),
+         step_ms_max=max(step_ms[1:]), warmup_step_ms=step_ms[0],
+         tokens_per_s=tokens / med * 1e3, losses=losses, flops=flops,
+         bound_ms=flop_ms + upd_ms, bound_flop_ms=flop_ms,
+         bound_flop_ms_without_remat=(flops["dense"] + flops["mixer"])
+         / BF16_PEAK_FLOPS * 1e3, bound_update_ms=upd_ms,
+         bound_share=(flop_ms + upd_ms) / med, peak_flops=BF16_PEAK_FLOPS,
+         step_peak_bytes=step_peak, grad_peak_bytes_remat=grad_peak[True],
+         grad_peak_bytes_no_remat=grad_peak[False], held_bytes=held,
+         card=card)
+    del params, state, batches
+    torch.cuda.empty_cache()
+
+
+def _update_errors(got, want, start, grads, steps: int) -> dict:
+    """Leaf by leaf (lists of tensors, one order), the update `got -
+    start` against `want - start` after `steps` AdamW steps.  An entry's
+    error is |Δgot - Δwant| less one float32 ulp of its value a step
+    (each step rounds the master once on either side).  `grads[s]` holds
+    `want`'s gradient leaves of step s, or `grads` is None: an entry
+    whose gradient at some step is within TRAIN_LM_NEAR of that step's
+    largest |g| of the leaf is "near" (see TRAIN_LM_FLIP).  Returns
+    {"update": the largest error of an entry not near, relative to its
+    leaf's largest |Δwant|; "near_over_lrs_sum": the largest error of a
+    near entry (absolute, divided by the caller); "near_used": the near
+    entries beyond TRAIN_LM_UPDATE_TOL of that scale; "entries"}."""
+    import torch
+
+    worst, near_worst, used, total = 0.0, 0.0, 0, 0
+    for k, (a, b, s0) in enumerate(zip(got, want, start)):
+        a, b, s0 = (t.detach().cpu().double() for t in (a, b, s0))
+        ulp = torch.nextafter(
+            torch.maximum(s0.abs(), b.abs()).float(),
+            torch.tensor(float("inf"))).double() \
+            - torch.maximum(s0.abs(), b.abs()).float().double()
+        err = ((a - s0) - (b - s0)).abs().sub(steps * ulp).clamp(min=0)
+        scale = float((b - s0).abs().max()) or 1.0
+        near = torch.zeros(a.shape, dtype=torch.bool)
+        for g in grads or ():
+            g = g[k].detach().cpu().abs()
+            near |= g <= TRAIN_LM_NEAR * float(g.max())
+        far, close = err[~near], err[near]
+        if far.numel():
+            worst = max(worst, float(far.max()) / scale)
+        if close.numel():
+            near_worst = max(near_worst, float(close.max()))
+            used += int((close > TRAIN_LM_UPDATE_TOL * scale).sum())
+        total += a.numel()
+    return {"update": worst, "near_over_lrs_sum": near_worst,
+            "near_used": used, "entries": total}
+
+
+def _moment_error(got, want) -> float:
+    """The largest error of a leaf of `got` against `want` (m or v),
+    relative to the leaf's largest |value|."""
+    from repro_torch.models.scan_util import tree_leaves
+
+    err = 0.0
+    for x, y in zip(tree_leaves(got), tree_leaves(want)):
+        y = y.cpu().double()
+        d = float((x.cpu().double() - y).abs().max())
+        den = float(y.abs().max())
+        err = max(err, d / den if den else d)
+    return err
+
+
+def _train_errors(got, want, start, grads, lrs) -> dict:
+    """(c)/(d): `got` against `want`, each (params, AdamWState, losses or
+    None), from the params `start` through len(lrs) steps at those
+    learning rates; {"loss", "moments", "update", "near_over_lrs_sum",
+    "near_used", "entries"}, the update's the worse of params' and
+    master's."""
+    from repro_torch.models.scan_util import tree_leaves
+
+    (gp, gs, gl), (wp, ws, wl) = got, want
+    out = {"loss": max((abs(a - b) / abs(b) for a, b in zip(gl, wl)),
+                       default=0.0) if gl else 0.0,
+           "moments": max(_moment_error(gs.m, ws.m),
+                          _moment_error(gs.v, ws.v))}
+    start = tree_leaves(start)
+    for g, w in ((gp, wp), (gs.master, ws.master)):
+        e = _update_errors(tree_leaves(g), tree_leaves(w), start, grads,
+                           len(lrs))
+        e["near_over_lrs_sum"] /= sum(lrs)
+        for key, v in e.items():
+            out[key] = max(out.get(key, v), v)
+    return out
+
+
+def _train_failures(errs: dict) -> dict:
+    """The entries of {name: _train_errors(...)} that break a bound."""
+    return {name: e for name, e in errs.items()
+            if not (e["loss"] <= TRAIN_LM_TOL and e["moments"] <= TRAIN_LM_TOL
+                    and e["update"] <= TRAIN_LM_UPDATE_TOL
+                    and e["near_over_lrs_sum"] <= TRAIN_LM_FLIP
+                    and e["near_used"] <= TRAIN_LM_FLIP_SHARE * e["entries"])}
+
+
+def _train_reduced(dev):
+    """(c) of train_lm: every architecture's reduced float32 config,
+    TRAIN_LM_RED_STEPS steps on the card and on the CPU from the same
+    weights and batches.  Returns {name: `_train_errors`} (card against
+    CPU, the CPU's gradients marking the near entries)."""
+    import argparse
+
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch.train import _host_batch, make_step
+    from repro_torch.models import build, value_and_grad
+    from repro_torch.models.scan_util import tree_leaves, tree_map
+
+    B, S = TRAIN_LM_RED_SHAPE
+    ocfg = optim.AdamWConfig(total_steps=10)
+    lrs = [float(optim.cosine_lr(ocfg, i + 1))
+           for i in range(TRAIN_LM_RED_STEPS)]
+    errs = {}
+    for name, full in sorted(ARCHS.items()):
+        cfg = full.reduced()
+        bundle = build(cfg)
+        params = bundle.init(TRAIN_LM_SEED, device="cpu")
+        data = SyntheticTokens(cfg.vocab, S, B, seed=TRAIN_LM_SEED)
+        args = argparse.Namespace(batch=B, seq=S)
+        batches = [_host_batch(data, cfg, args, i)
+                   for i in range(TRAIN_LM_RED_STEPS)]
+        grad = value_and_grad(
+            lambda p, b: bundle.loss_fn(p, b, remat=True)[0])
+        runs, grads = {}, []
+        for where in ("cpu", dev):
+            p = tree_map(lambda t: t.to(where), params)
+            st = optim.init(p, ocfg)
+            step = make_step(bundle, ocfg, cfg, False, None)
+            losses = []
+            for b in batches:
+                b = {k: torch.from_numpy(v).to(where) for k, v in b.items()}
+                if str(where) == "cpu":
+                    grads.append(tree_leaves(grad(p, b)[1]))
+                p, st, loss = step(p, st, b)
+                losses.append(float(loss))
+            runs[str(where)] = (p, st, losses)
+        errs[name] = _train_errors(runs[str(dev)], runs["cpu"], params,
+                                   grads, lrs)
+    return errs
+
+
+def _train_cli(args, dev, background=False):
+    """`python -m repro_torch.launch.train` on the reduced internlm2 with
+    `args`, from the checkout's `src`, on the launcher's default device
+    (the card), or with `--device cpu` when `dev` is the CPU; a Popen
+    when `background`."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           TRAIN_MODEL, "--reduced", "--batch", "2", "--seq", "32", *args]
+    if dev.type == "cpu":
+        cmd += ["--device", "cpu"]
+    if background:
+        return subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+    return subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=TRAIN_LM_CLI_TIMEOUT)
+
+
+def _train_drill(dev):
+    """(d) of train_lm: the fault drill through the CLI on the card (exit
+    42 at step 6, `--resume auto` restores it and exits 0), its final
+    checkpoint against an uninterrupted run's, and a run with
+    `--grad-compression` (the launcher's one-rank NCCL group).  Returns
+    (`_train_errors` of the resumed run against the whole one, whether
+    bit-equal, the seconds of the runs)."""
+    import tempfile
+
+    import torch
+    from repro_torch import optim
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build
+    from repro_torch.models.scan_util import tree_leaves
+
+    with tempfile.TemporaryDirectory() as d:
+        drill = ["--ckpt-dir", f"{d}/ck", "--ckpt-every", "3", "--steps", "9"]
+        t0 = time.perf_counter()
+        full = _train_cli(["--ckpt-dir", f"{d}/full", "--ckpt-every", "3",
+                           "--steps", "9"], dev, background=True)
+        comp = _train_cli(["--steps", "3", "--grad-compression"], dev,
+                          background=True)
+        r1 = _train_cli([*drill, "--simulate-failure", "6"], dev)
+        r2 = _train_cli([*drill, "--resume", "auto"], dev)
+        outs = {}
+        for what, p in (("full", full), ("compression", comp)):
+            out, err = p.communicate(timeout=TRAIN_LM_CLI_TIMEOUT)
+            outs[what] = (p.returncode, out, err)
+        seconds = time.perf_counter() - t0
+        checks = {
+            "exit 42 at step 6": r1.returncode == 42
+            and "[fault] injected failure at step 6" in r1.stdout,
+            "resume": r2.returncode == 0
+            and "[resume] restored step 6" in r2.stdout,
+            "uninterrupted": outs["full"][0] == 0,
+            "compression": outs["compression"][0] == 0
+            and "done: 3 steps" in outs["compression"][1]}
+        if not all(checks.values()):
+            raise AssertionError(
+                f"train_lm drill: {checks}; stderr: {r1.stderr[-800:]} "
+                f"{r2.stderr[-800:]} {outs['full'][2][-800:]} "
+                f"{outs['compression'][2][-800:]}")
+        cfg = get_arch(TRAIN_MODEL).reduced()
+        # the launcher's start: its --seed (0) drawn on the same device
+        start = build(cfg).init(0, device=dev)
+        state = optim.init(start, optim.AdamWConfig())
+        got = [CheckpointManager(f"{d}/{run}/{sub}").restore(
+            9, t, device="cpu") for run in ("ck", "full")
+            for sub, t in (("params", start), ("opt", state))]
+    resumed, whole = got[:2], got[2:]
+    bit_equal = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(resumed), tree_leaves(whole)))
+    ocfg = optim.AdamWConfig(total_steps=10)
+    lrs = [float(optim.cosine_lr(ocfg, i + 1)) for i in range(9)]
+    err = _train_errors((*resumed, None), (*whole, None), start, None, lrs)
+    return err, bit_equal, seconds
+
+
+def train_lm_phase(card, dev, models=TRAIN_LM_MODELS):
+    """train_lm (module docstring, phase 17)."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    for name in models:
+        _train_full(name, card, dev)
+    t_full = time.perf_counter() - t0
+    red = _train_reduced(dev)
+    t_red = time.perf_counter() - t0 - t_full
+    drill_err, bit_equal, drill_s = _train_drill(dev)
+    emit(phase="train_lm", reduced_card_vs_cpu=red, tol=TRAIN_LM_TOL,
+         update_tol=TRAIN_LM_UPDATE_TOL, near=TRAIN_LM_NEAR,
+         flip=TRAIN_LM_FLIP, flip_share=TRAIN_LM_FLIP_SHARE,
+         drill="exit 42, resumed at step 6, exit 0",
+         drill_resumed_vs_whole=drill_err,
+         drill_bit_equal=bit_equal, drill_seconds=drill_s,
+         grad_compression_cli="one-rank group, done",
+         seconds_full=t_full, seconds_reduced=t_red,
+         seconds=time.perf_counter() - t0, card=card)
+    over = _train_failures(dict(red, drill_resumed_vs_whole=drill_err))
+    if over:
+        raise AssertionError(f"train_lm: {over} break the bounds "
+                             f"(TRAIN_LM_TOL {TRAIN_LM_TOL}, "
+                             f"TRAIN_LM_UPDATE_TOL {TRAIN_LM_UPDATE_TOL}, "
+                             f"TRAIN_LM_FLIP {TRAIN_LM_FLIP}, "
+                             f"TRAIN_LM_FLIP_SHARE {TRAIN_LM_FLIP_SHARE})")
 
 
 def _mix_gather(svc, rng, n, count):

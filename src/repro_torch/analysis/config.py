@@ -15,7 +15,8 @@ device-loop invariants:
   contain.  A cache site (an `lru_cache`, or a `*cache*` dict) that is
   not registered here is itself a finding.
 * `SEED_PREFIXES` — the port's seed substrate: the LM models, the
-  optimizer, the token pipelines and the fault harness (as in the JAX
+  optimizer, the token pipelines, the sharding rules and the fault
+  harness, and the training launcher (as in the JAX
   package, whose `configs` also hold the service's knobs and stay scanned
   here).
 
@@ -44,6 +45,7 @@ SEED_PREFIXES: Tuple[str, ...] = (
     "repro_torch/optim/",
     "repro_torch/data/",
     "repro_torch/distributed/",
+    "repro_torch/launch/",
 )
 
 #: reachability roots for the dead-seed import audit: everything in these

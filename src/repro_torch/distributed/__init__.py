@@ -1,11 +1,12 @@
 """Distributed substrate on PyTorch (the JAX package's `distributed`):
-the fault harness (`fault`).  The sharding rules (`sharding`) are not
-ported yet (ROADMAP.md Queue 1).
+the sharding rules (`sharding`: parameter, optimizer, batch and cache
+layouts on a mesh description) and the fault harness (`fault`).
 
-seed_fixtures: ``fault`` is quarantined seed substrate, as in the JAX
-package — the fault-injection harness for the LLM training loop, held
-against the reference by `tests/test_torch_train_parts.py`, never
-imported by the port's product packages.
+seed_fixtures: quarantined seed substrate, as in the JAX package — the
+rules and the fault-injection harness of the LLM training loop, held
+against the reference by `tests/test_torch_sharding.py` and
+`tests/test_torch_train_parts.py`, read by the training launcher
+(`launch.train`), never imported by the port's product packages.
 
 Marker-only package ``__init__``: importing it must stay side-effect
 free (no submodule imports).

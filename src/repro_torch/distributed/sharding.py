@@ -1,0 +1,264 @@
+"""Sharding rules: parameter / optimizer / activation / cache layouts (the
+JAX package's `distributed.sharding`, rule for rule).
+
+Mesh axes: ``("data", "model")`` single-pod, ``("pod", "data", "model")``
+multi-pod.  Batch (and sequence, for serve shapes) shards over the
+data-parallel axes; weights shard over ``model`` (TP/EP); optimizer state is
+additionally ZeRO-sharded over ``data``.
+
+Rules are *name-anchored on the trailing dimensions* of each leaf, so the
+same rule covers a plain layer and its scan-stacked (L, ...) or
+(periods, p, ...) variants.  Every rule degrades to replication when the
+dimension is not divisible by the axis size — a config can therefore never
+fail to shard, it only loses parallelism.
+
+jax's sharding types have counterparts of their own here: `Mesh` (axis
+names and sizes, no devices), `PartitionSpec` (a tuple whose entries are
+None, an axis name or a tuple of names) and `NamedSharding(mesh, spec)`.
+The rules are pure functions of paths and shapes; the launcher
+(`launch.train`) reads `batch_spec` and `dp_axes` to give each rank its
+slice of the batch, and keeps the parameters whole on every rank at
+``model`` size 1, where every parameter spec is replicated.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Sequence, Tuple
+
+from ..optim.adamw import AdamWState
+
+Params = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A mesh's axis names and sizes (jax's `Mesh` without devices)."""
+    axis_names: Tuple[str, ...]
+    axis_sizes: Tuple[int, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.axis_sizes)
+
+
+class PartitionSpec(tuple):
+    """One entry per dimension: None (replicated), an axis name, or a
+    tuple of axis names; equal to the tuple of its entries.  A tuple of
+    one name is that name, as jax's `PartitionSpec` normalizes it."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (
+            e[0] if isinstance(e, tuple) and len(e) == 1 else e
+            for e in entries))
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    mesh: Mesh
+    spec: PartitionSpec
+
+
+# (suffix, trailing-ndim, trailing spec) — first match wins.
+# 'M' = model axis, None = replicated.
+_RULES: Tuple[Tuple[str, int, Tuple], ...] = (
+    ("embed/w", 2, ("M", None)),
+    ("lm_head/w", 2, (None, "M")),
+    ("prefix_proj/w", 2, (None, "M")),
+    ("router/w", 2, (None, None)),
+    ("w_gate/w", 3, ("M", None, None)),     # experts on EP axis
+    ("w_up/w", 3, ("M", None, None)),
+    ("w_down/w", 3, ("M", None, None)),
+    ("gate/w", 2, (None, "M")),
+    ("up/w", 2, (None, "M")),
+    ("down/w", 2, ("M", None)),
+    ("wq_a/w", 2, (None, "M")),
+    ("wq_b/w", 2, (None, "M")),
+    ("wkv_a/w", 2, (None, None)),           # small latent proj, replicated
+    ("wkv_b/w", 2, (None, "M")),
+    ("wq/w", 2, (None, "M")),
+    ("wk/w", 2, (None, "M")),
+    ("wv/w", 2, (None, "M")),
+    ("wo/w", 2, ("M", None)),
+    ("in_proj/w", 2, (None, "M")),
+    ("out_proj/w", 2, ("M", None)),
+    ("conv_w", 2, (None, "M")),
+    ("conv_b", 1, ("M",)),
+)
+
+
+def _path_str(path) -> str:
+    """A leaf's path (dict keys, list indices, NamedTuple field names) as
+    the reference writes it: ``"blocks/0/attn/wq/w"``."""
+    return "/".join(str(p) for p in path)
+
+
+def _tree_map_with_path(fn, tree, path: Tuple = ()):
+    """`fn(path, leaf)` over the leaves of a tree of dicts, lists and
+    tuples (NamedTuples by field name), keeping the nesting."""
+    if isinstance(tree, dict):
+        return {k: _tree_map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_map_with_path(fn, v, path + (f,))
+                            for f, v in zip(tree._fields, tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map_with_path(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def _axis_size(mesh: Mesh, name: str) -> int:
+    return mesh.shape.get(name, 1)
+
+
+def _resolve(spec: Sequence, shape: Tuple[int, ...], mesh: Mesh) -> P:
+    """Map 'M' -> 'model' with divisibility check; pad leading dims."""
+    tp = _axis_size(mesh, "model")
+    trailing = []
+    for dim, s in zip(shape[len(shape) - len(spec):], spec):
+        if s == "M" and tp > 1 and dim % tp == 0:
+            trailing.append("model")
+        else:
+            trailing.append(None)
+    lead = [None] * (len(shape) - len(spec))
+    return P(*(lead + trailing))
+
+
+def param_spec(path: str, shape: Tuple[int, ...], mesh: Mesh) -> P:
+    for suffix, nd, spec in _RULES:
+        if path.endswith(suffix) and len(shape) >= nd:
+            return _resolve(spec, shape, mesh)
+    return P()  # norms, scalars, biases: replicated
+
+
+def param_shardings(params_shapes: Params, mesh: Mesh) -> Params:
+    """Tree of NamedSharding for a tree of tensors or ShapeDtypeStructs."""
+    def f(path, leaf):
+        return NamedSharding(mesh, param_spec(_path_str(path),
+                                              tuple(leaf.shape), mesh))
+    return _tree_map_with_path(f, params_shapes)
+
+
+def zero_spec(pspec: P, shape: Tuple[int, ...], mesh: Mesh) -> P:
+    """ZeRO: additionally shard the first replicated dim over 'data'."""
+    dp = _axis_size(mesh, "data")
+    if dp <= 1:
+        return pspec
+    spec = list(pspec) + [None] * (len(shape) - len(pspec))
+    for i, (s, dim) in enumerate(zip(spec, shape)):
+        if s is None and dim % dp == 0 and dim >= dp:
+            spec[i] = "data"
+            return P(*spec)
+    return P(*spec)
+
+
+def opt_shardings(opt_shapes, params_shapes, mesh: Mesh) -> AdamWState:
+    """AdamWState shardings: master/m/v get param spec + ZeRO over data."""
+    def record(path, leaf):
+        shape = tuple(leaf.shape)
+        ps = param_spec(_path_str(path), shape, mesh)
+        return NamedSharding(mesh, zero_spec(ps, shape, mesh))
+
+    def for_tree(tree):
+        return _tree_map_with_path(record, tree)
+
+    return AdamWState(
+        step=NamedSharding(mesh, P()),
+        master=for_tree(opt_shapes.master),
+        m=for_tree(opt_shapes.m),
+        v=for_tree(opt_shapes.v),
+    )
+
+
+# ---------------------------------------------------------------------------
+# activations / batch / caches
+# ---------------------------------------------------------------------------
+
+def dp_axes(mesh: Mesh):
+    return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+
+
+def dp_size(mesh: Mesh) -> int:
+    return math.prod(_axis_size(mesh, a) for a in dp_axes(mesh))
+
+
+def batch_spec(mesh: Mesh, batch: int, extra_dims: int = 1) -> P:
+    """Shard leading batch dim over the dp axes if divisible."""
+    if batch % dp_size(mesh) == 0:
+        return P(dp_axes(mesh), *([None] * extra_dims))
+    return P(*([None] * (1 + extra_dims)))
+
+
+def cache_sharding(mesh: Mesh, shape: Tuple[int, ...], kind: str) -> NamedSharding:
+    """KV / state cache layout.
+
+    kind 'kv':      (L, B, S, Hkv, hd)  — B over dp; else S over model(+dp)
+    kind 'mla':     (L, B, S, r)        — B over dp; else S over model(+dp)
+    kind 'ssm':     (L, B, H, P, N)     — B over dp; H over model
+    kind 'conv':    (L, B, W, C)        — B over dp; C over model
+    Leading extra dims (period stacking) are replicated.
+    """
+    dp = dp_size(mesh)
+    tp = _axis_size(mesh, "model")
+    nd = len(shape)
+    spec = [None] * nd
+
+    def core_dims(n):  # index of the trailing n dims
+        return list(range(nd - n, nd))
+
+    if kind in ("kv", "mla"):
+        n = 5 if kind == "kv" else 4
+        li, bi, si = core_dims(n)[0:3]
+        if shape[bi] % dp == 0 and shape[bi] >= dp:
+            spec[bi] = dp_axes(mesh)
+            if kind == "kv" and shape[nd - 2] % tp == 0 and shape[nd - 2] >= tp:
+                spec[nd - 2] = "model"  # kv heads over model when divisible
+        else:
+            axes = dp_axes(mesh) + ("model",)
+            total = dp * tp
+            if shape[si] % total == 0:
+                spec[si] = axes
+            elif shape[si] % tp == 0:
+                spec[si] = "model"
+    elif kind == "ssm":
+        li, bi, hi, pi, ni = core_dims(5)
+        if shape[bi] % dp == 0 and shape[bi] >= dp:
+            spec[bi] = dp_axes(mesh)
+        if shape[hi] % tp == 0 and shape[hi] >= tp:
+            spec[hi] = "model"
+    elif kind == "conv":
+        li, bi, wi, ci = core_dims(4)
+        if shape[bi] % dp == 0 and shape[bi] >= dp:
+            spec[bi] = dp_axes(mesh)
+        if shape[ci] % tp == 0:
+            spec[ci] = "model"
+    return NamedSharding(mesh, P(*spec))
+
+
+def cache_shardings(cache_shapes, mesh: Mesh):
+    """Walk a cache tree, classify each leaf by its key name."""
+    def f(path, leaf):
+        name = _path_str(path)
+        last = name.rsplit("/", 1)[-1]
+        shape = tuple(leaf.shape)
+        if last in ("k", "v"):
+            return cache_sharding(mesh, shape, "kv")
+        if last in ("ckv", "krope"):
+            return cache_sharding(mesh, shape, "mla")
+        if last == "state":
+            return cache_sharding(mesh, shape, "ssm")
+        if last == "conv":
+            return cache_sharding(mesh, shape, "conv")
+        return NamedSharding(mesh, P())
+    return _tree_map_with_path(f, cache_shapes)

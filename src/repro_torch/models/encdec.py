@@ -29,7 +29,7 @@ from .layers import (
     init_embedding, embed, swiglu_init, swiglu, rope_tables,
     init_attention, attention, init_attention_cache,
 )
-from .transformer import _stack_init
+from .transformer import _remat, _stack_init
 
 
 def _init_enc_layer(gen, cfg, dtype) -> Params:
@@ -72,8 +72,7 @@ def init_encdec(gen, cfg) -> Params:
 
 def encode(params, cfg, src_embeds, *, remat: bool = False):
     """Bidirectional encoder over (B, S_src, D) stub embeddings.  `remat`
-    (activation checkpointing in the reference) changes nothing in a
-    forward."""
+    checkpoints each layer, as the reference's `jax.checkpoint`."""
     x = src_embeds.to(_dtype(cfg.dtype))
     rope = rope_tables(x.shape[1], cfg.hd, cfg.rope_theta, device=x.device)
 
@@ -84,7 +83,7 @@ def encode(params, cfg, src_embeds, *, remat: bool = False):
         h = h + swiglu(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps))
         return h, None
 
-    x, _ = scan_util.scan(body, x, params["enc"])
+    x, _ = scan_util.scan(_remat(body, remat), x, params["enc"])
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -106,7 +105,8 @@ def _dec_layer(p, cfg, x, rope, memory, self_cache=None, cross_cache=None,
 
 def encdec_forward(params, cfg, src_embeds, tgt_tokens, *,
                    remat: bool = False):
-    """Training forward.  Returns (logits, aux): `aux` a float32 zero."""
+    """Training forward.  Returns (logits, aux): `aux` a float32 zero.
+    `remat` checkpoints each encoder and each decoder layer."""
     memory = encode(params, cfg, src_embeds, remat=remat)
     x = embed(params["embed"], tgt_tokens)
     rope = rope_tables(x.shape[1], cfg.hd, cfg.rope_theta, device=x.device)
@@ -115,7 +115,7 @@ def encdec_forward(params, cfg, src_embeds, tgt_tokens, *,
         h, _, _ = _dec_layer(p, cfg, h, rope, memory)
         return h, None
 
-    x, _ = scan_util.scan(body, x, params["dec"])
+    x, _ = scan_util.scan(_remat(body, remat), x, params["dec"])
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return linear(params["lm_head"], x), torch.zeros(
         (), dtype=torch.float32, device=x.device)

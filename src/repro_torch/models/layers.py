@@ -32,7 +32,11 @@ def _dtype(cfg_dtype: str) -> torch.dtype:
 
 
 def _normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
-    """float32 standard normals · std, cast to `dtype`, on `gen`'s device."""
+    """float32 standard normals · std, cast to `dtype`, on `gen`'s device.
+    A meta tensor holds no values, so on the meta device nothing is drawn
+    (PyTorch's meta draws run in Python, a millisecond each)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     x = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
     return (x * std).to(dtype)

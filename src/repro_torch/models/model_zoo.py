@@ -18,9 +18,14 @@ prompt goes into the cache token by token (its serving forward is
 ...})` returns the encoder memory, as the reference's, and the caller
 primes the cross caches with `encdec.encdec_prime_cross`; its `decode_fn`
 takes one token a step.  Everything runs on the card unless the caller
-passes ``device="cpu"`` to `init` and `cache_init`.
+passes ``device="cpu"`` to `init` and `cache_init`; ``device="meta"``
+gives the trees' shapes and dtypes without allocating (`launch.specs`).
 
-`loss_fn` is a forward evaluation; its gradient is the training step's.
+`loss_fn(params, batch, remat=True)` is the training loss, and
+`value_and_grad(fn)` its gradient over the parameter tree's leaves (the
+reference's `jax.value_and_grad`); with `remat` each layer (a period of
+`gemma_period` and `zamba_period`) is checkpointed, as the reference's
+`jax.checkpoint` does.  `launch.train.make_step` adds the update.
 
 `params_from_numpy` carries a parameter tree of numpy arrays (the JAX
 package's `init` output, bf16 leaves as `ml_dtypes.bfloat16`) into the
@@ -60,11 +65,33 @@ class ModelBundle:
     cache_init: Optional[Callable] = None
 
 
+class _MetaGenerator(torch.Generator):
+    """A CPU generator whose `device` is the meta device, so that the
+    inits (which draw on `gen.device`) make meta tensors: torch has no
+    generator on the meta device."""
+
+    def __new__(cls):
+        return super().__new__(cls, device="cpu")
+
+    def __init__(self):
+        pass
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
 def _generator(seed_or_generator: Union[int, torch.Generator],
                device: DeviceLike) -> torch.Generator:
     """A generator on the resolved device: a new one seeded with an int,
-    or the caller's, which must lie on that device."""
+    or the caller's, which must lie on that device.  On the meta device
+    (shapes and dtypes only) the draws come from a CPU generator."""
     dev = resolve_device(device)
+    if dev.type == "meta" and not isinstance(seed_or_generator,
+                                             torch.Generator):
+        gen = _MetaGenerator()
+        gen.manual_seed(int(seed_or_generator))
+        return gen
     if isinstance(seed_or_generator, torch.Generator):
         gen = seed_or_generator
         if gen.device != dev:
@@ -139,6 +166,27 @@ def _encdec_bundle(cfg) -> ModelBundle:
         return ED.encdec_decode_step(params, cfg, token, caches, pos)
 
     return ModelBundle(cfg, init, loss_fn, prefill_fn, decode_fn, cache_init)
+
+
+def value_and_grad(fn: Callable) -> Callable:
+    """The reference's `jax.value_and_grad` over a parameter tree:
+    ``value_and_grad(fn)(params, *args)`` is ``(fn(params, *args),
+    grads)``, `grads` the tree of d value / d leaf, each of its leaf's
+    dtype (a zero tensor for a leaf the value does not reach).  The
+    params are not written and nothing goes into ``.grad``: each leaf is
+    taken as a fresh autograd leaf of the same storage."""
+    def wrapped(params, *args):
+        leaves = [t.detach().requires_grad_(True)
+                  for t in tree_leaves(params)]
+        it = iter(leaves)
+        with torch.enable_grad():
+            value = fn(tree_map(lambda _: next(it), params), *args)
+            grads = torch.autograd.grad(value, leaves, allow_unused=True,
+                                        materialize_grads=True)
+        it = iter(grads)
+        return value.detach(), tree_map(lambda _: next(it), params)
+
+    return wrapped
 
 
 def build(cfg) -> ModelBundle:

@@ -44,6 +44,8 @@ def _experts(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
     in float32 into a preallocated tensor: one draw of deepseek's
     (256, 7168, 2048) would hold 15 GB of float32 at once."""
     out = torch.empty(shape, dtype=dtype, device=gen.device)
+    if gen.device.type == "meta":  # shapes only: nothing to draw
+        return out
     for e in range(shape[0]):
         x = torch.randn(shape[1:], generator=gen, device=gen.device,
                         dtype=torch.float32)

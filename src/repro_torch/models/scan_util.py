@@ -44,7 +44,12 @@ def scan(f: Callable, init: Any, xs: Any,
     (the last carry, None).  No body of the port emits a per-step output
     (decode writes its caches in place), so none is stacked."""
     n = length if length is not None else tree_leaves(xs)[0].shape[0]
+    # each stacked leaf is split once: indexing it per layer would make
+    # autograd add a zero gradient the size of the whole stack for every
+    # layer (O(L^2) bytes in the backward); unbind's backward stacks once
+    split = [a.unbind(0) for a in tree_leaves(xs)]
     carry = init
     for i in range(n):
-        carry, _ = f(carry, tree_map(lambda a: a[i], xs))
+        layer = iter(split)
+        carry, _ = f(carry, tree_map(lambda _: next(layer)[i], xs))
     return carry, None

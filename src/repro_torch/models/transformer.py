@@ -28,6 +28,7 @@ import math
 from typing import List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import scan_util
 
@@ -224,14 +225,25 @@ def init_block(gen, cfg, blk: Block, dtype) -> Params:
     }
 
 
+def _remat(fn, remat: bool):
+    """`fn` under activation checkpointing when `remat` (the reference's
+    `jax.checkpoint`): its activations are recomputed in the backward
+    instead of kept.  The non-reentrant form takes the carries' Python
+    float `aux` and the parameter dicts as they are."""
+    if not remat:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
 def apply_block_train(
     params, cfg, blk: Block, x, rope, *, moe_path: str, prefix_len: int,
     shared_block: Optional[Params], remat: bool,
 ):
     """Training / loss forward (no caches).  Returns (x, aux_sum).
 
-    `remat` (activation checkpointing in the reference) changes nothing
-    in a forward; it is accepted and ignored."""
+    `remat` checkpoints the bodies the reference wraps in
+    `jax.checkpoint`: one layer of a uniform block, one period of
+    `gemma_period` and `zamba_period`."""
     _check_kind(blk.kind)
 
     def layer(carry, p, window, moe):
@@ -242,7 +254,8 @@ def apply_block_train(
 
     if blk.kind in ("dense_uniform", "moe_uniform"):
         (x, aux), _ = scan_util.scan(
-            lambda c, p: layer(c, p, blk.window, blk.moe), (x, 0.0), params)
+            _remat(lambda c, p: layer(c, p, blk.window, blk.moe), remat),
+            (x, 0.0), params)
         return x, aux
 
     if blk.kind == "gemma_period":
@@ -252,21 +265,21 @@ def apply_block_train(
                 p["local"])
             return layer(carry, p["global"], 0, False)
 
-        (x, aux), _ = scan_util.scan(period, (x, 0.0), params)
+        (x, aux), _ = scan_util.scan(_remat(period, remat), (x, 0.0), params)
         return x, aux
 
     def mamba_layer(h, lp):
         return _apply_mamba_layer(lp, cfg, h)
 
     if blk.kind == "mamba_uniform":
-        x, _ = scan_util.scan(mamba_layer, x, params)
+        x, _ = scan_util.scan(_remat(mamba_layer, remat), x, params)
         return x, 0.0
 
     def zamba(h, p):
         h, _ = scan_util.scan(mamba_layer, h, p["mamba"])
         return _apply_shared_block(shared_block, cfg, h, rope)
 
-    x, _ = scan_util.scan(zamba, x, params)
+    x, _ = scan_util.scan(_remat(zamba, remat), x, params)
     return x, 0.0
 
 

@@ -10,7 +10,8 @@ hanging the suite.  Each rank runs `body` (the name of a function here:
 `run_case`, the executor's primitives, or `run_programs`, the programs
 and the mesh paths of maintenance, the stream and restore) on the graph
 and inputs in `case` (a dict of numpy arrays), or `run_compress`, the
-int8 compressed gradient mean, and writes its results to
+int8 compressed gradient mean, or `run_train`, the training launcher's
+step on each rank's slice of the batch, and writes its results to
 ``out_dir/rank{r}.npz``; `spawn_mesh` returns them, one dict per rank.
 
 This module imports only torch, numpy and the port, so a rank starts in
@@ -197,6 +198,51 @@ def run_compress(case: dict) -> dict:
             "red_same": red_s["w"].numpy(), "ef_same": ef_s["w"].numpy()}
 
 
+def run_train(case: dict) -> dict:
+    """`steps` steps of the launcher's `make_step` on this rank's slice
+    (`shard_batch`) of the global `SyntheticTokens` batches, from the
+    reduced `arch`'s init at `seed` (the same on every rank), with int8
+    gradient compression when `compress`.  Returns the losses and the
+    leaves of params, master, m, v (and the error feedback) as
+    ``p{i}``, ``master{i}``, ``m{i}``, ``v{i}``, ``ef{i}``."""
+    import torch.distributed as dist
+
+    from repro_torch import optim
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.train import make_step, shard_batch
+    from repro_torch.models import build
+    from repro_torch.models.scan_util import tree_leaves
+
+    cfg = get_arch(str(case["arch"])).reduced()
+    bundle = build(cfg)
+    params = bundle.init(int(case["seed"]), device="cpu")
+    ocfg = optim.AdamWConfig(total_steps=10)
+    state = optim.init(params, ocfg)
+    compress = bool(case["compress"])
+    ef = optim.init_error_feedback(params) if compress else None
+    mesh = make_test_mesh(dp=dist.get_world_size())
+    step = make_step(bundle, ocfg, cfg, compress, mesh)
+    data = SyntheticTokens(cfg.vocab, int(case["seq"]), int(case["batch"]),
+                           seed=int(case["seed"]))
+    losses = []
+    for s in range(int(case["steps"])):
+        batch = {k: torch.from_numpy(v) for k, v in
+                 shard_batch(data.batch(s), mesh, dist.get_rank()).items()}
+        if compress:
+            params, state, ef, loss = step(params, state, ef, batch)
+        else:
+            params, state, loss = step(params, state, batch)
+        losses.append(float(loss))
+    out = {"losses": np.array(losses)}
+    for name, tree in (("p", params), ("master", state.master),
+                       ("m", state.m), ("v", state.v), ("ef", ef)):
+        for i, t in enumerate(tree_leaves(tree) if tree is not None else []):
+            out[f"{name}{i}"] = t.numpy()
+    return out
+
+
 def _rank(rank: int, W: int, port: int, case_path: str, out_dir: str,
           body: str = "run_case"):
     import torch.distributed as dist
@@ -216,9 +262,8 @@ def _rank(rank: int, W: int, port: int, case_path: str, out_dir: str,
 
 def spawn_mesh(W: int, case: dict, out_dir: Path,
                timeout: float = JOB_TIMEOUT, body: str = "run_case") -> list:
-    """Run `body` (`run_case`, `run_programs` or `run_compress`) on W gloo
-    ranks; returns
-    each rank's result dict.  Raises if a rank fails or the job outlives
+    """Run `body` (`run_case`, `run_programs`, `run_compress` or
+    `run_train`) on W gloo ranks; returns each rank's result dict.  Raises if a rank fails or the job outlives
     `timeout` seconds (its processes are then killed)."""
     import torch.multiprocessing as mp
 

@@ -22,6 +22,11 @@
   default pool (one thread per core) in each, the plain versions' many
   small parallel ops wait on descheduled threads and a module takes tens
   of times longer.  Results do not depend on the thread count.
+* `update_errors` holds an optimizer's steps against a reference's by
+  the update each leaf took from the common start, not by the values:
+  AdamW moves an entry by about lr a step, far below a value's own size,
+  so a bound relative to the values cannot see a missing or reversed
+  step.
 """
 from __future__ import annotations
 
@@ -151,3 +156,51 @@ def assert_same_state(a, b, what: str = "") -> None:
             assert_same_state(x, y, f"{what}[{i}]")
     else:
         assert a == b, (what, a, b)
+
+
+def _np64(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+    return np.asarray(x, np.float64)
+
+
+def update_errors(got, want, start, grads, near: float, tol: float):
+    """Leaf by leaf (lists of tensors or arrays, one order), the update
+    `got - start` against the reference's `want - start` after
+    `len(grads)` optimizer steps; `grads[s]` holds the reference's
+    gradient leaves of step s.  An entry's error is |Δgot - Δwant| less
+    one float32 ulp of its value per step (each step rounds the master
+    once in either package).
+
+    AdamW's step is lr · m̂ / (sqrt(v̂) + eps): an entry whose gradient
+    at some step is within the gradients' own error of zero, `near` ×
+    that step's largest |g| of the leaf, may take another step in the
+    two packages, by up to 2 lr.  Such entries are "near"; the others
+    must follow the reference closely.
+
+    Returns (worst, near_worst, n_near_used, n_entries): `worst` the
+    largest error of an entry that is not near, relative to its leaf's
+    largest |Δwant|; `near_worst` the largest absolute error of a near
+    entry; `n_near_used` how many near entries are further off than
+    `tol` of that scale allows, so need the 2 lr allowance."""
+    worst, near_worst, used, total = 0.0, 0.0, 0, 0
+    steps = len(grads)
+    for k, (a, b, s) in enumerate(zip(got, want, start)):
+        a, b, s = _np64(a), _np64(b), _np64(s)
+        assert a.shape == b.shape == s.shape, k
+        err = np.abs((a - s) - (b - s)) - steps * np.spacing(
+            np.maximum(np.abs(s), np.abs(b)).astype(np.float32)
+        ).astype(np.float64)
+        err = np.maximum(err, 0.0)
+        scale = float(np.max(np.abs(b - s), initial=0.0)) or 1.0
+        is_near = np.zeros(a.shape, bool)
+        for g in grads:
+            g = np.abs(_np64(g[k]))
+            is_near |= g <= near * float(np.max(g, initial=0.0))
+        far = err[~is_near]
+        worst = max(worst, float(np.max(far, initial=0.0)) / scale)
+        near_err = err[is_near]
+        near_worst = max(near_worst, float(np.max(near_err, initial=0.0)))
+        used += int(np.count_nonzero(near_err > tol * scale))
+        total += a.size
+    return worst, near_worst, used, total

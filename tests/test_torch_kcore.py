@@ -144,7 +144,9 @@ def test_hindex_rows_is_re_exported():
 #: and the jaxpr scan (eager PyTorch has no transfer function every read
 #: goes through and no program to scan before it runs: `count_host_reads`
 #: and `probe_syncs` take their places), the Pallas rule (`cuda-kernel`
-#: takes its place) and the jit-factory inventory (nothing is jitted)
+#: takes its place), the jit-factory inventory (nothing is jitted), and
+#: the launcher's XLA flags for a TPU's latency-hiding scheduler and
+#: async collectives (XLA options; eager PyTorch has no scheduler to set)
 LEFT_OUT = {
     "analysis": {"count_device_gets"},
     "analysis.entrypoints": {"count_device_gets", "forbidden_primitives",
@@ -160,6 +162,23 @@ LEFT_OUT = {
     "runtime.spmd": {"step_build_count"},
     "runtime.mesh.WorkerMesh": {"node_sharding", "replicated"},
     "models.scan_util": {"unrolling"},
+    "launch.train": {"TPU_OVERLAP_FLAGS"},
+}
+#: modules of the reference the port leaves out on purpose.  Neither
+#: launch module is imported by these tests: each sets XLA_FLAGS and
+#: REPRO_SCAN_UNROLL=1 when imported, and the reference's scans read the
+#: latter at every call
+MODULES_LEFT_OUT = {
+    "launch.dryrun": "lowers and compiles the train, prefill and decode "
+    "cells as XLA programs for a 256- or 512-chip TPU v5e mesh without its "
+    "devices, and reads XLA's cost and memory analyses and the collectives "
+    "of the HLO text against a TPU's peak rates: PyTorch has no compiler "
+    "that partitions a program for devices it does not have, and the "
+    "TPU's numbers are not the port's",
+    "launch.extrapolate": "affine fits over the dry-run's compiles at few "
+    "layers, which exist to make those XLA compiles affordable",
+    "kernels._compat": "jax version shims for Pallas (`CompilerParams`); "
+    "the port's kernels are CUDA C++ built by `kernels._build`",
 }
 #: where a public name is an import of a library, not the module's own
 _LIBRARIES = ("typing", "numpy", "jax", "jaxlib", "torch", "dataclasses",
@@ -187,6 +206,34 @@ def _public(obj):
     return out
 
 
+def _module_names(path, prefix=""):
+    """The modules under a package directory, by the files alone: nothing
+    is imported."""
+    import pkgutil
+
+    out = set()
+    for info in pkgutil.iter_modules([str(path)]):
+        name = prefix + info.name
+        out.add(name)
+        if info.ispkg:
+            out |= _module_names(path / info.name, name + ".")
+    return out
+
+
+def test_modules_equal_reference():
+    """Every module of the reference has a module of the port, apart from
+    `MODULES_LEFT_OUT`; and nothing is listed there that the port has."""
+    from pathlib import Path
+
+    import repro
+    import repro_torch
+
+    ref = _module_names(Path(repro.__path__[0]))
+    port = _module_names(Path(repro_torch.__path__[0]))
+    assert ref - port == set(MODULES_LEFT_OUT)
+    assert all(MODULES_LEFT_OUT.values())
+
+
 def test_public_names_equal_reference():
     """Queue 3 fault 4: every public name (and every public class member)
     of each module of the reference that the port ports exists in the
@@ -201,6 +248,7 @@ def test_public_names_equal_reference():
     missing = {}
     for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
         rel = info.name[len("repro_torch."):]
+        assert rel not in MODULES_LEFT_OUT
         try:
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore", DeprecationWarning)
