@@ -301,6 +301,26 @@ Phases (each raises on failure; the script then exits non-zero):
    models train here at reduced size only: llama4-scout's embeddings
    and one layer are 4.3·10⁹ parameters, 51 GB of float32 master, m
    and v.
+18. lm_mesh: the production mesh's placement and the dry run
+   (`distributed.sharding`, `launch.dryrun`, `launch.extrapolate`).
+   (a) internlm2-1.8b at published width, bf16, B x S = 4 x 1,024: one
+   launcher step (`make_step`) with the parameters, state and batch
+   placed as DTensors on a (1, 1) mesh over a one-rank NCCL group,
+   against the plain step of the same seed and batch: loss and every
+   leaf of params, master, m and v equal bit for bit; each step's ms
+   (after one warm-up each) and the placed step's peak bytes.  (b) The
+   dry run of that cell on a (1, 1) fake mesh (fake CUDA tensors): its
+   matmul FLOPs within LM_MESH_FLOP_TOL of `_step_flops` with its three
+   named differences (the eager attention's masked half, computed; the
+   logits' product, outside remat; each layer's down projection, which
+   remat's recompute stops before), and its peak (arguments + the
+   largest live temporaries) within LM_MESH_PEAK_TOL of the placed
+   step's `max_memory_allocated`.  (c) In LM_MESH_WORKERS processes at
+   once: `extrapolate_cell` for all ten architectures' `train_4k` on 16 x
+   16 and for internlm2-1.8b's `decode_32k`, and full-depth `run_cell`
+   of both internlm2 cells, each fit equal to its full depth exactly;
+   every record's three roofline terms (H100 data-sheet rates, not
+   measurements).  The phase must end within LM_MESH_SECONDS.
 
 Earlier lines are JSON objects; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -463,6 +483,7 @@ def main() -> int:
     serve_lm_phase(card)
     train_parts_phase(card, dev)
     train_lm_phase(card, dev)
+    lm_mesh_phase(card, dev)
     for k in kernels:
         if k["name"] in MESH_KERNELS:
             k["launches_by_path"] = {p: c.get(k["name"], 0)
@@ -3133,6 +3154,229 @@ def train_lm_phase(card, dev, models=TRAIN_LM_MODELS):
                              f"TRAIN_LM_UPDATE_TOL {TRAIN_LM_UPDATE_TOL}, "
                              f"TRAIN_LM_FLIP {TRAIN_LM_FLIP}, "
                              f"TRAIN_LM_FLIP_SHARE {TRAIN_LM_FLIP_SHARE})")
+
+
+#: lm_mesh: the production mesh's placement and the dry run on the card
+LM_MESH_MODEL = "internlm2-1.8b"
+#: (b) the dry run's matmul FLOPs against the formula, relative
+LM_MESH_FLOP_TOL = 0.02
+#: (b) the dry run's peak against the card's max_memory_allocated,
+#: relative: allocation rounding, the BLAS workspaces and storages that
+#: Python frees later than the card's allocator are each far below it
+#: (PERF.md §6)
+LM_MESH_PEAK_TOL = 0.10
+#: (c) processes counting at once, and the phase's time limit (s)
+LM_MESH_WORKERS = 8
+LM_MESH_SECONDS = 180.0
+#: (c) the fits that take longest (most layers in their probes), started
+#: first so that the others fill the workers around them
+LM_MESH_SLOW = ("zamba2-7b", "gemma3-1b", "deepseek-v3-671b",
+                "mamba2-370m")
+#: (c) the cells counted at full depth, each against its fit
+LM_MESH_FULL = (("internlm2-1.8b", "train_4k"),
+                ("internlm2-1.8b", "decode_32k"))
+_LM_MESH_TASK = """
+import json, sys
+sys.path.insert(0, {src!r})
+from repro_torch.launch import dryrun as DR, extrapolate as EX
+kind, arch, shape = {task!r}
+rec = (EX.extrapolate_cell(arch, shape, verbose=False) if kind == "fit"
+       else DR.run_cell(arch, shape, False, verbose=False))
+print(json.dumps(rec))
+"""
+
+
+def _mesh_placed_step(card, dev, name):
+    """(a) of lm_mesh: the plain and the placed step; returns the placed
+    step's peak bytes."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import optim
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.train import make_step, place_batch, place_state
+    from repro_torch.models import build
+    from repro_torch.models.scan_util import tree_leaves
+
+    what = f"lm_mesh[{name}]"
+    cfg = get_arch(name)
+    bundle = build(cfg)
+    ocfg = optim.AdamWConfig()
+    B, S = TRAIN_LM_BATCH, TRAIN_LM_SEQ
+    params = bundle.init(TRAIN_LM_SEED, device=dev)
+    state = optim.init(params, ocfg)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticTokens(
+        cfg.vocab, S, B, seed=TRAIN_LM_SEED).batch(0).items()}
+    step = make_step(bundle, ocfg, cfg, False, None)
+
+    def timed(*args):  # one warm-up, then the step timed and its peak
+        step(*args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3, \
+            torch.cuda.max_memory_allocated()
+
+    (p1, s1, loss1), plain_ms, plain_peak = timed(params, state, batch)
+    host = [t.cpu() for t in tree_leaves((p1, s1))]
+    loss1 = float(loss1)
+    del p1, s1
+    torch.cuda.empty_cache()
+    dist.init_process_group(
+        "nccl" if dev.type == "cuda" else "gloo",
+        init_method=f"tcp://127.0.0.1:{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = SH.Mesh(("data", "model"), (1, 1))
+        dmesh = SH.device_mesh(mesh, dev)
+        # the same storage, placed (one rank: nothing is copied)
+        pp, ps = place_state(params, state, mesh, dmesh)
+        del params, state
+        pb = place_batch(batch, mesh, dmesh)
+        (q1, t1, loss2), mesh_ms, mesh_peak = timed(pp, ps, pb)
+        got = [t.to_local() for t in tree_leaves((q1, t1))]
+        unequal = [i for i, (a, b) in enumerate(zip(got, host))
+                   if a.dtype != b.dtype or not torch.equal(a, b.to(dev))]
+        worst = max((float((got[i].double() - host[i].to(dev).double())
+                           .abs().max()) for i in unequal), default=0.0)
+        loss2, n_leaves = float(loss2), len(got)
+        del q1, t1, got, pp, ps
+    finally:
+        dist.destroy_process_group()
+    del host
+    torch.cuda.empty_cache()
+    emit(phase="lm_mesh", part="a", model=name, batch=B, seq=S,
+         dtype=cfg.dtype, plain_step_ms=plain_ms, placed_step_ms=mesh_ms,
+         loss_plain=loss1, loss_placed=loss2, leaves=n_leaves,
+         unequal_leaves=len(unequal), worst_abs_diff=worst,
+         plain_peak_bytes=plain_peak, placed_peak_bytes=mesh_peak,
+         card=card)
+    if unequal or loss1 != loss2:
+        raise AssertionError(f"{what}: the placed step differs from the "
+                             f"plain one: loss {loss2} vs {loss1}, "
+                             f"{len(unequal)} leaves (largest |diff| "
+                             f"{worst})")
+    return mesh_peak
+
+
+def _mesh_dry_run(card, dev, name, peak):
+    """(b) of lm_mesh: the dry run of (a)'s cell on a (1, 1) fake mesh
+    against the formula and the card's peak."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.models import build
+    from repro_torch.models.scan_util import tree_leaves
+    from repro_torch.models.transformer import layer_plan
+
+    what = f"lm_mesh[{name}] dry run"
+    cfg = get_arch(name)
+    B, S = TRAIN_LM_BATCH, TRAIN_LM_SEQ
+    m = DR.measure_cell(cfg, ShapeConfig("train_lm", "train", S, B),
+                        SH.Mesh(("data", "model"), (1, 1)),
+                        device=dev.type)
+    params = build(cfg).init(0, device="meta")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_matmul = n_params - (0 if cfg.tie_embeddings
+                           else params["embed"]["w"].numel())
+    head = (params["embed"]["w"] if cfg.tie_embeddings
+            else params["lm_head"]["w"]).numel()
+    down = sum(blk.count for blk in layer_plan(cfg)) * cfg.d_ff \
+        * cfg.d_model
+    tokens = B * S
+    f = _step_flops(cfg, n_matmul, tokens, B, S)
+    formula = f["dense_remat"] + f["mixer_remat"]
+    # the three terms the formula leaves out: eager attention computes
+    # its masked half too (x 2 on the causal mixer); the logits' product
+    # lies outside remat (6 x its parameters, not 8 x); and remat's
+    # recompute stops once the backward's saved inputs are back, before
+    # each layer's last product, the MLP's down projection (6 x, not 8 x)
+    named = formula + f["mixer_remat"] - 2 * (head + down) * tokens
+    pred_peak = m["argument_bytes"] + m["temp_bytes"]
+    flop_err = abs(m["flops"] - named) / named
+    peak_err = abs(pred_peak - peak) / peak
+    emit(phase="lm_mesh", part="b", model=name, flops=m["flops"],
+         step_flops=formula, step_flops_named=named,
+         flops_vs_step_flops=m["flops"] / formula, flop_err=flop_err,
+         flop_tol=LM_MESH_FLOP_TOL, predicted_peak_bytes=pred_peak,
+         argument_bytes=m["argument_bytes"], temp_bytes=m["temp_bytes"],
+         card_peak_bytes=peak, peak_err=peak_err,
+         peak_tol=LM_MESH_PEAK_TOL, bytes=m["bytes"],
+         collectives=m["coll_by_kind"], seconds=m["build_s"] + m["run_s"],
+         card=card)
+    if flop_err > LM_MESH_FLOP_TOL or peak_err > LM_MESH_PEAK_TOL:
+        raise AssertionError(f"{what}: FLOPs off by {flop_err:.4f} "
+                             f"(tol {LM_MESH_FLOP_TOL}), peak off by "
+                             f"{peak_err:.4f} (tol {LM_MESH_PEAK_TOL})")
+
+
+def _mesh_fits(card, archs=None):
+    """(c) of lm_mesh: the fits (of `archs`, default all ten) and the
+    full-depth counts, each in a process of its own (a fake group is one
+    a process), LM_MESH_WORKERS at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.configs import ARCHS
+
+    archs = sorted(ARCHS) if archs is None else archs
+    archs = sorted(archs, key=lambda a: (a not in LM_MESH_SLOW, a))
+    tasks = [("fit", a, "train_4k") for a in archs]
+    tasks += [("fit", a, s) for a, s in LM_MESH_FULL if s != "train_4k"]
+    tasks += [("full", a, s) for a, s in LM_MESH_FULL]
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(SRC))
+
+    def run(task):
+        r = subprocess.run(
+            [sys.executable, "-c", _LM_MESH_TASK.format(src=str(SRC),
+                                                        task=task)],
+            capture_output=True, text=True, env=env, timeout=LM_MESH_SECONDS)
+        if r.returncode:
+            raise AssertionError(f"lm_mesh {task}: exit {r.returncode}: "
+                                 f"{r.stderr[-1500:]}")
+        return json.loads(r.stdout.strip().splitlines()[-1])
+
+    with ThreadPoolExecutor(LM_MESH_WORKERS) as pool:
+        recs = dict(zip(tasks, pool.map(run, tasks)))
+    keys = ("per_device_flops", "per_device_bytes",
+            "collective_bytes_per_device", "collective_bytes_total")
+    for (kind, arch, shape), rec in recs.items():
+        if rec["status"] != "OK":
+            raise AssertionError(f"lm_mesh {kind} {arch} {shape}: {rec}")
+        emit(phase="lm_mesh", part="c", kind=kind, model=arch, shape=shape,
+             mesh=rec["mesh"], compute_term_s=rec["compute_term_s"],
+             memory_term_s=rec["memory_term_s"],
+             collective_term_s=rec["collective_term_s"],
+             **{k: rec[k] for k in keys}, memory=rec["memory_analysis"],
+             rates="H100 SXM data sheet", card=card)
+    for arch, shape in LM_MESH_FULL:
+        fit, whole = recs[("fit", arch, shape)], recs[("full", arch, shape)]
+        off = [k for k in keys if fit[k] != whole[k]]
+        if off:
+            raise AssertionError(f"lm_mesh {arch} {shape}: the fit differs "
+                                 f"from full depth in {off}")
+    return recs
+
+
+def lm_mesh_phase(card, dev):
+    """lm_mesh (module docstring, phase 18)."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    peak = _mesh_placed_step(card, dev, LM_MESH_MODEL)
+    t_a = time.perf_counter() - t0
+    _mesh_dry_run(card, dev, LM_MESH_MODEL, peak)
+    t_b = time.perf_counter() - t0 - t_a
+    _mesh_fits(card)
+    seconds = time.perf_counter() - t0
+    emit(phase="lm_mesh", seconds=seconds, seconds_a=t_a, seconds_b=t_b,
+         seconds_c=seconds - t_a - t_b, limit=LM_MESH_SECONDS, card=card)
+    if seconds > LM_MESH_SECONDS:
+        raise AssertionError(f"lm_mesh took {seconds:.1f} s, over "
+                             f"{LM_MESH_SECONDS}")
 
 
 def _mix_gather(svc, rng, n, count):

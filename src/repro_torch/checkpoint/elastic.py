@@ -86,10 +86,20 @@ def restore_session(mgr: CheckpointManager, step: Optional[int] = None,
 remesh_restore = restore_session
 
 
-def save_train_state(mgr: CheckpointManager, step: int, params, opt_state,
-                     blocking: bool = True):
+def save_train_state(mgr: Optional[CheckpointManager], step: int, params,
+                     opt_state, blocking: bool = True):
     """Save params and optimizer state (an `optim.AdamWState`) as sibling
-    sub-checkpoints ``<dir>/params`` and ``<dir>/opt`` at `step`."""
+    sub-checkpoints ``<dir>/params`` and ``<dir>/opt`` at `step`.
+
+    DTensor leaves are written whole: every rank must call this (each
+    takes part in `distributed.sharding.gather`), and only the ranks
+    given a manager write (the launcher gives rank 0 one, the others
+    None)."""
+    from ..distributed.sharding import gather
+
+    params, opt_state = gather(params), gather(opt_state)
+    if mgr is None:
+        return
     CheckpointManager(str(mgr.dir / "params"), mgr.keep_n).save(
         step, params, blocking=blocking)
     CheckpointManager(str(mgr.dir / "opt"), mgr.keep_n).save(

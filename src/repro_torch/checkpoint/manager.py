@@ -23,6 +23,11 @@ patterns in an ``.npy`` of numpy's 2-byte void type, "bfloat16" in the
 manifest) and restored through the manifest's dtype; numpy has no
 bfloat16 of its own, so no ml_dtypes is needed either way.
 
+A DTensor leaf (a tree placed over a mesh, `distributed.sharding`) is
+saved whole (`full_tensor()`, a collective: every rank must call
+`save`) in the same layout, and `restore` into a template of DTensors
+places each whole leaf as the template's leaf is placed.
+
 Async: `save(..., blocking=False)` copies every tensor to host memory
 before it returns (the caller may update the live tensors in place right
 after) and writes the files on a daemon thread; `wait` joins it.
@@ -104,6 +109,10 @@ def _to_host(x) -> np.ndarray:
     soon as `save` returns.  A bfloat16 tensor comes back as its 16-bit
     patterns in numpy's 2-byte void type."""
     if isinstance(x, torch.Tensor):
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(x, DTensor):
+            x = x.full_tensor()
         t = x.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.dtype("V2"))
@@ -142,6 +151,17 @@ def _load_leaf(path: Path, dtype_name: str) -> torch.Tensor:
 
 def _shape(x) -> tuple:
     return tuple(x.shape) if isinstance(x, torch.Tensor) else np.shape(x)
+
+
+def _placed_like(t: torch.Tensor, ref) -> torch.Tensor:
+    """`t` (whole, the same on every rank) placed as `ref` is, when `ref`
+    is a DTensor."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    if not isinstance(ref, DTensor):
+        return t
+    return distribute_tensor(t, ref.device_mesh, ref.placements,
+                             src_data_rank=None)
 
 
 def _torch_dtype(x) -> torch.dtype:
@@ -297,5 +317,5 @@ class CheckpointManager:
             if tuple(t.shape) != _shape(ref):
                 raise ValueError(
                     f"leaf {i}: shape {tuple(t.shape)} != {_shape(ref)}")
-            out.append(t.to(dev, _torch_dtype(ref)))
+            out.append(_placed_like(t.to(dev, _torch_dtype(ref)), ref))
         return _unflatten(like, iter(out))

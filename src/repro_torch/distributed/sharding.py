@@ -15,10 +15,25 @@ fail to shard, it only loses parallelism.
 jax's sharding types have counterparts of their own here: `Mesh` (axis
 names and sizes, no devices), `PartitionSpec` (a tuple whose entries are
 None, an axis name or a tuple of names) and `NamedSharding(mesh, spec)`.
-The rules are pure functions of paths and shapes; the launcher
-(`launch.train`) reads `batch_spec` and `dp_axes` to give each rank its
-slice of the batch, and keeps the parameters whole on every rank at
-``model`` size 1, where every parameter spec is replicated.
+The rules are pure functions of paths and shapes.
+
+The rules place tensors through DTensor (`torch.distributed.tensor`),
+which propagates shardings op by op as GSPMD does: `device_mesh` builds
+a `DeviceMesh` of the mesh's axes over the default process group,
+`placements` maps a spec to DTensor placements (an axis on dim i is
+``Shard(i)`` on that mesh dim; a tuple of axes on one dim shards it on
+each of them in the spec's order, so the local shard is the reference's
+`NamedSharding.shard_shape`), `place` distributes a tree of whole
+tensors (each rank holds the same whole tensor: no data moves) and
+`gather` brings a tree of DTensors back whole on every rank.
+
+The models are plain PyTorch and make tensors of their own (RoPE tables,
+masks, zero states, ring positions).  A step on DTensors runs inside
+`step_context`, `implicit_replication()`, under which such a plain
+tensor counts as replicated on every rank (it is: every rank makes the
+same one); the models' own DTensor branches (`models.layers.residual`,
+`head_parallel`, the vocabulary-parallel cross-entropy, the MoE
+dispatch) say where each sharded tensor goes.
 """
 from __future__ import annotations
 
@@ -262,3 +277,116 @@ def cache_shardings(cache_shapes, mesh: Mesh):
             return cache_sharding(mesh, shape, "conv")
         return NamedSharding(mesh, P())
     return _tree_map_with_path(f, cache_shapes)
+
+
+# ---------------------------------------------------------------------------
+# DTensor: the rules on a device mesh
+# ---------------------------------------------------------------------------
+
+def device_mesh(mesh: Mesh, device="cuda"):
+    """A `DeviceMesh` with `mesh`'s axis names and sizes over the default
+    process group (`device` is its device type: "cuda" or "cpu").
+    Raises ValueError when the group's size differs from the mesh's, as
+    `launch.mesh.make_test_mesh` does."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    ranks = dist.get_world_size() if dist.is_available() \
+        and dist.is_initialized() else 1
+    if ranks != mesh.size or not dist.is_initialized():
+        raise ValueError(f"a {dict(mesh.shape)} mesh needs a process group "
+                         f"of {mesh.size} ranks; there are {ranks}"
+                         + ("" if dist.is_initialized() else " (no group)"))
+    dtype = getattr(device, "type", device)
+    return init_device_mesh(str(dtype), tuple(mesh.axis_sizes),
+                            mesh_dim_names=tuple(mesh.axis_names))
+
+
+def placements(spec: Sequence, dmesh) -> tuple:
+    """The DTensor placements of a spec on `dmesh`: one per mesh dim,
+    ``Shard(i)`` on each mesh dim that dim i of the spec names,
+    ``Replicate()`` elsewhere.  Axes that share a dim must come in the
+    mesh's order (jax's major-to-minor order of a tuple is the order in
+    which DTensor nests its shards)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(dmesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for i, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        dims = [names.index(a) for a in axes]
+        if dims != sorted(dims):
+            raise ValueError(f"axes {axes} on dim {i} are not in the "
+                             f"mesh's order {names}")
+        for d in dims:
+            out[d] = Shard(i)
+    return tuple(out)
+
+
+def local_slice(shape, dmesh, pls, dim: int):
+    """(lo, n): this rank's slice [lo, lo + n) of dim `dim` of a tensor of
+    `shape` placed by `pls` on `dmesh`.  The shards nest in mesh order,
+    each a chunk of ceil(len / size) as `Shard` cuts them; computed from
+    the mesh coordinate, with no tensor op (none may run under a fake
+    tensor mode)."""
+    from torch.distributed.tensor import Shard
+
+    lo, n = 0, shape[dim]
+    coord = dmesh.get_coordinate()
+    for i, pl in enumerate(pls):
+        if isinstance(pl, Shard) and pl.dim == dim:
+            chunk = -(-n // dmesh.size(i))
+            lo, n = lo + min(coord[i] * chunk, n), max(
+                0, min(chunk, n - coord[i] * chunk))
+    return lo, n
+
+
+def _spec_of(sharding):
+    return sharding.spec if isinstance(sharding, NamedSharding) else sharding
+
+
+def place(tree, shardings, dmesh):
+    """`tree`'s tensors as DTensors on `dmesh`, each placed by its
+    NamedSharding (or spec) in `shardings`, a tree of the same shape.
+    Every rank must hold the same whole tensors (the same seed, the same
+    batch, a restored checkpoint): each takes its own shard and nothing
+    is sent."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from ..models.scan_util import tree_map
+
+    return tree_map(
+        lambda t, sh: distribute_tensor(
+            t, dmesh, placements(_spec_of(sh), dmesh), src_data_rank=None),
+        tree, shardings)
+
+
+def gather(tree):
+    """The whole tensors of a tree of DTensors, on every rank (each rank
+    must call it: it all-gathers); a plain tensor comes back as it is."""
+    from torch.distributed.tensor import DTensor
+
+    from ..models.scan_util import tree_map
+
+    return tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor)
+                    else t, tree)
+
+
+def is_placed(tree) -> bool:
+    """Whether `tree`'s first leaf is a DTensor."""
+    from torch.distributed.tensor import DTensor
+
+    from ..models.scan_util import tree_leaves
+
+    leaves = tree_leaves(tree)
+    return bool(leaves) and isinstance(leaves[0], DTensor)
+
+
+def step_context():
+    """The context a step on DTensors runs in (module docstring):
+    `implicit_replication()`."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()

@@ -8,6 +8,14 @@ nothing (deepseek-v3-671b whole is 1.3 TB in bf16).  `eval_shape` runs a
 step on meta tensors, the port's `jax.eval_shape`.  `abstract_cell`
 returns the reference's ``donate_argnums`` too; eager PyTorch donates
 nothing and does not read it.
+
+Given a `DeviceMesh` (``device_mesh=``, `distributed.sharding.
+device_mesh`), `abstract_cell` returns the inputs as DTensors instead:
+fake tensors (`FakeTensorMode`, which the caller must have entered: no
+memory is allocated) on the mesh's device type, each placed by its
+NamedSharding, so that the step runs on them as it would on the mesh's
+ranks (`launch.dryrun`).  A 0-d integer input (the decode position) is
+the Python int 0 there, as in `eval_shape`.
 """
 from __future__ import annotations
 
@@ -120,14 +128,24 @@ def make_train_step(cfg: ArchConfig, ocfg):
     return train_step
 
 
+def _placed_context(params):
+    """`sharding.step_context()` for a step on DTensors, else nothing."""
+    import contextlib
+
+    return SH.step_context() if SH.is_placed(params) \
+        else contextlib.nullcontext()
+
+
 def make_prefill_step(cfg: ArchConfig, *, last_only: bool = False):
     bundle = build(cfg)
 
     def prefill_step(params, batch):
-        if cfg.is_encdec:
-            out, aux = bundle.prefill_fn(params, batch)
-        else:
-            out, aux = bundle.prefill_fn(params, batch, last_only=last_only)
+        with _placed_context(params):
+            if cfg.is_encdec:
+                out, aux = bundle.prefill_fn(params, batch)
+            else:
+                out, aux = bundle.prefill_fn(params, batch,
+                                             last_only=last_only)
         return out
 
     return prefill_step
@@ -137,17 +155,64 @@ def make_serve_step(cfg: ArchConfig, *, mla_absorbed: bool = False):
     bundle = build(cfg)
 
     def serve_step(params, token, caches, pos):
-        logits, new_caches = bundle.decode_fn(
-            params, token, caches, pos, mla_absorbed=mla_absorbed)
+        with _placed_context(params):
+            logits, new_caches = bundle.decode_fn(
+                params, token, caches, pos, mla_absorbed=mla_absorbed)
         return logits, new_caches
 
     return serve_step
 
 
+def _fake_placed(kwargs, dmesh):
+    """Fake DTensors of a cell's ShapeDtypeStruct inputs (module
+    docstring); a 0-d integer input is the Python int 0, as in
+    `eval_shape`."""
+    from torch._guards import detect_fake_mode
+
+    if detect_fake_mode() is None:
+        raise ValueError("abstract_cell(device_mesh=...) makes fake "
+                         "tensors: call it under a FakeTensorMode")
+
+    from torch.distributed.tensor import DTensor
+
+    def one(s):  # this rank's shard only: nothing whole is made
+        pls = SH.placements(s.sharding.spec, dmesh)
+        local = [SH.local_slice(s.shape, dmesh, pls, d)[1]
+                 for d in range(len(s.shape))]
+        t = torch.empty(local, dtype=s.dtype, device=dmesh.device_type)
+        return DTensor.from_local(t, dmesh, pls, run_check=False,
+                                  shape=torch.Size(s.shape),
+                                  stride=torch.empty(s.shape,
+                                                     device="meta").stride())
+
+    def arg(v):
+        if isinstance(v, ShapeDtypeStruct) and v.shape == () \
+                and not v.dtype.is_floating_point:
+            return 0
+        return tree_map(one, v)
+
+    return {k: arg(v) for k, v in kwargs.items()}
+
+
 def abstract_cell(cfg: ArchConfig, shape: ShapeConfig, mesh: Mesh, ocfg,
                   *, mla_absorbed: bool = False, ring: bool = False,
-                  prefill_last_only: bool = False):
-    """Returns (step_fn, kwargs of abstract inputs, donate_argnums)."""
+                  prefill_last_only: bool = False, device_mesh=None):
+    """Returns (step_fn, kwargs of abstract inputs, donate_argnums): the
+    inputs ShapeDtypeStructs, or fake DTensors on `device_mesh` (module
+    docstring)."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    with unset_fake_temporarily():  # the meta inits, outside a fake mode
+        step, kwargs, donate = _abstract_cell(
+            cfg, shape, mesh, ocfg, mla_absorbed=mla_absorbed, ring=ring,
+            prefill_last_only=prefill_last_only)
+    if device_mesh is not None:
+        kwargs = _fake_placed(kwargs, device_mesh)
+    return step, kwargs, donate
+
+
+def _abstract_cell(cfg, shape, mesh, ocfg, *, mla_absorbed, ring,
+                   prefill_last_only):
     params = abstract_params(cfg, mesh)
     if shape.kind == "train":
         step = make_train_step(cfg, ocfg)

@@ -27,7 +27,7 @@ from . import scan_util
 from .layers import (
     Params, _dtype, init_linear, linear, init_rmsnorm, rmsnorm,
     init_embedding, embed, swiglu_init, swiglu, rope_tables,
-    init_attention, attention, init_attention_cache,
+    init_attention, attention, init_attention_cache, residual,
 )
 from .transformer import _remat, _stack_init
 
@@ -79,8 +79,8 @@ def encode(params, cfg, src_embeds, *, remat: bool = False):
     def body(h, p):
         a, _ = attention(p["attn"], cfg, rmsnorm(p["ln1"], h, cfg.norm_eps),
                          rope, causal=False)
-        h = h + a
-        h = h + swiglu(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps))
+        h = h + residual(a)
+        h = h + residual(swiglu(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps)))
         return h, None
 
     x, _ = scan_util.scan(_remat(body, remat), x, params["enc"])
@@ -92,14 +92,14 @@ def _dec_layer(p, cfg, x, rope, memory, self_cache=None, cross_cache=None,
     a, new_self = attention(p["self_attn"], cfg,
                             rmsnorm(p["ln1"], x, cfg.norm_eps), rope,
                             causal=True, cache=self_cache, pos=pos)
-    x = x + a
+    x = x + residual(a)
     a, new_cross = attention(p["cross_attn"], cfg,
                              rmsnorm(p["ln_x"], x, cfg.norm_eps), None,
                              memory=memory, cache=cross_cache,
                              static_kv=memory is None
                              and cross_cache is not None)
-    x = x + a
-    x = x + swiglu(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+    x = x + residual(a)
+    x = x + residual(swiglu(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps)))
     return x, new_self, new_cross
 
 

@@ -47,12 +47,95 @@ from .scan_util import tree_leaves, tree_map
 Params = Dict[str, Any]
 
 
+def _split_over_ranks(logits) -> bool:
+    """Whether `logits` is a DTensor sharded over a mesh dim of more than
+    one rank."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    return isinstance(logits, DTensor) and any(
+        isinstance(pl, Shard) and logits.device_mesh.size(i) > 1
+        for i, pl in enumerate(logits.placements))
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean next-token CE; logits (B,S,V), labels (B,S) (already shifted)."""
+    """Mean next-token CE; logits (B,S,V), labels (B,S) (already shifted).
+
+    On logits split over ranks (a DTensor sharded over a mesh dim of
+    more than one rank: the batch, or the vocabulary over ``model``) the
+    per-token losses are each rank's own (`_vocab_parallel_nll`): the
+    (B, S, V) logits are never gathered, and the gather's backward never
+    makes them whole (DTensor's own `take_along_dim` backward zeroes a
+    global-shape (B, S, V) tensor on every rank)."""
     logits = logits.float()
+    if _split_over_ranks(logits):
+        return torch.mean(_vocab_parallel_nll(logits, labels))
     logz = torch.logsumexp(logits, dim=-1)
     ll = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
     return torch.mean(logz - ll)
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """An all-reduce sum over one mesh dim whose result every rank uses
+    alike: its gradient is the result's, unreduced (Megatron's reduction
+    from the model-parallel region)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        from torch.distributed import _functional_collectives as funcol
+
+        return funcol.wait_tensor(funcol.all_reduce(x, "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _vocab_parallel_nll(logits, labels):
+    """Per-token ``logsumexp - logit[label]`` of float32 DTensor logits
+    (B, S, V), each rank on its own rows and slice of the vocabulary
+    through `local_map`: the row max, the sum of exponentials and the label's
+    logit (zero on the ranks that do not hold it) are each reduced over
+    the vocabulary's mesh dims, one all-reduce of a float a token each.
+    The result is sharded as the batch, whole on the vocabulary's ranks.
+    (PyTorch's `loss_parallel` does the same on a one-dimensional mesh
+    only in some versions.)"""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from .layers import local_range
+
+    mesh = logits.device_mesh
+    lp = [pl if isinstance(pl, Shard) and pl.dim in (0, 2) else Replicate()
+          for pl in logits.placements]
+    yp = [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+          for pl in lp]
+    logits = logits.redistribute(mesh, lp)
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    labels = labels.redistribute(mesh, yp)
+    vdims = [i for i, pl in enumerate(lp)
+             if isinstance(pl, Shard) and pl.dim == 2]
+    lo, n = local_range(logits, 2)  # this rank's vocabulary
+
+    def local(lg, y):
+        m = lg.detach().amax(dim=-1)
+        for i in vdims:
+            m = funcol.wait_tensor(funcol.all_reduce(m, "max", (mesh, i)))
+        e = torch.exp(lg - m[..., None]).sum(dim=-1)
+        y = y.long()
+        inside = (y >= lo) & (y < lo + n)
+        ll = torch.take_along_dim(lg, (y - lo).clamp(0, max(n - 1, 0))[
+            ..., None], dim=-1)[..., 0] * inside
+        for i in vdims:
+            e = _SumOverRanks.apply(e, (mesh, i))
+            ll = _SumOverRanks.apply(ll, (mesh, i))
+        return torch.log(e) + m - ll
+
+    return local_map(local, out_placements=(yp,), in_placements=(lp, yp),
+                     in_grad_placements=(lp, yp), device_mesh=mesh)(
+        logits, labels)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -22,6 +22,17 @@ weighted output into its token (`y.at[buf_t].add`), which on CUDA would be
 atomics; here each token gathers its k weighted expert rows (an overflow
 pair gathers a zero row) and sums them in float32 in top-k order, so two
 runs agree bit for bit.
+
+On DTensors (a step placed over a mesh, `distributed.sharding`), the
+capacity path keeps the reference's global semantics: each rank routes
+its own rows, then the routing and the tokens are gathered on every
+rank, so the sort and the capacity see the whole batch, and the
+dispatch (`argsort`, `searchsorted`, `repeat_interleave`, which have no
+sharding rules) runs on the replicated routing through `local_map`, so
+every rank picks the same experts.  The expert stacks (E, ...) are
+sharded over ``model`` (EP): the (E, C, d) tile is cut to each rank's
+experts and, over the other mesh dims, to a share of their slots, its
+outputs gathered back, and each rank combines its own rows as above.
 """
 from __future__ import annotations
 
@@ -158,25 +169,69 @@ def dispatch(cfg, topi: torch.Tensor, C: int):
     return buf_t[:-1], pair_slot.reshape(T, k)
 
 
+def _replicated(t):
+    """A DTensor replicated on every mesh dim (gathered where sharded)."""
+    from torch.distributed.tensor import Replicate
+
+    return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+
+
+def _dispatch_placed(cfg, topi, C: int):
+    """`dispatch` of replicated DTensor routing, on each rank's (equal)
+    local copy, its outputs replicated DTensors."""
+    from torch.distributed.tensor.experimental import local_map
+
+    rep = tuple(topi.placements)
+    return local_map(lambda t: dispatch(cfg, t, C), out_placements=(rep, rep),
+                     in_placements=(rep,), device_mesh=topi.device_mesh)(topi)
+
+
+def _tile_placements(p: Params, xe):
+    """The (E, C, d) tile's placement: its experts as the expert stacks
+    are sharded (``model``, EP), its slots over the other mesh dims, so
+    that no two ranks run the same rows through the same expert."""
+    from torch.distributed.tensor import Shard
+
+    w = p["w_gate"]["w"]
+    return [pl if isinstance(pl, Shard) and pl.dim == 0 else Shard(1)
+            for pl in w.placements]
+
+
 def moe_capacity(
     p: Params, cfg, x: torch.Tensor, capacity: Optional[int] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Production path: sort-based capacity dispatch."""
+    from torch.distributed.tensor import DTensor
+
     B, S, d = x.shape
     x2 = x.reshape(-1, d)
     T = x2.shape[0]
     E = cfg.n_experts
     C = capacity_of(cfg, T, capacity)
+    placed = isinstance(x2, DTensor)
 
     topv, topi, aux = _router(p, cfg, x2)
-    buf_t, pair_slot = dispatch(cfg, topi, C)
+    if placed:  # the whole batch's routing on every rank
+        x_loc, x2 = x2, _replicated(x2)
+        topv, topi = _replicated(topv), _replicated(topi)
+    buf_t, pair_slot = (_dispatch_placed if placed else dispatch)(cfg, topi,
+                                                                  C)
 
     x_pad = torch.cat([x2, x2.new_zeros((1, d))], dim=0)
     xe = x_pad[buf_t].reshape(E, C, d)
-    ye = _expert_ffn(p, xe).reshape(E * C, d)
+    if placed:  # each rank's experts and slots, the outputs gathered back
+        xe = xe.redistribute(xe.device_mesh, _tile_placements(p, xe))
+        ye = _replicated(_expert_ffn(p, xe)).reshape(E * C, d)
+        # the combine for this rank's rows only
+        pair_slot = pair_slot.redistribute(x_loc.device_mesh,
+                                           x_loc.placements)
+        topv = topv.redistribute(x_loc.device_mesh, x_loc.placements)
+        x2 = x_loc
+    else:
+        ye = _expert_ffn(p, xe).reshape(E * C, d)
     ye_pad = torch.cat([ye, ye.new_zeros((1, d))], dim=0)    # dropped: 0
 
-    y = torch.zeros((T, d), dtype=torch.float32, device=x.device)
+    y = torch.zeros_like(x2, dtype=torch.float32)
     for j in range(cfg.top_k):  # a fixed order: runs repeat bit for bit
         y += ye_pad[pair_slot[:, j]].float() * topv[:, j:j + 1]
     y = y.to(x.dtype)

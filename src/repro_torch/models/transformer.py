@@ -35,7 +35,7 @@ from . import scan_util
 from .layers import (
     Params, _dtype, init_linear, linear, init_rmsnorm, rmsnorm,
     init_embedding, embed, swiglu_init, swiglu, rope_tables,
-    init_attention, attention, init_attention_cache,
+    init_attention, attention, init_attention_cache, residual,
 )
 from .attention import init_mla, mla_attention, init_mla_cache
 from .moe import init_moe, moe_dense, moe_capacity
@@ -127,7 +127,7 @@ def _apply_attn_layer(p, cfg, x, rope, *, window: int, moe: bool,
             p["attn"], cfg, h, rope, causal=True, window=window,
             prefix_len=prefix_len, cache=cache, pos=pos,
         )
-    x = x + attn_out
+    x = x + residual(attn_out)
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
     aux = 0.0
     if moe:
@@ -137,7 +137,7 @@ def _apply_attn_layer(p, cfg, x, rope, *, window: int, moe: bool,
         mlp_out = swiglu(p["mlp"], h)
     else:
         mlp_out = torch.zeros_like(h)
-    return x + mlp_out, aux, new_cache
+    return x + residual(mlp_out), aux, new_cache
 
 
 def _init_mamba_layer(gen, cfg, dtype) -> Params:
@@ -148,9 +148,9 @@ def _init_mamba_layer(gen, cfg, dtype) -> Params:
 def _apply_mamba_layer(p, cfg, x, cache=None):
     h = rmsnorm(p["ln"], x, cfg.norm_eps)
     if cache is None:
-        return x + mamba_chunked(p["mamba"], cfg, h), None
+        return x + residual(mamba_chunked(p["mamba"], cfg, h)), None
     out, cache = mamba_step(p["mamba"], cfg, h, cache)
-    return x + out, cache
+    return x + residual(out), cache
 
 
 def _init_shared_block(gen, cfg, dtype) -> Params:
@@ -168,8 +168,8 @@ def _apply_shared_block(p, cfg, x, rope, cache=None, pos=None):
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     attn_out, new_cache = attention(p["attn"], cfg, h, rope, causal=True,
                                     cache=cache, pos=pos)
-    x = x + attn_out
-    x = x + swiglu(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+    x = x + residual(attn_out)
+    x = x + residual(swiglu(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps)))
     return x, new_cache
 
 
@@ -397,9 +397,10 @@ def _embed_inputs(params, cfg, tokens, prefix_embeds):
     if cfg.tie_embeddings:
         x = x * math.sqrt(cfg.d_model)  # gemma-style, in the embedding dtype
     if prefix_embeds is not None:
-        pfx = linear(params["prefix_proj"], prefix_embeds.to(x.dtype))
+        pfx = residual(linear(params["prefix_proj"],
+                              prefix_embeds.to(x.dtype)))
         x = torch.cat([pfx, x], dim=1)
-    return x
+    return residual(x)
 
 
 def _logits(params, cfg, x):

@@ -10,6 +10,16 @@ writes none of its inputs.  The learning rate, the clip scale and the
 bias corrections ``1 - b ** step`` are float32 tensors computed from the
 int32 `step` tensor, as the reference's traced arithmetic computes them
 (not Python floats), so no step reads the device from the host.
+
+On DTensors (`distributed.sharding.place`), the state is ZeRO-placed:
+master, m and v take the parameter's placement plus ``data`` on the
+first free dim (`sharding.opt_shardings`).  `update` runs at that
+placement: each gradient is redistributed to its master's placement (a
+gradient still pending a sum over ``data`` is reduce-scattered, one
+pending over ``model`` all-reduced), and the new compute-dtype
+parameters return to the parameter's placement, the master's with
+``data`` replicated (an all-gather).  The parameter rules never use
+``data``, so that placement is the parameter's own.
 """
 from __future__ import annotations
 
@@ -86,11 +96,34 @@ def global_norm(tree: Params) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(l.float() ** 2) for l in leaves))
 
 
+def _to_state(g, master):
+    """A gradient at its master's placement (module docstring)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(master, DTensor):
+        return g.redistribute(master.device_mesh, master.placements)
+    return g
+
+
+def _to_param(x):
+    """A new parameter at the parameter's placement: the master's with
+    the ``data`` mesh dim replicated."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    return x.redistribute(mesh, [
+        Replicate() if name == "data" else pl
+        for name, pl in zip(mesh.mesh_dim_names, x.placements)])
+
+
 def update(
     grads: Params, state: AdamWState, cfg: AdamWConfig,
     compute_dtype=torch.bfloat16,
 ) -> Tuple[Params, AdamWState]:
     """Returns (new compute-dtype params, new state)."""
+    grads = tree_map(_to_state, grads, state.master)
     step = state.step + 1
     lr = cosine_lr(cfg, step)
 
@@ -112,5 +145,6 @@ def update(
 
     new_master, new_m, new_v = _tree_map_n(upd, grads, state.master,
                                            state.m, state.v)
-    new_params = tree_map(lambda x: x.to(compute_dtype), new_master)
+    new_params = tree_map(lambda x: _to_param(x.to(compute_dtype)),
+                          new_master)
     return new_params, AdamWState(step, new_master, new_m, new_v)

@@ -10,8 +10,9 @@ hanging the suite.  Each rank runs `body` (the name of a function here:
 `run_case`, the executor's primitives, or `run_programs`, the programs
 and the mesh paths of maintenance, the stream and restore) on the graph
 and inputs in `case` (a dict of numpy arrays), or `run_compress`, the
-int8 compressed gradient mean, or `run_train`, the training launcher's
-step on each rank's slice of the batch, and writes its results to
+int8 compressed gradient mean, or `run_train` (`run_train_many`), the
+training launcher's steps on a (dp, tp) mesh, or `run_cells`, the dry
+run's counter on a real group, and writes its results to
 ``out_dir/rank{r}.npz``; `spawn_mesh` returns them, one dict per rank.
 
 This module imports only torch, numpy and the port, so a rank starts in
@@ -19,6 +20,7 @@ a few seconds.
 """
 from __future__ import annotations
 
+import argparse
 import socket
 import time
 from datetime import timedelta
@@ -199,47 +201,164 @@ def run_compress(case: dict) -> dict:
 
 
 def run_train(case: dict) -> dict:
-    """`steps` steps of the launcher's `make_step` on this rank's slice
-    (`shard_batch`) of the global `SyntheticTokens` batches, from the
-    reduced `arch`'s init at `seed` (the same on every rank), with int8
-    gradient compression when `compress`.  Returns the losses and the
-    leaves of params, master, m, v (and the error feedback) as
-    ``p{i}``, ``master{i}``, ``m{i}``, ``v{i}``, ``ef{i}``."""
+    """`steps` steps of the launcher's `make_step` on this rank's group,
+    from the reduced `arch`'s init at `seed` (the same on every rank; in
+    float32 when `f32`), on a (W / `tp`, `tp`) mesh: uncompressed, the
+    params, state and global `SyntheticTokens` batches placed as
+    DTensors (`place_state`, `place_batch`); with int8 gradient
+    compression (`compress`), plain params and this rank's slice of the
+    batch (`shard_batch`).  With `ckpt`, the final state is saved under
+    ``<ckpt>/`` as the launcher saves it (every rank gathers, rank 0
+    writes).  Returns the losses and the whole leaves of params, master,
+    m, v (and the error feedback) as ``p{i}``, ``master{i}``, ``m{i}``,
+    ``v{i}``, ``ef{i}``, and the local shard shapes of master as
+    ``master_shard{i}``."""
+    import dataclasses
+
     import torch.distributed as dist
 
     from repro_torch import optim
+    from repro_torch.checkpoint import CheckpointManager, save_train_state
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.distributed import sharding as SH
     from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.launch.train import make_step, shard_batch
+    from repro_torch.launch.train import (
+        _host_batch, make_step, place_batch, place_state, shard_batch)
     from repro_torch.models import build
     from repro_torch.models.scan_util import tree_leaves
 
     cfg = get_arch(str(case["arch"])).reduced()
+    if int(case.get("f32", 0)):
+        cfg = dataclasses.replace(cfg, dtype="float32")
     bundle = build(cfg)
     params = bundle.init(int(case["seed"]), device="cpu")
     ocfg = optim.AdamWConfig(total_steps=10)
     state = optim.init(params, ocfg)
     compress = bool(case["compress"])
     ef = optim.init_error_feedback(params) if compress else None
-    mesh = make_test_mesh(dp=dist.get_world_size())
+    tp = int(case.get("tp", 1))
+    W, rank = dist.get_world_size(), dist.get_rank()
+    mesh = make_test_mesh(dp=W // tp, tp=tp)
+    dmesh = None
+    if not compress:
+        dmesh = SH.device_mesh(mesh, "cpu")
+        params, state = place_state(params, state, mesh, dmesh)
     step = make_step(bundle, ocfg, cfg, compress, mesh)
-    data = SyntheticTokens(cfg.vocab, int(case["seq"]), int(case["batch"]),
-                           seed=int(case["seed"]))
+    B, S = int(case["batch"]), int(case["seq"])
+    data = SyntheticTokens(cfg.vocab, S, B, seed=int(case["seed"]))
+    args = argparse.Namespace(batch=B, seq=S)
     losses = []
     for s in range(int(case["steps"])):
-        batch = {k: torch.from_numpy(v) for k, v in
-                 shard_batch(data.batch(s), mesh, dist.get_rank()).items()}
+        host = _host_batch(data, cfg, args, s)
+        if compress:
+            host = shard_batch(host, mesh, rank)
+        batch = {k: torch.from_numpy(v) for k, v in host.items()}
         if compress:
             params, state, ef, loss = step(params, state, ef, batch)
         else:
-            params, state, loss = step(params, state, batch)
+            params, state, loss = step(params, state, place_batch(
+                batch, mesh, dmesh))
         losses.append(float(loss))
     out = {"losses": np.array(losses)}
+    for i, t in enumerate(tree_leaves(state.master)):
+        out[f"master_shard{i}"] = np.array(
+            t.to_local().shape if dmesh is not None else t.shape)
+    if "ckpt" in case:
+        save_train_state(CheckpointManager(str(case["ckpt"]))
+                         if rank == 0 else None, int(case["steps"]),
+                         params, state)
+    params, state = SH.gather(params), SH.gather(state)
     for name, tree in (("p", params), ("master", state.master),
                        ("m", state.m), ("v", state.v), ("ef", ef)):
         for i, t in enumerate(tree_leaves(tree) if tree is not None else []):
             out[f"{name}{i}"] = t.numpy()
+    return out
+
+
+def run_train_many(case: dict) -> dict:
+    """`run_train` for each of the comma-separated `archs` in turn, its
+    results' keys prefixed ``{arch}/``; `ckpt` goes to the first."""
+    out = {}
+    for i, arch in enumerate(str(case["archs"]).split(",")):
+        sub = {k: v for k, v in case.items()
+               if k not in ("archs", "ckpt") or (k == "ckpt" and i == 0)}
+        sub["arch"] = np.array(arch)
+        for k, v in run_train(sub).items():
+            out[f"{arch}/{k}"] = v
+    return out
+
+
+def run_cells(case: dict) -> dict:
+    """The dry run's counter (`launch.dryrun.count_step`) on this rank of
+    a real (2, 2) group, on the reduced float32 `arch` from `seed`: one
+    training step on a `train` = (S, B) batch, one decode step at
+    position 0 into fresh `decode` = (S, B) caches (each input placed as
+    `specs.abstract_cell` places it), and, for the values, a 20-token
+    prompt and one token decoded at position 20.  Returns each count
+    (``{kind}_flops``, ``{kind}_bytes``, ``{kind}_kinds`` as JSON), the
+    decode's logits and the first block's written K cache, whole."""
+    import dataclasses
+    import json
+
+    import torch.distributed as dist
+
+    from repro_torch import optim
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.train import place_batch, place_state
+    from repro_torch.models import build
+
+    cfg = dataclasses.replace(get_arch(str(case["arch"])).reduced(),
+                              dtype="float32")
+    b = build(cfg)
+    seed = int(case["seed"])
+    mesh = SH.Mesh(("data", "model"), (2, 2))
+    dmesh = SH.device_mesh(mesh, "cpu")
+    ocfg = optim.AdamWConfig()
+    out = {}
+
+    def record(kind, counter):
+        out[kind + "_flops"] = np.asarray(counter.flops)
+        out[kind + "_bytes"] = np.asarray(counter.bytes)
+        out[kind + "_kinds"] = np.asarray(json.dumps(
+            DR.collective_bytes(counter.collectives)))
+
+    params = b.init(seed, device="cpu")
+    S, B = (int(x) for x in case["train"])
+    g = torch.Generator().manual_seed(seed)
+    batch = {k: torch.randint(0, cfg.vocab, (B, S), generator=g,
+                              dtype=torch.int32) for k in ("tokens", "labels")}
+    p, st = place_state(params, optim.init(params, ocfg), mesh, dmesh)
+    record("train", DR.count_step(SP.make_train_step(cfg, ocfg), dict(
+        params=p, opt_state=st, batch=place_batch(batch, mesh, dmesh))))
+
+    S, B = (int(x) for x in case["decode"])
+    p = SH.place(params, SH.param_shardings(params, mesh), dmesh)
+
+    def caches():
+        c = b.cache_init(B, S, device="cpu")
+        return SH.place(c, SH.cache_shardings(c, mesh), dmesh)
+
+    def tokens(t):
+        return place_batch({"t": t}, mesh, dmesh)["t"]
+
+    serve = SP.make_serve_step(cfg)
+    token0 = torch.zeros((B, 1), dtype=torch.int32)
+    record("decode", DR.count_step(serve, dict(
+        params=p, token=tokens(token0), caches=caches(), pos=0)))
+
+    g = torch.Generator().manual_seed(seed)
+    prompt = torch.randint(0, cfg.vocab, (B, 20), generator=g)
+    token = torch.randint(0, cfg.vocab, (B, 1), generator=g)
+    c = caches()
+    _, c = serve(p, tokens(prompt), c, 0)
+    logits, c = serve(p, tokens(token), c, 20)
+    out["decode_logits"] = logits.full_tensor().numpy()
+    out["decode_k0"] = c[0]["k"].full_tensor().numpy()
+    assert dist.get_world_size() == 4
     return out
 
 

@@ -9,7 +9,8 @@ the CPU.
   single` exits non-zero with the ValueError naming its 256 ranks;
   `--grad-compression` trains on a one-rank group the launcher makes;
 * the meshes: `make_test_mesh` over the ranks that exist,
-  `make_production_mesh`'s shapes, `build_mesh`;
+  `make_production_mesh`'s shapes, `build_mesh`, `make_step` on the
+  production mesh's model axis;
 * data parallelism on W = 2 gloo ranks (`tests/_torch_mesh_worker.py:
   run_train`): each rank's slice of the batch, the gradients averaged,
   two steps equal to one process's steps on the global batch (the
@@ -129,8 +130,9 @@ def test_meshes():
     assert mp.axis_names == ("pod", "data", "model") and mp.size == 512
     with pytest.raises(ValueError, match="512 ranks"):
         TR.build_mesh("multi")
-    with pytest.raises(NotImplementedError, match="model axis of 16"):
-        TR.make_step(None, None, None, False, p)
+    cfg = get_arch("internlm2-1.8b").reduced()  # a model axis trains
+    assert callable(TR.make_step(build(cfg), optim.AdamWConfig(), cfg,
+                                 False, p))
 
 
 def test_shard_batch():
