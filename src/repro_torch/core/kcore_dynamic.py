@@ -53,6 +53,7 @@ import torch
 
 from ..kernels import ops
 from ..kernels.ops import SPMD_BACKEND
+from ..tracing import RECOMPUTE, SEARCH, SYNC, span
 from .graph import GraphBlocks, delete_edge, insert_edge
 from .updates import validate_updates
 
@@ -117,26 +118,30 @@ def k_reachable_batch(
     the worker mesh (`SpmdExecutor.k_reachable_batch`) through `executor`,
     or one built for the call.
     """
-    if backend == SPMD_BACKEND:
-        return _spmd_executor(g, ex=executor).k_reachable_batch(
-            core, roots, ks, max_steps=max_steps)
-    eligible = (core[:, None] == ks[None, :]) & g.node_mask[:, None]
-    visited = roots & eligible
-    frontier = visited
-    adj = ops.dense_adj(g, backend)
-    steps = torch.zeros((), dtype=torch.int32, device=core.device)
-    done = 0
-    while done < max_steps:
-        n = min(ops.SYNC_EVERY, max_steps - done)
-        for _ in range(n):
-            steps += frontier.any().to(torch.int32)
-            frontier = ops.frontier_blocks(g, frontier, eligible, visited,
-                                           backend=backend, adj=adj)
-            visited = visited | frontier
-        done += n
-        if not bool(frontier.any()):  # the one host read of this chunk
-            break
-    return visited, int(steps)
+    with span(SEARCH):
+        if backend == SPMD_BACKEND:
+            return _spmd_executor(g, ex=executor).k_reachable_batch(
+                core, roots, ks, max_steps=max_steps)
+        eligible = (core[:, None] == ks[None, :]) & g.node_mask[:, None]
+        visited = roots & eligible
+        frontier = visited
+        adj = ops.dense_adj(g, backend)
+        steps = torch.zeros((), dtype=torch.int32, device=core.device)
+        done = 0
+        while done < max_steps:
+            n = min(ops.SYNC_EVERY, max_steps - done)
+            for _ in range(n):
+                steps += frontier.any().to(torch.int32)
+                frontier = ops.frontier_blocks(g, frontier, eligible, visited,
+                                               backend=backend, adj=adj)
+                visited = visited | frontier
+            done += n
+            with span(SYNC):  # the one host read of this chunk
+                live = bool(frontier.any())
+            if not live:
+                break
+        with span(SYNC):
+            return visited, int(steps)
 
 
 def _restricted_recompute(
@@ -147,19 +152,21 @@ def _restricted_recompute(
     The "dense" backend densifies once per call, not per superstep;
     "ell_spmd" runs on the worker mesh through `executor`, or one built
     for the call."""
-    if backend == SPMD_BACKEND:
-        return _spmd_executor(g, ex=executor).restricted_recompute(
-            est0, cand, max_steps=max_steps)
-    adj = ops.dense_adj(g, backend)
-    return ops.minh_fixpoint(
-        est0, lambda e: ops.hindex_blocks(g, e, backend=backend, adj=adj),
-        cand & g.node_mask, max_steps)
+    with span(RECOMPUTE):
+        if backend == SPMD_BACKEND:
+            return _spmd_executor(g, ex=executor).restricted_recompute(
+                est0, cand, max_steps=max_steps)
+        adj = ops.dense_adj(g, backend)
+        return ops.minh_fixpoint(
+            est0, lambda e: ops.hindex_blocks(g, e, backend=backend, adj=adj),
+            cand & g.node_mask, max_steps)
 
 
 def _stats(g: GraphBlocks, cand: torch.Tensor, bfs_steps: int,
            rec_steps: int, u: int, v: int) -> MaintenanceStats:
     blocks = cand.view(g.P, g.Cn).any(dim=1)
-    n_cand, n_blocks = torch.stack([cand.sum(), blocks.sum()]).tolist()
+    with span(SYNC):
+        n_cand, n_blocks = torch.stack([cand.sum(), blocks.sum()]).tolist()
     return MaintenanceStats(
         candidates=int(n_cand), bfs_steps=int(bfs_steps),
         recompute_steps=int(rec_steps), blocks_touched=int(n_blocks),

@@ -21,6 +21,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ..tracing import SYNC, VALIDATE, span
 from .graph import (  # noqa: F401 (insert_edge, delete_edge: re-export)
     PAD, CapacityError, GraphBlocks, delete_edge, insert_edge)
 
@@ -143,8 +144,13 @@ def validate_updates(g: GraphBlocks, updates: List[Update]) -> None:
     """Raise on the first update that `apply_updates_host` would reject
     (self-loop, duplicate insert, missing delete, capacity overflow),
     replaying the batch on a host copy and discarding the result."""
-    _apply_checked(g.nbr.cpu().numpy().copy(), g.deg.cpu().numpy().copy(),
-                   g.N, g.Cd, list(updates))
+    with span(VALIDATE):
+        with span(SYNC):
+            nbr = g.nbr.cpu()
+        with span(SYNC):
+            deg = g.deg.cpu()
+        nbr, deg = nbr.numpy().copy(), deg.numpy().copy()
+        _apply_checked(nbr, deg, g.N, g.Cd, list(updates))
 
 
 def apply_updates_host(g: GraphBlocks, updates: List[Update]) -> GraphBlocks:

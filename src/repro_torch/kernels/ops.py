@@ -73,6 +73,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..tracing import SYNC, span
 from . import ref
 from .ell_cc import neighbor_min_ell
 from .ell_frontier import frontier_step_ell
@@ -124,7 +125,9 @@ def column_bound(deg: torch.Tensor, Cd: int) -> int:
     read.  The column bound K of the kernels over rows of length `deg`."""
     if deg.numel() == 0:
         return Cd
-    return min(Cd, _pow2_bucket(max(1, int(deg.max()))))
+    with span(SYNC):
+        top = int(deg.max())
+    return min(Cd, _pow2_bucket(max(1, top)))
 
 
 def degree_bound(g) -> int:
@@ -299,9 +302,12 @@ def minh_fixpoint(
             changed += (new != est).any().to(torch.int32)
             est = new
         done += n
-        if int(changed) < done:  # the one host read of this chunk
+        with span(SYNC):  # the one host read of this chunk
+            quiet = int(changed) < done
+        if quiet:
             break
-    return est, min(max_steps, 1 + int(changed))
+    with span(SYNC):
+        return est, min(max_steps, 1 + int(changed))
 
 
 def coreness_blocks(
@@ -498,9 +504,12 @@ def live_loop(
             steps += live.to(torch.int32)
             live = live & changed
         done += n
-        if not bool(live):  # the one host read of this chunk
+        with span(SYNC):  # the one host read of this chunk
+            more = bool(live)
+        if not more:
             break
-    return state, int(steps)
+    with span(SYNC):
+        return state, int(steps)
 
 
 # ---------------------------------------------------------------------------
@@ -688,7 +697,8 @@ def run_block_program(
                                  with_steps=with_steps, state0=state0)
     ms = int(program.max_steps if max_steps is None else max_steps)
     # the run's one extra host read: the (logical) real-node count
-    n_real = int(g.n_real) if mirror is None else int(mirror.n_logical)
+    with span(SYNC):
+        n_real = int(g.n_real) if mirror is None else int(mirror.n_logical)
     if state0 is None:
         state0 = program.init(g if mirror is None
                               else _mirror_init_view(g, mirror))

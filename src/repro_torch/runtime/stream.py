@@ -87,6 +87,7 @@ from ..core.graph import (
 from ..core.updates import validate_updates
 from ..device import DeviceLike, resolve_device
 from ..kernels.ops import SPMD_BACKEND
+from ..tracing import SYNC, WINDOW, span
 from .halo import _pow2_ceil
 
 
@@ -311,106 +312,109 @@ class StreamSession:
 
     def apply_window(self, window: List[Tuple[int, int, int]]) -> None:
         """Ingest ONE window of at most R updates (see class docstring)."""
-        if len(window) > self.R:
-            raise ValueError(
-                f"window of {len(window)} updates exceeds R={self.R}")
-        if not window:
-            return
-        window = [(self._cur(u), self._cur(v), int(op))
-                  for u, v, op in window]
-        while True:
-            try:
-                validate_updates(self.g, window)
-                break
-            except CapacityError:
-                if not self._auto_grow:
-                    raise
-                # a row of this window is out of degree capacity: grow Cd
-                # to the next power of two, re-key the window (the grow
-                # relocates every row) and validate again
-                rekey = self.grow(Cd=_pow2_ceil(self.g.Cd + 1))
-                window = [(int(rekey[u]), int(rekey[v]), op)
-                          for u, v, op in window]
-        g, core, tot, backend = self.g, self.core, self._tot, self.backend
-        W, ex = self._W, self.executor
-        tot["batches"] += 1
-        R, n = self.R, len(window)
-        self._n_updates += n
-        us = np.zeros(R, np.int64)
-        vs = np.zeros(R, np.int64)
-        ops_ = np.zeros(R, np.int64)
-        us[:n] = [u for u, _, _ in window]
-        vs[:n] = [v for _, v, _ in window]
-        ops_[:n] = [op for _, _, op in window]
-        valid = np.zeros(R, bool)
-        valid[:n] = True
+        with span(WINDOW):
+            if len(window) > self.R:
+                raise ValueError(
+                    f"window of {len(window)} updates exceeds R={self.R}")
+            if not window:
+                return
+            window = [(self._cur(u), self._cur(v), int(op))
+                      for u, v, op in window]
+            while True:
+                try:
+                    validate_updates(self.g, window)
+                    break
+                except CapacityError:
+                    if not self._auto_grow:
+                        raise
+                    # a row of this window is out of degree capacity: grow Cd
+                    # to the next power of two, re-key the window (the grow
+                    # relocates every row) and validate again
+                    rekey = self.grow(Cd=_pow2_ceil(self.g.Cd + 1))
+                    window = [(int(rekey[u]), int(rekey[v]), op)
+                              for u, v, op in window]
+            g, core, tot, backend = self.g, self.core, self._tot, self.backend
+            W, ex = self._W, self.executor
+            tot["batches"] += 1
+            R, n = self.R, len(window)
+            self._n_updates += n
+            us = np.zeros(R, np.int64)
+            vs = np.zeros(R, np.int64)
+            ops_ = np.zeros(R, np.int64)
+            us[:n] = [u for u, _, _ in window]
+            vs[:n] = [v for _, v, _ in window]
+            ops_[:n] = [op for _, _, op in window]
+            valid = np.zeros(R, bool)
+            valid[:n] = True
 
-        dev = g.device
-        us_d, vs_d, ops_d, valid_d = (torch.as_tensor(a, device=dev)
-                                      for a in (us, vs, ops_, valid))
-        cand, steps = kd._batch_candidates(g, core, us_d, vs_d, valid_d,
-                                           backend=backend, executor=ex)
-        route = _route_window(cand, us_d, vs_d, ops_d, valid_d, Cn=g.Cn)
-        # ONE transfer per window pulls the compact verdict
-        verdict = torch.cat([
-            torch.stack([route.accept, route.cross, route.spill,
-                         route.conflict]).to(torch.int32).reshape(-1),
-            route.per_block]).cpu().numpy()
-        accept, cross, spl, conf = (verdict[:4 * R].reshape(4, R)
-                                    .astype(bool))
-        nblk = verdict[4 * R:]
-        tot["bfs"] += steps
-        self._esc_cross += int(cross.sum())
-        self._esc_spill += int(spl.sum())
-        self._esc_conflict += int(conf.sum())
+            dev = g.device
+            us_d, vs_d, ops_d, valid_d = (torch.as_tensor(a, device=dev)
+                                          for a in (us, vs, ops_, valid))
+            cand, steps = kd._batch_candidates(g, core, us_d, vs_d, valid_d,
+                                               backend=backend, executor=ex)
+            route = _route_window(cand, us_d, vs_d, ops_d, valid_d, Cn=g.Cn)
+            # ONE transfer per window pulls the compact verdict
+            with span(SYNC):
+                verdict = torch.cat([
+                    torch.stack([route.accept, route.cross, route.spill,
+                                 route.conflict]).to(torch.int32).reshape(-1),
+                    route.per_block]).cpu().numpy()
+            accept, cross, spl, conf = (verdict[:4 * R].reshape(4, R)
+                                        .astype(bool))
+            nblk = verdict[4 * R:]
+            tot["bfs"] += steps
+            self._esc_cross += int(cross.sum())
+            self._esc_spill += int(spl.sum())
+            self._esc_conflict += int(conf.sum())
 
-        if accept.any():
-            # accepted updates keep their window order
-            acc = np.flatnonzero(accept)
-            g, core, rec = kd._apply_and_recompute(
-                g, core, us[acc], vs[acc], ops_[acc], route.cand_ins,
-                route.cand_del, backend=backend, W=W, ex=ex)
-            tot["rec"] += rec
-            self._n_local += len(acc)
-            self._per_block += nblk.astype(np.int64)
+            if accept.any():
+                # accepted updates keep their window order
+                acc = np.flatnonzero(accept)
+                g, core, rec = kd._apply_and_recompute(
+                    g, core, us[acc], vs[acc], ops_[acc], route.cand_ins,
+                    route.cand_del, backend=backend, W=W, ex=ex)
+                tot["rec"] += rec
+                self._n_local += len(acc)
+                self._per_block += nblk.astype(np.int64)
 
-        # coordinator path, original stream order within the window
-        for r in np.flatnonzero(cross | spl | conf):
-            g, core = kd._maintain_one(g, core, window[r], tot, backend,
-                                       W=W, ex=ex)
+            # coordinator path, original stream order within the window
+            for r in np.flatnonzero(cross | spl | conf):
+                g, core = kd._maintain_one(g, core, window[r], tot, backend,
+                                           W=W, ex=ex)
 
-        # §4.2 repartition-threshold protocol, live: per-block load
-        # summaries -> threshold + move selection -> a node migration
-        migrated_now = False
-        if (self._rebalance_threshold is not None
-                and pd.block_balance(g) > self._rebalance_threshold):
-            moves = pd.choose_node_moves(
-                g, max_moves=self._rebalance_max_moves,
-                pair_counts=halo_pair_counts(g))
-            if moves:
-                g, perm, core = migrate_vertices(g, moves, core)
-                self._compose_perm(perm)
-                self._migrations += 1
-                self._migrated += len(moves)
-                migrated_now = True
-                if ex is not None:
-                    ex.rebuild(g)
+            # §4.2 repartition-threshold protocol, live: per-block load
+            # summaries -> threshold + move selection -> a node migration
+            migrated_now = False
+            if (self._rebalance_threshold is not None
+                    and pd.block_balance(g) > self._rebalance_threshold):
+                moves = pd.choose_node_moves(
+                    g, max_moves=self._rebalance_max_moves,
+                    pair_counts=halo_pair_counts(g))
+                if moves:
+                    g, perm, core = migrate_vertices(g, moves, core)
+                    self._compose_perm(perm)
+                    self._migrations += 1
+                    self._migrated += len(moves)
+                    migrated_now = True
+                    if ex is not None:
+                        ex.rebuild(g)
 
-        # CC labels on the post-window graph: inserts only ever JOIN
-        # components, so an insert-only window is an on-device label merge;
-        # a delete may split one, and a migration renames the padded ids
-        # the canonical labels are, so such a window re-propagates
-        if self.labels is not None:
-            ins = valid & (ops_ > 0)
-            if (valid & (ops_ < 0)).any() or migrated_now:
-                self.labels = connected_components(g, backend=backend,
-                                                   executor=ex)
-                self._cc_recomputes += 1
-            elif ins.any():
-                self.labels = merge_labels(
-                    self.labels, us_d, vs_d, torch.as_tensor(ins, device=dev))
-                self._cc_merges += int(ins.sum())
-        self.g, self.core = g, core
+            # CC labels on the post-window graph: inserts only ever JOIN
+            # components, so an insert-only window is an on-device label merge;
+            # a delete may split one, and a migration renames the padded ids
+            # the canonical labels are, so such a window re-propagates
+            if self.labels is not None:
+                ins = valid & (ops_ > 0)
+                if (valid & (ops_ < 0)).any() or migrated_now:
+                    self.labels = connected_components(g, backend=backend,
+                                                       executor=ex)
+                    self._cc_recomputes += 1
+                elif ins.any():
+                    self.labels = merge_labels(
+                        self.labels, us_d, vs_d,
+                        torch.as_tensor(ins, device=dev))
+                    self._cc_merges += int(ins.sum())
+            self.g, self.core = g, core
 
     # ---- elastic growth / recovery surface ------------------------------
 
