@@ -98,7 +98,8 @@ HOST_BOUNDARIES: Dict[str, FrozenSet[str]] = {
         "add_vertices_host", "_remap_ids",
     }),
     # host splice/validation module: the numpy twin of the update path
-    # (`validate_updates` copies nbr/deg once per window)
+    # (`validate_updates` copies the window's endpoint rows of nbr/deg,
+    # `apply_updates_host` the whole arrays)
     "repro_torch/core/updates.py": frozenset({"*"}),
     # hub splitting / mirror-plan maintenance: planning, replica
     # allocation and per-edit slice splices on the host; the superstep

@@ -501,21 +501,23 @@ def loops(steps: int, n: int) -> int:
 
 def window_reads(s) -> int:
     """Host reads of one `StreamSession.apply_window`, from its stats
-    ``(bfs, rec, block_local, escalated)``: the two validation copies and
-    the verdict copy; the batched search, one loop; the batched
-    recompute, one loop when any update was accepted; per escalated
-    update a search loop, a recompute loop and its stats copy."""
+    ``(bfs, rec, block_local, escalated)``: the validation copy of the
+    window's endpoint rows and the verdict copy; the batched search, one
+    loop; the batched recompute, one loop when any update was accepted;
+    per escalated update a search loop, a recompute loop and its stats
+    copy."""
     bfs, rec, local, esc = s
-    return (3 + esc + loops(bfs, 1 + esc)
+    return (2 + esc + loops(bfs, 1 + esc)
             + loops(rec, int(local > 0) + esc))
 
 
 def window_syncs(s) -> int:
-    """CUDA syncs of the same window: its host reads, the uploads of the
-    window's four columns, and per escalated update the two root writes
-    of `kcore_dynamic._maintain_edge` (``roots[u] = True`` copies a host
+    """CUDA syncs of the same window: its host reads, the upload of the
+    endpoint ids that validation gathers, the uploads of the window's
+    four columns, and per escalated update the two root writes of
+    `kcore_dynamic._maintain_edge` (``roots[u] = True`` copies a host
     scalar to the card)."""
-    return window_reads(s) + 4 + 2 * s[3]
+    return window_reads(s) + 5 + 2 * s[3]
 
 
 # -- prepare() builders ------------------------------------------------------
@@ -666,11 +668,12 @@ MANIFEST: Tuple[EntryPoint, ...] = (
         reference="SpmdExecutor.coreness", reference_budget=1),
     EntryPoint(
         name="StreamSession.apply_window[clean]",
-        invariant="a clean window: the two validation copies, the "
-                  "batched search's ceil(bfs/8) + 1, the verdict copy, the "
-                  "recompute's ceil(rec/8) + 1 (`window_reads`); CUDA syncs "
-                  "4 more, the uploads of the window's columns "
-                  "(`window_syncs`; the JAX package's: 1, the verdict)",
+        invariant="a clean window: the validation copy of its endpoint "
+                  "rows, the batched search's ceil(bfs/8) + 1, the verdict "
+                  "copy, the recompute's ceil(rec/8) + 1 (`window_reads`); "
+                  "CUDA syncs 5 more, the uploads of the endpoint ids and "
+                  "of the window's columns (`window_syncs`; the JAX "
+                  "package's: 1, the verdict)",
         max_host_reads=window_reads, max_cuda_syncs=window_syncs,
         prepare=_prep_apply_window_clean, steps=_window_steps,
         reference="StreamSession.apply_window[clean]", reference_budget=1),
@@ -680,9 +683,10 @@ MANIFEST: Tuple[EntryPoint, ...] = (
                   "are: the clean window's reads, plus per escalated "
                   "update a search loop, a recompute loop (each "
                   "ceil(steps/8) + 1, bounded from the reported totals) "
-                  "and its stats copy (`window_reads`); CUDA syncs 4 more, "
-                  "the uploads of the window's columns, and 2 per escalated "
-                  "update, its root writes (`window_syncs`; the JAX "
+                  "and its stats copy (`window_reads`); CUDA syncs 5 more, "
+                  "the uploads of the endpoint ids and of the window's "
+                  "columns, and 2 per escalated update, its root writes "
+                  "(`window_syncs`; the JAX "
                   "package's manifest has no such entry)",
         max_host_reads=window_reads, max_cuda_syncs=window_syncs,
         prepare=_prep_apply_window_escalated, steps=_window_steps,

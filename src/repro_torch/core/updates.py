@@ -116,8 +116,12 @@ def _delete_sorted(nbr: np.ndarray, deg: np.ndarray, u: int, v: int) -> None:
 
 
 def _apply_checked(nbr: np.ndarray, deg: np.ndarray, N: int, Cd: int,
-                   updates: List[Update]) -> None:
-    """Validate and apply `updates` to host arrays, in place."""
+                   updates: List[Update], row=None) -> None:
+    """Validate and apply `updates` to host rows, in place.
+
+    `row` maps a global id to its row of `nbr` / `deg`; None is the
+    identity (the whole arrays).  Messages give global ids."""
+    at = (lambda x: x) if row is None else row.__getitem__
     for u, v, op in updates:
         if not (0 <= u < N and 0 <= v < N):
             # negative ids would silently wrap under numpy/torch indexing
@@ -125,32 +129,50 @@ def _apply_checked(nbr: np.ndarray, deg: np.ndarray, N: int, Cd: int,
         if u == v:
             # the device insert_edge/delete_edge assume no self-loops
             raise ValueError(f"self-loop update ({u},{v}) rejected")
+        ru, rv = at(u), at(v)
         if op > 0:
-            if (nbr[u] == v).any():
+            if (nbr[ru] == v).any():
                 raise ValueError(f"edge ({u},{v}) already present")
-            if deg[u] >= Cd or deg[v] >= Cd:
+            if deg[ru] >= Cd or deg[rv] >= Cd:
                 raise CapacityError(
                     f"degree capacity Cd={Cd} exceeded at ({u},{v})")
-            _insert_sorted(nbr, deg, u, v)
-            _insert_sorted(nbr, deg, v, u)
+            _insert_sorted(nbr, deg, ru, v)
+            _insert_sorted(nbr, deg, rv, u)
         else:
-            if not (nbr[u] == v).any():
+            if not (nbr[ru] == v).any():
                 raise ValueError(f"edge ({u},{v}) not present")
-            _delete_sorted(nbr, deg, u, v)
-            _delete_sorted(nbr, deg, v, u)
+            _delete_sorted(nbr, deg, ru, v)
+            _delete_sorted(nbr, deg, rv, u)
 
 
 def validate_updates(g: GraphBlocks, updates: List[Update]) -> None:
     """Raise on the first update that `apply_updates_host` would reject
-    (self-loop, duplicate insert, missing delete, capacity overflow),
-    replaying the batch on a host copy and discarding the result."""
+    (out of range, self-loop, duplicate insert, missing delete, capacity
+    overflow), replaying the batch on a host copy of the rows it touches
+    and discarding the result.
+
+    Only the endpoints' rows cross to the host: gathered on the device
+    and read in one copy of (k, Cd + 1) values, k <= 2 * len(updates).
+    The endpoints gathered are those of the updates before the first one
+    that fails without a row (out of range, self-loop); the replay stops
+    there or earlier, and an out-of-range id never indexes the device."""
+    updates = list(updates)
     with span(VALIDATE):
-        with span(SYNC):
-            nbr = g.nbr.cpu()
-        with span(SYNC):
-            deg = g.deg.cpu()
-        nbr, deg = nbr.numpy().copy(), deg.numpy().copy()
-        _apply_checked(nbr, deg, g.N, g.Cd, list(updates))
+        ends = set()
+        for u, v, _ in updates:
+            if not (0 <= u < g.N and 0 <= v < g.N) or u == v:
+                break
+            ends.update((u, v))
+        ids = sorted(ends)
+        rows = np.zeros((0, g.Cd + 1), np.int32)
+        if ids:
+            idx = torch.tensor(ids, dtype=torch.long, device=g.device)
+            both = torch.cat([g.nbr.index_select(0, idx),
+                              g.deg.index_select(0, idx)[:, None]], dim=1)
+            with span(SYNC):
+                rows = both.cpu().numpy()
+        _apply_checked(rows[:, :g.Cd], rows[:, g.Cd], g.N, g.Cd, updates,
+                       row={x: i for i, x in enumerate(ids)})
 
 
 def apply_updates_host(g: GraphBlocks, updates: List[Update]) -> GraphBlocks:

@@ -194,6 +194,101 @@ def test_apply_updates_rejects_duplicate_missing_and_capacity():
                                    [(full, other, 1)])
 
 
+def _window(kind, tg, seed):
+    """A window of the named kind on `tg`, its ids drawn from `seed`, and
+    a part of the message it must fail with (None: it passes; ...:
+    either)."""
+    rng = np.random.default_rng(seed)
+    nbr, deg = np_of(tg.nbr), np_of(tg.deg)
+    real = np.flatnonzero(np_of(tg.node_mask))
+    N, Cd = tg.N, tg.Cd
+
+    def edge():
+        u = int(rng.choice(real[(deg[real] > 0) & (deg[real] < Cd)]))
+        return u, int(rng.choice(nbr[u, :deg[u]]))
+
+    def absent(u, k=1):
+        ok = [w for w in real if w != u and deg[w] < Cd - 1
+              and w not in set(nbr[u, :deg[u]].tolist())]
+        return [int(w) for w in rng.choice(ok, k, replace=False)]
+
+    u, v = edge()
+    a, b, c = absent(u, 3)
+    if kind == "random":  # deletes of edges, inserts of absent pairs, noise
+        out = []
+        for r in rng.random(8):
+            if r < 0.45:
+                out.append(edge() + (-1,))
+            elif r < 0.9:
+                x = int(rng.choice(real))
+                out.append((x, absent(x)[0], 1))
+            else:
+                out.append(tuple(int(x) for x in rng.integers(-2, N + 2, 2))
+                           + (int(rng.choice([1, -1])),))
+        return out, ...
+    full = int(np.argmax(deg))  # deg_slack=2: two slots left
+    f1, f2, f3 = absent(full, 3)
+    return {
+        "out_of_range_after_valid": (
+            [(u, v, -1), (N + int(rng.integers(0, 5)), u, 1), (u, u, 1)],
+            "out of range"),
+        "negative_before_bad": (
+            [(-1 - int(rng.integers(0, 5)), v, 1), (u, v, 1)],
+            "out of range"),
+        "bad_before_out_of_range": ([(u, v, 1), (u, N, -1)],
+                                    "already present"),
+        "self_loop": ([(u, a, 1), (a, a, -1)], "self-loop"),
+        "duplicate_insert": ([(u, a, 1), (a, u, 1)], "already present"),
+        "missing_delete": ([(u, v, -1), (u, a, -1)], "not present"),
+        "insert_then_delete": ([(u, a, 1), (a, u, -1)], None),
+        "delete_then_reinsert": ([(u, v, -1), (v, u, 1), (u, v, -1),
+                                  (v, u, -1)], "not present"),
+        "fill_row_to_Cd": ([(full, f1, 1), (f2, full, 1)], None),
+        "past_Cd": ([(full, f1, 1), (f2, full, 1), (f3, full, 1)],
+                    "degree capacity"),
+        "past_Cd_at_u": ([(full, f1, 1), (f2, full, 1), (full, f3, 1)],
+                         "degree capacity"),
+        "row_four_times": ([(u, a, 1), (v, u, -1), (u, v, 1), (b, u, 1),
+                            (a, u, -1), (u, c, 1)], None),
+    }[kind]
+
+
+def _outcome(fn, g, window):
+    try:
+        fn(g, window)
+    except ValueError as e:  # CapacityError is one
+        return type(e).__name__, str(e)
+    return None
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("kind", [
+    "out_of_range_after_valid", "negative_before_bad",
+    "bad_before_out_of_range", "self_loop", "duplicate_insert",
+    "missing_delete", "insert_then_delete", "delete_then_reinsert",
+    "fill_row_to_Cd", "past_Cd", "past_Cd_at_u", "row_four_times",
+    "random"])
+def test_validate_updates_equals_reference(kind, seed):
+    """`validate_updates`, which replays a window on its endpoint rows
+    only, raises or passes as the JAX package's whole-array replay does:
+    the same first failing update, exception type and message, each row
+    seeing the window's earlier edits to it.  The port's own whole-array
+    replay (`apply_updates_host`) agrees, and the graph is left as it
+    was."""
+    from repro.core.kcore_dynamic import _validate_updates_host
+
+    tg, jg = _graphs(40, 100 + seed, deg_slack=2)
+    window, want = _window(kind, tg, seed)
+    got = _outcome(tupd.validate_updates, tg, window)
+    assert got == _outcome(_validate_updates_host, jg, window)
+    assert got == _outcome(tupd.apply_updates_host, tg, window)
+    if want is not ...:
+        assert (got is None) if want is None else want in got[1]
+    if kind.startswith("past_Cd"):
+        assert got[0] == "CapacityError"
+    assert_same_graph(tg, jg)
+
+
 
 def _assert_row_lengths(g):
     """The invariant the kernels' row-length stop relies on: deg[u] is

@@ -16,11 +16,12 @@ import contextlib
 
 import pytest
 import torch
+from torch.overrides import TorchFunctionMode
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import tracing
 from repro_torch.analysis import entrypoints as E
-from repro_torch.core import algorithms, kcore
+from repro_torch.core import algorithms, graph, kcore, updates
 
 WINDOWS = ("clean", "escalated")
 
@@ -190,6 +191,45 @@ def test_pass_sync_spans_count_host_reads(world, entry):
     _, events = _profiled(lambda: run(world.g))
     assert _counts(events) == {tracing.SYNC: reads}
     assert reads > 0
+
+
+class _ReadSizes(TorchFunctionMode):
+    """Records the element count of every tensor a host-read call takes
+    (`entrypoints.HOST_READS`), its host copies included."""
+
+    def __init__(self):
+        super().__init__()
+        self.sizes = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if (getattr(func, "__name__", "") in E.HOST_READS and args
+                and isinstance(args[0], torch.Tensor)):
+            self.sizes.append(args[0].numel())
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_validate_reads_only_the_window_rows(device, request):
+    """`validate_updates` on a graph of 4,096 rows reads the host once,
+    inside its one sync span, and no more than the window's endpoint rows
+    of `nbr` and `deg`, 2 * len(window) * (Cd + 1) values; the graph is
+    left as it was."""
+    if device == "cuda":
+        request.getfixturevalue("require_cuda")
+    g = graph.build_ell_random(4096, Cd=8, seed=3, device=device)
+    window = (updates.sample_insertions(g, 4, "intra", seed=5)
+              + updates.sample_deletions(g, 4, "intra", seed=6))
+    nbr, deg = g.nbr.clone(), g.deg.clone()
+    with _ReadSizes() as seen:
+        reads = _host_reads(lambda: updates.validate_updates(g, window),
+                            g.device)
+    assert reads == 1
+    assert 0 < max(seen.sizes) <= 2 * len(window) * (g.Cd + 1)
+    _, events = _profiled(lambda: updates.validate_updates(g, window),
+                          cuda=device == "cuda")
+    assert _counts(events) == {tracing.VALIDATE: 1, tracing.SYNC: 1}
+    assert torch.equal(g.nbr, nbr) and torch.equal(g.deg, deg)
 
 
 # ---- on and off: the same results ---------------------------------------
