@@ -19,11 +19,11 @@ from typing import Dict, List
 
 import torch
 
-from .. import reference
-from . import compare, graphs, outcome
-from .outcome import Outcome
-from .record import RunRecord
-from .trace import Tracer
+from portbench import reference
+from portbench.harness import compare, graphs, outcome
+from portbench.harness.outcome import Outcome
+from portbench.harness.record import RunRecord
+from portbench.harness.trace import Tracer
 
 ENTRY_POINTS = ("coreness", "connected_components", "pagerank",
                 "triangle_counts")
@@ -64,7 +64,7 @@ def run(cell, seed: int, seconds: float, tracer: Tracer, device,
     traffic = cell.traffic
     marks = {"imports": time.perf_counter() - started}
     gen = torch.Generator(device=device).manual_seed(seed)
-    lay = graphs.make_layout(cell.config, gen)
+    lay = graphs.make_layout(cell.config, gen, cell.root)
     nbr, deg = graphs.ell_rows(lay.keys, lay.N, lay.Cd)
     g = GraphBlocks(nbr=nbr, deg=deg, node_mask=lay.node_mask.clone(),
                     orig_id=lay.orig_id.to(torch.int32), P=lay.P, Cn=lay.Cn,

@@ -16,33 +16,11 @@ from typing import Dict, List
 
 import torch
 
-from .. import reference
-from . import compare, graphs, outcome, pool as pool_mod
-from .outcome import Outcome
-from .record import RunRecord
-from .trace import Tracer
-
-
-def timed_calls(module, name: str, spans: Dict[str, List[float]], device,
-                tracer: Tracer):
-    """Replace `module.name` with a wrapper that records each call's host
-    seconds between two device syncs into ``spans[name]``, inside a span
-    of that name; returns a function that puts the original back."""
-    orig = getattr(module, name)
-    spans[name] = []
-
-    def call(*args, **kwargs):
-        outcome.sync(device)
-        t0 = time.perf_counter()
-        try:
-            with tracer.span(name):
-                return orig(*args, **kwargs)
-        finally:
-            outcome.sync(device)
-            spans[name].append(time.perf_counter() - t0)
-
-    setattr(module, name, call)
-    return lambda: setattr(module, name, orig)
+from portbench import reference
+from portbench.harness import compare, graphs, outcome, pool as pool_mod
+from portbench.harness.outcome import Outcome
+from portbench.harness.record import RunRecord
+from portbench.harness.trace import Tracer
 
 
 def _counters(stats) -> Dict[str, float]:
@@ -61,7 +39,7 @@ def run(cell, seed: int, seconds: float, tracer: Tracer, device,
     traffic, R = cell.traffic, int(cell.traffic["window"])
     marks = {"imports": time.perf_counter() - started}
     gen = torch.Generator(device=device).manual_seed(seed)
-    lay = graphs.make_layout(cell.config, gen)
+    lay = graphs.make_layout(cell.config, gen, cell.root)
     pool = pool_mod.sample_pool(lay, int(traffic["pool"]), traffic["mix"],
                                 gen)
     nbr, deg = graphs.ell_rows(lay.keys, lay.N, lay.Cd)
@@ -98,31 +76,22 @@ def run(cell, seed: int, seconds: float, tracer: Tracer, device,
     marks["warm-up windows"] = time.perf_counter() - started
     outcome.reset_peak(device)
 
-    spans: Dict[str, List[float]] = {}
-    restore = (timed_calls(stream_mod, "validate_updates", spans, device,
-                           tracer)
-               if tracer.enabled else (lambda: None))
     unit_ms: List[float] = []
-    try:
-        with tracer.window(warm=next_window):
-            before = sess.stats()
-            for calls in spans.values():
-                calls.clear()   # of the window outside the span
-            t_start = time.perf_counter()
-            setup_s = t_start - started
-            # the window closes at `seconds`, or early where the pool
-            # runs out (the rate stays all the work over all the time)
-            while nxt < len(windows):
-                t0 = time.perf_counter()
-                with tracer.span("apply_window"):
-                    next_window()
-                t1 = time.perf_counter()
-                unit_ms.append((t1 - t0) * 1e3)
-                if t1 - t_start >= seconds:
-                    break
-        window_s = t1 - t_start
-    finally:
-        restore()
+    with tracer.window(warm=next_window):
+        before = sess.stats()
+        t_start = time.perf_counter()
+        setup_s = t_start - started
+        # the window closes at `seconds`, or early where the pool runs out
+        # (the rate stays all the work over all the time)
+        while nxt < len(windows):
+            t0 = time.perf_counter()
+            with tracer.span("apply_window"):
+                next_window()
+            t1 = time.perf_counter()
+            unit_ms.append((t1 - t0) * 1e3)
+            if t1 - t_start >= seconds:
+                break
+    window_s = t1 - t_start
     peak = outcome.peak_bytes(device)
     after = sess.stats()
     counters = {k: v - _counters(before)[k]
@@ -130,8 +99,8 @@ def run(cell, seed: int, seconds: float, tracer: Tracer, device,
     record = RunRecord(cell=cell.name, device_kind=outcome.device_kind(device),
                        setup_s=setup_s, window_s=window_s,
                        units=int(counters["updates"]), unit_ms=unit_ms,
-                       counters=counters, sizes=sizes, spans=spans,
-                       trace=tracer.trace, setup_marks=marks)
+                       counters=counters, sizes=sizes, trace=tracer.trace,
+                       setup_marks=marks)
     keys, nslots = compare.slots(sess.g.nbr)
     outputs = dict(slots=keys, nslots=nslots, deg=sess.g.deg.clone(),
                    core=sess.core.clone())

@@ -1,13 +1,13 @@
-"""Graph generators and the block layout, on the device, from a seed.
+"""The graph of a configuration and the block layout, on the device, from
+a seed: what every driver shares.
 
-A configuration file names its generator (`"generator"`), its sizes and
-its `graph_seed`; `make_layout` draws the graph's undirected edge list on
-the device from that constant, as GAP draws each of its graphs from one
-fixed seed, so that every run measures the same graph.  The run's own
-seed relabels the nodes by a random permutation and deals them into
-blocks.  The one generator is ``urand``, GAP's uniform random graph
-(``gapbs -u <scale> -k <k>``): exactly `edges` distinct undirected pairs
-drawn uniformly over `vertices` nodes, no self loops.
+A configuration file names its generator (`"generator"`, found as
+``portbench/generators/<generator>.py`` by `spec.load_generator`), its
+sizes and its `graph_seed`; `make_layout` draws the graph's undirected
+edge list on the device from that constant, as GAP draws each of its
+graphs from one fixed seed, so that every run measures the same graph.
+The run's own seed relabels the nodes by a random permutation and deals
+them into blocks.
 
 The layout is the paper's random node partitioning over `blocks` blocks:
 a random permutation deals the nodes round-robin into the blocks, which
@@ -15,12 +15,17 @@ are laid out block-contiguously (block `b` owns padded ids
 ``[b*Cn, (b+1)*Cn)``, the first ``pop[b]`` of them real, in the order of
 their original ids).  Edges are
 returned as sorted undirected keys ``lo * N + hi`` over padded ids.
+How a driver hands the graph to the program is the driver's: `ell_rows`
+gives the unsplit ELL rows.
 """
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 
 import torch
+
+from . import spec
 
 
 @dataclasses.dataclass
@@ -38,38 +43,11 @@ class Layout:
     orig_id: torch.Tensor  # (N,) int64, -1 on padding rows
 
 
-def _unique_pairs(lo: torch.Tensor, hi: torch.Tensor, n: int) -> torch.Tensor:
-    keep = lo != hi
-    return torch.unique(lo[keep] * n + hi[keep])
-
-
-def _take(keys: torch.Tensor, m: int, gen: torch.Generator) -> torch.Tensor:
-    """A uniform random subset of exactly `m` of `keys`, sorted."""
-    if keys.numel() < m:
-        raise ValueError(f"only {keys.numel()} candidate edges for {m}")
-    pick = torch.randperm(keys.numel(), generator=gen,
-                          device=keys.device)[:m]
-    return torch.sort(keys[pick]).values
-
-
-def urand_edges(n: int, m: int, gen: torch.Generator) -> torch.Tensor:
-    """Exactly `m` distinct uniform random undirected pairs over `n`
-    nodes, as sorted keys ``lo * n + hi`` of original ids."""
-    dev = gen.device
-    draw = m + m // 64 + 1024   # covers self loops and repeats
-    u = torch.randint(0, n, (draw,), generator=gen, device=dev)
-    v = torch.randint(0, n, (draw,), generator=gen, device=dev)
-    keys = _unique_pairs(torch.minimum(u, v), torch.maximum(u, v), n)
-    return _take(keys, m, gen)
-
-
-def make_edges(config: dict, gen: torch.Generator) -> torch.Tensor:
-    """Sorted undirected keys over original ids for `config`."""
-    kind = config["generator"]
-    n, m = int(config["vertices"]), int(config["edges"])
-    if kind == "urand":
-        return urand_edges(n, m, gen)
-    raise ValueError(f"unknown generator {kind!r}")
+def make_edges(config: dict, gen: torch.Generator,
+               root: Path = spec.ROOT) -> torch.Tensor:
+    """Sorted undirected keys over original ids for `config`, from the
+    generator its `"generator"` names under `root`."""
+    return spec.load_generator(config["generator"], root).edges(config, gen)
 
 
 def lay_out(keys: torch.Tensor, n: int, P: int, Cd: int,
@@ -109,13 +87,15 @@ def relabel(keys: torch.Tensor, n: int, gen: torch.Generator) -> torch.Tensor:
     return torch.sort(torch.minimum(a, b) * n + torch.maximum(a, b)).values
 
 
-def make_layout(config: dict, gen: torch.Generator) -> Layout:
-    """The configuration's graph, drawn from its `graph_seed`, relabelled
-    and partitioned by `gen`, the run's seed."""
+def make_layout(config: dict, gen: torch.Generator,
+                root: Path = spec.ROOT) -> Layout:
+    """The configuration's graph, drawn from its `graph_seed` by its
+    generator under `root`, relabelled and partitioned by `gen`, the run's
+    seed."""
     n = int(config["vertices"])
     graph_gen = torch.Generator(device=gen.device).manual_seed(
         int(config["graph_seed"]))
-    keys = relabel(make_edges(config, graph_gen), n, gen)
+    keys = relabel(make_edges(config, graph_gen, root), n, gen)
     return lay_out(keys, n, int(config["blocks"]),
                    int(config["degree_capacity"]), gen)
 

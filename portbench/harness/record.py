@@ -19,8 +19,7 @@ class RunRecord:
     `units` counts what the window completed (updates of a stream, passes
     of analytics), `unit_ms` the wall time of each window of updates or
     each pass, `counters` the program's own counts over the window,
-    `spans` the host seconds of each program call the benchmark timed
-    (traced runs), `sizes` the graph's sizes, `trace` the device trace
+    `sizes` the graph's sizes, `trace` the device trace
     (traced runs), `setup_marks` the seconds from the process's start at
     which each stage of set-up ended."""
 
@@ -32,7 +31,6 @@ class RunRecord:
     unit_ms: List[float]
     counters: Dict[str, float]
     sizes: Dict[str, int]
-    spans: Dict[str, List[float]] = dataclasses.field(default_factory=dict)
     trace: Optional[Trace] = None
     setup_marks: Dict[str, float] = dataclasses.field(default_factory=dict)
 

@@ -9,13 +9,9 @@ from typing import Dict, Tuple
 
 import torch
 
-from . import analytics, spec, stream
+from . import spec
 from .outcome import Outcome
 from .trace import Tracer
-
-#: a traffic file's ``driver`` -> the module that runs, judges and
-#: controls it
-DRIVERS = {"stream": stream, "analytics": analytics}
 
 #: top-level module names that may not be loaded in a run's process: JAX
 #: and the JAX package the program is a port of
@@ -29,8 +25,10 @@ def forbidden_modules(modules=None):
     return sorted({m for m in names if m.split(".")[0] in FORBIDDEN})
 
 
-def driver_of(cell):
-    return DRIVERS[cell.traffic["driver"]]
+def driver_of(cell: spec.Cell):
+    """The module that runs, judges and controls `cell`: the driver its
+    traffic names, under the checkout it was loaded from."""
+    return spec.load_driver(cell.traffic["driver"], cell.root)
 
 
 def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
@@ -61,7 +59,7 @@ def result_line(cell: spec.Cell, out: Outcome, numbers: Dict[str, float],
     correct, compared = verdict(numbers, cell.traffic["limits"])
     rec = out.record
     metrics = spec.read_metrics(cell.per_layer if trace else cell.end_to_end,
-                                rec)
+                                rec, cell.root)
     dev = dict(platform="gpu" if torch.device(device).type == "cuda"
                else torch.device(device).type,
                kind=rec.device_kind, count=cell.chips,

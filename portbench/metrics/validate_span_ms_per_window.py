@@ -1,8 +1,7 @@
 """validate_span_ms_per_window: wall ms of the program's `bladyg.validate`
 spans in the traced window (`core.updates.validate_updates`: the host
-replay of a window, both copies of the rows included), per window.  The
-program's own measure of what `validate_ms_per_window` times from the
-benchmark, without that timer's two device syncs."""
+replay of a window, the read of its endpoint rows included), per
+window."""
 from portbench.harness import spans
 
 

@@ -1,13 +1,10 @@
-"""Tiny cells: the committed cells' traffic at sizes a CPU test holds."""
+"""Tiny cells: a cell's configuration and traffic at the sizes a CPU test
+holds, which each file gives under its ``"tiny"`` key."""
 from portbench.harness import spec
-
-#: sizes of each configuration that a CPU test runs at
-SIZES = {"urand23": dict(vertices=1024, edges=16384)}
 
 
 def tiny_cell(name: str):
     cell = spec.load_cell(name)
-    cell.config.update(SIZES[cell.config_name])
-    if "pool" in cell.traffic:
-        cell.traffic["pool"] = 256
+    cell.config.update(cell.config["tiny"])
+    cell.traffic.update(cell.traffic.get("tiny", {}))
     return cell

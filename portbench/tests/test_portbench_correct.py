@@ -12,10 +12,19 @@ import pytest
 import torch
 
 from _tiny import tiny_cell
-from portbench.harness import compare, runner
+from portbench.harness import compare, runner, spec
 from portbench.harness.trace import Tracer
 
 SEED = 2**31 + 77
+
+WORKLOADS = spec.load_benchmark()["workloads"]
+CELLS = [w["name"] for w in WORKLOADS]
+
+
+def cells_of(driver):
+    """The cells whose traffic the driver `driver` runs."""
+    return [w["name"] for w in WORKLOADS
+            if spec.load_traffic(w["traffic"])["driver"] == driver]
 
 
 def run(cell, seconds=0.3):
@@ -24,7 +33,7 @@ def run(cell, seconds=0.3):
     return line
 
 
-@pytest.mark.parametrize("name", ["urand23.stream", "urand23.analytics"])
+@pytest.mark.parametrize("name", CELLS)
 def test_program_correct_control_not(name):
     cell = tiny_cell(name)
     drv = runner.driver_of(cell)
@@ -60,23 +69,25 @@ def _altered(orig):
     return apply
 
 
+@pytest.mark.parametrize("name", cells_of("stream"))
 @pytest.mark.parametrize("fault", ["unchanged", "half", "altered"])
-def test_stream_faults_come_out_not_correct(fault, monkeypatch):
+def test_stream_faults_come_out_not_correct(fault, name, monkeypatch):
     from repro_torch.runtime.stream import StreamSession
 
     orig = StreamSession.apply_window
     patch = dict(unchanged=_unchanged, half=_half(orig),
                  altered=_altered(orig))[fault]
     monkeypatch.setattr(StreamSession, "apply_window", patch)
-    line = run(tiny_cell("urand23.stream"))
+    line = run(tiny_cell(name))
     assert line["correct"] is False, line["compared"]
 
 
 # ---- faults planted in the analytics pass -------------------------------
 
 
+@pytest.mark.parametrize("name", cells_of("analytics"))
 @pytest.mark.parametrize("fault", ["unchanged", "half", "altered"])
-def test_analytics_faults_come_out_not_correct(fault, monkeypatch):
+def test_analytics_faults_come_out_not_correct(fault, name, monkeypatch):
     from repro_torch.core import algorithms
     from repro_torch.kernels import ops
 
@@ -105,5 +116,5 @@ def test_analytics_faults_come_out_not_correct(fault, monkeypatch):
             counts[0] += 1
             return counts, steps
         monkeypatch.setattr(algorithms, "triangle_counts", altered)
-    line = run(tiny_cell("urand23.analytics"))
+    line = run(tiny_cell(name))
     assert line["correct"] is False, line["compared"]

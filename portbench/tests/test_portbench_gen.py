@@ -1,18 +1,26 @@
 """The generators, the block layout, the ELL rows and the update pool at
 small n on the CPU."""
+import hashlib
+
 import pytest
 import torch
 
-from portbench.harness import graphs, pool
+from portbench.harness import graphs, pool, spec
+
+urand = spec.load_generator("urand")
 
 
 def gen(seed):
     return torch.Generator().manual_seed(seed)
 
 
+def urand_edges(n, m, g):
+    return urand.edges(dict(vertices=n, edges=m), g)
+
+
 @pytest.mark.parametrize("n,m", [(1000, 16000), (4096, 65536)])
 def test_urand_exact_and_uniform_pairs(n, m):
-    keys = graphs.urand_edges(n, m, gen(2**31 + 5))
+    keys = urand_edges(n, m, gen(2**31 + 5))
     lo, hi = keys // n, keys % n
     assert keys.numel() == m == torch.unique(keys).numel()
     assert bool((lo < hi).all()) and bool((hi < n).all())
@@ -25,14 +33,33 @@ def test_urand_exact_and_uniform_pairs(n, m):
 def test_urand_degrees_stay_under_the_configured_capacity(n, m):
     """Mean degree 32 as GAP's urand: the largest degree at these sizes
     stays well under the 80 slots `urand23` gives a row, as at 2^23."""
-    keys = graphs.urand_edges(n, m, gen(2**31 + 9))
+    keys = urand_edges(n, m, gen(2**31 + 9))
     deg = torch.bincount(torch.cat([keys // n, keys % n]), minlength=n)
     assert float(deg.double().mean()) == 32.0
     assert 32 < int(deg.max()) < 80 and int(deg.min()) > 0
 
 
+#: SHA-256 of the sorted keys' bytes (little-endian int64) that the
+#: generator gave before it moved into its own file, on the CPU
+URAND_DIGESTS = {
+    (1000, 16000):
+        "a202bfeba70cf0925c23413da85675fd241f83c53637689d50d36c2b36726b88",
+    (4096, 65536):
+        "b0693bc5ec3d7f1d4ad4c7c9a2b18e9b9469239796b5261f9bb7e8d2877f1945",
+}
+
+
+@pytest.mark.parametrize("n,m", sorted(URAND_DIGESTS))
+def test_urand_gives_the_same_graph_bit_for_bit(n, m):
+    keys = graphs.make_edges(dict(generator="urand", vertices=n, edges=m),
+                             gen(2**31 + 5))
+    assert keys.dtype == torch.int64
+    digest = hashlib.sha256(keys.numpy().astype("<i8").tobytes()).hexdigest()
+    assert digest == URAND_DIGESTS[n, m]
+
+
 def test_unknown_generator_is_refused():
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="portbench/generators/lattice.py"):
         graphs.make_edges(dict(generator="lattice", vertices=100,
                                edges=150), gen(1))
 
@@ -57,7 +84,7 @@ def test_same_seed_same_graph(n, m):
 
 def test_relabel_is_an_isomorphism():
     n = 200
-    keys = graphs.urand_edges(n, 1000, gen(2))
+    keys = urand_edges(n, 1000, gen(2))
     g = gen(3)
     perm = torch.randperm(n, generator=gen(3))
     got = graphs.relabel(keys, n, g)
@@ -68,7 +95,7 @@ def test_relabel_is_an_isomorphism():
 
 def test_layout_is_balanced_random_and_block_contiguous():
     n, P = 1003, 8
-    lay = graphs.lay_out(graphs.urand_edges(n, 8000, gen(1)), n, P, 80,
+    lay = graphs.lay_out(urand_edges(n, 8000, gen(1)), n, P, 80,
                          gen(2))
     assert lay.Cn == 128 and lay.N == P * 128
     assert lay.pop.tolist() == [126] * 3 + [125] * 5

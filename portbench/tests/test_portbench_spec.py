@@ -65,19 +65,29 @@ def test_every_config_is_used_and_its_file_holds_reduced_keys():
 @pytest.mark.parametrize("cell", CELLS)
 def test_cell_loads_by_name_and_reports_what_the_contract_asks(cell):
     c = spec.load_cell(cell)
-    assert c.traffic["driver"] in ("stream", "analytics")
+    assert spec.plugin_path("drivers", c.traffic["driver"]).is_file()
+    drv = spec.load_driver(c.traffic["driver"])
+    assert all(callable(getattr(drv, f)) for f in ("run", "judge", "control"))
+    if "generator" in c.config:
+        assert callable(spec.load_generator(c.config["generator"]).edges)
     e2e = {m["name"] for m in c.end_to_end}
     assert "setup_s" in e2e and len(e2e) >= 2
     assert c.per_layer
     assert all(m["moves"] in e2e for m in c.per_layer)
     for m in c.end_to_end + c.per_layer:
-        assert spec.metric_path(m["name"]).exists(), m["name"]
+        assert spec.plugin_path("metrics", m["name"]).is_file(), m["name"]
         assert callable(spec.load_reader(m["name"]))
 
 
 def test_unknown_cell_is_refused():
     with pytest.raises(KeyError):
         spec.load_cell("no-such.cell")
+
+
+@pytest.mark.parametrize("kind", ["drivers", "generators", "metrics"])
+def test_unknown_plugin_names_the_file_it_looked_for(kind):
+    with pytest.raises(ValueError, match=f"portbench/{kind}/no-such.py"):
+        spec.load_plugin(kind, "no-such")
 
 
 def test_per_layer_metrics_without_workloads_follow_what_they_move():
@@ -102,6 +112,6 @@ def test_read_metrics_leaves_out_what_a_reader_cannot_read():
         [{"name": "setup_s", "unit": "s"},
          {"name": "updates_per_s", "unit": "updates/s"},
          {"name": "kernel_ms_per_update", "unit": "ms"},
-         {"name": "validate_ms_per_window", "unit": "ms"}], run)
+         {"name": "validate_span_ms_per_window", "unit": "ms"}], run)
     assert got == {"setup_s": {"value": 3.5, "unit": "s"},
                    "updates_per_s": {"value": 20.0, "unit": "updates/s"}}
