@@ -188,14 +188,14 @@ SORTED_ELL_WRITERS: FrozenSet[str] = SORTED_ELL_HELPERS | frozenset({
     "build_ell_random",    # core/graph.py: ends with sort_nbr_rows
     "apply_updates_host",  # core/updates.py: splices row by row
     "_apply_checked",      # core/updates.py: the same, checked
-    # split_hubs rewires into fresh replica rows and re-sorts;
-    # apply_mirrored_edits splices through the slice helpers;
-    # run_common_mirror's canonical view is re-sorted
-    "split_hubs",
-    "apply_mirrored_edits",
+    # _split_slots (split_hubs, build_split_blocks) places each row's
+    # slots from one sort of the (row, neighbor) keys, so every row comes
+    # out sorted; apply_mirrored_edits (its body, under its span) splices
+    # the rows it touches through the slice helpers and writes them back
+    # whole; run_common_mirror's canonical view is re-sorted
+    "_split_slots",
+    "_apply_mirrored_edits",
     "run_common_mirror",
-    # hub_split's constructor of a graph from those callers' arrays
-    "_graph",
     # grow_blocks / migrate_vertices remap ids through a MONOTONE rekey or
     # re-sort the moved rows (`_remap_ids`, `_sorted_rows`)
     "grow_blocks",

@@ -29,14 +29,20 @@ without changing the block-centric runtime:
   * "count_common" (triangles) needs whole neighbor rows, which a slice
     cannot serve; `run_common_mirror` computes it exactly from a kernel
     pass on canonicalized rows plus per-slice corrections on the host.
-  * `apply_mirrored_edits` is the host mutation path: capacity-routed
+  * `build_split_blocks(edges, ...)` builds the same split graph and plan
+    straight from an edge list, never forming the unsplit rows (a
+    power-law graph's hub makes those terabytes wide).  Both builders
+    hand the sorted (row, neighbor) slot keys to one tensor core
+    (`_split_slots`) on the graph's device.
+  * `apply_mirrored_edits` is the mutation path: capacity-routed
     inserts, ON-LINE splits when an insert pushes a vertex over the
-    threshold, and mirrored deletes.
+    threshold, and mirrored deletes, spliced on the host in the rows the
+    edits touch.
 
-Host-boundary module, as in the JAX package: construction, mutation and
-the triangle corrections are numpy; the plan's tensors live on the
-graph's device, and every function returns fresh tensors (the stream
-writes graph rows in place elsewhere, so nothing here may alias its
+Host-boundary module, as in the JAX package: the splices and the
+triangle corrections are numpy; the construction and the plan's tensors
+live on the graph's device, and every function returns fresh tensors (the
+stream writes graph rows in place elsewhere, so nothing here may alias its
 input).
 """
 from __future__ import annotations
@@ -48,9 +54,11 @@ from typing import Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import DeviceLike, resolve_device
+from ..tracing import MIRROR_EDITS, SYNC, span
 from .engine import BlockCtx, BlockProgram
-from .graph import (PAD, CapacityError, GraphBlocks, _occurrence_ranks,
-                    halo_slot_counts, relocate_rows, sort_nbr_rows)
+from .graph import (PAD, CapacityError, GraphBlocks, halo_slot_counts,
+                    relocate_rows, sort_nbr_rows)
 
 #: plan identity: every plan built or restored gets a fresh number, as in
 #: the JAX package (where compiled-step caches key on it)
@@ -114,39 +122,62 @@ class MirrorPlan:
         return len(np.unique(gid[gid < self.Gmax]))
 
 
+def group_arrays(plan: MirrorPlan) -> Tuple[np.ndarray, np.ndarray]:
+    """Host view of the split groups as two aligned int64 arrays
+    ``(primary, row)``: one entry a group row, groups by ascending
+    primary, each group's primary first and its replicas ascending."""
+    with span(SYNC):
+        rows = plan.grp_rows.cpu().numpy().astype(np.int64)
+    with span(SYNC):
+        gid = plan.grp_gid.cpu().numpy()
+    with span(SYNC):
+        prow = plan.primary_row.cpu().numpy().astype(np.int64)
+    rows = rows[gid < plan.Gmax]
+    heads = prow[rows]
+    order = np.lexsort((rows, rows != heads, heads))
+    return heads[order], rows[order]
+
+
 def groups_of(plan: MirrorPlan) -> Dict[int, List[int]]:
     """Host view of the split groups: {primary row: [rows, primary first]}."""
-    rows = plan.grp_rows.cpu().numpy()
-    gid = plan.grp_gid.cpu().numpy()
-    prow = plan.primary_row.cpu().numpy()
-    out: Dict[int, List[int]] = {}
-    for r, gx in zip(rows, gid):
-        if gx >= plan.Gmax:
-            continue
-        out.setdefault(int(prow[r]), []).append(int(r))
-    return {h: sorted(rs, key=lambda r: (r != h, r)) for h, rs in out.items()}
+    heads, rows = group_arrays(plan)
+    cut = np.flatnonzero(np.diff(heads)) + 1
+    return {int(rs[0]): rs.tolist() for rs in np.split(rows, cut)
+            if rs.size}
 
 
-def _free_rows(mask: np.ndarray, Cn: int, P: int) -> Dict[int, List[int]]:
-    """Free (padding) rows per block, ascending — replica allocation pool."""
-    return {
-        b: list(np.flatnonzero(~mask[b * Cn:(b + 1) * Cn]) + b * Cn)
-        for b in range(P)
-    }
+class _FreeRows:
+    """Free (padding) rows per block, taken lowest first: the replica
+    allocation pool."""
+
+    def __init__(self, mask: np.ndarray, Cn: int, P: int):
+        self.rows = [np.flatnonzero(~mask[b * Cn:(b + 1) * Cn]) + b * Cn
+                     for b in range(P)]
+        self.next = [0] * P
+
+    def has(self, b: int) -> bool:
+        return 0 <= b < len(self.rows) and self.next[b] < len(self.rows[b])
+
+    def pop(self, b: int) -> int:
+        self.next[b] += 1
+        return int(self.rows[b][self.next[b] - 1])
 
 
-def _alloc_replica(free: Dict[int, List[int]], pref: int, own: int) -> int:
+_NO_FREE_ROWS = (
+    "no free padding rows left for hub mirror replicas; rebuild the "
+    "graph with node capacity headroom (build_blocks(node_slack=...)) "
+    "or grow Cn (graph.grow_blocks / MirrorStream auto_grow)")
+
+
+def _alloc_replica(free: _FreeRows, pref: int, own: int) -> int:
     """Pop a free row: reader's block first, then the hub's, then any."""
     for b in (pref, own):
-        if free.get(b):
-            return free[b].pop(0)
-    for b in sorted(free):
-        if free[b]:
-            return free[b].pop(0)
-    raise CapacityError(
-        "no free padding rows left for hub mirror replicas; rebuild the "
-        "graph with node capacity headroom (build_blocks(node_slack=...)) "
-        "or grow Cn (graph.grow_blocks / MirrorStream auto_grow)")
+        if free.has(b):
+            return free.pop(b)
+    for b in range(len(free.rows)):
+        if free.has(b):
+            return free.pop(b)
+    raise CapacityError(_NO_FREE_ROWS)
 
 
 def _sorted_slice_insert(row: np.ndarray, fill: int, val: int) -> None:
@@ -166,16 +197,8 @@ def _sorted_slice_delete(row: np.ndarray, fill: int, val: int) -> None:
 
 
 def _tensor(a: np.ndarray, dtype, device) -> torch.Tensor:
-    return torch.from_numpy(np.asarray(a).astype(dtype)).to(device)
-
-
-def _graph(like: GraphBlocks, nbr, deg, mask, orig, Cd: int) -> GraphBlocks:
-    """A GraphBlocks of fresh tensors on `like`'s device."""
-    dev = like.device
-    return GraphBlocks(
-        nbr=_tensor(nbr, np.int32, dev), deg=_tensor(deg, np.int32, dev),
-        node_mask=_tensor(mask, bool, dev), orig_id=_tensor(orig, np.int32, dev),
-        P=like.P, Cn=like.Cn, Cd=int(Cd))
+    return torch.from_numpy(np.asarray(a).astype(dtype, copy=False)).to(
+        device)
 
 
 # ---------------------------------------------------------------------------
@@ -193,98 +216,257 @@ def split_hubs(g: GraphBlocks, threshold: int
     further slice of at most `threshold` neighbors lands in an existing
     padding row, preferentially in the block its members live in.  Both
     endpoint sides of an edge re-point at the serving row of the other
-    side, and every row is re-sorted (`sort_nbr_rows`).  Raises
-    `CapacityError` when the padding rows run out.  Host-side.
+    side, and every row is re-sorted.  Raises `CapacityError` when the
+    padding rows run out.  Tensor code on `g`'s device (`_split_slots`).
     """
+    t = _check_threshold(threshold)
+    valid = g.nbr >= 0
+    rows = torch.arange(g.N, device=g.device)[:, None].expand_as(g.nbr)
+    slot = torch.sort(rows[valid] * g.N + g.nbr[valid].long()).values
+    return _split_slots(slot, g.node_mask.clone(), g.orig_id.long(), g.P,
+                        g.Cn, t, n_logical=int(g.node_mask.sum()))
+
+
+def _check_threshold(threshold) -> int:
     t = int(threshold)
     if t < 1:
         raise ValueError(f"threshold must be >= 1, got {t}")
-    a = g.to_numpy()
-    nbr = a["nbr"].astype(np.int64)
-    deg = a["deg"].astype(np.int64)
-    mask = a["node_mask"].copy()
-    orig = a["orig_id"].astype(np.int64)
-    N, Cn, Cd = g.N, g.Cn, g.Cd
+    return t
 
-    hubs = np.flatnonzero(mask & (deg > t))
-    free = _free_rows(mask, Cn, g.P)
 
-    # per directed slot of the ORIGINAL graph: rew[u, j] is the row that
-    # holds u's slot j after the split, rew2[u, j] the row the slot's
-    # content re-points to (the partner's serving row for this edge)
-    rew = np.repeat(np.arange(N, dtype=np.int64), Cd).reshape(N, Cd)
-    rew2 = nbr.copy()
-    groups: Dict[int, List[int]] = {}
-    for h in hubs:
-        d = int(deg[h])
-        nb = nbr[h, :d]  # sorted (ELL invariant)
-        own = h // Cn
-        blk = nb // Cn
-        # own-block members first, then grouped by reader block
-        order = np.lexsort((nb, np.where(blk == own, -1, blk)))
-        nb_o = nb[order]
-        rows_h = [int(h)]
-        for ci in range(1, -(-d // t)):
-            chunk = nb_o[ci * t:(ci + 1) * t]
-            r = _alloc_replica(free, int(chunk[0] // Cn), int(own))
-            rows_h.append(r)
-            mask[r] = True
-            orig[r] = orig[h]
-        groups[int(h)] = rows_h
-        for ci, r in enumerate(rows_h):
-            chunk = nb_o[ci * t:(ci + 1) * t]
-            rew[h, np.searchsorted(nb, chunk)] = r
-            for w in chunk:
-                rew2[w, np.searchsorted(nbr[w, :deg[w]], h)] = r
+def _row_offsets(counts: torch.Tensor) -> torch.Tensor:
+    """Exclusive prefix sum: where each row's run starts."""
+    return torch.cumsum(counts, 0) - counts
 
-    valid = nbr >= 0
-    src = rew[valid]
-    dst = rew2[valid]
-    nbr2 = np.full((N, t), PAD, np.int64)
-    ranks = _occurrence_ranks(src)
-    if ranks.size and ranks.max() >= t:
-        raise AssertionError("slice overflow — split_hubs chunking bug")
-    nbr2[src, ranks] = dst
-    deg2 = np.bincount(src, minlength=N)
-    g2 = _graph(g, sort_nbr_rows(nbr2), deg2, mask, orig, t)
-    plan = _plan_from_groups(
-        N=N, deg_logical_of_row=deg, mask=mask, groups=groups, threshold=t,
-        n_logical=int(a["node_mask"].sum()), device=g.device)
+
+def _allocate_replicas(pref: torch.Tensor, own: torch.Tensor,
+                       free: torch.Tensor, Cn: int, P: int) -> torch.Tensor:
+    """The rows `_alloc_replica` hands out for requests ``(pref, own)``
+    taken in order from the ascending free rows `free`, in array code.
+
+    Each round assumes that no block fills up, takes each request's block
+    (its reader block, else the hub's, else the lowest block with room),
+    and keeps the requests up to the first that would take from a block
+    already emptied; that block is then full for the rest.  At most P + 1
+    rounds."""
+    dev = pref.device
+    K = pref.numel()
+    left = torch.bincount(free // Cn, minlength=P)
+    start = _row_offsets(left)
+    block = torch.empty(K, dtype=torch.int64, device=dev)
+    i0 = 0
+    while i0 < K:
+        room = left > 0
+        if not bool(room.any()):
+            raise CapacityError(_NO_FREE_ROWS)
+        anyb = int(torch.nonzero(room)[0, 0])
+        p, o = pref[i0:], own[i0:]
+        pick = torch.where(room[p], p, torch.where(room[o], o, anyb))
+        taken = torch.cumsum(
+            torch.nn.functional.one_hot(pick, P), 0)  # (K - i0, P)
+        over = taken.gather(1, pick[:, None])[:, 0] > left[pick]
+        j = int(torch.argmax(over.to(torch.int8))) if bool(over.any()) \
+            else pick.numel()
+        block[i0:i0 + j] = pick[:j]
+        if j:
+            left = left - taken[j - 1]
+        i0 += j
+    # the k-th request served by block b takes b's k-th free row
+    order = torch.sort(block, stable=True).indices
+    used = torch.bincount(block, minlength=P)
+    rank = torch.empty(K, dtype=torch.int64, device=dev)
+    rank[order] = (torch.arange(K, device=dev)
+                   - _row_offsets(used)[block[order]])
+    return free[start[block] + rank]
+
+
+def build_split_blocks(
+    edges, n: int, assign, P: int, threshold: int,
+    Cn: Optional[int] = None, node_slack: int = 0,
+    device: DeviceLike = None,
+) -> Tuple[GraphBlocks, MirrorPlan]:
+    """Build the hub-split graph and its plan straight from an edge list.
+
+    Takes `graph.build_blocks`' inputs (`edges` an (m, 2) array or tensor
+    of original ids, `assign` each node's block, `Cn` or `node_slack` the
+    node capacity) and returns what ``split_hubs(build_blocks(...),
+    threshold)`` returns, bit for bit, without ever forming the unsplit
+    rows (whose width is the largest degree): tensor code on `device`
+    (default CUDA).  The layout is `build_blocks`' (blocks contiguous,
+    nodes in original order inside a block) and the split `split_hubs`':
+    a hub's neighbors ordered own block first, then by id; slices of
+    `threshold` consecutive neighbors, the first on the hub's row; each
+    replica on the lowest free row of its slice's first member's block,
+    else the hub's block, else any block, taken in (hub, slice) order;
+    both sides of an edge pointing at the serving rows; rows sorted.
+    Raises `CapacityError` where `split_hubs` would.
+    """
+    t = _check_threshold(threshold)
+    dev = resolve_device(device)
+    e = torch.as_tensor(edges).to(dev, torch.int64).reshape(-1, 2)
+    blk = torch.as_tensor(assign).to(dev, torch.int64)
+    if tuple(blk.shape) != (n,):
+        raise ValueError(f"assign has shape {tuple(blk.shape)}, expected "
+                         f"({n},)")
+    if P < 1 or not bool(((blk >= 0) & (blk < P)).all()):
+        raise ValueError(f"assign must hold block ids in [0, {P})")
+
+    # canonical undirected keys: no self loops, no repeats
+    keep = e[:, 0] != e[:, 1]
+    lo = torch.minimum(e[keep, 0], e[keep, 1])
+    hi = torch.maximum(e[keep, 0], e[keep, 1])
+    keys = torch.unique(lo * n + hi)
+    del e, keep, lo, hi
+
+    # build_blocks' layout
+    pop = torch.bincount(blk, minlength=P)
+    if Cn is None:
+        Cn = int(-(-(max(1, int(pop.max())) + max(0, int(node_slack)))
+                   // 8) * 8)
+    elif bool((pop > Cn).any()):
+        b = int(torch.nonzero(pop > Cn)[0, 0])
+        raise ValueError(f"block {b} overflows node capacity Cn={Cn} "
+                         f"(needs at least {int(pop[b])})")
+    N = P * Cn
+    order = torch.sort(blk, stable=True).indices
+    new_of_old = torch.empty(n, dtype=torch.int64, device=dev)
+    new_of_old[order] = (blk[order] * Cn + torch.arange(n, device=dev)
+                         - _row_offsets(pop)[blk[order]])
+    mask = torch.zeros(N, dtype=torch.bool, device=dev)
+    mask[new_of_old] = True
+    orig = torch.full((N,), PAD, dtype=torch.int64, device=dev)
+    orig[new_of_old] = torch.arange(n, device=dev)
+    del order, blk
+
+    # every directed slot, sorted by (row, neighbor): the unsplit rows
+    a_, b_ = new_of_old[keys // n], new_of_old[keys % n]
+    del keys, new_of_old
+    slot = torch.sort(torch.cat([a_ * N + b_, b_ * N + a_])).values
+    del a_, b_
+    return _split_slots(slot, mask, orig, P, Cn, t, n_logical=n)
+
+
+def _split_slots(slot: torch.Tensor, mask: torch.Tensor, orig: torch.Tensor,
+                 P: int, Cn: int, t: int, n_logical: int
+                 ) -> Tuple[GraphBlocks, MirrorPlan]:
+    """The split of `split_hubs` and `build_split_blocks`, in tensor code
+    on `slot`'s device.  `slot` holds every directed slot of the unsplit
+    graph as a sorted int64 key ``row * N + neighbor``; `mask` and `orig`
+    are its (N,) node mask and int64 original ids, both the caller's own
+    (replicas are marked in them)."""
+    dev = slot.device
+    N = P * Cn
+    src, dst = slot // N, slot % N
+    deg = torch.bincount(src, minlength=N)
+    M = slot.numel()
+
+    # each slot's place in its row's hub order (own block first, then by
+    # id), and so its slice
+    pos = torch.arange(M, device=dev) - _row_offsets(deg)[src]
+    own, nb_blk = src // Cn, dst // Cn
+    inown = nb_blk == own
+    below = torch.zeros(N, dtype=torch.int64, device=dev).index_add_(
+        0, src, (nb_blk < own).to(torch.int64))
+    mine = torch.zeros(N, dtype=torch.int64, device=dev).index_add_(
+        0, src, inown.to(torch.int64))
+    hpos = torch.where(inown, pos - below[src],
+                       torch.where(nb_blk < own, pos + mine[src], pos))
+    del pos, inown, below, mine
+    piece = hpos // t
+
+    # one replica request per slice past the first, in (hub, slice) order
+    nreq = torch.where(deg > t, (deg + t - 1) // t - 1, 0)
+    req0 = _row_offsets(nreq)
+    K = int(nreq.sum())
+    heads_at = (hpos % t == 0) & (piece > 0)
+    del hpos
+    req = req0[src[heads_at]] + piece[heads_at] - 1
+    pref = torch.empty(K, dtype=torch.int64, device=dev)
+    hub_of = torch.empty(K, dtype=torch.int64, device=dev)
+    pref[req] = nb_blk[heads_at]
+    hub_of[req] = src[heads_at]
+    del heads_at, req, nb_blk, own
+    rep = _allocate_replicas(pref, hub_of // Cn,
+                             torch.nonzero(~mask)[:, 0], Cn, P)
+    del pref
+    mask[rep] = True
+    orig[rep] = orig[hub_of]
+
+    # serving rows: a slot's own row, and the row its partner serves it by
+    serve = torch.where(piece == 0, src,
+                        rep[(req0[src] + piece - 1).clamp(min=0)]
+                        if K else src)
+    del piece
+    back = serve[torch.searchsorted(slot, dst * N + src)]
+    del slot, dst
+    key2 = torch.sort(serve * N + back).values
+    del serve, back, src
+    s2, v2 = key2 // N, key2 % N
+    del key2
+    deg2 = torch.bincount(s2, minlength=N)
+    nbr2 = torch.full((N, t), PAD, dtype=torch.int32, device=dev)
+    nbr2[s2, torch.arange(M, device=dev) - _row_offsets(deg2)[s2]] = \
+        v2.to(torch.int32)
+    del s2, v2
+    g2 = GraphBlocks(nbr=nbr2, deg=deg2.to(torch.int32), node_mask=mask,
+                     orig_id=orig.to(torch.int32), P=P, Cn=Cn, Cd=t)
+
+    # plan entries: each hub's row, then its replicas in slice order
+    hubs = torch.nonzero(deg > t)[:, 0]
+    at = (torch.arange(hubs.numel(), device=dev) + req0[hubs])
+    heads = torch.empty(hubs.numel() + K, dtype=torch.int64, device=dev)
+    rows = torch.empty_like(heads)
+    heads[at], rows[at] = hubs, hubs
+    rpos = torch.arange(K, device=dev)
+    hub_rank = torch.searchsorted(hubs, hub_of)
+    heads[rpos + hub_rank + 1] = hub_of
+    rows[rpos + hub_rank + 1] = rep
+    plan = _plan_from_entries(N, deg, mask, heads, rows, threshold=t,
+                              n_logical=n_logical, device=dev)
     return g2, plan
 
 
-def _plan_from_groups(N: int, deg_logical_of_row: np.ndarray,
-                      mask: np.ndarray, groups: Dict[int, List[int]],
-                      threshold: int, n_logical: int,
-                      device) -> MirrorPlan:
-    """Assemble a MirrorPlan from {primary: [rows]} (host bookkeeping)."""
-    prow = np.arange(N, dtype=np.int64)
-    for h, rows_h in groups.items():
-        prow[rows_h] = h
-    ldeg = np.where(mask, deg_logical_of_row[prow], 0)
-    primary_mask = mask & (prow == np.arange(N))
+def _plan_from_entries(N: int, deg_logical_of_row, mask, heads, rows,
+                       threshold: int, n_logical: int, device) -> MirrorPlan:
+    """Assemble a MirrorPlan from its group entries: ``heads[i]`` is the
+    primary of group row ``rows[i]``, entries ordered by primary, each
+    group in the order its rows are to keep (primary first).  Takes numpy
+    arrays or tensors of one device; array code throughout."""
+    heads = torch.as_tensor(heads).to(torch.int64)
+    rows = torch.as_tensor(rows).to(torch.int64)
+    dev = heads.device
+    mask = torch.as_tensor(mask).to(dev, torch.bool)
+    deg_logical_of_row = torch.as_tensor(deg_logical_of_row).to(
+        dev, torch.int64)
+    ids = torch.arange(N, dtype=torch.int64, device=dev)
+    prow = ids.clone()
+    prow[rows] = heads
+    ldeg = torch.where(mask, deg_logical_of_row[prow], 0)
+    primary_mask = mask & (prow == ids)
 
-    n_rows = sum(len(rs) for rs in groups.values())
-    Gmax = _pow2(max(1, len(groups)))
+    first = torch.ones_like(heads, dtype=torch.bool)
+    first[1:] = heads[1:] != heads[:-1]
+    gx = torch.cumsum(first.to(torch.int64), 0) - 1
+    with span(SYNC):
+        G = int(first.sum())
+    n_rows = int(rows.numel())
+    Gmax = _pow2(max(1, G))
     Rp = _pow2(max(1, n_rows))
-    grp_rows = np.zeros(Rp, np.int64)
-    grp_gid = np.full(Rp, Gmax, np.int64)
-    row_gid = np.full(N, Gmax, np.int64)
-    i = 0
-    for gx, (h, rows_h) in enumerate(sorted(groups.items())):
-        for r in rows_h:
-            grp_rows[i] = r
-            grp_gid[i] = gx
-            row_gid[r] = gx
-            i += 1
-    Km = _pow2(int(ldeg[list(groups)].max()) if groups else 1)
+    grp_rows = torch.zeros(Rp, dtype=torch.int64, device=dev)
+    grp_gid = torch.full((Rp,), Gmax, dtype=torch.int64, device=dev)
+    row_gid = torch.full((N,), Gmax, dtype=torch.int64, device=dev)
+    grp_rows[:n_rows] = rows
+    grp_gid[:n_rows] = gx
+    row_gid[rows] = gx
+    with span(SYNC):
+        Km = _pow2(int(ldeg[heads[first]].max()) if G else 1)
     return MirrorPlan(
-        primary_row=_tensor(prow, np.int32, device),
-        ldeg=_tensor(ldeg, np.int32, device),
-        primary_mask=_tensor(primary_mask, bool, device),
-        grp_rows=_tensor(grp_rows, np.int32, device),
-        grp_gid=_tensor(grp_gid, np.int32, device),
-        row_gid=_tensor(row_gid, np.int32, device),
+        primary_row=prow.to(device, torch.int32),
+        ldeg=ldeg.to(device, torch.int32),
+        primary_mask=primary_mask.to(device),
+        grp_rows=grp_rows.to(device, torch.int32),
+        grp_gid=grp_gid.to(device, torch.int32),
+        row_gid=row_gid.to(device, torch.int32),
         Gmax=Gmax, Km=Km, threshold=int(threshold),
         n_logical=int(n_logical), uid=_next_uid(),
     )
@@ -299,12 +481,15 @@ def grow_plan(plan: MirrorPlan, rekey: np.ndarray, g2: GraphBlocks
     the canonical within-group row order survive; the result is a fresh
     plan (new tensors, new uid).  Host-side.
     """
-    groups = {int(rekey[h]): [int(rekey[r]) for r in rs]
-              for h, rs in groups_of(plan).items()}
-    ldeg = relocate_rows(plan.ldeg.cpu().numpy(), rekey, g2.N, 0)
-    return _plan_from_groups(
-        N=g2.N, deg_logical_of_row=ldeg, mask=g2.node_mask.cpu().numpy(),
-        groups=groups, threshold=plan.threshold, n_logical=plan.n_logical,
+    rekey = np.asarray(rekey, np.int64)
+    heads, rows = group_arrays(plan)
+    with span(SYNC):
+        ldeg = relocate_rows(plan.ldeg.cpu().numpy(), rekey, g2.N, 0)
+    with span(SYNC):
+        mask = g2.node_mask.cpu().numpy()
+    return _plan_from_entries(
+        g2.N, ldeg, mask, rekey[heads], rekey[rows],
+        threshold=plan.threshold, n_logical=plan.n_logical,
         device=g2.device)
 
 
@@ -333,47 +518,99 @@ def apply_mirrored_edits(
     they were, also when an edit raises (`ValueError` for a bad edit,
     `CapacityError` when no padding row is left for a replica).  Empty
     replicas left behind by deletes are kept: every merge ignores them.
-    Host-side.
+
+    Only the rows of the edits' endpoints cross to the host, where the
+    splices run in order; the graph and the plan are then copied on
+    their device with those rows written back, and the plan's groups
+    re-listed there (each primary first, then its rows ascending, then
+    the replicas made here in the order they were made).
     """
-    a = g2.to_numpy()
-    nbr = a["nbr"].astype(np.int64)
-    deg = a["deg"].astype(np.int64)
-    mask = a["node_mask"].copy()
-    orig = a["orig_id"].astype(np.int64)
-    prow = plan.primary_row.cpu().numpy().astype(np.int64)
-    ldeg = plan.ldeg.cpu().numpy().astype(np.int64)
-    N, Cn, Cd2 = g2.N, g2.Cn, g2.Cd
-    groups = groups_of(plan)
-    free = _free_rows(mask, Cn, g2.P)
+    with span(MIRROR_EDITS):
+        return _apply_mirrored_edits(g2, plan, list(edits))
+
+
+def _host(x: torch.Tensor) -> np.ndarray:
+    """One host read of a device value, as int64 numpy."""
+    with span(SYNC):
+        return x.cpu().numpy().astype(np.int64)
+
+
+def _group_rows(plan: MirrorPlan, ids: np.ndarray) -> Dict[int, List[int]]:
+    """{primary: [its rows, primary first, then ascending]} for the
+    primaries `ids` (a single-row vertex gets [itself]): the plan's
+    entries are listed group by group, so each group is one slice."""
+    dev = plan.grp_rows.device
+    gid = _host(plan.row_gid[torch.as_tensor(ids, device=dev)])
+    live = gid < plan.Gmax
+    out = {int(u): [int(u)] for u in ids[~live]}
+    if live.any():
+        q = torch.as_tensor(gid[live], device=dev, dtype=plan.grp_gid.dtype)
+        lo = _host(torch.searchsorted(plan.grp_gid, q))
+        hi = _host(torch.searchsorted(plan.grp_gid, q, right=True))
+        at = np.concatenate([np.arange(a, b) for a, b in zip(lo, hi)])
+        rows = _host(plan.grp_rows[torch.as_tensor(at, device=dev)])
+        for u, part in zip(ids[live], np.split(rows, np.cumsum(hi - lo)[:-1])):
+            out[int(u)] = [int(u)] + sorted(int(r) for r in part if r != u)
+    return out
+
+
+def _apply_mirrored_edits(g2, plan, edits):
+    N, Cn, Cd2, dev = g2.N, g2.Cn, g2.Cd, g2.device
+    edits = [(int(u), int(v), int(op)) for u, v, op in edits]
+    ends = np.unique(np.asarray([x for e in edits for x in e[:2]], np.int64))
+    ids = ends[(ends >= 0) & (ends < N)]
+    at = torch.as_tensor(ids, device=dev)
+    primary = dict(zip(ids.tolist(), (
+        (_host(g2.node_mask[at]) == 1)
+        & (_host(plan.primary_row[at]) == ids)).tolist()))
+    groups = _group_rows(plan, ids[np.asarray(
+        [primary[x] for x in ids.tolist()], bool)])
+    # the rows the edits can touch, on the host: their slots and lengths
+    touched = sorted({r for rs in groups.values() for r in rs})
+    local = {r: i for i, r in enumerate(touched)}
+    rows_t = torch.as_tensor(np.asarray(touched, np.int64), device=dev)
+    with span(SYNC):
+        nbr = g2.nbr[rows_t].cpu().numpy().copy()
+    deg = _host(g2.deg[rows_t])
+    ldeg = {u: int(d) for u, d in zip(groups, _host(plan.ldeg[torch.as_tensor(
+        np.asarray(list(groups), np.int64), device=dev)]))}
+    #: replicas made here, per primary, in the order they were made
+    added: Dict[int, List[int]] = {}
+    free: Optional[_FreeRows] = None  # the padding rows, read at first need
 
     def rows_of(u: int) -> List[int]:
-        return groups.get(u, [u])
+        return groups[u] + added.get(u, [])
 
     def edge_pair(u: int, v: int) -> Optional[Tuple[int, int]]:
         """The (row_u, row_v) holding edge (u, v), or None if absent."""
-        rv_set = set(rows_of(v))
-        for ru in rows_of(u):
-            for x in nbr[ru, :deg[ru]]:
-                if int(x) in rv_set:
-                    return ru, int(x)
-        return None
+        ru = [local[r] for r in rows_of(u)]
+        slots = nbr[ru]
+        hit = np.isin(slots, rows_of(v)) & (
+            np.arange(Cd2)[None, :] < deg[ru][:, None])
+        if not hit.any():
+            return None
+        i, j = np.unravel_index(int(np.argmax(hit)), hit.shape)
+        return rows_of(u)[i], int(slots[i, j])
 
     def route(u: int, pref_block: int) -> int:
         """Row of u taking one more neighbor; allocates a replica if full."""
-        for r in rows_of(u):
-            if deg[r] < Cd2:
-                return r
+        nonlocal nbr, deg, free
+        rows = rows_of(u)
+        room = np.flatnonzero(deg[[local[r] for r in rows]] < Cd2)
+        if room.size:
+            return rows[int(room[0])]
+        if free is None:
+            free = _FreeRows(_host(g2.node_mask) == 1, Cn, g2.P)
         r = _alloc_replica(free, pref_block, u // Cn)
-        mask[r] = True
-        orig[r] = orig[u]
-        prow[r] = u
-        groups[u] = rows_of(u) + [r]
+        local[r] = len(local)
+        nbr = np.vstack([nbr, np.full((1, Cd2), PAD, nbr.dtype)])
+        deg = np.r_[deg, 0]
+        added.setdefault(u, []).append(r)
         return r
 
     for u, v, op in edits:
-        u, v, op = int(u), int(v), int(op)
         for x in (u, v):
-            if not (0 <= x < N) or not mask[x] or prow[x] != x:
+            if not primary.get(x, False):
                 raise ValueError(f"{x} is not a primary row of a real node")
         if u == v:
             raise ValueError(f"self-loop on {u}")
@@ -383,30 +620,64 @@ def apply_mirrored_edits(
                 raise ValueError(f"edge ({u}, {v}) already present")
             ru = route(u, v // Cn)
             rv = route(v, ru // Cn)
-            _sorted_slice_insert(nbr[ru], int(deg[ru]), rv)
-            _sorted_slice_insert(nbr[rv], int(deg[rv]), ru)
-            deg[ru] += 1
-            deg[rv] += 1
-            ldeg[rows_of(u)] += 1
-            ldeg[rows_of(v)] += 1
+            _sorted_slice_insert(nbr[local[ru]], int(deg[local[ru]]), rv)
+            _sorted_slice_insert(nbr[local[rv]], int(deg[local[rv]]), ru)
+            deg[local[ru]] += 1
+            deg[local[rv]] += 1
+            ldeg[u] += 1
+            ldeg[v] += 1
         elif op < 0:
             if pair is None:
                 raise ValueError(f"edge ({u}, {v}) not present")
             ru, rv = pair
-            _sorted_slice_delete(nbr[ru], int(deg[ru]), rv)
-            _sorted_slice_delete(nbr[rv], int(deg[rv]), ru)
-            deg[ru] -= 1
-            deg[rv] -= 1
-            ldeg[rows_of(u)] -= 1
-            ldeg[rows_of(v)] -= 1
+            _sorted_slice_delete(nbr[local[ru]], int(deg[local[ru]]), rv)
+            _sorted_slice_delete(nbr[local[rv]], int(deg[local[rv]]), ru)
+            deg[local[ru]] -= 1
+            deg[local[rv]] -= 1
+            ldeg[u] -= 1
+            ldeg[v] -= 1
         else:
             raise ValueError(f"op must be +1/-1, got {op}")
 
-    g3 = _graph(g2, nbr, deg, mask, orig, Cd2)
-    plan2 = _plan_from_groups(
-        N=N, deg_logical_of_row=ldeg, mask=mask, groups=groups,
-        threshold=plan.threshold, n_logical=plan.n_logical,
-        device=g2.device)
+    # the copies on the device, the edited rows written back
+    rows_all = torch.as_tensor(np.asarray(list(local), np.int64), device=dev)
+    g3 = GraphBlocks(
+        nbr=g2.nbr.clone().index_put_(
+            (rows_all,), torch.as_tensor(nbr, device=dev).to(g2.nbr.dtype)),
+        deg=g2.deg.clone().index_put_(
+            (rows_all,), torch.as_tensor(deg, device=dev).to(g2.deg.dtype)),
+        node_mask=g2.node_mask.clone(), orig_id=g2.orig_id.clone(),
+        P=g2.P, Cn=Cn, Cd=Cd2)
+    new_h = [u for u, rs in added.items() for _ in rs]
+    new_r = [r for rs in added.values() for r in rs]
+    if new_r:
+        nr = torch.as_tensor(new_r, device=dev)
+        g3.node_mask[nr] = True
+        g3.orig_id[nr] = g2.orig_id[torch.as_tensor(new_h, device=dev)]
+    ldeg_row = plan.ldeg.to(torch.int64, copy=True)  # primaries matter
+    if ldeg:
+        ldeg_row[torch.as_tensor(list(ldeg), device=dev)] = torch.as_tensor(
+            list(ldeg.values()), device=dev)
+    # the groups as they were (each primary first, then ascending), then
+    # each primary's new replicas in the order they were made (a primary
+    # split here heads its new group)
+    live = plan.grp_gid < plan.Gmax
+    rows = plan.grp_rows[live].to(torch.int64)
+    heads = plan.primary_row.to(torch.int64)[rows]
+    sub = (rows != heads).to(torch.int64) * N + rows
+    fresh = [u for u in added if len(groups[u]) == 1]
+    heads = torch.cat([heads, torch.as_tensor(fresh + new_h, dtype=torch.int64,
+                                              device=dev)])
+    rows = torch.cat([rows, torch.as_tensor(fresh + new_r, dtype=torch.int64,
+                                            device=dev)])
+    seq = [2 * N + i for u in added for i in range(len(added[u]))]
+    sub = torch.cat([sub, torch.as_tensor([0] * len(fresh) + seq,
+                                          dtype=torch.int64, device=dev)])
+    order = torch.sort(sub, stable=True).indices
+    order = order[torch.sort(heads[order], stable=True).indices]
+    plan2 = _plan_from_entries(
+        N, ldeg_row, g3.node_mask, heads[order], rows[order],
+        threshold=plan.threshold, n_logical=plan.n_logical, device=dev)
     return g3, plan2
 
 

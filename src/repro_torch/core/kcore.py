@@ -64,26 +64,31 @@ def coreness(
 
     `mirror` (a `core.hub_split.MirrorPlan` for a split `g`) runs the
     generic `CorenessBlockProgram` under the vertex-cut dataflow: per-slice
-    h-index partials merge through count histograms, so every row of a
-    replica group carries the hub's coreness, equal at primaries to the
+    h-index partials merge through per-group count segments, so every row
+    of a replica group carries the hub's coreness, equal at primaries to the
     unsplit run."""
     if mirror is not None:
-        from .algorithms import CorenessBlockProgram
-
-        est = ops.run_block_program(g, CorenessBlockProgram(),
-                                    backend=backend, max_steps=max_steps,
-                                    executor=executor, mirror=mirror)
-        return torch.where(g.node_mask, est, 0)
+        return coreness_with_stats(g, max_steps, backend, executor=executor,
+                                   mirror=mirror)[0]
     return ops.coreness_blocks(g, backend=backend, max_steps=max_steps,
                                executor=executor)
 
 
 def coreness_with_stats(
     g: GraphBlocks, max_steps: int = 10_000, backend: str = "auto",
+    executor=None, mirror=None,
 ) -> Tuple[torch.Tensor, int]:
-    """Coreness plus the superstep count (a host int)."""
+    """Coreness plus the superstep count (a host int); `executor` and
+    `mirror` as in `coreness`."""
+    if mirror is not None:
+        from .algorithms import CorenessBlockProgram
+
+        est, steps = ops.run_block_program(
+            g, CorenessBlockProgram(), backend=backend, max_steps=max_steps,
+            with_steps=True, executor=executor, mirror=mirror)
+        return torch.where(g.node_mask, est, 0), steps
     return ops.coreness_blocks(g, backend=backend, max_steps=max_steps,
-                               with_steps=True)
+                               with_steps=True, executor=executor)
 
 
 def max_coreness(g: GraphBlocks) -> int:

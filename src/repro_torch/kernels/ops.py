@@ -519,38 +519,87 @@ def live_loop(
 # ---------------------------------------------------------------------------
 
 
-class MergeIndex(NamedTuple):
+@dataclasses.dataclass
+class MergeIndex:
     """A plan's replica groups in the merge's layout (`merge_index`).
 
-    rows:  (R,) int64 — the rows of every split group.
-    gid:   (R,) int64 — each row's group id, in [0, Gmax).
-    table: (Gmax, S) int64 — each group's rows in the plan's order
-           (primary first), padded with N: S is the most slices a group
-           has.  A group's partials are reduced along its table row, in
-           the same order on every run.
+    rows:    (R,) int64 — the rows of every split group.
+    gid:     (R,) int64 — each row's group id, in [0, Gmax).
+    top:     (Gmax,) int64 — each group's logical degree (0 on pad groups).
+    base:    (Gmax,) int64 — where each group's ``top + 1`` h-index bins
+             start in one flat array of ``bins`` = sum(top + 1).
+    bins:    int — the length of that array.
+    entries: host int64 arrays ``(gid, row)`` of every group entry, by
+             group, each group in the plan's order (primary first).
+    fill:    the row id that pads `table` (one past the rows).
+    table:   (Gmax, S) int64 — each group's rows as `entries` lists them,
+             padded with `fill`: S is the most slices a group has.  A
+             group's partials are reduced along its table row, in the same
+             order on every run.  Made from `entries` at its first read
+             (the min and sum merges read it, the h-index merge never
+             does), then kept.
     """
 
     rows: torch.Tensor
     gid: torch.Tensor
-    table: torch.Tensor
+    top: torch.Tensor
+    base: torch.Tensor
+    bins: int
+    entries: Tuple[np.ndarray, np.ndarray]
+    fill: int
+    _table: Optional[torch.Tensor] = None
+
+    @property
+    def table(self) -> torch.Tensor:
+        if self._table is None:
+            gid, rows = self.entries
+            pos = np.arange(len(gid)) - np.searchsorted(gid, gid)
+            tab = np.full((self.top.shape[0], max(1, pos.max(initial=0) + 1)),
+                          self.fill, np.int64)
+            tab[gid, pos] = rows
+            self._table = torch.from_numpy(tab).to(self.rows.device)
+        return self._table
 
 
 def merge_index(mirror, N: int) -> MergeIndex:
-    """Build a plan's `MergeIndex` on its device: one host read of the
-    plan's (Rp,) group entries, made once per mirrored run."""
-    rows = mirror.grp_rows.cpu().numpy().astype(np.int64)
-    gid = mirror.grp_gid.cpu().numpy().astype(np.int64)
+    """Build a plan's `MergeIndex` on its device: host reads of the plan's
+    (Rp,) group entries, made once per mirrored run."""
+    with span(SYNC):
+        rows = mirror.grp_rows.cpu().numpy().astype(np.int64)
+    with span(SYNC):
+        gid = mirror.grp_gid.cpu().numpy().astype(np.int64)
     live = gid < mirror.Gmax
     order = np.argsort(gid[live], kind="stable")
     rows, gid = rows[live][order], gid[live][order]
-    start = np.searchsorted(gid, gid)  # first entry of each row's group
-    pos = np.arange(len(gid)) - start
-    table = np.full((mirror.Gmax, max(1, int(pos.max(initial=0)) + 1)), N,
-                    np.int64)
-    table[gid, pos] = rows
     dev = mirror.grp_rows.device
-    return MergeIndex(*(torch.from_numpy(a).to(dev)
-                        for a in (rows, gid, table)))
+    rows_d, gid_d = (torch.from_numpy(a).to(dev) for a in (rows, gid))
+    top = torch.zeros(mirror.Gmax, dtype=torch.int64, device=dev)
+    top[gid_d] = mirror.ldeg[rows_d].to(torch.int64)
+    width = top + 1
+    with span(SYNC):
+        bins = int(width.sum())
+    return MergeIndex(rows=rows_d, gid=gid_d, top=top,
+                      base=torch.cumsum(width, 0) - width, bins=bins,
+                      entries=(gid, rows), fill=N)
+
+
+def _segment_hindex(hist: torch.Tensor, base: torch.Tensor,
+                    top: torch.Tensor, steps: int) -> torch.Tensor:
+    """h per group from its count segment ``hist[base : base + top + 1]``
+    (bin b holds the values min(v, top) == b): the largest t in [0, top]
+    with #{v >= t} >= t, by `steps` halvings of [0, top] (cnt_t falls as
+    t rises, so the t that pass form a prefix)."""
+    cum = hist.cumsum(0)
+    total = cum[base + top]
+    lo, hi = torch.zeros_like(top), top.clone()
+    for _ in range(steps):
+        open_ = lo < hi
+        mid = (lo + hi + 1) // 2
+        # #{v >= mid} = total - #{v <= mid - 1}
+        ok = open_ & (total - cum[(base + mid - 1).clamp(min=0)] >= mid)
+        lo, hi = (torch.where(ok, mid, lo),
+                  torch.where(open_ & ~ok, mid - 1, hi))
+    return lo
 
 
 def _mirror_merge(red: torch.Tensor, field: torch.Tensor, nbr: torch.Tensor,
@@ -569,15 +618,16 @@ def _mirror_merge(red: torch.Tensor, field: torch.Tensor, nbr: torch.Tensor,
                repeated runs give the same bits (float sums re-associate
                against the unsplit graph: allclose, not bit-equal);
       hindex — partial h values do not compose, so the merge re-reads
-               the group's neighbor values `field[nbr[rows]]` into one
-               (Gmax, Km + 1) int32 histogram (value v counted in bin
-               min(v, Km), values below 1 in bin 0; integer scatter-adds,
-               order-free), gets cnt_t = #{v >= t} from its prefix sums
-               and reads h = #{t in 1..Km : cnt_t >= t}.  Exact because
-               a merged h-index never exceeds the logical degree <= Km.
-               The JAX package compares every value with every threshold
-               in an (Rp, Cd, Km) cube; this reads Rp * Cd values and
-               writes Gmax * (Km + 1) counts.
+               the group's neighbor values `field[nbr[rows]]` and counts
+               them in the group's own segment of ``top + 1`` bins (value
+               v in bin min(v, top), values below 1 in bin 0; integer
+               scatter-adds, order-free), then reads h = the largest t
+               with cnt_t = #{v >= t} >= t from the segments' prefix sums
+               (`_segment_hindex`).  Exact because a group's slots number
+               its logical degree `top`, so a merged h-index never
+               exceeds it.  The bins number sum(top + 1), the work's own
+               size; the JAX package compares every value with every
+               threshold in an (Rp, Cd, Km) cube.
 
     `index` is the plan's `merge_index` (built here when None).  Only
     live group rows are written: the JAX package drops pad entries by
@@ -588,8 +638,8 @@ def _mirror_merge(red: torch.Tensor, field: torch.Tensor, nbr: torch.Tensor,
     holds the group rows resident in the shard (the table maps the others
     to the fill slot ``red.shape[0]``), and ``all_reduce(table, op)``
     (op "min" or "sum") merges each worker's partial table — the (Gmax,)
-    reductions or the histogram — with one collective, before every
-    worker writes the merged values back to its own group rows.
+    reductions or the bins — with one collective, before every worker
+    writes the merged values back to its own group rows.
     """
     if index is None:
         index = merge_index(mirror, red.shape[0])
@@ -600,19 +650,24 @@ def _mirror_merge(red: torch.Tensor, field: torch.Tensor, nbr: torch.Tensor,
         if all_reduce is not None:
             out = all_reduce(out, combine)
     elif combine == "hindex":
-        Km = int(mirror.Km)
-        nb = nbr[index.rows].long()
-        vals = torch.where(nb >= 0, field[nb.clamp(min=0)], 0).clamp_(0, Km)
-        bins = (index.gid[:, None] * (Km + 1) + vals).reshape(-1)
-        hist = torch.zeros(mirror.Gmax * (Km + 1), dtype=torch.int32,
+        nb = nbr.index_select(0, index.rows)
+        vals = field.index_select(0, nb.clamp(min=0).reshape(-1)).view(
+            nb.shape)
+        vals = torch.where(nb >= 0, vals, 0).clamp_(min=0)
+        del nb
+        vals = torch.minimum(vals, index.top[index.gid][:, None].to(
+            vals.dtype))
+        bins = (index.base[index.gid][:, None] + vals).reshape(-1)
+        del vals
+        hist = torch.zeros(index.bins, dtype=torch.int32,
                            device=red.device).scatter_add_(
-            0, bins, torch.ones_like(bins, dtype=torch.int32))
+            0, bins, torch.ones((), dtype=torch.int32,
+                                device=red.device).expand(bins.shape))
+        del bins
         if all_reduce is not None:
             hist = all_reduce(hist, "sum")
-        # at_most[:, b] = #{v <= b}, so cnt_t = total - at_most[:, t - 1]
-        at_most = hist.view(mirror.Gmax, Km + 1).cumsum(1, dtype=torch.int32)
-        t = torch.arange(1, Km + 1, device=red.device, dtype=torch.int32)
-        out = ((at_most[:, -1:] - at_most[:, :-1]) >= t).sum(dim=1)
+        out = _segment_hindex(hist, index.base, index.top,
+                              int(mirror.Km).bit_length() + 1)
     else:
         raise ValueError(
             f"combine {combine!r} has no mirror merge; count_common routes "

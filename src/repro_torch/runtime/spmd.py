@@ -63,6 +63,7 @@ compiles no step functions.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -425,12 +426,14 @@ class SpmdCorenessProgram(SpmdProgram):
 def _shard_merge_index(index: ops.MergeIndex, lo: int,
                        S: int) -> ops.MergeIndex:
     """A plan's `ops.MergeIndex` restricted to the shard of rows
-    [lo, lo + S): its resident group rows in local ids, and the table with
-    every other entry sent to the fill slot S."""
+    [lo, lo + S): its resident group rows in local ids, and the table's
+    entries with every other row sent to the fill slot S."""
     mine = (index.rows >= lo) & (index.rows < lo + S)
-    local = (index.table >= lo) & (index.table < lo + S)
-    return ops.MergeIndex(index.rows[mine] - lo, index.gid[mine],
-                          torch.where(local, index.table - lo, S))
+    gid, rows = index.entries
+    local = np.where((rows >= lo) & (rows < lo + S), rows - lo, S)
+    return dataclasses.replace(index, rows=index.rows[mine] - lo,
+                               gid=index.gid[mine], entries=(gid, local),
+                               fill=S, _table=None)
 
 
 class SpmdBlockProgram(SpmdProgram):

@@ -87,7 +87,7 @@ from ..core.graph import (
 from ..core.updates import validate_updates
 from ..device import DeviceLike, resolve_device
 from ..kernels.ops import SPMD_BACKEND
-from ..tracing import SYNC, WINDOW, span
+from ..tracing import MIRROR_REFRESH, MIRROR_WINDOW, SYNC, WINDOW, span
 from .halo import _pow2_ceil
 
 
@@ -757,7 +757,10 @@ class MirrorStream:
 
     Duck-types the slice of `StreamSession` the service consumes: `.g`,
     `.core`, `.labels`, `.backend`, `.executor` (always None),
-    `.windows_applied`, `.mirror` and `result()`.  Every graph and plan
+    `.windows_applied`, `.mirror` and `result()`.  `refresh_steps` counts
+    the supersteps of every mirror-aware coreness it ran, the one at open
+    included (`StreamStats` keeps the JAX package's fields, which read 0
+    here).  Every graph and plan
     it holds is made of fresh tensors (the edit path never writes in
     place), and `state_dict` clones besides.
     """
@@ -775,6 +778,7 @@ class MirrorStream:
         self._grows = 0
         #: open-time row ids -> current (grows rekey every row)
         self._remap: Optional[np.ndarray] = None
+        self.refresh_steps = 0
         self._refresh()
 
     @property
@@ -783,13 +787,15 @@ class MirrorStream:
 
     def _refresh(self) -> None:
         """Recompute the maintained analytics mirror-aware."""
-        from ..core.kcore import coreness
+        from ..core.kcore import coreness_with_stats
 
-        self.core = coreness(self.g, backend=self.backend,
-                             mirror=self.mirror)
-        self.labels = (connected_components(self.g, backend=self.backend,
-                                            mirror=self.mirror)
-                       if self._track_labels else None)
+        with span(MIRROR_REFRESH):
+            self.core, steps = coreness_with_stats(
+                self.g, backend=self.backend, mirror=self.mirror)
+            self.refresh_steps += steps
+            self.labels = (connected_components(
+                self.g, backend=self.backend, mirror=self.mirror)
+                if self._track_labels else None)
 
     def grow(self, Cn: Optional[int] = None,
              Cd: Optional[int] = None) -> np.ndarray:
@@ -813,6 +819,10 @@ class MirrorStream:
         the replica pool runs dry."""
         if not window:
             return
+        with span(MIRROR_WINDOW):
+            self._apply_window(window)
+
+    def _apply_window(self, window) -> None:
         if self._remap is not None:
             window = [(int(self._remap[u]), int(self._remap[v]), op)
                       for u, v, op in window]

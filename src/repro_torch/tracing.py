@@ -35,8 +35,20 @@ SEARCH = "bladyg.search"
 RECOMPUTE = "bladyg.recompute"
 #: one host read of a device value
 SYNC = "bladyg.sync"
+#: one window of a hub-split stream (`MirrorStream.apply_window`), its
+#: edits and its refresh nested inside it
+MIRROR_WINDOW = "bladyg.mirror_window"
+#: the edit path of a split graph (`hub_split.apply_mirrored_edits`): the
+#: touched rows' splices on the host and the graph's copy on its device
+MIRROR_EDITS = "bladyg.mirror_edits"
+#: the mirror-aware coreness after a window (`MirrorStream._refresh`)
+MIRROR_REFRESH = "bladyg.mirror_refresh"
 
-#: every span name, with the layer of the port it belongs to
+#: the span names of the stream session and the analytics, with the layer
+#: of the port each belongs to (the benchmark's harness repeats these one
+#: for one; it reads the mirror spans above by name: the hub-split stream's
+#: window and edits are in the stream session, its refresh in k-core
+#: maintenance)
 SPANS = (
     (WINDOW, "stream session"),
     (VALIDATE, "stream session"),

@@ -718,3 +718,357 @@ def test_mirrored_runs_on_gpu_equal_plain(threshold):
         tcore.pagerank(gd, tol=None, max_steps=PR_STEPS, mirror=pd_).cpu(),
         tcore.pagerank(g2, backend="torch", tol=None, max_steps=PR_STEPS,
                        mirror=plan), **RANK_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the split graph built from edges, the segmented h-index merge, the plan
+# assembled in array code, and the mirrored stream's spans
+# ---------------------------------------------------------------------------
+
+
+def _two_hub_edges(n, seed, big, small):
+    """A random sparse graph plus a hub of `big` neighbours and one of
+    `small`: logical degrees that differ by far more than 100x."""
+    rng = np.random.default_rng(seed)
+    e = {tuple(sorted(map(int, p))) for p in rng.integers(0, n, (2 * n, 2))}
+    e |= {(0, v) for v in rng.choice(np.arange(2, n), big, replace=False)}
+    e |= {(1, v) for v in rng.choice(np.arange(2, n), small, replace=False)}
+    return np.array(sorted((u, v) for u, v in e if u != v))
+
+
+@pytest.mark.parametrize("threshold", THRESHOLDS + [3])
+@pytest.mark.parametrize("seed", [3, 11])
+def test_build_split_blocks_equals_split_hubs(threshold, seed):
+    """Bit for bit the port's `split_hubs(build_blocks(...))` and the JAX
+    package's `split_hubs`: graph arrays and every plan array."""
+    n = 110
+    jg, edges, assign = _skewed_graph(n, seed, threshold=threshold)
+    jg2, jplan = jhs.split_hubs(jg, threshold)
+    g2, plan = ths.build_split_blocks(edges, n, assign, 8, threshold,
+                                      node_slack=32, device="cpu")
+    assert_same_graph(g2, jg2)
+    assert_same_plan(plan, jplan)
+    from repro_torch.core.graph import build_blocks
+    w2, wplan = ths.split_hubs(
+        build_blocks(edges, n, assign, 8, node_slack=32, device="cpu"),
+        threshold)
+    for f in ("nbr", "deg", "node_mask", "orig_id"):
+        assert torch.equal(getattr(g2, f), getattr(w2, f)), f
+    for f in ths.MirrorPlan.ARRAYS:
+        assert torch.equal(getattr(plan, f), getattr(wplan, f)), f
+    # edges as a tensor, with loops and repeats, give the same
+    noisy = np.r_[edges, edges[:7, ::-1], [[5, 5]]]
+    g3, plan3 = ths.build_split_blocks(torch.from_numpy(noisy), n,
+                                       torch.from_numpy(assign), 8,
+                                       threshold, node_slack=32,
+                                       device="cpu")
+    assert torch.equal(g3.nbr, g2.nbr)
+    assert torch.equal(plan3.grp_rows, plan.grp_rows)
+
+
+@pytest.mark.parametrize("slack", [0, 4, 9, 17, 30])
+def test_build_split_blocks_follows_the_allocation_fallback(slack):
+    """Blocks of skewed sizes whose padding runs short: where a replica's
+    reader block is full it goes to the hub's block, then to the lowest
+    block with room, as `split_hubs` takes them one by one; where no row
+    is left both raise `CapacityError`."""
+    n, P, t = 120, 5, 3
+    edges = _skewed_edges(n, 7, 6)
+    assign = np.minimum(np.random.default_rng(1).geometric(0.4, n) - 1,
+                        P - 1)
+    jg = jcore.build_blocks(edges, n, assign, P=P, node_slack=slack)
+    want = _raised(lambda: jhs.split_hubs(jg, t))
+    got = _raised(lambda: ths.build_split_blocks(
+        edges, n, assign, P, t, node_slack=slack, device="cpu"))
+    assert (got is None) == (want is None)
+    if want is not None:
+        assert got[1] == want[1] and got[0] == "CapacityError"
+        return
+    jg2, jplan = jhs.split_hubs(jg, t)
+    g2, plan = ths.build_split_blocks(edges, n, assign, P, t,
+                                      node_slack=slack, device="cpu")
+    assert_same_graph(g2, jg2)
+    assert_same_plan(plan, jplan)
+
+
+def test_build_split_blocks_refusals():
+    edges = _skewed_edges(60, 5, 8)
+    with pytest.raises(ValueError, match="threshold must be >= 1"):
+        ths.build_split_blocks(edges, 60, np.zeros(60), 1, 0, device="cpu")
+    with pytest.raises(ValueError, match="overflows node capacity"):
+        ths.build_split_blocks(edges, 60, np.zeros(60), 1, 8, Cn=50,
+                               device="cpu")
+    with pytest.raises(ValueError, match="block ids"):
+        ths.build_split_blocks(edges, 60, np.full(60, 3), 2, 8,
+                               device="cpu")
+    # padding runs out: the message split_hubs gives
+    with pytest.raises(CapacityError, match="no free padding rows"):
+        ths.build_split_blocks(edges, 60, np.arange(60) % 2, 2, 4,
+                               device="cpu")
+
+
+@pytest.mark.parametrize("threshold", [4, 8])
+def test_segmented_hindex_merge_with_degrees_100x_apart(threshold):
+    """Groups of logical degree 1,500 and 12 (and the BA skew's): the
+    merge equals the JAX package's and the brute-force h-index of each
+    group's values, for values past the degree, below 1 and padding."""
+    n = 1700
+    edges = _two_hub_edges(n, 2, 1500, 12)
+    assign = np.random.default_rng(0).integers(0, 4, n)
+    jg = jcore.build_blocks(edges, n, assign, P=4, node_slack=600)
+    jg2, jplan = jhs.split_hubs(jg, threshold)
+    g2, plan = ths.build_split_blocks(edges, n, assign, 4, threshold,
+                                      node_slack=600, device="cpu")
+    lde = {h: int(plan.ldeg[h]) for h in ths.groups_of(plan)}
+    assert max(lde.values()) >= 100 * min(lde.values())
+    rng = np.random.default_rng(threshold)
+    field = rng.integers(-3, 2 * 1500, g2.N).astype(np.int32)
+    red = rng.integers(-3, 50, g2.N).astype(np.int32)
+    got = ops._mirror_merge(torch.from_numpy(red), torch.from_numpy(field),
+                            g2.nbr, plan, "hindex").numpy()
+    want = np.asarray(jops._mirror_merge(
+        jnp.asarray(red), jnp.asarray(field), jg2.nbr, jplan, "hindex"))
+    np.testing.assert_array_equal(got, want)
+    nbr = g2.nbr.numpy()
+    for h, rows in ths.groups_of(plan).items():
+        vals = np.sort(np.concatenate(
+            [field[nbr[r][nbr[r] >= 0]] for r in rows]))[::-1]
+        h_idx = int(np.sum(vals >= np.arange(1, len(vals) + 1)))
+        assert {int(got[r]) for r in rows} == {h_idx}, h
+    # the bins the merge counts in: one more than each group's degree; an
+    # h-index merge never makes the (Gmax, S) table
+    idx = ops.merge_index(plan, g2.N)
+    ops._mirror_merge(torch.from_numpy(red), torch.from_numpy(field),
+                      g2.nbr, plan, "hindex", idx)
+    assert idx._table is None
+    assert idx.bins == sum(d + 1 for d in lde.values()) + (
+        plan.Gmax - len(lde))
+
+
+def test_coreness_only_run_builds_no_merge_table(monkeypatch):
+    """A coreness-only mirrored run never makes its merge index's
+    (Gmax, S) table; a min merge (CC) makes it."""
+    g2, plan = _port_split(8)
+    made = []
+    orig = ops.merge_index
+
+    def spy(*a, **k):
+        made.append(orig(*a, **k))
+        return made[-1]
+
+    monkeypatch.setattr(ops, "merge_index", spy)
+    core = tcore.coreness(g2, backend="torch", mirror=plan)
+    assert len(made) == 1 and made[0]._table is None
+    labels = tcore.connected_components(g2, backend="torch", mirror=plan)
+    assert len(made) == 2 and made[1]._table is not None
+    _, jg2, jplan = _split(8)
+    np.testing.assert_array_equal(
+        core.numpy(), np.asarray(jcore.coreness(jg2, backend="jnp",
+                                                mirror=jplan)))
+    np.testing.assert_array_equal(
+        labels.numpy(), np.asarray(jalg.connected_components(
+            jg2, backend="jnp", mirror=jplan)))
+
+
+@pytest.mark.parametrize("threshold", THRESHOLDS)
+def test_coreness_with_stats_mirror_equals_reference(threshold):
+    """`coreness_with_stats(mirror=)` gives what `coreness(mirror=)` gives
+    and the JAX package's mirrored coreness and superstep count."""
+    _, jg2, jplan = _split(threshold)
+    g2, plan = _port_split(threshold)
+    core, steps = tcore.coreness_with_stats(g2, backend="torch",
+                                            mirror=plan)
+    _, want_steps = jops.run_block_program(
+        jg2, jalg.CorenessBlockProgram(), backend="jnp", with_steps=True,
+        mirror=jplan)
+    np.testing.assert_array_equal(
+        core.numpy(), np.asarray(jcore.coreness(jg2, backend="jnp",
+                                                mirror=jplan)))
+    assert steps == int(want_steps)
+    assert torch.equal(core, tcore.coreness(g2, backend="torch",
+                                            mirror=plan))
+
+
+@pytest.mark.parametrize("extra", [0, 50])
+def test_split_hubs_without_hubs_equals_reference(extra):
+    """A threshold at or above the largest degree splits nothing: the
+    reference's graph and a plan without groups."""
+    jg, _, _ = _split(8)
+    t = int(np.asarray(jg.deg).max()) + extra
+    jg2, jplan = jhs.split_hubs(jg, t)
+    g2, plan = ths.split_hubs(to_port(jg), t)
+    assert_same_graph(g2, jg2)
+    assert_same_plan(plan, jplan)
+    assert plan.n_groups == 0
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_shard_merge_index_table(shards):
+    """A mesh worker's merge table, made from its shard's entries, is the
+    plan's table with every row outside the shard sent to its fill slot
+    and the others in local ids."""
+    from repro_torch.runtime import spmd
+
+    g2, plan = _port_split(8)
+    full = ops.merge_index(plan, g2.N)
+    S = g2.N // shards
+    for lo in range(0, g2.N, S):
+        part = spmd._shard_merge_index(full, lo, S)
+        assert part._table is None
+        t = full.table
+        want = torch.where((t >= lo) & (t < lo + S), t - lo, S)
+        assert torch.equal(part.table, want)
+        rows = full.rows[(full.rows >= lo) & (full.rows < lo + S)] - lo
+        assert torch.equal(part.rows, rows)
+
+
+def _edit_sequence(edges, n, row_of, threshold, seed):
+    """Windows of random edits, the first pushing two vertices over the
+    threshold (two on-line splits in one call)."""
+    cur = set(map(tuple, edges.tolist()))
+    deg = np.bincount(edges.ravel(), minlength=n)
+    rng = np.random.default_rng(seed)
+    small = [int(u) for u in np.argsort(deg) if 0 < deg[u] < threshold][:2]
+    first = []
+    for tgt in small:
+        for v in rng.permutation(n):
+            e = (min(tgt, int(v)), max(tgt, int(v)))
+            if tgt != v and e not in cur and len(
+                    [x for x in first if tgt in x[:2]]) <= threshold:
+                cur.add(e)
+                first.append((tgt, int(v), +1))
+    rest, _ = _random_windows(np.array(sorted(cur)), n,
+                              {u: u for u in range(n)}, k=3, width=7,
+                              seed=seed)
+    return [[(row_of[u], row_of[v], op) for u, v, op in w]
+            for w in [first] + rest]
+
+
+@pytest.mark.parametrize("threshold", [8, 12])
+def test_plan_assembly_equals_reference_over_edits_and_grows(threshold):
+    """The array-built plans (`_plan_from_entries`, `group_arrays`) equal
+    the JAX package's loops after each `apply_mirrored_edits` window and
+    each `grow_plan`, groups split on-line included."""
+    n = 100
+    jg, edges, _ = _skewed_graph(n, 4, threshold=threshold, extra=64)
+    jg2, jplan = jhs.split_hubs(jg, threshold)
+    g2, plan = ths.split_hubs(to_port(jg), threshold)
+    row_of = _row_of(jg2, jplan)
+    windows = _edit_sequence(edges, n, row_of, threshold, seed=threshold)
+    groups0 = plan.n_groups
+    for i, w in enumerate(windows):
+        jg2, jplan = jhs.apply_mirrored_edits(jg2, jplan, w)
+        g2, plan = ths.apply_mirrored_edits(g2, plan, w)
+        assert_same_graph(g2, jg2)
+        assert_same_plan(plan, jplan)
+        assert ths.groups_of(plan) == jhs.groups_of(jplan)
+        if i == 1:
+            jg2, jrekey = jgrow_blocks(jg2, Cn=2 * jg2.Cn)
+            jplan = jhs.grow_plan(jplan, np.asarray(jrekey), jg2)
+            g2, rekey = grow_blocks(g2, Cn=2 * g2.Cn)
+            plan = ths.grow_plan(plan, rekey, g2)
+            assert_same_plan(plan, jplan)
+            row_of = {k: int(rekey[r]) for k, r in row_of.items()}
+            windows[2:] = [[(int(rekey[u]), int(rekey[v]), op)
+                            for u, v, op in w] for w in windows[2:]]
+    assert plan.n_groups >= groups0 + 2
+    heads, rows = ths.group_arrays(plan)
+    assert (np.diff(heads) >= 0).all() and len(rows) == len(set(rows))
+
+
+def _mirror_window_profiled(profiled):
+    from torch.profiler import ProfilerActivity, profile
+
+    g2, plan = _port_split(8)
+    jg, _, _ = _split(8)
+    sess = MirrorStream(g2, plan, backend="torch")
+    steps0 = sess.refresh_steps
+    cur = set(map(tuple, np.asarray(jcore.to_networkx_edges(jg)).tolist()))
+    a, b = next((u, v) for u in range(2, 60) for v in range(u + 1, 60)
+                if (u, v) not in cur)
+    row_of = _row_of(*_split(8)[1:])
+    window = [(row_of[a], row_of[b], +1)]
+    if not profiled:
+        sess.apply_window(window)
+        return sess, steps0, []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        sess.apply_window(window)
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.name().startswith("bladyg.")]
+    return sess, steps0, names
+
+
+def test_mirror_stream_window_spans_and_refresh_steps(monkeypatch):
+    """Under the profiler one `MirrorStream` window is one
+    `bladyg.mirror_window` holding one `bladyg.mirror_edits` and one
+    `bladyg.mirror_refresh`, its host reads in `bladyg.sync`; with none
+    running no span is recorded.  `refresh_steps` adds each refresh's
+    supersteps, and the result is the same either way."""
+    from repro_torch import tracing
+
+    mirror = {tracing.MIRROR_WINDOW, tracing.MIRROR_EDITS,
+              tracing.MIRROR_REFRESH}
+    assert len(mirror) == 3 and all(n.startswith("bladyg.") for n in mirror)
+    assert not mirror & {n for n, _ in tracing.SPANS}
+    on, steps0, names = _mirror_window_profiled(True)
+    counts = {x: names.count(x) for x in set(names)}
+    assert counts[tracing.MIRROR_WINDOW] == 1
+    assert counts[tracing.MIRROR_EDITS] == 1
+    assert counts[tracing.MIRROR_REFRESH] == 1
+    assert counts[tracing.SYNC] > 0
+    assert steps0 > 0 and on.refresh_steps > steps0
+    calls = []
+
+    def spy(*args, **kwargs):
+        calls.append(args)
+        raise AssertionError("a record call with no profiler running")
+
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", spy)
+    off, steps0_off, _ = _mirror_window_profiled(False)
+    assert calls == []
+    assert torch.equal(on.core, off.core)
+    assert on.refresh_steps == off.refresh_steps and steps0 == steps0_off
+    want = tcore.coreness(off.g, backend="torch", mirror=off.mirror)
+    assert torch.equal(off.core, want)
+
+
+class _ReadSizes(torch.overrides.TorchFunctionMode):
+    """Records the element count of every tensor copied to the host."""
+
+    def __init__(self):
+        super().__init__()
+        self.sizes = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if getattr(func, "__name__", "") in ("cpu", "tolist") \
+                and args and isinstance(args[0], torch.Tensor):
+            self.sizes.append(args[0].numel())
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("threshold", [8, 12])
+def test_apply_mirrored_edits_reads_only_the_rows_it_touches(threshold):
+    """A window copies to the host the rows of its endpoints' groups and
+    a few values each, never all of `nbr`; with an on-line split, the
+    node mask once besides.  The result equals the JAX package's."""
+    n = 100
+    jg, edges, _ = _skewed_graph(n, 4, threshold=threshold, extra=64)
+    jg2, jplan = jhs.split_hubs(jg, threshold)
+    g2, plan = ths.split_hubs(to_port(jg), threshold)
+    row_of = _row_of(jg2, jplan)
+    first, second = _edit_sequence(edges, n, row_of, threshold,
+                                   seed=threshold)[:2]
+    made = []
+    for window in (second, first):
+        with _ReadSizes() as seen:
+            g3, plan3 = ths.apply_mirrored_edits(g2, plan, window)
+        rows = {r for u, v, _ in window for x in (u, v)
+                for r in ths.groups_of(plan).get(x, [x])}
+        splits = int(g3.node_mask.sum()) > int(g2.node_mask.sum())
+        made.append(splits)
+        big = [k for k in seen.sizes if k > len(rows) * g2.Cd]
+        assert big == ([g2.N] if splits else []), (big, len(rows))
+        jg3, jplan3 = jhs.apply_mirrored_edits(jg2, jplan, window)
+        assert_same_graph(g3, jg3)
+        assert_same_plan(plan3, jplan3)
+    assert made[1], "the first window splits two vertices on-line"
