@@ -122,11 +122,16 @@ HOST_BOUNDARIES: Dict[str, FrozenSet[str]] = {
     # the sanctioned reads of the kernel layer: the one read per
     # SYNC_EVERY supersteps of a fixpoint (live_loop, minh_fixpoint), the
     # column bound once per fixpoint (column_bound; coreness_dense's K),
-    # and a mirror plan's host merge index, once per run (merge_index)
+    # and a mirror plan's host merge index, once per run that runs a
+    # plain merge (merge_index)
     "repro_torch/kernels/ops.py": frozenset({
         "live_loop", "minh_fixpoint", "column_bound", "coreness_dense",
         "merge_index",
     }),
+    # the count the h-index merge kernel keeps on the card, read only when
+    # a caller asks for it (`int(hindex_mirror.wide_groups)`), never on a
+    # run's path
+    "repro_torch/kernels/mirror_hindex.py": frozenset({"__int__"}),
     # reference oracles are host-side by design
     "repro_torch/kernels/ref.py": frozenset({"*"}),
     # host build and ctypes loading: launches pass addresses and read no

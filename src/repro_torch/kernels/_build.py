@@ -64,6 +64,9 @@ SOURCES = {
     "kcore_hindex": (_P, _P, _P, _L, _I, _P),
     # dense adjacency, f, shared eligible, visited, out, N, R, stream
     "frontier": (_P, _P, _P, _P, _P, _L, _I, _P),
+    # nbr, deg, field, ldeg, grp_rows, offsets, order, nbig, out, wide,
+    # n_groups, ld, stream (the h-index merge of a hub-split graph)
+    "mirror_hindex": (_P,) * 10 + (_L, _I, _P),
 }
 
 

@@ -84,6 +84,8 @@ from .ell_triangles import VARIANTS as TRIANGLE_VARIANTS  # noqa: F401
 from .ell_triangles import neighbor_common_ell
 from .frontier import frontier_step as frontier_step_dense
 from .kcore_hindex import hindex_counts, matmul_f32, row_chunks
+from .mirror_hindex import (GroupLayout, group_layout, hindex_mirror,
+                            hindex_mirror_plain)
 
 BACKENDS = ("torch", "ell", "dense", "ell_spmd")
 
@@ -514,8 +516,9 @@ def live_loop(
 
 # ---------------------------------------------------------------------------
 # Hub mirroring (`core.hub_split`): the merge stage of a mirrored run.
-# Plain PyTorch on every backend, as the JAX package computes it in jnp
-# outside its kernels.
+# The min and sum merges are plain PyTorch on every backend, as the JAX
+# package computes them in jnp outside its kernels; the h-index merge is
+# `hindex_mirror`, a CUDA kernel on a CUDA graph.
 # ---------------------------------------------------------------------------
 
 
@@ -563,7 +566,8 @@ class MergeIndex:
 
 def merge_index(mirror, N: int) -> MergeIndex:
     """Build a plan's `MergeIndex` on its device: host reads of the plan's
-    (Rp,) group entries, made once per mirrored run."""
+    (Rp,) group entries, made once per mirrored run that runs a plain
+    merge (min or sum, or the h-index on a CPU graph or a mesh)."""
     with span(SYNC):
         rows = mirror.grp_rows.cpu().numpy().astype(np.int64)
     with span(SYNC):
@@ -583,29 +587,12 @@ def merge_index(mirror, N: int) -> MergeIndex:
                       entries=(gid, rows), fill=N)
 
 
-def _segment_hindex(hist: torch.Tensor, base: torch.Tensor,
-                    top: torch.Tensor, steps: int) -> torch.Tensor:
-    """h per group from its count segment ``hist[base : base + top + 1]``
-    (bin b holds the values min(v, top) == b): the largest t in [0, top]
-    with #{v >= t} >= t, by `steps` halvings of [0, top] (cnt_t falls as
-    t rises, so the t that pass form a prefix)."""
-    cum = hist.cumsum(0)
-    total = cum[base + top]
-    lo, hi = torch.zeros_like(top), top.clone()
-    for _ in range(steps):
-        open_ = lo < hi
-        mid = (lo + hi + 1) // 2
-        # #{v >= mid} = total - #{v <= mid - 1}
-        ok = open_ & (total - cum[(base + mid - 1).clamp(min=0)] >= mid)
-        lo, hi = (torch.where(ok, mid, lo),
-                  torch.where(open_ & ~ok, mid - 1, hi))
-    return lo
-
-
 def _mirror_merge(red: torch.Tensor, field: torch.Tensor, nbr: torch.Tensor,
                   mirror, combine: str,
                   index: Optional[MergeIndex] = None,
-                  all_reduce: Optional[Callable] = None) -> torch.Tensor:
+                  all_reduce: Optional[Callable] = None,
+                  deg: Optional[torch.Tensor] = None,
+                  layout: Optional[GroupLayout] = None) -> torch.Tensor:
     """Merge per-slice partial aggregates across each hub replica group.
 
     Entries of `red` at group rows are replaced by the LOGICAL aggregate
@@ -618,72 +605,61 @@ def _mirror_merge(red: torch.Tensor, field: torch.Tensor, nbr: torch.Tensor,
                repeated runs give the same bits (float sums re-associate
                against the unsplit graph: allclose, not bit-equal);
       hindex — partial h values do not compose, so the merge re-reads
-               the group's neighbor values `field[nbr[rows]]` and counts
-               them in the group's own segment of ``top + 1`` bins (value
-               v in bin min(v, top), values below 1 in bin 0; integer
-               scatter-adds, order-free), then reads h = the largest t
-               with cnt_t = #{v >= t} >= t from the segments' prefix sums
-               (`_segment_hindex`).  Exact because a group's slots number
-               its logical degree `top`, so a merged h-index never
-               exceeds it.  The bins number sum(top + 1), the work's own
-               size; the JAX package compares every value with every
-               threshold in an (Rp, Cd, Km) cube.
+               the group's neighbor values and takes the h-index of the
+               whole group (`hindex_mirror`): on CUDA tensors the
+               `mirror_hindex` kernel, which reads the rows up to their
+               lengths `deg` (required there) and the groups through
+               `layout` (the plan's `group_layout`, made here when None)
+               and never reads `index`; on CPU tensors, and wherever
+               `all_reduce` is given, the plain version over `index`.
+               Exact because a group's slots number its logical degree,
+               so a merged h-index never exceeds it.
 
-    `index` is the plan's `merge_index` (built here when None).  Only
-    live group rows are written: the JAX package drops pad entries by
-    scattering past the end, which `index_put` would refuse.
+    `index` is the plan's `merge_index` (built here when None and a plain
+    merge reads it).  Only live group rows are written: the JAX package
+    drops pad entries by scattering past the end, which `index_put` would
+    refuse.
 
     On a mesh worker (`runtime.spmd`) `red`, `field` and `nbr` are the
     worker's shard, its exchanged field and its local-frame rows, `index`
     holds the group rows resident in the shard (the table maps the others
     to the fill slot ``red.shape[0]``), and ``all_reduce(table, op)``
     (op "min" or "sum") merges each worker's partial table — the (Gmax,)
-    reductions or the bins — with one collective, before every worker
-    writes the merged values back to its own group rows.
+    reductions or the h-index bins — with one collective, before every
+    worker writes the merged values back to its own group rows.
     """
+    if combine == "hindex" and all_reduce is None:
+        return hindex_mirror(red, field, nbr, deg, mirror, layout, index)
     if index is None:
         index = merge_index(mirror, red.shape[0])
-    if combine in ("min", "sum"):
-        fill = ref._fill(red.dtype) if combine == "min" else 0
-        ext = torch.cat([red, red.new_full((1,), fill)])[index.table]
-        out = ext.amin(dim=1) if combine == "min" else ext.sum(dim=1)
-        if all_reduce is not None:
-            out = all_reduce(out, combine)
-    elif combine == "hindex":
-        nb = nbr.index_select(0, index.rows)
-        vals = field.index_select(0, nb.clamp(min=0).reshape(-1)).view(
-            nb.shape)
-        vals = torch.where(nb >= 0, vals, 0).clamp_(min=0)
-        del nb
-        vals = torch.minimum(vals, index.top[index.gid][:, None].to(
-            vals.dtype))
-        bins = (index.base[index.gid][:, None] + vals).reshape(-1)
-        del vals
-        hist = torch.zeros(index.bins, dtype=torch.int32,
-                           device=red.device).scatter_add_(
-            0, bins, torch.ones((), dtype=torch.int32,
-                                device=red.device).expand(bins.shape))
-        del bins
-        if all_reduce is not None:
-            hist = all_reduce(hist, "sum")
-        out = _segment_hindex(hist, index.base, index.top,
-                              int(mirror.Km).bit_length() + 1)
-    else:
+    if combine == "hindex":
+        return hindex_mirror_plain(red, field, nbr, index, mirror.Km,
+                                   all_reduce)
+    if combine not in ("min", "sum"):
         raise ValueError(
             f"combine {combine!r} has no mirror merge; count_common routes "
             "through core.hub_split.run_common_mirror")
+    fill = ref._fill(red.dtype) if combine == "min" else 0
+    ext = torch.cat([red, red.new_full((1,), fill)])[index.table]
+    out = ext.amin(dim=1) if combine == "min" else ext.sum(dim=1)
+    if all_reduce is not None:
+        out = all_reduce(out, combine)
     return red.index_put((index.rows,), out[index.gid].to(red.dtype))
 
 
-def _mirror_merged(red, field, nbr, mirror, program, index: MergeIndex,
-                   all_reduce: Optional[Callable] = None):
+def _mirror_merged(red, field, nbr, mirror, program,
+                   index: Optional[MergeIndex],
+                   all_reduce: Optional[Callable] = None,
+                   deg: Optional[torch.Tensor] = None,
+                   layout: Optional[GroupLayout] = None):
     """Apply `_mirror_merge` per field of a (possibly multi-) program."""
     if program.combine == "multi":
         return tuple(
-            _mirror_merge(r, f, nbr, mirror, c, index, all_reduce)
+            _mirror_merge(r, f, nbr, mirror, c, index, all_reduce, deg,
+                          layout)
             for r, f, c in zip(red, field, program.combines))
     return _mirror_merge(red, field, nbr, mirror, program.combine, index,
-                         all_reduce)
+                         all_reduce, deg, layout)
 
 
 def _mirror_init_view(g, mirror):
@@ -738,8 +714,9 @@ def run_block_program(
     `hub_split.run_common_mirror`.  Results equal the unsplit graph's
     (bit for bit for the integer combines).
 
-    The real-node count (or, under a mirror, the plan's group entries) is
-    read on the host once per run.
+    The real-node count (and, under a mirror whose merge runs a plain
+    version, the plan's group entries: `merge_index`) is read on the host
+    once per run.
     """
     b = resolve_backend(backend, g.device)
     multi = program.combine == "multi"
@@ -772,7 +749,17 @@ def run_block_program(
         return (state, steps) if with_steps else state
     deg = g.deg.to(torch.int32) if mirror is None else mirror.ldeg
     ctx = BlockCtx(deg=deg, node_mask=g.node_mask, n_real=n_real)
-    index = None if mirror is None else merge_index(mirror, g.N)
+    index = layout = None
+    if mirror is not None:
+        # the merge's inputs, once a run: the group layout the h-index
+        # kernel reads on the card, and the host index where a plain merge
+        # reads it (min, sum; the h-index on a CPU graph)
+        combines = program.combines if multi else (program.combine,)
+        on_card = g.nbr.is_cuda
+        if on_card and "hindex" in combines:
+            layout = group_layout(mirror)
+        if not on_card or any(c != "hindex" for c in combines):
+            index = merge_index(mirror, g.N)
     adj = dense_adj(g, b)
 
     def step(state):
@@ -789,7 +776,8 @@ def run_block_program(
             red = tuple(_combine_dense(adj, f, c, g.Cd)
                         for c, f in zip(program.combines, field))
         if mirror is not None:
-            red = _mirror_merged(red, field, g.nbr, mirror, program, index)
+            red = _mirror_merged(red, field, g.nbr, mirror, program, index,
+                                 deg=g.deg, layout=layout)
         new = program.update(ctx, state, red)
         return new, program.changed(state, new)
 

@@ -411,7 +411,7 @@ def test_cuda_kernel_rule_is_clean_on_the_tree():
     assert port.scan_tree(SRC_ROOT, rules=["cuda-kernel"]) == []
     from repro_torch.kernels import _build
 
-    assert len(_build.SOURCES) == 10
+    assert len(_build.SOURCES) == 11  # the ten ports and mirror_hindex
 
 
 @pytest.mark.parametrize("name", sorted(_MUTATIONS))

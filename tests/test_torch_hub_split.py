@@ -29,6 +29,7 @@ The `cuda` tests hold the kernels against their plain versions on the
 split rows and on the canonical rows, and the mirrored "ell" run on the
 card against the plain run.
 """
+import dataclasses
 import functools
 
 import jax.numpy as jnp
@@ -210,6 +211,125 @@ def test_merge_index_layout():
         assert row[:len(rows)] == rows and set(row[len(rows):]) <= {g2.N}
     assert sorted(idx.rows.tolist()) == sorted(r for rs in groups.values()
                                                for r in rs)
+
+
+def _layout_plans(source):
+    """The plans one way of making them gives: `split_hubs` at every
+    threshold; `build_split_blocks` on the two-hub graph and the skewed
+    one; `apply_mirrored_edits` over windows with two on-line splits;
+    `grow_plan` after an edit window and again after the next one."""
+    if source == "split_hubs":
+        return [_port_split(t)[1] for t in THRESHOLDS]
+    if source == "build_split_blocks":
+        n = 1700
+        assign = np.random.default_rng(0).integers(0, 4, n)
+        plans = [ths.build_split_blocks(_two_hub_edges(n, 2, 1500, 12), n,
+                                        assign, 4, t, node_slack=600,
+                                        device="cpu")[1] for t in (4, 8)]
+        _, edges, assign = _skewed_graph(110, 3, threshold=12)
+        return plans + [ths.build_split_blocks(edges, 110, assign, 8, 12,
+                                               node_slack=32,
+                                               device="cpu")[1]]
+    n = 100
+    jg, edges, _ = _skewed_graph(n, 4, threshold=8, extra=64)
+    g2, plan = ths.split_hubs(to_port(jg), 8)
+    row_of = _row_of(*jhs.split_hubs(jg, 8))
+    plans = []
+    for i, w in enumerate(_edit_sequence(edges, n, row_of, 8, seed=8)):
+        if i and source == "grow_plan":
+            w = [(int(rekey[u]), int(rekey[v]), op) for u, v, op in w]
+        g2, plan = ths.apply_mirrored_edits(g2, plan, w)
+        if source == "grow_plan":
+            g2, step = grow_blocks(g2, Cn=2 * g2.Cn)
+            plan = ths.grow_plan(plan, step, g2)
+            rekey = step if i == 0 else step[rekey]
+        plans.append(plan)
+    return plans
+
+
+LAYOUT_SOURCES = ["split_hubs", "build_split_blocks",
+                  "apply_mirrored_edits", "grow_plan"]
+
+
+@pytest.mark.parametrize("source", LAYOUT_SOURCES)
+def test_plans_list_each_group_whole_primary_first(source):
+    """What the h-index kernel's offsets rest on: `grp_gid` is
+    non-decreasing, its padding (gid Gmax) comes last, and each group's
+    entries start at its primary and hold only its rows."""
+    for plan in _layout_plans(source):
+        gid = plan.grp_gid.numpy().astype(np.int64)
+        rows = plan.grp_rows.numpy().astype(np.int64)
+        prow = plan.primary_row.numpy().astype(np.int64)
+        assert (np.diff(gid) >= 0).all()
+        live = gid < plan.Gmax
+        n_live = int(live.sum())
+        assert live[:n_live].all() and gid[n_live:].tolist() == [
+            plan.Gmax] * (len(gid) - n_live)
+        starts = np.flatnonzero(np.r_[True, np.diff(gid[:n_live]) > 0])
+        for a, b in zip(starts, np.r_[starts[1:], n_live]):
+            head = rows[a]
+            assert prow[head] == head, (a, head)
+            assert (prow[rows[a:b]] == head).all()
+        assert len(starts) == plan.n_groups
+
+
+@pytest.mark.parametrize("source", LAYOUT_SOURCES)
+def test_group_layout_equals_merge_index(source):
+    """The offsets `group_layout` searches out on the device give the
+    groups `merge_index` rebuilds on the host, entry for entry and in the
+    same order; `order` lists the groups by logical degree, largest first,
+    and `nbig` counts those above `WARP_TOP`."""
+    from repro_torch.kernels.mirror_hindex import WARP_TOP, group_layout
+
+    for plan in _layout_plans(source):
+        lay = group_layout(plan)
+        idx = ops.merge_index(plan, plan.primary_row.shape[0])
+        off = lay.offsets.tolist()
+        assert len(off) == plan.Gmax + 1 and off[0] == 0
+        rows = plan.grp_rows.long()
+        for g in range(plan.Gmax):
+            assert torch.equal(rows[off[g]:off[g + 1]],
+                               idx.rows[idx.gid == g]), g
+        top = idx.top[lay.order]
+        assert sorted(lay.order.tolist()) == list(range(plan.Gmax))
+        assert (top[:-1] >= top[1:]).all()
+        assert int(lay.nbig) == int((idx.top > WARP_TOP).sum())
+
+
+def test_group_layout_reads_nothing_on_the_host():
+    """`group_layout` runs on a plan of "meta" tensors, which hold no
+    values: it makes no host read."""
+    from repro_torch.kernels.mirror_hindex import group_layout
+
+    _, plan = _port_split(8)
+    meta = dataclasses.replace(plan, **{
+        f: getattr(plan, f).to("meta") for f in ths.MirrorPlan.ARRAYS})
+    lay = group_layout(meta)
+    assert lay.offsets.shape == (plan.Gmax + 1,)
+    assert lay.order.shape == (plan.Gmax,) and lay.nbig.shape == ()
+
+
+def test_hindex_mirror_on_the_cpu_is_the_plain_merge():
+    """On CPU tensors the wrapper is the plain merge (with or without
+    the plan's index, and with `deg` unread); it refuses another device;
+    the kernel's launch count does not move."""
+    from repro_torch.kernels.mirror_hindex import hindex_mirror
+
+    g2, plan = _port_split(12)
+    rng = np.random.default_rng(5)
+    field = torch.from_numpy(
+        rng.integers(-3, 2 * plan.Km, g2.N).astype(np.int32))
+    red = torch.from_numpy(rng.integers(0, 9, g2.N).astype(np.int32))
+    launches = hindex_mirror.launches
+    want = ops._mirror_merge(red, field, g2.nbr, plan, "hindex")
+    assert torch.equal(hindex_mirror(red, field, g2.nbr, None, plan), want)
+    idx = ops.merge_index(plan, g2.N)
+    assert torch.equal(hindex_mirror(red, field, g2.nbr, g2.deg, plan,
+                                     index=idx), want)
+    assert hindex_mirror.launches == launches
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        hindex_mirror(red.to("meta"), field.to("meta"), g2.nbr.to("meta"),
+                      None, plan)
 
 
 # ---------------------------------------------------------------------------
