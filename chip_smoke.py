@@ -3781,26 +3781,22 @@ def _skew_parity(g2, plan, r):
 
 def _merge_timing(g2, plan, r):
     """Device ms of one mirror merge per combine at this graph's shapes
-    (`ops._mirror_merge` with the run's `merge_index`; the h-index through
-    the `mirror_hindex` kernel, and its plain version beside it), and of
-    the JAX package's (Rp, Cd, Km) comparison cube for the h-index,
-    written out in PyTorch for the record (equal results checked)."""
+    (`tools/mirror_merge_timing.merge_ms`: `ops._mirror_merge` over the
+    plan's `group_layout`, the h-index through the `mirror_hindex` kernel
+    and its plain version beside it), and of the JAX package's (Rp, Cd,
+    Km) comparison cube for the h-index, written out in PyTorch for the
+    record (equal results checked)."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.mirror_hindex import hindex_mirror_plain
+    from repro_torch.kernels.mirror_hindex import group_layout
 
-    t0 = time.perf_counter()
-    idx = ops.merge_index(plan, g2.N)
-    index_s = time.perf_counter() - t0
-    red_i = r["labels"].clone()
-    red_f = r["rank"].clone()
-    out = {"merge_index_host_seconds": index_s}
-    for c, red, field in (("hindex", r["core"], r["core"]),
-                          ("min", red_i, red_i), ("sum", red_f, red_f)):
-        out[f"{c}_ms"] = _time_ms(lambda: ops._mirror_merge(
-            red, field, g2.nbr, plan, c, idx, deg=g2.deg))
-    out["hindex_plain_ms"] = _time_ms(lambda: hindex_mirror_plain(
-        r["core"], r["core"], g2.nbr, idx, plan.Km))
+    sys.path.insert(0, str(ROOT / "tools"))
+    from mirror_merge_timing import merge_ms
+
+    layout = group_layout(plan)
+    out = merge_ms(g2, plan, layout, {
+        "hindex": (r["core"], r["core"]), "min": (r["labels"], r["labels"]),
+        "sum": (r["rank"], r["rank"])}, reps=20)
 
     def cube():
         rows, gid, G = plan.grp_rows.long(), plan.grp_gid.long(), plan.Gmax
@@ -3816,12 +3812,11 @@ def _merge_timing(g2, plan, r):
         return r["core"].index_put((rows[live],), h[live].int())
 
     if not torch.equal(cube(), ops._mirror_merge(
-            r["core"], r["core"], g2.nbr, plan, "hindex", idx, deg=g2.deg)):
+            r["core"], r["core"], g2.nbr, plan, "hindex", deg=g2.deg,
+            layout=layout)):
         raise AssertionError("skew_egofb: the h-index merge differs from "
                              "the comparison cube")
     out["hindex_cube_ms"] = _time_ms(cube, reps=5, warmup=1)
-    out["index_rows"] = int(idx.rows.numel())
-    out["table_shape"] = list(idx.table.shape)
     return out
 
 

@@ -120,13 +120,10 @@ HOST_BOUNDARIES: Dict[str, FrozenSet[str]] = {
         "k_reachable_batch", "_stats", "maintain_batch",
     }),
     # the sanctioned reads of the kernel layer: the one read per
-    # SYNC_EVERY supersteps of a fixpoint (live_loop, minh_fixpoint), the
-    # column bound once per fixpoint (column_bound; coreness_dense's K),
-    # and a mirror plan's host merge index, once per run that runs a
-    # plain merge (merge_index)
+    # SYNC_EVERY supersteps of a fixpoint (live_loop, minh_fixpoint) and
+    # the column bound once per fixpoint (column_bound; coreness_dense's K)
     "repro_torch/kernels/ops.py": frozenset({
         "live_loop", "minh_fixpoint", "column_bound", "coreness_dense",
-        "merge_index",
     }),
     # the count the h-index merge kernel keeps on the card, read only when
     # a caller asks for it (`int(hindex_mirror.wide_groups)`), never on a

@@ -14,28 +14,30 @@ number, so h never exceeds it.  Every other row passes through.
 
 `hindex_mirror` launches `csrc/mirror_hindex.cu` on CUDA tensors (and
 bumps `hindex_mirror.launches`) and runs `hindex_mirror_plain` on CPU
-tensors; any other device raises.  The kernel reads the plan's groups on
-the card: `group_layout` makes, once a run and with no host read, each
-group's start in `grp_rows` (the plan lists its entries group by group,
-`grp_gid` non-decreasing with the padding last) and the order the kernel
-takes the groups in.  It counts each group in shared memory and adds to
+tensors; any other device raises.  Both read the plan's groups through
+one index, `group_layout`, made once a run on the plan's device with no
+host read: each group's start in `grp_rows` (the plan lists its entries
+group by group, `grp_gid` non-decreasing with the padding last), its
+logical degree `top`, and the order the kernel takes the groups in.  The
+min and sum merges (`ops._mirror_merge`) read the same index.  The kernel
+counts each group in shared memory and adds to
 `hindex_mirror.wide_groups`, a count kept on the card, for every group
 whose h climbs past its first window of thresholds (read with ``int()``).
 
 The plain version counts every group's values into the group's own
 segment of ``top + 1`` bins of one flat histogram (value v in bin
 min(max(v, 0), top)), integer scatter-adds in any order, then reads each
-h from the segments' prefix sums by halving [0, top].  It takes the
-plan's host-built `ops.MergeIndex`, and an `all_reduce` that sums the bins
-across a mesh's workers (`runtime.spmd`), which the kernel does not take.
-The JAX package's merge compares every value with every threshold in an
-(Rp, Cd, Km) cube, in jnp outside its kernels: no TPU kernel stands
-behind this one.
+h from the segments' prefix sums by halving [0, top].  The histogram's
+length comes from shapes alone, and it takes an `all_reduce` that sums
+the bins across a mesh's workers (`runtime.spmd`), which the kernel does
+not take.  The JAX package's merge compares every value with every
+threshold in an (Rp, Cd, Km) cube, in jnp outside its kernels: no TPU
+kernel stands behind this one.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -50,10 +52,12 @@ WARP_TOP = 517
 
 @dataclasses.dataclass
 class GroupLayout:
-    """A plan's replica groups as the kernel reads them (`group_layout`).
+    """A plan's replica groups as every merge reads them (`group_layout`).
 
     offsets: (Gmax + 1,) int64 — group g's entries are
              ``grp_rows[offsets[g]:offsets[g + 1]]`` (empty for a pad
+             group).
+    top:     (Gmax,) int64 — each group's logical degree (0 on a pad
              group).
     order:   (Gmax,) int64 — the groups by logical degree, largest first
              (ties in group order): the order the kernel takes them in.
@@ -62,6 +66,7 @@ class GroupLayout:
     """
 
     offsets: torch.Tensor
+    top: torch.Tensor
     order: torch.Tensor
     nbig: torch.Tensor
 
@@ -74,10 +79,31 @@ def group_layout(mirror) -> GroupLayout:
         mirror.Gmax + 1, dtype=gid.dtype, device=gid.device))
     start = offsets[:-1]
     first = mirror.grp_rows[start.clamp(max=gid.numel() - 1)].long()
-    top = torch.where(offsets[1:] > start, mirror.ldeg[first], 0)
+    top = torch.where(offsets[1:] > start, mirror.ldeg[first], 0).long()
     order = torch.sort(top, descending=True, stable=True).indices
-    return GroupLayout(offsets=offsets, order=order,
+    return GroupLayout(offsets=offsets, top=top, order=order,
                        nbig=(top > WARP_TOP).sum())
+
+
+def group_entries(mirror, N: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(row, group) of each of the plan's (Rp,) group entries, int64.  A
+    pad entry's row is N, one past the rows, where a merge reads its fill;
+    its group is its position modulo Gmax, so that the pad entries spread
+    over the groups and no one slot takes them all.  There they add only
+    the fill, 0 or a count in bin 0, which change no group's value."""
+    gid = mirror.grp_gid.long()
+    live = gid < mirror.Gmax
+    spread = torch.arange(gid.numel(), device=gid.device) % mirror.Gmax
+    return (torch.where(live, mirror.grp_rows.long(), N),
+            torch.where(live, gid, spread))
+
+
+def put_groups(red: torch.Tensor, mirror, out: torch.Tensor) -> torch.Tensor:
+    """`red` with each group row set to its group's value in `out`, (Gmax,),
+    by the plan's `row_gid`; a new tensor."""
+    g = mirror.row_gid
+    out = torch.cat([out.to(red.dtype), red.new_zeros(1)])  # Gmax: no group
+    return torch.where(g < mirror.Gmax, out[g], red)
 
 
 class DeviceCount:
@@ -118,54 +144,59 @@ def _segment_hindex(hist: torch.Tensor, base: torch.Tensor,
 
 
 def hindex_mirror_plain(red: torch.Tensor, field: torch.Tensor,
-                        nbr: torch.Tensor, index, Km: int,
+                        nbr: torch.Tensor, mirror, layout: GroupLayout,
                         all_reduce: Optional[Callable] = None
                         ) -> torch.Tensor:
-    """The plain version: `red` with each live group row (`index.rows`, of
-    an `ops.MergeIndex`) replaced by its group's h-index; a new tensor.
-    Re-reads each group row's neighbor values ``field[nbr[rows]]``, counts
-    them in the group's own segment of ``top + 1`` bins and halves [0,
-    top] ``Km.bit_length() + 1`` times.  ``all_reduce(hist, "sum")``, where
-    given, sums the bins across a mesh's workers before h is read."""
-    nb = nbr.index_select(0, index.rows)
+    """The plain version: `red` with each live group row replaced by its
+    group's h-index; a new tensor.  Re-reads each group row's neighbor
+    values ``field[nbr[rows]]``, counts them in the group's own segment of
+    ``top + 1`` bins (`layout.top`) and halves [0, top]
+    ``Km.bit_length() + 1`` times.  Empty slots, pad entries and entries
+    whose row is off the frame (`group_entries`) count in a bin 0, which no
+    h reads.  ``all_reduce(hist, "sum")``, where given, sums the
+    bins across a mesh's workers before h is read."""
+    N, G, Cd = red.shape[0], mirror.Gmax, nbr.shape[1]
+    rows, gid = group_entries(mirror, N)
+    nb = nbr.index_select(0, rows.clamp(max=N - 1))
     vals = field.index_select(0, nb.clamp(min=0).reshape(-1)).view(nb.shape)
-    vals = torch.where(nb >= 0, vals, 0).clamp_(min=0)
+    vals = torch.where((nb >= 0) & (rows < N)[:, None], vals, 0).clamp_(min=0)
     del nb
-    vals = torch.minimum(vals, index.top[index.gid][:, None].to(vals.dtype))
-    bins = (index.base[index.gid][:, None] + vals).reshape(-1)
+    top = layout.top
+    width = top + 1
+    base = width.cumsum(0) - width
+    vals = torch.minimum(vals, top[gid][:, None].to(vals.dtype))
+    bins = (base[gid][:, None] + vals).reshape(-1)
     del vals
-    hist = torch.zeros(index.bins, dtype=torch.int32,
+    # sum(top + 1) <= Rp * Cd + Gmax, as a group's slots number its
+    # degree: a length from shapes alone, the same on every mesh worker
+    hist = torch.zeros(rows.numel() * Cd + G, dtype=torch.int32,
                        device=red.device).scatter_add_(
         0, bins, torch.ones((), dtype=torch.int32,
                             device=red.device).expand(bins.shape))
     del bins
     if all_reduce is not None:
         hist = all_reduce(hist, "sum")
-    out = _segment_hindex(hist, index.base, index.top,
-                          int(Km).bit_length() + 1)
-    return red.index_put((index.rows,), out[index.gid].to(red.dtype))
+    return put_groups(red, mirror, _segment_hindex(
+        hist, base, top, int(mirror.Km).bit_length() + 1))
 
 
 def hindex_mirror(red: torch.Tensor, field: torch.Tensor, nbr: torch.Tensor,
                   deg: Optional[torch.Tensor], mirror,
-                  layout: Optional[GroupLayout] = None,
-                  index=None) -> torch.Tensor:
+                  layout: Optional[GroupLayout] = None) -> torch.Tensor:
     """`red` with every row of every replica group of `mirror` replaced by
     the group's h-index over `field`; a new tensor.
 
-    CUDA tensors launch `csrc/mirror_hindex.cu`: `red` and `field` int32
+    `layout` is the plan's `group_layout` (made here when None).  CUDA
+    tensors launch `csrc/mirror_hindex.cu`: `red` and `field` int32
     (`field` may have more rows than `nbr`), `deg` the split graph's row
-    lengths (`g.deg`, required), `layout` the plan's `group_layout` (made
-    here when None).  CPU tensors take `hindex_mirror_plain` with `index`,
-    the plan's `ops.merge_index` (made here when None).  Both give the
-    same integers.
+    lengths (`g.deg`, required).  CPU tensors take `hindex_mirror_plain`.
+    Both give the same integers.
     """
-    if not on_cuda(nbr, "hindex_mirror"):
-        if index is None:
-            from .ops import merge_index  # lazy: ops imports this module
-
-            index = merge_index(mirror, red.shape[0])
-        return hindex_mirror_plain(red, field, nbr, index, mirror.Km)
+    cuda = on_cuda(nbr, "hindex_mirror")
+    if layout is None:
+        layout = group_layout(mirror)
+    if not cuda:
+        return hindex_mirror_plain(red, field, nbr, mirror, layout)
     check_field(nbr, field, longer=True, name="field")
     check_field(nbr, red, name="red")
     if deg is None:
@@ -176,8 +207,6 @@ def hindex_mirror(red: torch.Tensor, field: torch.Tensor, nbr: torch.Tensor,
         t = getattr(mirror, name)
         if t.dtype != torch.int32 or t.device != nbr.device:
             raise ValueError(f"mirror.{name} must be int32 on {nbr.device}")
-    if layout is None:
-        layout = group_layout(mirror)
     out = red.clone()
     _build.launch("mirror_hindex", nbr.device, nbr.data_ptr(),
                   deg.data_ptr(), field.data_ptr(), mirror.ldeg.data_ptr(),

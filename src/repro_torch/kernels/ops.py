@@ -70,7 +70,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
-import numpy as np
 import torch
 
 from ..tracing import SYNC, span
@@ -84,8 +83,8 @@ from .ell_triangles import VARIANTS as TRIANGLE_VARIANTS  # noqa: F401
 from .ell_triangles import neighbor_common_ell
 from .frontier import frontier_step as frontier_step_dense
 from .kcore_hindex import hindex_counts, matmul_f32, row_chunks
-from .mirror_hindex import (GroupLayout, group_layout, hindex_mirror,
-                            hindex_mirror_plain)
+from .mirror_hindex import (GroupLayout, group_entries, group_layout,
+                            hindex_mirror, hindex_mirror_plain, put_groups)
 
 BACKENDS = ("torch", "ell", "dense", "ell_spmd")
 
@@ -516,80 +515,16 @@ def live_loop(
 
 # ---------------------------------------------------------------------------
 # Hub mirroring (`core.hub_split`): the merge stage of a mirrored run.
-# The min and sum merges are plain PyTorch on every backend, as the JAX
-# package computes them in jnp outside its kernels; the h-index merge is
-# `hindex_mirror`, a CUDA kernel on a CUDA graph.
+# Every merge reads the plan's groups through one index, `group_layout`,
+# made on the plan's device with no host read.  The min and sum merges
+# are plain PyTorch on every backend, as the JAX package computes them in
+# jnp outside its kernels; the h-index merge is `hindex_mirror`, a CUDA
+# kernel on a CUDA graph.
 # ---------------------------------------------------------------------------
-
-
-@dataclasses.dataclass
-class MergeIndex:
-    """A plan's replica groups in the merge's layout (`merge_index`).
-
-    rows:    (R,) int64 — the rows of every split group.
-    gid:     (R,) int64 — each row's group id, in [0, Gmax).
-    top:     (Gmax,) int64 — each group's logical degree (0 on pad groups).
-    base:    (Gmax,) int64 — where each group's ``top + 1`` h-index bins
-             start in one flat array of ``bins`` = sum(top + 1).
-    bins:    int — the length of that array.
-    entries: host int64 arrays ``(gid, row)`` of every group entry, by
-             group, each group in the plan's order (primary first).
-    fill:    the row id that pads `table` (one past the rows).
-    table:   (Gmax, S) int64 — each group's rows as `entries` lists them,
-             padded with `fill`: S is the most slices a group has.  A
-             group's partials are reduced along its table row, in the same
-             order on every run.  Made from `entries` at its first read
-             (the min and sum merges read it, the h-index merge never
-             does), then kept.
-    """
-
-    rows: torch.Tensor
-    gid: torch.Tensor
-    top: torch.Tensor
-    base: torch.Tensor
-    bins: int
-    entries: Tuple[np.ndarray, np.ndarray]
-    fill: int
-    _table: Optional[torch.Tensor] = None
-
-    @property
-    def table(self) -> torch.Tensor:
-        if self._table is None:
-            gid, rows = self.entries
-            pos = np.arange(len(gid)) - np.searchsorted(gid, gid)
-            tab = np.full((self.top.shape[0], max(1, pos.max(initial=0) + 1)),
-                          self.fill, np.int64)
-            tab[gid, pos] = rows
-            self._table = torch.from_numpy(tab).to(self.rows.device)
-        return self._table
-
-
-def merge_index(mirror, N: int) -> MergeIndex:
-    """Build a plan's `MergeIndex` on its device: host reads of the plan's
-    (Rp,) group entries, made once per mirrored run that runs a plain
-    merge (min or sum, or the h-index on a CPU graph or a mesh)."""
-    with span(SYNC):
-        rows = mirror.grp_rows.cpu().numpy().astype(np.int64)
-    with span(SYNC):
-        gid = mirror.grp_gid.cpu().numpy().astype(np.int64)
-    live = gid < mirror.Gmax
-    order = np.argsort(gid[live], kind="stable")
-    rows, gid = rows[live][order], gid[live][order]
-    dev = mirror.grp_rows.device
-    rows_d, gid_d = (torch.from_numpy(a).to(dev) for a in (rows, gid))
-    top = torch.zeros(mirror.Gmax, dtype=torch.int64, device=dev)
-    top[gid_d] = mirror.ldeg[rows_d].to(torch.int64)
-    width = top + 1
-    with span(SYNC):
-        bins = int(width.sum())
-    return MergeIndex(rows=rows_d, gid=gid_d, top=top,
-                      base=torch.cumsum(width, 0) - width, bins=bins,
-                      entries=(gid, rows), fill=N)
 
 
 def _mirror_merge(red: torch.Tensor, field: torch.Tensor, nbr: torch.Tensor,
                   mirror, combine: str,
-                  index: Optional[MergeIndex] = None,
                   all_reduce: Optional[Callable] = None,
                   deg: Optional[torch.Tensor] = None,
                   layout: Optional[GroupLayout] = None) -> torch.Tensor:
@@ -597,68 +532,82 @@ def _mirror_merge(red: torch.Tensor, field: torch.Tensor, nbr: torch.Tensor,
 
     Entries of `red` at group rows are replaced by the LOGICAL aggregate
     of the whole sliced neighborhood; every other row passes through.
-    Returns a new tensor.  Per combine:
+    Returns a new tensor.  `layout` is the plan's `group_layout` (made
+    here when None).  Per combine:
 
-      min    — the group's partials reduced along its `MergeIndex.table`
-               row (the slices partition the neighborhood: exact);
-      sum    — the same with a sum, in the table's fixed row order, so
-               repeated runs give the same bits (float sums re-associate
+      min    — the group's partials gathered in the plan's order and
+               reduced per group (the slices partition the
+               neighborhood: exact);
+      sum    — the same with a sum, each group's partials added in the
+               plan's order by one segmented reduction over
+               `layout.offsets`, so repeated runs, on the CPU and on the
+               card alike, give the same bits (float sums re-associate
                against the unsplit graph: allclose, not bit-equal);
       hindex — partial h values do not compose, so the merge re-reads
                the group's neighbor values and takes the h-index of the
                whole group (`hindex_mirror`): on CUDA tensors the
                `mirror_hindex` kernel, which reads the rows up to their
-               lengths `deg` (required there) and the groups through
-               `layout` (the plan's `group_layout`, made here when None)
-               and never reads `index`; on CPU tensors, and wherever
-               `all_reduce` is given, the plain version over `index`.
-               Exact because a group's slots number its logical degree,
-               so a merged h-index never exceeds it.
+               lengths `deg` (required there); on CPU tensors, and
+               wherever `all_reduce` is given, the plain version.  Exact
+               because a group's slots number its logical degree, so a
+               merged h-index never exceeds it.
 
-    `index` is the plan's `merge_index` (built here when None and a plain
-    merge reads it).  Only live group rows are written: the JAX package
-    drops pad entries by scattering past the end, which `index_put` would
-    refuse.
+    Only group rows are written, each from its group's value by the
+    plan's `row_gid`; a pad entry reads the fill and changes no group's
+    value (`group_entries`), as the JAX package drops pad entries by
+    scattering past the end.
 
     On a mesh worker (`runtime.spmd`) `red`, `field` and `nbr` are the
-    worker's shard, its exchanged field and its local-frame rows, `index`
-    holds the group rows resident in the shard (the table maps the others
-    to the fill slot ``red.shape[0]``), and ``all_reduce(table, op)``
-    (op "min" or "sum") merges each worker's partial table — the (Gmax,)
-    reductions or the h-index bins — with one collective, before every
-    worker writes the merged values back to its own group rows.
+    worker's shard, its exchanged field and its local-frame rows, and
+    `mirror` is the plan seen from the shard: its group rows in local ids,
+    with every row outside the shard sent to ``red.shape[0]``, where it
+    reads the fill, and its `row_gid` the shard's.  ``all_reduce(x, op)``
+    (op "min" or "sum") merges each worker's partials — the reductions per
+    group or the h-index bins — with one collective, before every worker
+    writes the merged values back to its own group rows.
     """
-    if combine == "hindex" and all_reduce is None:
-        return hindex_mirror(red, field, nbr, deg, mirror, layout, index)
-    if index is None:
-        index = merge_index(mirror, red.shape[0])
+    if layout is None:
+        layout = group_layout(mirror)
     if combine == "hindex":
-        return hindex_mirror_plain(red, field, nbr, index, mirror.Km,
+        if all_reduce is None:
+            return hindex_mirror(red, field, nbr, deg, mirror, layout)
+        return hindex_mirror_plain(red, field, nbr, mirror, layout,
                                    all_reduce)
     if combine not in ("min", "sum"):
         raise ValueError(
             f"combine {combine!r} has no mirror merge; count_common routes "
             "through core.hub_split.run_common_mirror")
+    rows, gid = group_entries(mirror, red.shape[0])
     fill = ref._fill(red.dtype) if combine == "min" else 0
-    ext = torch.cat([red, red.new_full((1,), fill)])[index.table]
-    out = ext.amin(dim=1) if combine == "min" else ext.sum(dim=1)
+    vals = torch.cat([red, red.new_full((1,), fill)])[rows]
+    if combine == "min":
+        out = vals.new_full((mirror.Gmax,), fill).scatter_reduce_(
+            0, gid, vals, "amin")
+    elif vals.is_floating_point():
+        # each group's partials added in the plan's order, and no atomics:
+        # on a 2-D input PyTorch's CUDA version gives a group one thread,
+        # as its CPU version does (its 1-D one is cub's, a block a group,
+        # in another order); the pad entries past offsets[Gmax] are not read
+        out = torch.segment_reduce(vals[:, None], "sum",
+                                   offsets=layout.offsets, initial=0,
+                                   unsafe=True)[:, 0]
+    else:  # integer sums are exact in any order
+        out = vals.new_zeros(mirror.Gmax).index_add_(0, gid, vals)
     if all_reduce is not None:
         out = all_reduce(out, combine)
-    return red.index_put((index.rows,), out[index.gid].to(red.dtype))
+    return put_groups(red, mirror, out)
 
 
 def _mirror_merged(red, field, nbr, mirror, program,
-                   index: Optional[MergeIndex],
                    all_reduce: Optional[Callable] = None,
                    deg: Optional[torch.Tensor] = None,
                    layout: Optional[GroupLayout] = None):
     """Apply `_mirror_merge` per field of a (possibly multi-) program."""
     if program.combine == "multi":
         return tuple(
-            _mirror_merge(r, f, nbr, mirror, c, index, all_reduce, deg,
-                          layout)
+            _mirror_merge(r, f, nbr, mirror, c, all_reduce, deg, layout)
             for r, f, c in zip(red, field, program.combines))
-    return _mirror_merge(red, field, nbr, mirror, program.combine, index,
+    return _mirror_merge(red, field, nbr, mirror, program.combine,
                          all_reduce, deg, layout)
 
 
@@ -714,9 +663,9 @@ def run_block_program(
     `hub_split.run_common_mirror`.  Results equal the unsplit graph's
     (bit for bit for the integer combines).
 
-    The real-node count (and, under a mirror whose merge runs a plain
-    version, the plan's group entries: `merge_index`) is read on the host
-    once per run.
+    The real-node count is read on the host, once per run.  Under a
+    mirror the plan's `group_layout`, which every merge reads, is made on
+    its device once a run.
     """
     b = resolve_backend(backend, g.device)
     multi = program.combine == "multi"
@@ -749,17 +698,7 @@ def run_block_program(
         return (state, steps) if with_steps else state
     deg = g.deg.to(torch.int32) if mirror is None else mirror.ldeg
     ctx = BlockCtx(deg=deg, node_mask=g.node_mask, n_real=n_real)
-    index = layout = None
-    if mirror is not None:
-        # the merge's inputs, once a run: the group layout the h-index
-        # kernel reads on the card, and the host index where a plain merge
-        # reads it (min, sum; the h-index on a CPU graph)
-        combines = program.combines if multi else (program.combine,)
-        on_card = g.nbr.is_cuda
-        if on_card and "hindex" in combines:
-            layout = group_layout(mirror)
-        if not on_card or any(c != "hindex" for c in combines):
-            index = merge_index(mirror, g.N)
+    layout = None if mirror is None else group_layout(mirror)
     adj = dense_adj(g, b)
 
     def step(state):
@@ -776,7 +715,7 @@ def run_block_program(
             red = tuple(_combine_dense(adj, f, c, g.Cd)
                         for c, f in zip(program.combines, field))
         if mirror is not None:
-            red = _mirror_merged(red, field, g.nbr, mirror, program, index,
+            red = _mirror_merged(red, field, g.nbr, mirror, program,
                                  deg=g.deg, layout=layout)
         new = program.update(ctx, state, red)
         return new, program.changed(state, new)

@@ -48,8 +48,9 @@ counterpart of `core.engine.BladygEngine.run`): it drives an
 (`HaloPlan.slot_counts`).  `SpmdBlockProgram` runs any
 `core.engine.BlockProgram` there (``backend="ell_spmd"`` of
 `ops.run_block_program`), hub mirroring included: the replica-group
-merge folds each worker's resident group rows into a partial table and
-merges the tables with one `all_reduce` per field (`ops._mirror_merge`).
+merge folds each worker's resident group rows into partials per group
+(`ops._mirror_merge` over the plan's `group_layout`) and merges them with
+one `all_reduce` per field.
 
 Bit-exactness: all math is int32/bool, so `coreness_spmd` equals
 `ops.coreness_blocks` on one device exactly for any worker count,
@@ -76,6 +77,7 @@ from ..core.graph import PAD
 from ..kernels import ops
 from ..kernels.ell_frontier import frontier_step_ell
 from ..kernels.ell_hindex import hindex_ell
+from ..kernels.mirror_hindex import group_layout
 from ..kernels.ops import BlockCtx  # noqa: F401 (the reference's name)
 from ..kernels.ref import combine_rows, hindex_rows  # noqa: F401 (ditto)
 from .halo import HaloPlan, build_halo_plan
@@ -423,17 +425,19 @@ class SpmdCorenessProgram(SpmdProgram):
         return mstate, None, torch.logical_not(summary.any())
 
 
-def _shard_merge_index(index: ops.MergeIndex, lo: int,
-                       S: int) -> ops.MergeIndex:
-    """A plan's `ops.MergeIndex` restricted to the shard of rows
-    [lo, lo + S): its resident group rows in local ids, and the table's
-    entries with every other row sent to the fill slot S."""
-    mine = (index.rows >= lo) & (index.rows < lo + S)
-    gid, rows = index.entries
-    local = np.where((rows >= lo) & (rows < lo + S), rows - lo, S)
-    return dataclasses.replace(index, rows=index.rows[mine] - lo,
-                               gid=index.gid[mine], entries=(gid, local),
-                               fill=S, _table=None)
+def _shard_plan(mirror, lo: int, S: int, device):
+    """(the plan seen from the shard of rows [lo, lo + S), the whole
+    plan's `group_layout`, the shard's logical degrees), on `device`, with
+    no host read.  The view lists the plan's group entries in local ids,
+    every row outside the shard sent to the fill slot S, and the shard's
+    rows' group ids."""
+    m = dataclasses.replace(mirror, **{
+        f: getattr(mirror, f).to(device) for f in mirror.ARRAYS})
+    rows = m.grp_rows.long()
+    local = torch.where((rows >= lo) & (rows < lo + S), rows - lo, S)
+    return (dataclasses.replace(m, grp_rows=local,
+                                row_gid=m.row_gid[lo:lo + S]),
+            group_layout(m), m.ldeg[lo:lo + S].to(torch.int32))
 
 
 class SpmdBlockProgram(SpmdProgram):
@@ -454,6 +458,10 @@ class SpmdBlockProgram(SpmdProgram):
     degrees `mirror.ldeg`, every kernel the split graph's `deg`, and the
     replica-group merge (`ops._mirror_merge` with the executor's
     `all_reduce`) folds per-slice partials between combine and update.
+    The merge reads the whole plan's `group_layout` and the plan seen
+    from the shard (`_shard_plan`, made at first use): an entry whose row
+    is outside the shard reads the fill (min, sum) or counts nothing
+    (h-index).
 
     Hash/eq delegate to the wrapped program, the real-node count and the
     plan's uid, as in the JAX package.
@@ -467,7 +475,8 @@ class SpmdBlockProgram(SpmdProgram):
         self.halo_fill = prog.halo_fill
         self.mirror = mirror
         self.mirror_uid = None if mirror is None else mirror.uid
-        #: the shard's MergeIndex and logical degrees, made at first use
+        #: the plan seen from the shard, its group layout and the shard's
+        #: logical degrees, made at first use
         self._shard_mirror = None
 
     def __hash__(self):
@@ -501,14 +510,12 @@ class SpmdBlockProgram(SpmdProgram):
         deg = ctx.deg
         if self.mirror is not None:
             if self._shard_mirror is None:
-                S, lo, m = ctx.deg.shape[0], ctx.base, self.mirror
-                self._shard_mirror = (
-                    _shard_merge_index(
-                        ops.merge_index(m, m.primary_row.shape[0]), lo, S),
-                    m.ldeg[lo:lo + S].to(ctx.deg.device, torch.int32))
-            index, deg = self._shard_mirror
-            red = ops._mirror_merged(red, field, ctx.rows, self.mirror, prog,
-                                     index, all_reduce=ctx.ex._all_reduce)
+                self._shard_mirror = _shard_plan(
+                    self.mirror, ctx.base, ctx.deg.shape[0], ctx.deg.device)
+            shard, layout, deg = self._shard_mirror
+            red = ops._mirror_merged(red, field, ctx.rows, shard, prog,
+                                     all_reduce=ctx.ex._all_reduce,
+                                     layout=layout)
         bctx = BlockCtx(deg=deg, node_mask=ctx.node_mask, n_real=self.n_real)
         new = prog.update(bctx, state, red)
         return new, prog.changed(state, new).reshape(1)  # per-worker W2M

@@ -201,16 +201,34 @@ def test_mirror_merge_hindex_brute_force():
         assert {int(got[r]) for r in rows} == {want}, h
 
 
-def test_merge_index_layout():
+@pytest.mark.parametrize("entry", ["connected_components", "pagerank"])
+def test_mirrored_runs_read_nothing_of_the_plan_on_the_host(entry):
+    """A mirrored CC and PageRank on the CPU read nothing of the plan on
+    the host: their host reads are the live loop's, one a `SYNC_EVERY`
+    supersteps and the superstep count, and their `bladyg.sync` spans
+    those and the one around the logical node count, which the plan
+    holds as a host int."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tracing
+    from repro_torch.analysis import entrypoints as E
+
     g2, plan = _port_split(12)
-    idx = ops.merge_index(plan, g2.N)
-    groups = ths.groups_of(plan)
-    assert idx.table.shape[0] == plan.Gmax
-    for gx, (h, rows) in enumerate(sorted(groups.items())):
-        row = idx.table[gx].tolist()
-        assert row[:len(rows)] == rows and set(row[len(rows):]) <= {g2.N}
-    assert sorted(idx.rows.tolist()) == sorted(r for rs in groups.values()
-                                               for r in rs)
+    run = {
+        "connected_components": lambda: tcore.connected_components(
+            g2, backend="torch", mirror=plan, with_steps=True),
+        "pagerank": lambda: tcore.pagerank(
+            g2, tol=None, max_steps=PR_STEPS, backend="torch", mirror=plan,
+            with_steps=True),
+    }[entry]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _, steps = run()
+    syncs = sum(e.name() == tracing.SYNC
+                for e in prof.profiler.kineto_results.events())
+    with E.count_host_reads("cpu") as box:
+        run()
+    assert box.count == -(-steps // ops.SYNC_EVERY) + 1
+    assert syncs == box.count + 1
 
 
 def _layout_plans(source):
@@ -274,26 +292,35 @@ def test_plans_list_each_group_whole_primary_first(source):
 
 
 @pytest.mark.parametrize("source", LAYOUT_SOURCES)
-def test_group_layout_equals_merge_index(source):
+def test_group_layout_equals_groups_of(source):
     """The offsets `group_layout` searches out on the device give the
-    groups `merge_index` rebuilds on the host, entry for entry and in the
-    same order; `order` lists the groups by logical degree, largest first,
-    and `nbig` counts those above `WARP_TOP`."""
+    groups `groups_of` lists on the host, each primary first; `top` is
+    each group's logical degree (0 on a pad group); `order` lists the
+    groups by it, largest first and ties in group order, and `nbig`
+    counts those above `WARP_TOP`."""
     from repro_torch.kernels.mirror_hindex import WARP_TOP, group_layout
 
     for plan in _layout_plans(source):
         lay = group_layout(plan)
-        idx = ops.merge_index(plan, plan.primary_row.shape[0])
-        off = lay.offsets.tolist()
+        groups = ths.groups_of(plan)
+        ldeg = plan.ldeg.tolist()
+        off, top = lay.offsets.tolist(), lay.top.tolist()
         assert len(off) == plan.Gmax + 1 and off[0] == 0
-        rows = plan.grp_rows.long()
+        assert lay.top.dtype == torch.int64 and len(top) == plan.Gmax
+        rows = plan.grp_rows.tolist()
+        heads = []
         for g in range(plan.Gmax):
-            assert torch.equal(rows[off[g]:off[g + 1]],
-                               idx.rows[idx.gid == g]), g
-        top = idx.top[lay.order]
-        assert sorted(lay.order.tolist()) == list(range(plan.Gmax))
-        assert (top[:-1] >= top[1:]).all()
-        assert int(lay.nbig) == int((idx.top > WARP_TOP).sum())
+            mine = rows[off[g]:off[g + 1]]
+            if not mine:
+                assert top[g] == 0, g
+                continue
+            heads.append(mine[0])
+            assert sorted(mine) == sorted(groups[mine[0]]), g
+            assert top[g] == ldeg[mine[0]], g
+        assert sorted(heads) == sorted(groups)
+        order = lay.order.tolist()
+        assert order == sorted(range(plan.Gmax), key=lambda g: -top[g])
+        assert int(lay.nbig) == sum(ldeg[h] > WARP_TOP for h in groups)
 
 
 def test_group_layout_reads_nothing_on_the_host():
@@ -306,14 +333,15 @@ def test_group_layout_reads_nothing_on_the_host():
         f: getattr(plan, f).to("meta") for f in ths.MirrorPlan.ARRAYS})
     lay = group_layout(meta)
     assert lay.offsets.shape == (plan.Gmax + 1,)
-    assert lay.order.shape == (plan.Gmax,) and lay.nbig.shape == ()
+    assert lay.top.shape == lay.order.shape == (plan.Gmax,)
+    assert lay.nbig.shape == ()
 
 
 def test_hindex_mirror_on_the_cpu_is_the_plain_merge():
     """On CPU tensors the wrapper is the plain merge (with or without
-    the plan's index, and with `deg` unread); it refuses another device;
+    the plan's layout, and with `deg` unread); it refuses another device;
     the kernel's launch count does not move."""
-    from repro_torch.kernels.mirror_hindex import hindex_mirror
+    from repro_torch.kernels.mirror_hindex import group_layout, hindex_mirror
 
     g2, plan = _port_split(12)
     rng = np.random.default_rng(5)
@@ -323,9 +351,8 @@ def test_hindex_mirror_on_the_cpu_is_the_plain_merge():
     launches = hindex_mirror.launches
     want = ops._mirror_merge(red, field, g2.nbr, plan, "hindex")
     assert torch.equal(hindex_mirror(red, field, g2.nbr, None, plan), want)
-    idx = ops.merge_index(plan, g2.N)
     assert torch.equal(hindex_mirror(red, field, g2.nbr, g2.deg, plan,
-                                     index=idx), want)
+                                     group_layout(plan)), want)
     assert hindex_mirror.launches == launches
     with pytest.raises(ValueError, match="runs on cuda or cpu"):
         hindex_mirror(red.to("meta"), field.to("meta"), g2.nbr.to("meta"),
@@ -932,6 +959,8 @@ def test_segmented_hindex_merge_with_degrees_100x_apart(threshold):
     """Groups of logical degree 1,500 and 12 (and the BA skew's): the
     merge equals the JAX package's and the brute-force h-index of each
     group's values, for values past the degree, below 1 and padding."""
+    from repro_torch.kernels.mirror_hindex import group_layout
+
     n = 1700
     edges = _two_hub_edges(n, 2, 1500, 12)
     assign = np.random.default_rng(0).integers(0, 4, n)
@@ -955,39 +984,53 @@ def test_segmented_hindex_merge_with_degrees_100x_apart(threshold):
             [field[nbr[r][nbr[r] >= 0]] for r in rows]))[::-1]
         h_idx = int(np.sum(vals >= np.arange(1, len(vals) + 1)))
         assert {int(got[r]) for r in rows} == {h_idx}, h
-    # the bins the merge counts in: one more than each group's degree; an
-    # h-index merge never makes the (Gmax, S) table
-    idx = ops.merge_index(plan, g2.N)
-    ops._mirror_merge(torch.from_numpy(red), torch.from_numpy(field),
-                      g2.nbr, plan, "hindex", idx)
-    assert idx._table is None
-    assert idx.bins == sum(d + 1 for d in lde.values()) + (
-        plan.Gmax - len(lde))
+    # the bins the merge counts in: one more than each group's degree,
+    # within the histogram's length from shapes alone
+    lay = group_layout(plan)
+    off, top = lay.offsets.tolist(), lay.top.tolist()
+    heads = plan.grp_rows[lay.offsets[:-1].clamp(max=plan.grp_rows.numel()
+                                                 - 1)].tolist()
+    assert top == [lde[h] if off[g] < off[g + 1] else 0
+                   for g, h in enumerate(heads)]
+    bins = sum(d + 1 for d in lde.values()) + (plan.Gmax - len(lde))
+    assert sum(t + 1 for t in top) == bins
+    assert bins <= plan.grp_rows.numel() * g2.Cd + plan.Gmax
 
 
-def test_coreness_only_run_builds_no_merge_table(monkeypatch):
-    """A coreness-only mirrored run never makes its merge index's
-    (Gmax, S) table; a min merge (CC) makes it."""
+def test_mirrored_runs_make_one_group_layout(monkeypatch):
+    """Coreness, CC and PageRank under a mirror each make the plan's
+    `group_layout` once a run, which every merge of the run reads, and
+    equal the JAX package's mirrored runs."""
+    from repro_torch.kernels import mirror_hindex
+
     g2, plan = _port_split(8)
     made = []
-    orig = ops.merge_index
+    orig = mirror_hindex.group_layout
 
     def spy(*a, **k):
         made.append(orig(*a, **k))
         return made[-1]
 
-    monkeypatch.setattr(ops, "merge_index", spy)
-    core = tcore.coreness(g2, backend="torch", mirror=plan)
-    assert len(made) == 1 and made[0]._table is None
-    labels = tcore.connected_components(g2, backend="torch", mirror=plan)
-    assert len(made) == 2 and made[1]._table is not None
+    monkeypatch.setattr(ops, "group_layout", spy)
+    monkeypatch.setattr(mirror_hindex, "group_layout", spy)
     _, jg2, jplan = _split(8)
+    core = tcore.coreness(g2, backend="torch", mirror=plan)
+    assert len(made) == 1
     np.testing.assert_array_equal(
         core.numpy(), np.asarray(jcore.coreness(jg2, backend="jnp",
                                                 mirror=jplan)))
+    labels = tcore.connected_components(g2, backend="torch", mirror=plan)
+    assert len(made) == 2
     np.testing.assert_array_equal(
         labels.numpy(), np.asarray(jalg.connected_components(
             jg2, backend="jnp", mirror=jplan)))
+    rank = tcore.pagerank(g2, tol=None, max_steps=PR_STEPS, backend="torch",
+                          mirror=plan)
+    assert len(made) == 3
+    np.testing.assert_allclose(
+        rank.numpy(), np.asarray(jcore.pagerank(
+            jg2, tol=None, max_steps=PR_STEPS, backend="jnp", mirror=jplan)),
+        **RANK_TOL)
 
 
 @pytest.mark.parametrize("threshold", THRESHOLDS)
@@ -1023,23 +1066,45 @@ def test_split_hubs_without_hubs_equals_reference(extra):
 
 
 @pytest.mark.parametrize("shards", [2, 4])
-def test_shard_merge_index_table(shards):
-    """A mesh worker's merge table, made from its shard's entries, is the
-    plan's table with every row outside the shard sent to its fill slot
-    and the others in local ids."""
+def test_shard_merge_equals_whole(shards):
+    """Each mesh shard's merge, over the plan seen from the shard, with an
+    `all_reduce` that mins or sums across the shards, gives the
+    single-device merge's rows for min, sum and the h-index.  The sums
+    add whole numbers, so they are exact in any order."""
     from repro_torch.runtime import spmd
 
     g2, plan = _port_split(8)
-    full = ops.merge_index(plan, g2.N)
+    rng = np.random.default_rng(shards)
+    red = {"min": torch.from_numpy(rng.integers(-3, 50, g2.N)
+                                   .astype(np.int32)),
+           "sum": torch.from_numpy(rng.integers(0, 50, g2.N)
+                                   .astype(np.float32)),
+           "hindex": torch.zeros(g2.N, dtype=torch.int32)}
+    field = torch.from_numpy(rng.integers(-2, plan.Km + 6, g2.N)
+                             .astype(np.int32))
     S = g2.N // shards
-    for lo in range(0, g2.N, S):
-        part = spmd._shard_merge_index(full, lo, S)
-        assert part._table is None
-        t = full.table
-        want = torch.where((t >= lo) & (t < lo + S), t - lo, S)
-        assert torch.equal(part.table, want)
-        rows = full.rows[(full.rows >= lo) & (full.rows < lo + S)] - lo
-        assert torch.equal(part.rows, rows)
+    views = [spmd._shard_plan(plan, lo, S, "cpu")
+             for lo in range(0, g2.N, S)]
+    assert len(views) == shards
+    for combine, r in red.items():
+        def merge(i, all_reduce):
+            lo = i * S
+            shard, layout, _ = views[i]
+            return ops._mirror_merge(r[lo:lo + S], field,
+                                     g2.nbr[lo:lo + S], shard, combine,
+                                     all_reduce=all_reduce, layout=layout)
+
+        parts = []
+        for i in range(shards):  # each shard's partials, as sent
+            merge(i, lambda x, op: parts.append((x.clone(), op)) or x)
+        stack = torch.stack([x for x, _ in parts])
+        op = parts[0][1]
+        assert {o for _, o in parts} == {op}
+        whole = stack.amin(0) if op == "min" else stack.sum(0)
+        got = torch.cat([merge(i, lambda x, op: whole.clone())
+                         for i in range(shards)])
+        want = ops._mirror_merge(r, field, g2.nbr, plan, combine)
+        assert torch.equal(got, want), combine
 
 
 def _edit_sequence(edges, n, row_of, threshold, seed):

@@ -3,7 +3,7 @@
 `kernels.mirror_hindex.hindex_mirror` launches `csrc/mirror_hindex.cu` on
 CUDA tensors.  Every test here holds it, bit for bit, against the plain
 merge (`hindex_mirror_plain`, run on the CPU over the plan's
-`ops.merge_index`) and against the brute-force h-index of each group's
+`group_layout`) and against the brute-force h-index of each group's
 whole value multiset, and checks that rows outside every group pass
 through:
 
@@ -16,8 +16,10 @@ through:
 * groups holding replica rows that deletes left empty;
 * field values below 1 and past each group's logical degree;
 * a `MirrorStream` and `fused_analytics` on the card, against the same
-  on the CPU: the kernel launches, and no `merge_index` is made for a
-  coreness-only run.
+  on the CPU: the kernel launches.
+
+The min and sum merges, which read the same group layout, are held on the
+card against the CPU's, bit for bit, and against their own repeat.
 
 Graphs are made by the port's own functions, and nothing here imports JAX.
 Every test needs an NVIDIA GPU (marker `cuda`) and skips without one.
@@ -242,20 +244,15 @@ def _windows(g2, plan, n_windows=4, width=6, seed=0):
     return out
 
 
-def test_mirror_stream_on_the_card_launches_the_kernel(monkeypatch):
+def test_mirror_stream_on_the_card_launches_the_kernel():
     """A `MirrorStream` on the card refreshes coreness through the
-    kernel, one launch a superstep, and makes no `merge_index`; its
-    coreness equals the same windows' on the CPU."""
+    kernel, one launch a superstep; its coreness equals the same windows'
+    on the CPU."""
     g2, plan = _split(_skewed_edges(110, 3, 8), 110, 8, 8, 64)
     windows = _windows(g2, plan)
     cpu = MirrorStream(g2, plan, backend="torch")
     for w in windows:
         cpu.apply_window(w)
-
-    def refuse(*a, **k):
-        raise AssertionError("merge_index made on a coreness-only run")
-
-    monkeypatch.setattr(ops, "merge_index", refuse)
     launches = hindex_mirror.launches
     gd, pd_ = _on(g2, plan, DEV)
     sess = MirrorStream(gd, pd_, backend="ell")
@@ -271,7 +268,7 @@ def test_mirror_stream_on_the_card_launches_the_kernel(monkeypatch):
 @pytest.mark.parametrize("threshold", THRESHOLDS)
 def test_fused_analytics_under_a_mirror_on_the_card(threshold):
     """The fused loop's h-index field merges through the kernel, its min
-    and sum fields through the plan's table: coreness and labels equal
+    and sum fields through the plan's group layout: coreness and labels equal
     the CPU's, ranks allclose."""
     g2, plan = _split(_skewed_edges(110, 3, threshold), 110, 8, threshold,
                       32)
@@ -287,3 +284,22 @@ def test_fused_analytics_under_a_mirror_on_the_card(threshold):
         assert torch.equal(
             tcore.coreness(gd, backend=backend, mirror=pd_).cpu(),
             tcore.coreness(g2, backend="torch", mirror=plan))
+
+
+@pytest.mark.parametrize("combine", ["min", "sum"])
+def test_min_and_sum_merges_on_the_card_equal_the_cpu(combine):
+    """The min and sum merges on the card read the same group layout as
+    the h-index kernel and give the CPU's values, the float sums too (each
+    group's partials added in the plan's order on both), with the same
+    bits on a repeat run."""
+    g2, plan = _split(_skewed_edges(110, 3, 12), 110, 8, 12, 32)
+    gd, pd_ = _on(g2, plan, DEV)
+    rng = np.random.default_rng(7)
+    red = torch.from_numpy(rng.random(g2.N).astype(np.float32)
+                           if combine == "sum" else
+                           rng.integers(-3, 50, g2.N).astype(np.int32))
+    want = ops._mirror_merge(red, red, g2.nbr, plan, combine)
+    rd = red.to(DEV)
+    got = ops._mirror_merge(rd, rd, gd.nbr, pd_, combine)
+    assert torch.equal(got, ops._mirror_merge(rd, rd, gd.nbr, pd_, combine))
+    assert torch.equal(got.cpu(), want)

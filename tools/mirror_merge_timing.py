@@ -1,4 +1,4 @@
-"""Time the h-index merge of a hub-split graph at a benchmark cell's shapes.
+"""Time the mirror merges of a hub-split graph at a benchmark cell's shapes.
 
     python3 tools/mirror_merge_timing.py [--workload kron23.mirror_stream]
         [--seed N] [--reps 5]
@@ -10,15 +10,21 @@ relabelled and dealt into blocks by `--seed`, then
 superstep at a time.  In every superstep the combine (`hindex_ell`) runs
 once and the merge twice: through the kernel (`hindex_mirror`, the
 `mirror_hindex` CUDA kernel) and through the plain version
-(`hindex_mirror_plain` over the plan's `merge_index`); the two must give
-the same integers, and the coreness at the fixpoint must equal
-`coreness(mirror=)`'s.  Each is timed with CUDA events, the median of
-`--reps` calls.  Prints one JSON line: the card, the sizes, each
-superstep's milliseconds (the kernel's launch, the clone of the partials
-the wrapper makes, the plain merge, the combine), the groups that took a
-further window (`hindex_mirror.wide_groups`), the merge's least bytes a
-superstep and their time at the card's peak bandwidth, and the seconds to
-make the group layout and the host merge index.
+(`hindex_mirror_plain`), both over the plan's `group_layout`; the two
+must give the same integers, and the coreness at the fixpoint must equal
+`coreness(mirror=)`'s.  Then it runs a mirrored `connected_components`
+twice (the second run's seconds, supersteps and peak device memory; its
+labels must be a fixpoint of one more merged superstep) and times one merge of each
+combine through `ops._mirror_merge` (`merge_ms`, which `chip_smoke.py`
+calls too): min over the labels, sum over random floats, the h-index over
+the coreness, and the plain h-index beside the kernel.  Each time is the
+median of `--reps` calls, with CUDA events.  Prints one JSON line: the
+card, the sizes, each superstep's milliseconds (the kernel's launch, the
+clone of the partials the wrapper makes, the plain merge, the combine),
+the groups that took a further window (`hindex_mirror.wide_groups`), the
+h-index merge's least bytes a superstep and their time at the card's peak
+bandwidth, the milliseconds to make the group layout, the run of
+`connected_components` and the merges of every combine.
 """
 import argparse
 import json
@@ -69,6 +75,25 @@ def timed(fn, reps: int):
     return out, statistics.median(ms)
 
 
+def merge_ms(g2, plan, layout, fields, reps: int) -> dict:
+    """Median device ms of one mirror merge per combine at this graph's
+    shapes, through `ops._mirror_merge` over `layout` (the plan's
+    `group_layout`), and of the plain h-index merge beside the kernel:
+    ``{"min_ms", "sum_ms", "hindex_ms", "hindex_plain_ms"}``.  `fields`
+    maps "min", "sum" and "hindex" to (partials, field)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.mirror_hindex import hindex_mirror_plain
+
+    out = {}
+    for c, (red, field) in fields.items():
+        _, out[f"{c}_ms"] = timed(lambda: ops._mirror_merge(
+            red, field, g2.nbr, plan, c, deg=g2.deg, layout=layout), reps)
+    red, field = fields["hindex"]
+    _, out["hindex_plain_ms"] = timed(lambda: hindex_mirror_plain(
+        red, field, g2.nbr, plan, layout), reps)
+    return out
+
+
 def least_bytes(g2, plan) -> int:
     """What one merge must move at least: the group rows' valid slots,
     the distinct field values they name, each group row's length and id,
@@ -93,7 +118,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
-    from repro_torch.core import coreness
+    from repro_torch.core import connected_components, coreness
     from repro_torch.core.algorithms import CorenessBlockProgram
     from repro_torch.core.engine import BlockCtx
     from repro_torch.kernels import ops
@@ -108,9 +133,6 @@ def main(argv=None) -> int:
     g2, plan = split_graph(a.workload, a.seed, dev)
     torch.cuda.synchronize()
     layout, layout_ms = timed(lambda: group_layout(plan), a.reps)
-    t0 = time.perf_counter()
-    index = ops.merge_index(plan, g2.N)
-    index_s = time.perf_counter() - t0
     prog = CorenessBlockProgram()
     state = prog.mirror_state(prog.init(ops._mirror_init_view(g2, plan)),
                               plan.primary_row)
@@ -129,7 +151,7 @@ def main(argv=None) -> int:
             red, field, g2.nbr, g2.deg, plan, layout), a.reps)
         _, clone_ms = timed(red.clone, a.reps)
         want, plain_ms = timed(lambda: hindex_mirror_plain(
-            red, field, g2.nbr, index, plan.Km), a.reps)
+            red, field, g2.nbr, plan, layout), a.reps)
         if not torch.equal(got, want):
             raise AssertionError(f"superstep {len(steps)}: the kernel and "
                                  "the plain merge differ")
@@ -143,6 +165,24 @@ def main(argv=None) -> int:
     core = torch.where(g2.node_mask, state, 0)
     if not torch.equal(core, coreness(g2, mirror=plan)):
         raise AssertionError("the stepped coreness differs from coreness()")
+    # a mirrored connected_components on the split graph, after a warm-up
+    # run: its labels are a fixpoint of one more merged superstep
+    connected_components(g2, mirror=plan)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    labels, cc_steps = connected_components(g2, mirror=plan, with_steps=True)
+    torch.cuda.synchronize()
+    cc_s = time.perf_counter() - t0
+    cc_peak = torch.cuda.max_memory_allocated(dev)
+    red = ops._mirror_merge(ops.neighbor_combine_blocks(g2, labels, "min"),
+                            labels, g2.nbr, plan, "min", layout=layout)
+    if not bool((torch.minimum(labels, red) == labels)[g2.node_mask].all()):
+        raise AssertionError("the mirrored labels are not a fixpoint")
+    floats = torch.rand(g2.N, device=dev)
+    merges = merge_ms(g2, plan, layout, {
+        "min": (labels, labels), "sum": (floats, floats),
+        "hindex": (core, core)}, a.reps)
     nbytes = least_bytes(g2, plan)
     print(json.dumps(dict(
         workload=a.workload, seed=a.seed, card=card.strip(),
@@ -156,7 +196,9 @@ def main(argv=None) -> int:
         combine_ms_sum=sum(s["combine_ms"] for s in steps),
         least_bytes=nbytes, bound_ms=nbytes / PEAK_BYTES_S * 1e3,
         wide_groups=wide, group_layout_ms=layout_ms,
-        merge_index_host_s=index_s, steps=steps)))
+        cc_seconds=cc_s, cc_supersteps=cc_steps, cc_peak_bytes=cc_peak,
+        components=int(torch.unique(labels[plan.primary_mask]).numel()),
+        merge_ms=merges, steps=steps)))
     return 0
 
 
