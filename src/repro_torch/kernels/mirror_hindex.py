@@ -23,6 +23,8 @@ min and sum merges (`ops._mirror_merge`) read the same index.  The kernel
 counts each group in shared memory and adds to
 `hindex_mirror.wide_groups`, a count kept on the card, for every group
 whose h climbs past its first window of thresholds (read with ``int()``).
+Since the merge re-reads every group row whole, `skip_group_rows` gives
+the ELL h-index combine before it those rows at length 0.
 
 The plain version counts every group's values into the group's own
 segment of ``top + 1`` bins of one flat histogram (value v in bin
@@ -104,6 +106,23 @@ def put_groups(red: torch.Tensor, mirror, out: torch.Tensor) -> torch.Tensor:
     g = mirror.row_gid
     out = torch.cat([out.to(red.dtype), red.new_zeros(1)])  # Gmax: no group
     return torch.where(g < mirror.Gmax, out[g], red)
+
+
+def skip_group_rows(deg: torch.Tensor, mirror) -> torch.Tensor:
+    """The row lengths an ELL h-index combine takes under a mirrored run:
+    `deg`, the split graph's, with 0 on every live group row (``row_gid <
+    Gmax``); a new tensor, made on the plan's device with no host read.
+
+    The merge writes each of those rows from its group's whole
+    neighbourhood, reading them up to the real `deg`, so the combine's
+    partial there is never read; a row of length 0 costs the kernel one
+    read of its length and one write.  Bumps `skip_group_rows.runs` and
+    adds the rows skipped to `skip_group_rows.rows`, a count on the card.
+    """
+    live = mirror.row_gid < mirror.Gmax
+    skip_group_rows.rows.at(deg.device).add_(live.sum())
+    skip_group_rows.runs += 1
+    return torch.where(live, 0, deg)
 
 
 class DeviceCount:
@@ -223,3 +242,7 @@ def hindex_mirror(red: torch.Tensor, field: torch.Tensor, nbr: torch.Tensor,
 hindex_mirror.launches = 0
 #: groups whose h climbed past the kernel's first window, on the card
 hindex_mirror.wide_groups = DeviceCount()
+#: runs whose combine skipped the live group rows, and the rows skipped
+#: (a count on the card, read with ``int()``)
+skip_group_rows.runs = 0
+skip_group_rows.rows = DeviceCount()

@@ -84,7 +84,8 @@ from .ell_triangles import neighbor_common_ell
 from .frontier import frontier_step as frontier_step_dense
 from .kcore_hindex import hindex_counts, matmul_f32, row_chunks
 from .mirror_hindex import (GroupLayout, group_entries, group_layout,
-                            hindex_mirror, hindex_mirror_plain, put_groups)
+                            hindex_mirror, hindex_mirror_plain, put_groups,
+                            skip_group_rows)
 
 BACKENDS = ("torch", "ell", "dense", "ell_spmd")
 
@@ -657,15 +658,20 @@ def run_block_program(
     init runs against the logical degree/mask view, the state replicates
     onto mirror rows (`program.mirror_state`), the update's ctx carries
     the LOGICAL degrees `mirror.ldeg` and vertex count while every kernel
-    keeps the split graph's row lengths `g.deg`, and `_mirror_merge`
-    folds per-slice partials per replica group between combine and
-    update.  "count_common" programs route through
-    `hub_split.run_common_mirror`.  Results equal the unsplit graph's
-    (bit for bit for the integer combines).
+    reads the split graph's row lengths `g.deg` (the h-index combine's
+    with the group rows at 0, below), and `_mirror_merge` folds
+    per-slice partials per replica group between combine and update.
+    "count_common" programs route through `hub_split.run_common_mirror`.
+    Results equal the unsplit graph's (bit for bit for the integer
+    combines).
 
     The real-node count is read on the host, once per run.  Under a
     mirror the plan's `group_layout`, which every merge reads, is made on
-    its device once a run.
+    its device once a run, and an "hindex" combine on "ell" takes the
+    row lengths `skip_group_rows` makes once a run: 0 on every live group
+    row, which the merge rewrites from the group's whole neighbourhood.
+    The "min" and "sum" merges fold the group rows' partials, and a
+    "multi" program gives its fields one `deg`, so those keep `g.deg`.
     """
     b = resolve_backend(backend, g.device)
     multi = program.combine == "multi"
@@ -700,11 +706,16 @@ def run_block_program(
     ctx = BlockCtx(deg=deg, node_mask=g.node_mask, n_real=n_real)
     layout = None if mirror is None else group_layout(mirror)
     adj = dense_adj(g, b)
+    # the combine's view of g: the h-index merge re-reads every live group
+    # row whole, so the ELL h-index before it skips them (`skip_group_rows`)
+    cg = g
+    if mirror is not None and program.combine == "hindex" and b == "ell":
+        cg = dataclasses.replace(g, deg=skip_group_rows(g.deg, mirror))
 
     def step(state):
         field = program.halo_field(state)
         if not multi:
-            red = neighbor_combine_blocks(g, field, program.combine, b,
+            red = neighbor_combine_blocks(cg, field, program.combine, b,
                                           adj=adj)
         elif b == "torch":
             red = neighbor_multi_ell_plain(g.nbr, field, program.combines)

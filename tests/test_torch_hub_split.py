@@ -21,13 +21,18 @@ thresholds 8, 12 and 16 — go through `repro.core.hub_split` and
   reference and atol=1e-5 against the unsplit graph (the reference's own
   bar);
 * the ELL kernels get the split graph's row lengths `g.deg`, never the
-  logical degrees `ldeg` (a spy on the wrappers);
+  logical degrees `ldeg` (a spy on the wrappers); a mirrored coreness's
+  h-index combine on "ell" gets them with 0 on exactly the rows the merge
+  writes, on a plan as split, after an on-line split, after deletes that
+  empty a replica and after `grow_plan`, and only that run moves the
+  skip counters;
 * `MirrorStream` windows (with an in-flight auto-grow and an explicit
   grow) keep the reference's graph, plan, core, labels and stats.
 
 The `cuda` tests hold the kernels against their plain versions on the
 split rows and on the canonical rows, and the mirrored "ell" run on the
-card against the plain run.
+card against the plain run (`test_torch_mirror_hindex.py` holds the
+coreness that skips the group rows on the card).
 """
 import dataclasses
 import functools
@@ -53,6 +58,7 @@ from repro_torch.core import algorithms as talg
 from repro_torch.core import hub_split as ths
 from repro_torch.core.graph import CapacityError, grow_blocks
 from repro_torch.kernels import ops
+from repro_torch.kernels.mirror_hindex import hindex_mirror, skip_group_rows
 from repro_torch.runtime.stream import MirrorStream, StreamSession
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -468,8 +474,10 @@ def test_mirrored_superstep_counts_equal_reference():
 
 def test_kernels_get_row_lengths_not_logical_degrees(monkeypatch):
     """Under a mirror the update reads `ldeg` (up to the hub degree) and
-    every ELL kernel `g.deg` (at most the threshold): a kernel handed
-    `ldeg` would read past its row.  Spies on the wrappers ops calls."""
+    every ELL kernel `g.deg` (at most the threshold), the h-index
+    combine's with the live group rows at 0 (the merge rewrites them): a
+    kernel handed `ldeg` would read past its row.  Spies on the wrappers
+    ops calls."""
     g2, plan = _port_split(8)
     assert not torch.equal(plan.ldeg, g2.deg)
     seen = []
@@ -491,8 +499,130 @@ def test_kernels_get_row_lengths_not_logical_degrees(monkeypatch):
     names = {n for n, _ in seen}
     assert names == {"neighbor_min_ell", "neighbor_sum_ell", "hindex_ell",
                      "neighbor_common_ell", "neighbor_multi_ell"}
+    skipped = torch.where(plan.row_gid < plan.Gmax, 0, g2.deg)
+    assert not torch.equal(skipped, g2.deg)
     for name, deg in seen:
-        assert deg is not None and torch.equal(deg, g2.deg), name
+        want = skipped if name == "hindex_ell" else g2.deg
+        assert deg is not None and torch.equal(deg, want), name
+
+
+SKIP_STATES = ["split", "online_split", "emptied_replica", "grown",
+               "hubs_off_row_0"]
+
+
+def _plan_in_state(state, threshold):
+    """A hub-split graph and its plan at `threshold`: as split, after an
+    on-line split (and a mirrored delete), after deletes that leave a
+    replica with no slot, relocated by `grow_plan`, or split with no
+    group row at row 0 (the row `grp_rows` pads with)."""
+    if state == "hubs_off_row_0":
+        n = 110
+        edges = _skewed_edges(n, 3, threshold)
+        hub = np.bincount(edges.ravel(), minlength=n) > threshold
+        assign = np.random.default_rng(3).integers(0, 8, n)
+        jg = jcore.build_blocks(edges, n, np.where(hub, 1 + assign % 7,
+                                                   assign),
+                                P=8, node_slack=32)
+        g2, plan = ths.split_hubs(to_port(jg), threshold)
+        assert int(plan.row_gid[0]) == plan.Gmax and int(g2.deg[0]) > 0
+        assert bool((plan.grp_gid == plan.Gmax).any())
+        return g2, plan
+    if state == "online_split":
+        n = 100
+        jg, edges, _ = _skewed_graph(n, 5, threshold=threshold, extra=32)
+        jg2, jplan = jhs.split_hubs(jg, threshold)
+        g2, plan = ths.split_hubs(to_port(jg), threshold)
+        edits, _, _ = _online_edits(edges, n, threshold, _row_of(jg2, jplan))
+        g3, plan3 = ths.apply_mirrored_edits(g2, plan, edits)
+        assert plan3.n_groups > plan.n_groups
+        return g3, plan3
+    g2, plan = _port_split(threshold)
+    if state == "emptied_replica":
+        hub, rows = next((h, r) for h, r in ths.groups_of(plan).items()
+                         if len(r) >= 2)
+        r, prow = rows[-1], plan.primary_row
+        edits = [(hub, int(prow[x]), -1)
+                 for x in g2.nbr[r, :int(g2.deg[r])].tolist()]
+        g3, plan3 = ths.apply_mirrored_edits(g2, plan, edits)
+        assert int(g3.deg[r]) == 0 and int(plan3.row_gid[r]) < plan3.Gmax
+        return g3, plan3
+    if state == "grown":
+        g3, rekey = grow_blocks(g2, Cn=2 * g2.Cn)
+        return g3, ths.grow_plan(plan, rekey, g3)
+    return g2, plan
+
+
+def _merge_writes(g, plan, field):
+    """The rows the h-index merge writes, (N,) bool: it rewrites each
+    group row from a fill no h takes."""
+    fill = torch.full((g.N,), -1, dtype=torch.int32, device=g.device)
+    return hindex_mirror(fill, field, g.nbr, g.deg, plan) >= 0
+
+
+def _skip_counts():
+    return skip_group_rows.runs, int(skip_group_rows.rows)
+
+
+@pytest.mark.parametrize("state", SKIP_STATES)
+@pytest.mark.parametrize("threshold", THRESHOLDS)
+def test_hindex_combine_skips_exactly_the_rows_the_merge_writes(
+        threshold, state, monkeypatch):
+    """A mirrored coreness on "ell" gives its h-index combine `g.deg`
+    with 0 on the live group rows (``row_gid < Gmax``), which are the rows
+    the merge writes and those the plan's live entries list, and `g.deg`
+    on every other row; one run, and those rows, in the skip counters.
+    Coreness and steps equal the "torch" backend's."""
+    g, plan = _plan_in_state(state, threshold)
+    lens, orig = [], ops.hindex_ell
+
+    def spy(nbr, est, K=None, deg=None, **kw):
+        lens.append(deg)
+        return orig(nbr, est, K=K, deg=deg, **kw)
+
+    monkeypatch.setattr(ops, "hindex_ell", spy)
+    runs, rows = _skip_counts()
+    core, steps = tcore.coreness_with_stats(g, backend="ell", mirror=plan)
+    live = plan.row_gid < plan.Gmax
+    assert _skip_counts() == (runs + 1, rows + int(live.sum()))
+    want, want_steps = tcore.coreness_with_stats(g, backend="torch",
+                                                 mirror=plan)
+    assert torch.equal(core, want) and steps == want_steps
+    written = _merge_writes(g, plan, core)
+    assert live.any() and torch.equal(written, live)
+    entries = plan.grp_rows[plan.grp_gid < plan.Gmax].long()
+    assert torch.equal(entries.sort().values, live.nonzero()[:, 0])
+    assert len(lens) >= steps > 0 and all(d is lens[0] for d in lens)
+    assert torch.equal(lens[0], torch.where(written, 0, g.deg))
+
+
+@pytest.mark.parametrize("run", [
+    "cc", "pagerank", "fused", "triangles", "unmirrored", "torch",
+    "dense"])
+def test_skip_counters_stay_zero_off_the_mirrored_ell_hindex(run):
+    """Only a mirrored "hindex" combine on "ell" skips rows: mirrored min
+    (CC), sum (PageRank), multi (fused) and count_common (triangles)
+    programs, unmirrored runs and the other backends leave both counts
+    as they were."""
+    g2, plan = _port_split(8)
+    g = to_port(_split(8)[0])
+    before = _skip_counts()
+    {
+        "cc": lambda: tcore.connected_components(g2, backend="ell",
+                                                 mirror=plan),
+        "pagerank": lambda: tcore.pagerank(g2, backend="ell", tol=None,
+                                           max_steps=3, mirror=plan),
+        "fused": lambda: tcore.fused_analytics(g2, steps=3, backend="ell",
+                                               mirror=plan),
+        "triangles": lambda: tcore.triangle_counts(g2, backend="ell",
+                                                   mirror=plan),
+        "unmirrored": lambda: (
+            tcore.coreness(g, backend="ell"),
+            ops.run_block_program(g, talg.CorenessBlockProgram(),
+                                  backend="ell")),
+        "torch": lambda: tcore.coreness(g2, backend="torch", mirror=plan),
+        "dense": lambda: tcore.coreness(g2, backend="dense", mirror=plan),
+    }[run]()
+    assert _skip_counts() == before
 
 
 def test_run_block_program_still_refuses_executor():

@@ -16,7 +16,15 @@ through:
 * groups holding replica rows that deletes left empty;
 * field values below 1 and past each group's logical degree;
 * a `MirrorStream` and `fused_analytics` on the card, against the same
-  on the CPU: the kernel launches.
+  on the CPU: the kernel launches;
+* a mirrored coreness on "ell", whose h-index combine skips the live group
+  rows (`skip_group_rows`): its coreness and steps equal the "torch"
+  backend's on a plan as split, after an on-line split, after deletes
+  that empty a replica, after `grow_plan` and with no group row at row 0;
+  the kernel writes every row skipped; a `MirrorStream` over windows of
+  splits, inserts and deletes keeps the CPU's core, labels and
+  `refresh_steps` window by window; the skip counters read one run a
+  refresh and the plan's live group rows.
 
 The min and sum merges, which read the same group layout, are held on the
 card against the CPU's, bit for bit, and against their own repeat.
@@ -35,8 +43,9 @@ from repro_torch.core import algorithms as talg
 from repro_torch.core import hub_split as ths
 from repro_torch.graphgen.simple import barabasi_albert
 from repro_torch.kernels import ops
+from repro_torch.core.graph import grow_blocks
 from repro_torch.kernels.mirror_hindex import (
-    WARP_TOP, group_layout, hindex_mirror)
+    WARP_TOP, group_layout, hindex_mirror, skip_group_rows)
 from repro_torch.runtime.stream import MirrorStream
 
 pytestmark = pytest.mark.cuda
@@ -217,15 +226,20 @@ def test_kernel_refuses_what_it_cannot_take():
         hindex_mirror(red, red.long(), gd.nbr, gd.deg, pd_)
 
 
+def _edge_set(g2, plan):
+    """The logical edges, as pairs of primary rows."""
+    prow = plan.primary_row.numpy()
+    nbr, deg = g2.nbr.numpy(), g2.deg.numpy()
+    return {(min(int(prow[u]), int(prow[v])), max(int(prow[u]), int(prow[v])))
+            for u in range(g2.N) for v in nbr[u, :deg[u]]}
+
+
 def _windows(g2, plan, n_windows=4, width=6, seed=0):
     """Windows of inserts between primaries not yet joined and deletes of
     present edges, as primary-row ids."""
     rng = np.random.default_rng(seed)
-    prow = plan.primary_row.numpy()
     prim = np.flatnonzero(plan.primary_mask.numpy())
-    nbr, deg = g2.nbr.numpy(), g2.deg.numpy()
-    cur = {(min(int(prow[u]), int(prow[v])), max(int(prow[u]), int(prow[v])))
-           for u in range(g2.N) for v in nbr[u, :deg[u]]}
+    cur = _edge_set(g2, plan)
     out = []
     for _ in range(n_windows):
         w = []
@@ -303,3 +317,124 @@ def test_min_and_sum_merges_on_the_card_equal_the_cpu(combine):
     got = ops._mirror_merge(rd, rd, gd.nbr, pd_, combine)
     assert torch.equal(got, ops._mirror_merge(rd, rd, gd.nbr, pd_, combine))
     assert torch.equal(got.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# the coreness combine skips the group rows the merge rewrites
+# ---------------------------------------------------------------------------
+
+SKIP_STATES = ["split", "online_split", "emptied_replica", "grown",
+               "hubs_off_row_0"]
+
+
+def _split_window(g2, plan):
+    """Inserts that push the unsplit primary of largest degree past the
+    threshold, so that it splits on-line; primary-row ids."""
+    prim = np.flatnonzero(plan.primary_mask.numpy())
+    ldeg, gid = plan.ldeg.numpy(), plan.row_gid.numpy()
+    u = max((int(r) for r in prim if gid[r] == plan.Gmax),
+            key=lambda r: ldeg[r])
+    cur = _edge_set(g2, plan)
+    vs = [int(v) for v in prim
+          if v != u and (min(u, v), max(u, v)) not in cur]
+    return [(u, v, +1) for v in vs[:plan.threshold + 1 - int(ldeg[u])]]
+
+
+def _emptying_window(g2, plan):
+    """Deletes of every slot of the last replica row of a group whose last
+    row has slots; returns (window, that row)."""
+    hub, rows = next((h, r) for h, r in ths.groups_of(plan).items()
+                     if len(r) >= 2 and int(g2.deg[r[-1]]))
+    r, prow = rows[-1], plan.primary_row
+    return [(hub, int(prow[x]), -1)
+            for x in g2.nbr[r, :int(g2.deg[r])].tolist()], r
+
+
+def _plan_in_state(state, threshold):
+    """A skewed split graph on the CPU and its plan at `threshold`: as
+    split, after an on-line split, after deletes that leave a replica with
+    no slot, relocated by `grow_plan`, or with every hub out of block 0,
+    so that row 0, the row `grp_rows` pads with, is in no group."""
+    n = 110
+    edges = _skewed_edges(n, 3, threshold)
+    if state == "hubs_off_row_0":
+        hub = np.bincount(edges.ravel(), minlength=n) > threshold
+        assign = np.random.default_rng(0).integers(0, 8, n)
+        g2, plan = ths.build_split_blocks(
+            edges, n, np.where(hub, 1 + assign % 7, assign), 8, threshold,
+            node_slack=32, device="cpu")
+        assert int(plan.row_gid[0]) == plan.Gmax and int(g2.deg[0]) > 0
+        return g2, plan
+    g2, plan = _split(edges, n, 8, threshold, 32)
+    if state == "online_split":
+        window = _split_window(g2, plan)
+        g3, plan3 = ths.apply_mirrored_edits(g2, plan, window)
+        assert int(plan3.row_gid[window[0][0]]) < plan3.Gmax
+        return g3, plan3
+    if state == "emptied_replica":
+        window, r = _emptying_window(g2, plan)
+        g3, plan3 = ths.apply_mirrored_edits(g2, plan, window)
+        assert int(g3.deg[r]) == 0 and int(plan3.row_gid[r]) < plan3.Gmax
+        return g3, plan3
+    if state == "grown":
+        g3, rekey = grow_blocks(g2, Cn=2 * g2.Cn)
+        return g3, ths.grow_plan(plan, rekey, g3)
+    return g2, plan
+
+
+def _skip_counts():
+    return skip_group_rows.runs, int(skip_group_rows.rows)
+
+
+@pytest.mark.parametrize("state", SKIP_STATES)
+@pytest.mark.parametrize("threshold", THRESHOLDS)
+def test_mirrored_coreness_skips_the_group_rows(threshold, state):
+    """Where the ELL h-index kernel reads the row lengths, a mirrored
+    coreness gives it 0 on the live group rows and equals the "torch"
+    backend's coreness and step count; the merge kernel writes every row
+    skipped, and the counters read one run and the plan's live group
+    rows."""
+    g2, plan = _plan_in_state(state, threshold)
+    gd, pd_ = _on(g2, plan, DEV)
+    runs, rows = _skip_counts()
+    core, steps = tcore.coreness_with_stats(gd, backend="ell", mirror=pd_)
+    live = pd_.row_gid < pd_.Gmax
+    assert _skip_counts() == (runs + 1, rows + int(live.sum()))
+    want, want_steps = tcore.coreness_with_stats(g2, backend="torch",
+                                                 mirror=plan)
+    assert torch.equal(core.cpu(), want) and steps == want_steps
+    fill = torch.full((gd.N,), -1, dtype=torch.int32, device=DEV)
+    assert torch.equal(hindex_mirror(fill, core, gd.nbr, gd.deg, pd_) >= 0,
+                       live)
+
+
+@pytest.mark.parametrize("threshold", [8, 16])
+def test_mirror_stream_skipping_group_rows_equals_the_cpu(threshold):
+    """A `MirrorStream` on "ell" on the card, over an on-line split,
+    windows of inserts and deletes and a replica emptied, keeps the CPU
+    "torch" session's core, labels and `refresh_steps` after every window;
+    each refresh adds one run and the plan's live group rows to the skip
+    counters, and the labels' min merge adds nothing."""
+    g2, plan = _split(_skewed_edges(110, 3, threshold), 110, 8, threshold,
+                      64)
+    cpu = MirrorStream(g2, plan, backend="torch", cc_labels=True)
+    gpu = MirrorStream(*_on(g2, plan, DEV), backend="ell", cc_labels=True)
+    assert torch.equal(gpu.core.cpu(), cpu.core)
+    windows = [_split_window(g2, plan)]
+    for i in range(6):
+        if i == 1:
+            windows += _windows(cpu.g, cpu.mirror, seed=threshold)
+        if i == 5:
+            window, emptied = _emptying_window(cpu.g, cpu.mirror)
+            windows.append(window)
+        cpu.apply_window(windows[i])
+        runs, rows = _skip_counts()
+        gpu.apply_window(windows[i])
+        live = int((gpu.mirror.row_gid < gpu.mirror.Gmax).sum())
+        assert _skip_counts() == (runs + 1, rows + live), i
+        assert torch.equal(gpu.core.cpu(), cpu.core), i
+        assert torch.equal(gpu.labels.cpu(), cpu.labels), i
+        assert gpu.refresh_steps == cpu.refresh_steps, i
+    assert cpu.mirror.n_groups > plan.n_groups
+    assert int(cpu.g.deg[emptied]) == 0
+    assert int(cpu.mirror.row_gid[emptied]) < cpu.mirror.Gmax

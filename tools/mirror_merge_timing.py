@@ -8,10 +8,14 @@ builds it for the cell (`portbench/`: the configuration's graph,
 relabelled and dealt into blocks by `--seed`, then
 `hub_split.build_split_blocks`), then runs the mirror-aware coreness one
 superstep at a time.  In every superstep the combine (`hindex_ell`) runs
-once and the merge twice: through the kernel (`hindex_mirror`, the
-`mirror_hindex` CUDA kernel) and through the plain version
+twice: as a mirrored run launches it, with the row lengths of
+`skip_group_rows` (0 on the live group rows), and over every row up to
+`g.deg`; the first must give 0 on the group rows and the second's values
+elsewhere.  The merge runs twice: through the kernel (`hindex_mirror`,
+the `mirror_hindex` CUDA kernel) and through the plain version
 (`hindex_mirror_plain`), both over the plan's `group_layout`; the two
-must give the same integers, and the coreness at the fixpoint must equal
+must give the same integers, the same as the kernel over the full-row
+partials, and the coreness at the fixpoint must equal
 `coreness(mirror=)`'s.  Then it runs a mirrored `connected_components`
 twice (the second run's seconds, supersteps and peak device memory; its
 labels must be a fixpoint of one more merged superstep) and times one merge of each
@@ -20,7 +24,8 @@ calls too): min over the labels, sum over random floats, the h-index over
 the coreness, and the plain h-index beside the kernel.  Each time is the
 median of `--reps` calls, with CUDA events.  Prints one JSON line: the
 card, the sizes, each superstep's milliseconds (the kernel's launch, the
-clone of the partials the wrapper makes, the plain merge, the combine),
+clone of the partials the wrapper makes, the plain merge, the combine
+with the group rows skipped and over every row),
 the groups that took a further window (`hindex_mirror.wide_groups`), the
 h-index merge's least bytes a superstep and their time at the card's peak
 bandwidth, the milliseconds to make the group layout, the run of
@@ -124,7 +129,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import ops
     from repro_torch.kernels.ell_hindex import hindex_ell
     from repro_torch.kernels.mirror_hindex import (
-        group_layout, hindex_mirror, hindex_mirror_plain)
+        group_layout, hindex_mirror, hindex_mirror_plain, skip_group_rows)
 
     dev = torch.device("cuda", 0)
     card = subprocess.run(
@@ -133,6 +138,8 @@ def main(argv=None) -> int:
     g2, plan = split_graph(a.workload, a.seed, dev)
     torch.cuda.synchronize()
     layout, layout_ms = timed(lambda: group_layout(plan), a.reps)
+    lens = skip_group_rows(g2.deg, plan)
+    live = plan.row_gid < plan.Gmax
     prog = CorenessBlockProgram()
     state = prog.mirror_state(prog.init(ops._mirror_init_view(g2, plan)),
                               plan.primary_row)
@@ -142,7 +149,12 @@ def main(argv=None) -> int:
     while True:
         field = prog.halo_field(state)
         red, combine_ms = timed(
+            lambda: hindex_ell(g2.nbr, field, deg=lens), a.reps)
+        full, combine_all_ms = timed(
             lambda: hindex_ell(g2.nbr, field, deg=g2.deg), a.reps)
+        if not torch.equal(red, torch.where(live, 0, full)):
+            raise AssertionError(f"superstep {len(steps)}: the combine "
+                                 "with the group rows skipped differs")
         before = int(hindex_mirror.wide_groups)
         got = hindex_mirror(red, field, g2.nbr, g2.deg, plan, layout)
         torch.cuda.synchronize()
@@ -152,11 +164,14 @@ def main(argv=None) -> int:
         _, clone_ms = timed(red.clone, a.reps)
         want, plain_ms = timed(lambda: hindex_mirror_plain(
             red, field, g2.nbr, plan, layout), a.reps)
-        if not torch.equal(got, want):
+        if not (torch.equal(got, want) and torch.equal(
+                got, hindex_mirror(full, field, g2.nbr, g2.deg, plan,
+                                   layout))):
             raise AssertionError(f"superstep {len(steps)}: the kernel and "
                                  "the plain merge differ")
         steps.append(dict(kernel_ms=kernel_ms, clone_ms=clone_ms,
-                          plain_ms=plain_ms, combine_ms=combine_ms))
+                          plain_ms=plain_ms, combine_ms=combine_ms,
+                          combine_all_ms=combine_all_ms))
         new = prog.update(ctx, state, got)
         changed = bool((new != state).any())
         state = new
@@ -194,6 +209,7 @@ def main(argv=None) -> int:
         plain_ms_sum=sum(s["plain_ms"] for s in steps),
         clone_ms_sum=sum(s["clone_ms"] for s in steps),
         combine_ms_sum=sum(s["combine_ms"] for s in steps),
+        combine_all_ms_sum=sum(s["combine_all_ms"] for s in steps),
         least_bytes=nbytes, bound_ms=nbytes / PEAK_BYTES_S * 1e3,
         wide_groups=wide, group_layout_ms=layout_ms,
         cc_seconds=cc_s, cc_supersteps=cc_steps, cc_peak_bytes=cc_peak,
