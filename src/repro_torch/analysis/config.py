@@ -144,9 +144,12 @@ HOST_BOUNDARIES: Dict[str, FrozenSet[str]] = {
     "repro_torch/runtime/recovery.py": frozenset({"*"}),
     # the stream's host side: the ONE verdict copy per window and host
     # counters over it (apply_window); host id arithmetic (_compose_perm);
-    # host relocation on a grow; the checkpoint boundary (from_state)
+    # host relocation on a grow; the checkpoint boundary (from_state);
+    # the block-local candidate count kept on the card, read only when a
+    # caller asks for it (local_candidates), never inside a window
     "repro_torch/runtime/stream.py": frozenset({
         "apply_window", "_compose_perm", "grow", "from_state",
+        "local_candidates",
     }),
     # THE one copy per answered batch (_to_host) and the host lists
     # built from it (run_batch)

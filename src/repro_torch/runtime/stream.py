@@ -87,7 +87,7 @@ from ..core.graph import (
 from ..core.updates import validate_updates
 from ..device import DeviceLike, resolve_device
 from ..kernels.ops import SPMD_BACKEND
-from ..tracing import MIRROR_REFRESH, MIRROR_WINDOW, SYNC, WINDOW, span
+from ..tracing import LOCAL, MIRROR_REFRESH, MIRROR_WINDOW, SYNC, WINDOW, span
 from .halo import _pow2_ceil
 
 
@@ -285,6 +285,10 @@ class StreamSession:
         self._tot = dict(bfs=0, rec=0, cand=0, batched=0, seq=0, batches=0)
         self._n_updates = 0
         self._n_local = 0
+        #: candidates of the joint block-local recomputes, on the device
+        #: so that a window reads nothing more (`local_candidates`)
+        self._local_cand = torch.zeros((), dtype=torch.int64,
+                                       device=g.device)
         self._esc_cross = self._esc_spill = self._esc_conflict = 0
         self._per_block = np.zeros(g.P, np.int64)
         self.labels = (None if cc_labels is None
@@ -309,6 +313,15 @@ class StreamSession:
     def windows_applied(self) -> int:
         """Windows ingested so far."""
         return self._tot["batches"]
+
+    @property
+    def local_candidates(self) -> int:
+        """Candidates of every joint block-local recompute since open (each
+        window's union of its accepted columns' candidate sets, summed
+        over the windows; a restored session counts from 0).  Kept on the
+        device; this read is a host read, for callers off the stream's
+        path."""
+        return int(self._local_cand)
 
     def apply_window(self, window: List[Tuple[int, int, int]]) -> None:
         """Ingest ONE window of at most R updates (see class docstring)."""
@@ -370,9 +383,12 @@ class StreamSession:
             if accept.any():
                 # accepted updates keep their window order
                 acc = np.flatnonzero(accept)
-                g, core, rec = kd._apply_and_recompute(
-                    g, core, us[acc], vs[acc], ops_[acc], route.cand_ins,
-                    route.cand_del, backend=backend, W=W, ex=ex)
+                with span(LOCAL):
+                    self._local_cand += (route.cand_ins
+                                         | route.cand_del).sum()
+                    g, core, rec = kd._apply_and_recompute(
+                        g, core, us[acc], vs[acc], ops_[acc], route.cand_ins,
+                        route.cand_del, backend=backend, W=W, ex=ex)
                 tot["rec"] += rec
                 self._n_local += len(acc)
                 self._per_block += nblk.astype(np.int64)

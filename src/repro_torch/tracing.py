@@ -43,6 +43,11 @@ MIRROR_WINDOW = "bladyg.mirror_window"
 MIRROR_EDITS = "bladyg.mirror_edits"
 #: the mirror-aware coreness after a window (`MirrorStream._refresh`)
 MIRROR_REFRESH = "bladyg.mirror_refresh"
+#: a window's block-local batch (`StreamSession.apply_window`): the
+#: accepted updates' edits and their one joint recompute, whose
+#: `RECOMPUTE` span nests inside it; kept out of `SPANS`, and the
+#: benchmark's `local_ms_per_window` reads it by name
+LOCAL = "bladyg.local"
 
 #: the span names of the stream session and the analytics, with the layer
 #: of the port each belongs to (the benchmark's harness repeats these one
