@@ -76,17 +76,23 @@ def coreness(
 
 def coreness_with_stats(
     g: GraphBlocks, max_steps: int = 10_000, backend: str = "auto",
-    executor=None, mirror=None,
+    executor=None, mirror=None, state0=None,
 ) -> Tuple[torch.Tensor, int]:
     """Coreness plus the superstep count (a host int); `executor` and
-    `mirror` as in `coreness`."""
+    `mirror` as in `coreness`.  Under `mirror`, `state0` (per row, read
+    at primaries) starts min-H from an upper bound of the coreness no
+    higher than the logical degrees in place of those degrees: the same
+    coreness, in no more supersteps.  Without a mirror it is refused."""
     if mirror is not None:
         from .algorithms import CorenessBlockProgram
 
         est, steps = ops.run_block_program(
             g, CorenessBlockProgram(), backend=backend, max_steps=max_steps,
-            with_steps=True, executor=executor, mirror=mirror)
+            with_steps=True, state0=state0, executor=executor,
+            mirror=mirror)
         return torch.where(g.node_mask, est, 0), steps
+    if state0 is not None:
+        raise ValueError("state0 warm-starts a mirrored coreness only")
     return ops.coreness_blocks(g, backend=backend, max_steps=max_steps,
                                with_steps=True, executor=executor)
 

@@ -220,6 +220,39 @@ def delete_edge_maintain(
     return _maintain_edge(g, core, u, v, -1, backend)
 
 
+def window_core_bound(
+    core: torch.Tensor, deg: torch.Tensor, mask: torch.Tensor,
+    inserts: Sequence[Tuple[int, int]],
+) -> torch.Tensor:
+    """An upper bound of the coreness after a window of edits, from the
+    exact coreness `core` before it; (N,) int32, 0 off `mask`.
+
+    `deg` is each row's degree after the window and `inserts` the
+    window's inserted (u, v) rows; its deletes need not be listed.  With
+    n inserts and K_i = min(core[u_i], core[v_i]), a row is raised by the
+    number of inserts i with |core - K_i| <= n - 1, then capped by `deg`.
+    Sound: deletes never raise coreness, so the final coreness is at most
+    that of the old graph plus every insert, taken in order.  Insert i
+    raises by 1 only rows at its current K (`_maintain_edge`'s fact); the
+    i - 1 inserts before it moved every value up by at most i - 1, so such
+    a row lies within i - 1 of K_i.  Min-H from any bound between the
+    coreness and the degrees converges to the coreness, in no more
+    supersteps than from the degrees.  Elementwise on the device; the
+    endpoints cross to it as one copy, and nothing is read back."""
+    est = core
+    if inserts:
+        ends = torch.as_tensor(inserts, dtype=torch.int64,
+                               device=core.device).reshape(-1, 2)
+        n = ends.shape[0]
+        ks = torch.sort(torch.minimum(core[ends[:, 0]],
+                                      core[ends[:, 1]])).values
+        below = torch.searchsorted(ks, core - (n - 1))
+        upto = torch.searchsorted(ks, core + (n - 1), right=True)
+        est = core + (upto - below).to(core.dtype)
+    return torch.where(mask, torch.minimum(est, deg.to(est.dtype)),
+                       0).to(torch.int32)
+
+
 def maintain_batch_host(g, core, updates, backend: str = "auto"):
     """Host loop applying a sequence of (u, v, op) updates (op: +1 ins, -1 del).
 

@@ -776,7 +776,13 @@ class MirrorStream:
     `.windows_applied`, `.mirror` and `result()`.  `refresh_steps` counts
     the supersteps of every mirror-aware coreness it ran, the one at open
     included (`StreamStats` keeps the JAX package's fields, which read 0
-    here).  Every graph and plan
+    here).  The coreness at open and after a grow starts from the logical
+    degrees; after a window it starts from
+    `kcore_dynamic.window_core_bound` of the coreness before it, which is
+    exact on the same rows (edits and on-line splits keep every primary
+    where it was), and `warm_refreshes` counts those refreshes.  Labels
+    are recomputed from scratch: deletes can split a component.  Every
+    graph and plan
     it holds is made of fresh tensors (the edit path never writes in
     place), and `state_dict` clones besides.
     """
@@ -795,19 +801,29 @@ class MirrorStream:
         #: open-time row ids -> current (grows rekey every row)
         self._remap: Optional[np.ndarray] = None
         self.refresh_steps = 0
+        self.warm_refreshes = 0
         self._refresh()
 
     @property
     def windows_applied(self) -> int:
         return self._windows
 
-    def _refresh(self) -> None:
-        """Recompute the maintained analytics mirror-aware."""
+    def _refresh(self, window=None) -> None:
+        """Recompute the maintained analytics mirror-aware; after
+        `window`, applied to the graph whose coreness `self.core` holds,
+        the coreness starts from the window's bound."""
         from ..core.kcore import coreness_with_stats
 
         with span(MIRROR_REFRESH):
+            state0 = None
+            if window is not None:
+                state0 = kd.window_core_bound(
+                    self.core, self.mirror.ldeg, self.mirror.primary_mask,
+                    [(u, v) for u, v, op in window if op > 0])
+                self.warm_refreshes += 1
             self.core, steps = coreness_with_stats(
-                self.g, backend=self.backend, mirror=self.mirror)
+                self.g, backend=self.backend, mirror=self.mirror,
+                state0=state0)
             self.refresh_steps += steps
             self.labels = (connected_components(
                 self.g, backend=self.backend, mirror=self.mirror)
@@ -856,7 +872,7 @@ class MirrorStream:
         self.g, self.mirror = g2, plan2
         self._windows += 1
         self._n_updates += len(window)
-        self._refresh()
+        self._refresh(window)
 
     def state_dict(self):
         """Snapshot tensors + meta in the JAX package's layout: graph and

@@ -27,7 +27,14 @@ thresholds 8, 12 and 16 — go through `repro.core.hub_split` and
   empty a replica and after `grow_plan`, and only that run moves the
   skip counters;
 * `MirrorStream` windows (with an in-flight auto-grow and an explicit
-  grow) keep the reference's graph, plan, core, labels and stats.
+  grow) keep the reference's graph, plan, core, labels and stats;
+* the warm refresh: `kcore_dynamic.window_core_bound` lies between the
+  final coreness and the degrees after random windows, on split graphs
+  and their unsplit twins, and a planted window shows its band is
+  needed; a warm `MirrorStream` equals a cold `coreness(mirror=)` after
+  every window (deletes, inserts, the top core, an on-line split, an
+  emptied replica, grows), in no more supersteps, and a restored one
+  equals an uninterrupted one window by window.
 
 The `cuda` tests hold the kernels against their plain versions on the
 split rows and on the canonical rows, and the mirrored "ell" run on the
@@ -56,6 +63,7 @@ from repro.kernels import ops as jops
 import repro_torch.core as tcore
 from repro_torch.core import algorithms as talg
 from repro_torch.core import hub_split as ths
+from repro_torch.core import kcore_dynamic as kd
 from repro_torch.core.graph import CapacityError, grow_blocks
 from repro_torch.kernels import ops
 from repro_torch.kernels.mirror_hindex import hindex_mirror, skip_group_rows
@@ -921,6 +929,358 @@ def test_stream_session_has_no_mirror():
     jg, _, _ = _split(8)
     g = to_port(jg)
     assert StreamSession(g, tcore.coreness(g), R=4).mirror is None
+
+
+# ---------------------------------------------------------------------------
+# MirrorStream's warm refresh: min-H from `window_core_bound`
+# ---------------------------------------------------------------------------
+
+
+def _port_split_graph(edges, n, threshold, slack=64, seed=0):
+    assign = np.random.default_rng(seed).integers(0, 8, n)
+    return ths.build_split_blocks(edges, n, assign, 8, threshold,
+                                  node_slack=slack, device="cpu")
+
+
+def _primary_rows(g2, plan):
+    """{logical id: primary row}; edits and on-line splits keep them."""
+    pm = np_of(plan.primary_mask)
+    return {int(o): int(r) for r, o in enumerate(np_of(g2.orig_id))
+            if pm[r]}
+
+
+def _logical_edges(g2, plan):
+    """The logical edges of a split graph, as sorted pairs of ids."""
+    prow, oid = np_of(plan.primary_row), np_of(g2.orig_id)
+    nbr, deg = np_of(g2.nbr), np_of(g2.deg)
+    rows = np.repeat(np.arange(g2.N), deg)
+    cols = nbr[np.arange(g2.Cd)[None, :] < deg[:, None]]
+    a, b = oid[prow[rows]], oid[prow[cols]]
+    return {(int(x), int(y)) for x, y in zip(np.minimum(a, b),
+                                              np.maximum(a, b))}
+
+
+def _edit_window(cur, core_of, rng, width, n):
+    """`width` edits over logical ids, each pair once: deletes of present
+    edges and inserts of absent pairs, half of the inserts between two of
+    the highest cores, where a raised shell meets the next insert."""
+    top = sorted(range(n), key=lambda x: -core_of[x])[:12]
+    window, seen = [], set()
+    while len(window) < width:
+        if rng.random() < 0.4:
+            e = sorted(cur)[int(rng.integers(len(cur)))]
+        else:
+            pool = top if rng.random() < 0.5 else range(n)
+            u, v = (int(x) for x in rng.choice(pool, 2, replace=False))
+            e = (min(u, v), max(u, v))
+        if e in seen:
+            continue
+        seen.add(e)
+        op = -1 if e in cur else +1
+        (cur.discard if op < 0 else cur.add)(e)
+        window.append((e[0], e[1], op))
+    return window
+
+
+def _unsplit_core(edges, n, assign):
+    """(coreness, degrees, mask) of the unsplit graph, by logical id."""
+    g = tcore.build_blocks(np.array(sorted(edges)), n, assign, P=8,
+                           device="cpu")
+    order = np.argsort(np_of(g.orig_id)[np_of(g.node_mask)])
+    real = np.flatnonzero(np_of(g.node_mask))[order]
+    pick = torch.from_numpy(real)
+    return (tcore.coreness(g, backend="torch")[pick], g.deg[pick],
+            g.node_mask[pick])
+
+
+def _inserts(window):
+    return [(u, v) for u, v, op in window if op > 0]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+@pytest.mark.parametrize("twin", ["split", "unsplit"])
+def test_window_core_bound_is_sound(twin, seed):
+    """After random windows of 1-8 edits, the bound built from the exact
+    coreness before a window lies between the coreness of the final graph
+    and its degrees, and is 0 off the mask: on a split graph at its
+    primary rows (logical degrees) and on its unsplit twin."""
+    n, threshold = 110, 8
+    edges = _skewed_edges(n, seed, threshold)
+    assign = np.random.default_rng(seed).integers(0, 8, n)
+    rng = np.random.default_rng(100 + seed)
+    g2, plan = _port_split_graph(edges, n, threshold, seed=seed)
+    row = _primary_rows(g2, plan)
+    cur = set(map(tuple, edges.tolist()))
+    raised = 0
+    for _ in range(8):
+        if twin == "split":
+            core = tcore.coreness(g2, backend="torch", mirror=plan)
+            core_of = {x: int(core[r]) for x, r in row.items()}
+        else:
+            core, _, _ = _unsplit_core(cur, n, assign)
+            core_of = dict(enumerate(core.tolist()))
+        window = _edit_window(cur, core_of, rng, int(rng.integers(1, 9)), n)
+        if twin == "split":
+            window = [(row[u], row[v], op) for u, v, op in window]
+            g2, plan = ths.apply_mirrored_edits(g2, plan, window)
+            deg, mask = plan.ldeg, plan.primary_mask
+            want = tcore.coreness(g2, backend="torch", mirror=plan)
+        else:
+            want, deg, mask = _unsplit_core(cur, n, assign)
+        bound = kd.window_core_bound(core, deg, mask, _inserts(window))
+        assert bound.dtype == torch.int32
+        assert bool((bound[mask] >= want[mask]).all())
+        assert bool((bound[mask] <= deg[mask]).all())
+        assert not bool(bound[~mask].any())
+        raised += int((want[mask] > core[mask]).sum())
+    assert raised > 0, "no window raised a coreness"
+
+
+#: K5 less the edge (0, 1) is a 3-core; node 5 hangs off 1 and 2, and a
+#: path 4-6-7-8 off it.  Insert (5, 3) raises 5 to the 3-shell; insert
+#: (5, 0) then closes {0, .., 5} into a 4-core.  Both inserts see
+#: K = min(2, 3) = 2, yet the second lifts the 3-shell: a bound that
+#: counts only inserts with K equal to a node's coreness leaves it at 3.
+BAND_EDGES = np.array([(0, 2), (0, 3), (0, 4), (1, 2), (1, 3), (1, 4),
+                       (2, 3), (2, 4), (3, 4), (1, 5), (2, 5), (4, 6),
+                       (6, 7), (7, 8)])
+BAND_WINDOW = [(7, 8, -1), (5, 3, +1), (5, 0, +1)]
+
+
+def _band0_bound(core, deg, mask, inserts):
+    """`window_core_bound` with a band of 0: raised only by inserts whose
+    K equals the node's coreness."""
+    ends = torch.as_tensor(inserts)
+    ks = torch.minimum(core[ends[:, 0]], core[ends[:, 1]])
+    est = core + (core[:, None] == ks[None, :]).sum(1).to(core.dtype)
+    return torch.where(mask, torch.minimum(est, deg), 0)
+
+
+@pytest.mark.parametrize("twin", ["split", "unsplit"])
+def test_window_core_bound_needs_the_band(twin):
+    """Two inserts in one window, the second meeting the shell the first
+    raised: a band of 0 undercuts the final coreness there, the bound's
+    band of n - 1 does not, and the warm `MirrorStream` ends exact (the
+    split graph at threshold 4, whose window splits node 3 on-line)."""
+    n = 9
+    assign = np.zeros(n, np.int64)
+    final = {tuple(e) for e in BAND_EDGES.tolist()} - {(7, 8)}
+    final |= {(3, 5), (0, 5)}
+    if twin == "unsplit":
+        core, _, _ = _unsplit_core(map(tuple, BAND_EDGES.tolist()), n,
+                                   assign)
+        want, deg, mask = _unsplit_core(final, n, assign)
+        window = BAND_WINDOW
+    else:
+        g2, plan = _port_split_graph(BAND_EDGES, n, 4, slack=8)
+        assert plan.n_groups == 2  # nodes 2 and 4
+        row = _primary_rows(g2, plan)
+        window = [(row[u], row[v], op) for u, v, op in BAND_WINDOW]
+        sess = MirrorStream(g2, plan, backend="torch")
+        core = sess.core
+        sess.apply_window(window)
+        assert sess.mirror.n_groups == 3  # node 3 split on-line
+        deg, mask = sess.mirror.ldeg, sess.mirror.primary_mask
+        want, cold = tcore.coreness_with_stats(sess.g, backend="torch",
+                                               mirror=sess.mirror)
+        assert torch.equal(sess.core, want) and sess.warm_refreshes == 1
+    shell = mask & (core == 3)
+    assert int(shell.sum()) == 5 and bool((want[shell] == 4).all())
+    assert bool((_band0_bound(core, deg, mask, _inserts(window))[shell]
+                 < 4).all())
+    bound = kd.window_core_bound(core, deg, mask, _inserts(window))
+    assert bool((bound[mask] >= want[mask]).all())
+
+
+def _cold_core(sess):
+    return tcore.coreness_with_stats(sess.g, backend="torch",
+                                     mirror=sess.mirror)
+
+
+def _top_core_window(sess, width=8):
+    """`width` inserts between the rows of the highest cores not yet
+    joined, the highest first; primary rows."""
+    core = np_of(sess.core)
+    prim = np.flatnonzero(np_of(sess.mirror.primary_mask))
+    prim = prim[np.argsort(-core[prim], kind="stable")]
+    oid = np_of(sess.g.orig_id)
+    cur = _logical_edges(sess.g, sess.mirror)
+    window = []
+    for i, u in enumerate(prim):
+        for v in prim[i + 1:]:
+            e = tuple(sorted((int(oid[u]), int(oid[v]))))
+            if e not in cur and len(window) < width:
+                cur.add(e)
+                window.append((int(u), int(v), +1))
+    assert len(window) == width
+    return window
+
+
+def _warm_windows(case, sess, rng):
+    """The windows (and grows, as None) of a warm-refresh case."""
+    n = len(_primary_rows(sess.g, sess.mirror))
+    row = _primary_rows(sess.g, sess.mirror)
+    cur = _logical_edges(sess.g, sess.mirror)
+    core_of = {x: int(sess.core[r]) for x, r in row.items()}
+
+    def rows(w):
+        return [(row[u], row[v], op) for u, v, op in w]
+
+    if case == "deletes":
+        es = sorted(cur)
+        picks = rng.choice(len(es), 16, replace=False)
+        return [rows([(*es[i], -1) for i in picks[:8]]),
+                rows([(*es[i], -1) for i in picks[8:]])]
+    if case == "inserts":
+        out = []
+        for _ in range(3):
+            w = []
+            while len(w) < 6:
+                u, v = (int(x) for x in rng.choice(n, 2, replace=False))
+                e = (min(u, v), max(u, v))
+                if e not in cur:
+                    cur.add(e)
+                    w.append((e[0], e[1], +1))
+            out.append(rows(w))
+        return out
+    if case == "top_core":
+        return ["top"]
+    if case == "split":
+        prim = np.flatnonzero(np_of(sess.mirror.primary_mask))
+        ldeg, gid = np_of(sess.mirror.ldeg), np_of(sess.mirror.row_gid)
+        u = max((int(r) for r in prim if gid[r] == sess.mirror.Gmax),
+                key=lambda r: ldeg[r])
+        ou = int(sess.g.orig_id[u])
+        vs = [x for x in range(n) if x != ou
+              and (min(ou, x), max(ou, x)) not in cur]
+        need = sess.mirror.threshold + 1 - int(ldeg[u])
+        return [[(u, row[x], +1) for x in vs[:need]]]
+    if case == "emptied":
+        hub, rs = next((h, r) for h, r in ths.groups_of(sess.mirror).items()
+                       if len(r) >= 2 and int(sess.g.deg[r[-1]]))
+        prow, r = np_of(sess.mirror.primary_row), rs[-1]
+        return [[(hub, int(prow[x]), -1)
+                 for x in np_of(sess.g.nbr[r, :int(sess.g.deg[r])])]]
+    assert case == "grow"
+    ws = [rows(_edit_window(cur, core_of, rng, 8, n)) for _ in range(2)]
+    return [ws[0], None, ws[1]]
+
+
+WARM_CASES = ["deletes", "inserts", "top_core", "split", "emptied", "grow"]
+
+
+@pytest.mark.parametrize("case", WARM_CASES)
+def test_warm_mirror_stream_equals_cold_coreness(case):
+    """After every window the warm session's coreness equals a cold
+    `coreness(mirror=)` of its graph, each window's `refresh_steps`
+    increment is at most the cold count, and `warm_refreshes` counts the
+    windows alone: a `grow` refreshes cold, with the cold count, and the
+    window after it is warm again."""
+    n, threshold = 110, 8
+    g2, plan = _port_split_graph(_skewed_edges(n, 3, threshold), n,
+                                 threshold)
+    sess = MirrorStream(g2, plan, backend="torch", cc_labels=True)
+    _, open_steps = tcore.coreness_with_stats(g2, backend="torch",
+                                              mirror=plan)
+    assert sess.refresh_steps == open_steps and sess.warm_refreshes == 0
+    saved = 0
+    for w in _warm_windows(case, sess, np.random.default_rng(7)):
+        before = sess.refresh_steps
+        if w is None:
+            sess.grow(Cn=2 * sess.g.Cn)
+            want, cold = _cold_core(sess)
+            assert sess.refresh_steps - before == cold
+        else:
+            w = _top_core_window(sess) if w == "top" else w
+            warm = sess.warm_refreshes
+            sess.apply_window(w)
+            want, cold = _cold_core(sess)
+            assert sess.warm_refreshes == warm + 1
+            assert sess.refresh_steps - before <= cold
+            saved += cold - (sess.refresh_steps - before)
+        assert torch.equal(sess.core, want)
+        assert torch.equal(sess.labels, talg.connected_components(
+            sess.g, backend="torch", mirror=sess.mirror))
+    assert sess.warm_refreshes == sess.windows_applied
+    if case == "split":
+        assert sess.mirror.n_groups == plan.n_groups + 1
+    if case == "emptied":
+        assert int(sess.g.deg.eq(0)[sess.mirror.row_gid < sess.mirror.Gmax]
+                   .sum()) >= 1
+    if case in ("deletes", "emptied"):
+        assert saved > 0
+
+
+def test_warm_refresh_survives_an_inflight_grow():
+    """A window that runs the replica pool dry grows the graph in flight
+    (a cold refresh on the grown rows), then re-applies and refreshes
+    warm from that coreness: exact, one warm refresh."""
+    jg, edges, threshold = _tiny_pool()
+    jg2, jplan = jhs.split_hubs(jg, threshold)
+    g2, plan = ths.split_hubs(to_port(jg), threshold)
+    sess = MirrorStream(g2, plan, backend="torch", auto_grow=True)
+    row_of = _row_of(jg2, jplan)
+    cur, window = set(map(tuple, edges.tolist())), []
+    for v in range(90):
+        e = (min(2, v), max(2, v))
+        if v != 2 and e not in cur:
+            cur.add(e)
+            window.append((row_of[2], row_of[v], +1))
+        if len(window) == 24:
+            break
+    sess.apply_window(window)
+    assert sess._grows >= 1 and sess.warm_refreshes == 1
+    assert torch.equal(sess.core, _cold_core(sess)[0])
+
+
+def test_window_core_bound_reads_nothing_and_cold_paths_refuse_it():
+    """The bound is built on the device with no host read; a coreness
+    without a mirror refuses a warm start."""
+    from repro_torch.analysis.entrypoints import count_host_reads
+
+    g2, plan = _port_split(8)
+    core = tcore.coreness(g2, backend="torch", mirror=plan)
+    with count_host_reads("cpu") as box:
+        kd.window_core_bound(core, plan.ldeg, plan.primary_mask,
+                             [(0, 1), (2, 3)])
+    assert box.count == 0, box.sites
+    with pytest.raises(ValueError, match="mirrored"):
+        tcore.coreness_with_stats(g2, backend="torch", state0=core)
+
+
+@pytest.mark.parametrize("threshold", [8, 12])
+def test_restored_mirror_stream_equals_uninterrupted(threshold):
+    """`from_state` mid-stream (after a grow, so the snapshot holds a
+    remap): the restored session warm-starts its first window and equals
+    the uninterrupted one window by window, in core and in each window's
+    `refresh_steps` increment; its `warm_refreshes` counts from 0."""
+    n = 110
+    edges = _skewed_edges(n, 5, threshold)
+    g2, plan = _port_split_graph(edges, n, threshold, seed=5)
+    sess = MirrorStream(g2, plan, backend="torch")
+    row, cur = _primary_rows(g2, plan), set(map(tuple, edges.tolist()))
+    rng = np.random.default_rng(threshold)
+    windows = []
+    for _ in range(6):
+        core_of = {x: int(sess.core[r]) for x, r in row.items()}
+        windows.append([(row[u], row[v], op) for u, v, op in _edit_window(
+            cur, core_of, rng, 8, n)])
+    for w in windows[:3]:
+        sess.apply_window(w)
+        if sess.windows_applied == 1:
+            sess.grow(Cn=2 * sess.g.Cn)
+    arrays, meta = sess.state_dict()
+    back = MirrorStream.from_state(arrays, meta, device="cpu")
+    assert back.warm_refreshes == 0 and torch.equal(back.core, sess.core)
+    for w in windows[3:]:
+        steps = (sess.refresh_steps, back.refresh_steps)
+        sess.apply_window(w)
+        back.apply_window(w)
+        assert torch.equal(back.core, sess.core)
+        assert (back.refresh_steps - steps[1]
+                == sess.refresh_steps - steps[0])
+    assert back.warm_refreshes == 3 and sess.warm_refreshes == 6
+    assert torch.equal(back.core, _cold_core(back)[0])
 
 
 # ---------------------------------------------------------------------------

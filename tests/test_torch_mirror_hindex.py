@@ -24,7 +24,11 @@ through:
   the kernel writes every row skipped; a `MirrorStream` over windows of
   splits, inserts and deletes keeps the CPU's core, labels and
   `refresh_steps` window by window; the skip counters read one run a
-  refresh and the plan's live group rows.
+  refresh and the plan's live group rows;
+* a `MirrorStream` whose refresh warm-starts from each window's bound
+  (`kcore_dynamic.window_core_bound`): on the card as on the CPU, window
+  by window, in core, `refresh_steps` and `warm_refreshes`, a grow
+  refreshing cold between windows.
 
 The min and sum merges, which read the same group layout, are held on the
 card against the CPU's, bit for bit, and against their own repeat.
@@ -438,3 +442,45 @@ def test_mirror_stream_skipping_group_rows_equals_the_cpu(threshold):
     assert cpu.mirror.n_groups > plan.n_groups
     assert int(cpu.g.deg[emptied]) == 0
     assert int(cpu.mirror.row_gid[emptied]) < cpu.mirror.Gmax
+
+
+@pytest.mark.parametrize("threshold", [8, 16])
+def test_warm_mirror_stream_on_the_card_equals_the_cpu(threshold):
+    """A `MirrorStream` on "ell" on the card warm-starts each window's
+    refresh from the window's bound as the CPU "torch" session does: over
+    an on-line split, windows of inserts and deletes, a grow and a
+    replica emptied, the two keep the same core, `refresh_steps` and
+    `warm_refreshes` window by window, the grow refreshes cold, and no
+    warm refresh takes more supersteps than a cold coreness of its
+    graph."""
+    g2, plan = _split(_skewed_edges(110, 3, threshold), 110, 8, threshold,
+                      64)
+    cpu = MirrorStream(g2, plan, backend="torch")
+    gpu = MirrorStream(*_on(g2, plan, DEV), backend="ell")
+    assert gpu.refresh_steps == cpu.refresh_steps
+    windows = [_split_window(g2, plan)]
+    for i in range(6):
+        if i == 1:
+            windows += _windows(cpu.g, cpu.mirror, seed=threshold)
+        if i == 3:
+            warm = cpu.warm_refreshes
+            cpu.grow(Cn=2 * cpu.g.Cn)
+            gpu.grow(Cn=2 * gpu.g.Cn)
+            assert gpu.warm_refreshes == cpu.warm_refreshes == warm
+            assert gpu.refresh_steps == cpu.refresh_steps
+        if i == 5:  # as open-time ids, which every window speaks
+            window, _ = _emptying_window(cpu.g, cpu.mirror)
+            opened = {int(r): o for o, r in enumerate(cpu._remap) if r >= 0}
+            windows.append([(opened[u], opened[v], op)
+                            for u, v, op in window])
+        before = gpu.refresh_steps
+        cpu.apply_window(windows[i])
+        gpu.apply_window(windows[i])
+        assert torch.equal(gpu.core.cpu(), cpu.core), i
+        assert gpu.refresh_steps == cpu.refresh_steps, i
+        assert gpu.warm_refreshes == cpu.warm_refreshes == i + 1, i
+        _, cold = tcore.coreness_with_stats(gpu.g, backend="ell",
+                                            mirror=gpu.mirror)
+        assert gpu.refresh_steps - before <= cold, i
+    want = tcore.coreness(cpu.g, backend="torch", mirror=cpu.mirror)
+    assert torch.equal(cpu.core, want)
