@@ -27,6 +27,7 @@ With `cc_labels=` the session also keeps connected-component labels
 exact, window by window, on the post-window graph: a window with a delete
 or a migration recomputes them (`connected_components`), an insert-only
 window merges them (`merge_labels`, inserts only join components).
+`StreamSession.cc_steps` counts the recomputes' supersteps.
 
 The stream is elastic:
 
@@ -87,7 +88,9 @@ from ..core.graph import (
 from ..core.updates import validate_updates
 from ..device import DeviceLike, resolve_device
 from ..kernels.ops import SPMD_BACKEND
-from ..tracing import LOCAL, MIRROR_REFRESH, MIRROR_WINDOW, SYNC, WINDOW, span
+from ..tracing import (
+    CC, LOCAL, MIRROR_REFRESH, MIRROR_WINDOW, SYNC, WINDOW, span,
+)
 from .halo import _pow2_ceil
 
 
@@ -243,7 +246,8 @@ class StreamSession:
 
     `cc_labels` (optional) arms CC maintenance: the canonical labels of
     the graph at open, as `core.algorithms.connected_components` returns
-    them; `.labels` then stays equal to a recompute after every window.
+    them; `.labels` then stays equal to a recompute after every window,
+    and `cc_steps` counts the supersteps of those recomputes.
     `rebalance_threshold` arms the §4.2 protocol after every window (None
     disables it), moving at most `rebalance_max_moves` vertices a round.
     `auto_grow` grows the capacities instead of raising `CapacityError`.
@@ -293,7 +297,7 @@ class StreamSession:
         self._per_block = np.zeros(g.P, np.int64)
         self.labels = (None if cc_labels is None
                        else torch.as_tensor(cc_labels, device=g.device))
-        self._cc_merges = self._cc_recomputes = 0
+        self._cc_merges = self._cc_recomputes = self._cc_steps = 0
         self._rebalance_threshold = rebalance_threshold
         self._rebalance_max_moves = int(rebalance_max_moves)
         self._migrations = self._migrated = 0
@@ -322,6 +326,19 @@ class StreamSession:
         device; this read is a host read, for callers off the stream's
         path."""
         return int(self._local_cand)
+
+    @property
+    def cc_steps(self) -> int:
+        """Supersteps of every CC label recompute since open (the count
+        `connected_components(..., with_steps=True)` gives each; 0 where
+        labels are not kept)."""
+        return self._cc_steps
+
+    def _recompute_labels(self, g: GraphBlocks) -> None:
+        self.labels, steps = connected_components(
+            g, backend=self.backend, executor=self.executor, with_steps=True)
+        self._cc_recomputes += 1
+        self._cc_steps += steps
 
     def apply_window(self, window: List[Tuple[int, int, int]]) -> None:
         """Ingest ONE window of at most R updates (see class docstring)."""
@@ -420,16 +437,15 @@ class StreamSession:
             # a delete may split one, and a migration renames the padded ids
             # the canonical labels are, so such a window re-propagates
             if self.labels is not None:
-                ins = valid & (ops_ > 0)
-                if (valid & (ops_ < 0)).any() or migrated_now:
-                    self.labels = connected_components(g, backend=backend,
-                                                       executor=ex)
-                    self._cc_recomputes += 1
-                elif ins.any():
-                    self.labels = merge_labels(
-                        self.labels, us_d, vs_d,
-                        torch.as_tensor(ins, device=dev))
-                    self._cc_merges += int(ins.sum())
+                with span(CC):
+                    ins = valid & (ops_ > 0)
+                    if (valid & (ops_ < 0)).any() or migrated_now:
+                        self._recompute_labels(g)
+                    elif ins.any():
+                        self.labels = merge_labels(
+                            self.labels, us_d, vs_d,
+                            torch.as_tensor(ins, device=dev))
+                        self._cc_merges += int(ins.sum())
             self.g, self.core = g, core
 
     # ---- elastic growth / recovery surface ------------------------------
@@ -529,9 +545,7 @@ class StreamSession:
         if self.executor is not None:
             self.executor.rebuild(g)
         if self.labels is not None:
-            self.labels = connected_components(g, backend=self.backend,
-                                               executor=self.executor)
-            self._cc_recomputes += 1
+            self._recompute_labels(g)
         return perm
 
     def state_dict(self):
@@ -583,6 +597,7 @@ class StreamSession:
                 "migrated": self._migrated,
                 "cc_merges": self._cc_merges,
                 "cc_recomputes": self._cc_recomputes,
+                "cc_steps": self._cc_steps,
                 "grows": self._grows,
                 "plan_updates": plan_updates,
                 "plan_rebuilds": plan_rebuilds,
@@ -653,6 +668,8 @@ class StreamSession:
         sess._migrated = int(c["migrated"])
         sess._cc_merges = int(c["cc_merges"])
         sess._cc_recomputes = int(c["cc_recomputes"])
+        # the JAX package's snapshots do not count the supersteps
+        sess._cc_steps = int(c.get("cc_steps", 0))
         sess._grows = int(c["grows"])
         sess._per_block = np.asarray(c["per_block"], np.int64)
         if sess.executor is not None:
@@ -781,7 +798,8 @@ class MirrorStream:
     `kcore_dynamic.window_core_bound` of the coreness before it, which is
     exact on the same rows (edits and on-line splits keep every primary
     where it was), and `warm_refreshes` counts those refreshes.  Labels
-    are recomputed from scratch: deletes can split a component.  Every
+    are recomputed from scratch: deletes can split a component;
+    `cc_steps` counts those recomputes' supersteps.  Every
     graph and plan
     it holds is made of fresh tensors (the edit path never writes in
     place), and `state_dict` clones besides.
@@ -802,6 +820,7 @@ class MirrorStream:
         self._remap: Optional[np.ndarray] = None
         self.refresh_steps = 0
         self.warm_refreshes = 0
+        self.cc_steps = 0
         self._refresh()
 
     @property
@@ -825,9 +844,14 @@ class MirrorStream:
                 self.g, backend=self.backend, mirror=self.mirror,
                 state0=state0)
             self.refresh_steps += steps
-            self.labels = (connected_components(
-                self.g, backend=self.backend, mirror=self.mirror)
-                if self._track_labels else None)
+            if not self._track_labels:
+                self.labels = None
+                return
+            with span(CC):
+                self.labels, steps = connected_components(
+                    self.g, backend=self.backend, mirror=self.mirror,
+                    with_steps=True)
+                self.cc_steps += steps
 
     def grow(self, Cn: Optional[int] = None,
              Cd: Optional[int] = None) -> np.ndarray:

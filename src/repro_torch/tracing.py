@@ -48,6 +48,12 @@ MIRROR_REFRESH = "bladyg.mirror_refresh"
 #: `RECOMPUTE` span nests inside it; kept out of `SPANS`, and the
 #: benchmark's `local_ms_per_window` reads it by name
 LOCAL = "bladyg.local"
+#: the connected-component labels' upkeep after a window of a session
+#: that keeps them (`StreamSession.apply_window`: the label merge of an
+#: insert-only window or the recompute of any other;
+#: `MirrorStream._refresh`: the recompute); kept out of `SPANS`, and the
+#: benchmark's `cc_ms_per_window` reads it by name
+CC = "bladyg.cc"
 
 #: the span names of the stream session and the analytics, with the layer
 #: of the port each belongs to (the benchmark's harness repeats these one

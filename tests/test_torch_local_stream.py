@@ -9,8 +9,15 @@ replayed, then coreness by peeling); the block-local branch is taken; the
 session's `local_candidates` equals the sum over windows of the accepted
 columns' candidate sets, recomputed here; the `bladyg.local` span opens
 once in each window that accepts an update and never otherwise; and the
-`bladyg.sync` spans still equal the host reads.  This file does not
-import JAX.
+`bladyg.sync` spans still equal the host reads.
+
+The same churn with connected-component labels kept (`cc_labels=`): after
+every window the labels equal a recompute and networkx's components
+(each node labelled with its component's least padded id); `cc_steps`
+adds each recompute's supersteps and nothing for an insert-only window,
+which merges; the `bladyg.cc` span opens once in each window of a session
+with labels and never in one without; and `MirrorStream` counts and spans
+its label recomputes alike.  This file does not import JAX.
 """
 from __future__ import annotations
 
@@ -25,10 +32,11 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import tracing
 from repro_torch.analysis import entrypoints as E
-from repro_torch.core import kcore
+from repro_torch.core import algorithms, kcore
 from repro_torch.core import kcore_dynamic as kd
 from repro_torch.core.graph import build_blocks
-from repro_torch.runtime.stream import StreamSession
+from repro_torch.core.hub_split import build_split_blocks
+from repro_torch.runtime.stream import MirrorStream, StreamSession
 
 N_POINTS, P, R, WINDOWS = 2048, 4, 8, 6
 SEEDS = (2**31 + 3, 2**31 + 17, 2**31 + 29)
@@ -213,3 +221,182 @@ def test_sync_spans_still_count_host_reads(stream):
     for w in stream["windows"]:
         syncs = sum(e[0] == tracing.SYNC for e in w["events"])
         assert syncs == w["reads"] > 0
+
+
+# ---- connected-component labels kept through the same churn ------------
+
+
+def labels_of(ref, pid, N):
+    """Each row's component label from networkx's components over
+    original ids: the least padded id of its component; -1 on padding."""
+    want = np.full(N, -1, np.int64)
+    for comp in nx.connected_components(ref):
+        rows = pid[list(comp)]
+        want[rows] = rows.min()
+    return want
+
+
+@pytest.fixture(scope="module", params=SEEDS)
+def cc_stream(request):
+    """The local churn through two equal sessions that keep CC labels, one
+    profiled window by window and one under the host-read counter: a first
+    window deletes every edge of a node of least degree (it splits a
+    component), then the local windows, then an insert-only window that
+    joins the node back (a merge of two components); with what each
+    window showed."""
+    rng = np.random.default_rng(request.param)
+    edges, block = tiny_rgg(rng)
+    g, g2 = (build_blocks(edges, N_POINTS, block, P, device="cpu")
+             for _ in range(2))
+    pid = np.full(N_POINTS, -1, np.int64)
+    real = np.flatnonzero(g.node_mask.numpy())
+    pid[g.orig_id.numpy()[real]] = real
+    deg = np.bincount(edges.ravel(), minlength=N_POINTS)
+    x = int(np.argmin(np.where(deg > 0, deg, N_POINTS)))
+    near = [int(b if a == x else a) for a, b in edges if x in (a, b)]
+    assert 0 < len(near) <= R
+    ups = [u for u in local_updates(edges, rng, R * WINDOWS)
+           if x not in u[:2]]
+    windows = ([[(x, y, -1) for y in near]]
+               + [ups[i:i + R] for i in range(0, len(ups), R)]
+               + [[(x, near[0], 1)]])
+    core = kcore.coreness(g)
+    labels0 = algorithms.connected_components(g)
+    traced = StreamSession(g2, core.clone(), R=R, cc_labels=labels0.clone())
+    counted = StreamSession(g, core, R=R, cc_labels=labels0.clone())
+    ref = nx.Graph()
+    ref.add_nodes_from(range(N_POINTS))
+    ref.add_edges_from(map(tuple, edges))
+    seen = []
+    for window in windows:
+        w = [(int(pid[u]), int(pid[v]), op) for u, v, op in window]
+        st0, steps0 = counted.stats(), counted.cc_steps
+        with E.count_host_reads("cpu") as box:
+            counted.apply_window(w)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            traced.apply_window(w)
+        for u, v, op in window:
+            (ref.add_edge if op > 0 else ref.remove_edge)(u, v)
+        st = counted.stats()
+        redo, redo_steps = algorithms.connected_components(counted.g,
+                                                           with_steps=True)
+        seen.append(dict(
+            deletes=any(op < 0 for _, _, op in w),
+            inserts=sum(op > 0 for _, _, op in w),
+            recomputes=st.cc_recomputes - st0.cc_recomputes,
+            merges=st.cc_merges - st0.cc_merges,
+            steps=counted.cc_steps - steps0, redo=redo,
+            redo_steps=redo_steps, want=labels_of(ref, pid, g.N),
+            labels=counted.labels.clone(), traced=traced.labels.clone(),
+            events=_events(prof), reads=box.count))
+    return dict(labels0=labels0, traced=traced, counted=counted,
+                windows=seen)
+
+
+def test_cc_labels_equal_a_recompute_and_networkx(cc_stream):
+    for w in cc_stream["windows"]:
+        assert torch.equal(w["labels"], w["redo"])
+        assert torch.equal(w["traced"], w["redo"])
+        np.testing.assert_array_equal(w["labels"].numpy(), w["want"])
+    # the first window split a component and the last joined two
+    first, *_, before, last = cc_stream["windows"]
+    assert not torch.equal(first["labels"], cc_stream["labels0"])
+    assert not torch.equal(last["labels"], before["labels"])
+
+
+def test_cc_steps_add_each_recompute(cc_stream):
+    """A window with a delete recomputes once and adds that recompute's
+    supersteps (a recompute on the same graph counts as many)."""
+    total = 0
+    for w in cc_stream["windows"]:
+        if w["deletes"]:
+            assert (w["recomputes"], w["merges"]) == (1, 0)
+            assert w["steps"] == w["redo_steps"] > 0
+            total += w["redo_steps"]
+    assert cc_stream["counted"].cc_steps == total > 0
+    assert cc_stream["traced"].cc_steps == total
+    assert cc_stream["traced"].stats() == cc_stream["counted"].stats()
+
+
+def test_insert_only_window_merges_and_adds_no_step(cc_stream):
+    only = [w for w in cc_stream["windows"] if not w["deletes"]]
+    assert only and only[-1] is cc_stream["windows"][-1]
+    for w in only:
+        assert (w["recomputes"], w["merges"], w["steps"]) == \
+            (0, w["inserts"], 0)
+
+
+def test_cc_span_opens_once_in_each_window_with_labels(cc_stream):
+    """One `bladyg.cc` in every window, inside the window's span; the
+    host reads of a recompute's loop inside it, none in a merge."""
+    for w in cc_stream["windows"]:
+        (_, w0, w1), = [e for e in w["events"] if e[0] == tracing.WINDOW]
+        (_, s, e), = [x for x in w["events"] if x[0] == tracing.CC]
+        assert w0 <= s <= e <= w1
+        syncs = [x for x in w["events"] if x[0] == tracing.SYNC
+                 and s <= x[1] <= x[2] <= e]
+        assert bool(syncs) == w["deletes"]
+    assert tracing.CC not in [n for n, _ in tracing.SPANS]
+
+
+def test_cc_span_never_opens_without_labels(stream):
+    assert stream["traced"].labels is None
+    for w in stream["windows"]:
+        assert not [e for e in w["events"] if e[0] == tracing.CC]
+    assert stream["counted"].cc_steps == 0
+
+
+def test_sync_spans_count_host_reads_with_labels(cc_stream):
+    for w in cc_stream["windows"]:
+        syncs = sum(e[0] == tracing.SYNC for e in w["events"])
+        assert syncs == w["reads"] > 0
+
+
+def test_cc_steps_survive_a_snapshot(cc_stream):
+    sess = cc_stream["counted"]
+    arrays, meta = sess.state_dict()
+    back = StreamSession.from_state(arrays, meta, device="cpu")
+    assert back.cc_steps == sess.cc_steps > 0
+    assert torch.equal(back.labels, sess.labels)
+    # a snapshot without the count (the JAX package writes none) gives 0
+    del meta["counters"]["cc_steps"]
+    assert StreamSession.from_state(arrays, meta, device="cpu").cc_steps == 0
+
+
+@pytest.mark.parametrize("keep", [True, False])
+def test_mirror_stream_counts_and_spans_its_label_recomputes(keep):
+    """On the tiny graph split at 12 slots a row, each refresh of a
+    session with labels adds the supersteps of a recompute on its graph
+    inside one `bladyg.cc` nested in the refresh's span; a session
+    without labels counts nothing and opens no such span."""
+    rng = np.random.default_rng(SEEDS[0])
+    edges, block = tiny_rgg(rng)
+    g2, plan = build_split_blocks(edges, N_POINTS, block, P, 12,
+                                  node_slack=64, device="cpu")
+    pm, oid = plan.primary_mask.numpy(), g2.orig_id.numpy()
+    assert int(g2.node_mask.sum()) > int(pm.sum())   # replica rows
+    prow = {int(o): r for r, o in enumerate(oid) if pm[r]}
+    sess = MirrorStream(g2, plan, cc_labels=keep)
+
+    def recompute():
+        return algorithms.connected_components(sess.g, mirror=sess.mirror,
+                                               with_steps=True)
+
+    assert sess.cc_steps == (recompute()[1] if keep else 0)
+    ups = local_updates(edges, rng, R * 3)
+    for i in range(0, len(ups), R):
+        steps0 = sess.cc_steps
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            sess.apply_window([(prow[u], prow[v], op)
+                               for u, v, op in ups[i:i + R]])
+        events = _events(prof)
+        cc = [e for e in events if e[0] == tracing.CC]
+        if not keep:
+            assert not cc and sess.cc_steps == 0 and sess.labels is None
+            continue
+        labels, steps = recompute()
+        assert torch.equal(sess.labels, labels)
+        assert sess.cc_steps - steps0 == steps > 0
+        (_, s, e), = cc
+        (_, r0, r1), = [x for x in events if x[0] == tracing.MIRROR_REFRESH]
+        assert r0 <= s <= e <= r1
