@@ -7,7 +7,7 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc:
 
 Phases (each raises on failure; the script then exits non-zero):
 
-1. card: the `nvidia-smi` name and power limit; build all ten CUDA
+1. card: the `nvidia-smi` name and power limit; build every CUDA
    kernels from `src/repro_torch/kernels/csrc` (one nvcc per source, in
    parallel).
 2. kernel parity: each ELL kernel against its plain PyTorch version on
@@ -35,7 +35,13 @@ Phases (each raises on failure; the script then exits non-zero):
    tables), the sum also on order-exposing floats (1e8 beside 1.0, -0.0),
    bit for bit against `ell_pagerank`.
    Bit-equal, except the float sum: allclose(rtol=1e-5, atol=1e-9)
-   against `torch.sum`'s order.
+   against `torch.sum`'s order.  Then `cc_union` (`cc_union_phase`, the
+   union-find labels, which stands for no TPU kernel) against its plain
+   version and `connected_components`, each case launched 20 times (the
+   order of its atomics varies): DS1 sorted, shuffled and with holes, and
+   the undirected closure of the hand-made graph (rows of 200 to 400
+   slots: the warp's loop), shuffled and with holes; then its device µs
+   on DS1 beside the plain version's and a superstep's least bytes.
 3. dense parity: the two dense kernels against their plain versions on
    DS1's (50,048 x 50,048) bfloat16 adjacency (5.01 GB; row offsets past
    2^31) — `kcore_hindex` with est = degrees, random ints and the
@@ -134,7 +140,7 @@ Phases (each raises on failure; the script then exits non-zero):
    answer latency, qps of busy time, answered, shed (must be 0),
    batches, staleness, refreshes and their mean host seconds, the path's
    seconds and the launches of `ell_multi`, `ell_hindex`, `ell_frontier`
-   and `ell_cc` (each must launch).  Every published snapshot equals, bit
+   and `cc_union` (each must launch).  Every published snapshot equals, bit
    for bit, a recompute on its epoch's graph (`coreness`,
    `connected_components`, `pagerank(tol=None, max_steps=10)` on "ell"),
    and every answer equals that recompute's (top-k in `jax.lax.top_k`'s
@@ -351,7 +357,7 @@ SCALAR_OPS_PER_S = 67e12
 #: published dense bf16 tensor-core rate of one H100 SXM (op/s), the rate
 #: the dense kernels' matrix-product formulation is counted at
 BF16_OPS_PER_S = 989e12
-#: the ten kernels: name -> the wrapper (module.function under
+#: the kernels: name -> the wrapper (module.function under
 #: repro_torch.kernels, carrying `.launches`) and the TPU kernel it replaces
 KERNELS = {
     "ell_hindex": ("ell_hindex.hindex_ell",
@@ -372,6 +378,9 @@ KERNELS = {
     "kcore_hindex": ("kcore_hindex.hindex_counts",
                      "src/repro/kernels/kcore_hindex.py:81"),
     "frontier": ("frontier.frontier_step", "src/repro/kernels/frontier.py:66"),
+    "cc_union": ("cc_union.union_find_labels",
+                 "none: the JAX package labels components only by min-label "
+                 "propagation (ell_cc)"),
 }
 #: the kernels of the dense backend, and the ELL kernels' variants
 DENSE = ("kcore_hindex", "frontier")
@@ -396,7 +405,7 @@ SERVICE_MIXED_K = 8      # the top-k width of the "mixed" mix
 SERVICE_TOPK_MAX = 16    # the "topk" mix draws k from 1..16
 #: the kernels a serving run must launch: the refresh's fused loop and the
 #: stream's maintenance and CC recompute
-SERVICE_KERNELS = ("ell_multi", "ell_hindex", "ell_frontier", "ell_cc")
+SERVICE_KERNELS = ("ell_multi", "ell_hindex", "ell_frontier", "cc_union")
 #: skew_egofb: benchmarks/bench_skew.py's graph at ego-Facebook's full size,
 #: split at the bench's threshold
 SKEW_THRESHOLD = 64
@@ -479,6 +488,7 @@ def main() -> int:
     kernels += combine_timing(g, fields, parity, launches_an,
                               kernels[0]["launch_floor_ms"], scale)
     kernels += dense_timing(g, core_plain, ups[:R], parity, launches)
+    kernels.append(cc_union_phase(g, dev, launches_an))
     audit = audit_phase(g, ups, dev)
     serve_lm_phase(card)
     train_parts_phase(card, dev)
@@ -858,6 +868,89 @@ def _fused_parity(nb, deg, K, fields, dup, name, err, sum_vs_plain=True):
     err.setdefault("ell_triangles", 0)
     torch.cuda.synchronize()
     return names
+
+
+def _symmetric_rows(nbr):
+    """The undirected ELL graph of `nbr`'s slots and their reverses, self
+    loops dropped: (nbr, deg), rows sorted with PAD last, Cd the largest
+    degree."""
+    import torch
+
+    N = nbr.shape[0]
+    rows, cols = torch.nonzero(nbr >= 0, as_tuple=True)
+    u, v = rows, nbr[rows, cols].long()
+    key = torch.unique(torch.cat([u * N + v, v * N + u]))
+    key = key[key // N != key % N]
+    src, dst = key // N, key % N
+    deg = torch.bincount(src, minlength=N)
+    pos = torch.arange(src.numel(), device=nbr.device) - \
+        (deg.cumsum(0) - deg)[src]
+    out = torch.full((N, int(deg.max())), -1, dtype=torch.int32,
+                     device=nbr.device)
+    out[src, pos] = dst.to(torch.int32)
+    return out, deg.to(torch.int32)
+
+
+def cc_union_phase(g, dev, launches):
+    """`cc_union` (module docstring, phase 2) against its plain version on
+    the card and against `connected_components`, bit for bit, 20 launches
+    a case; then its device µs on DS1 beside the plain version's and the
+    bound of a superstep's least bytes (the valid slots, `deg` and the
+    field read, a label written a row).  `launches` are the analytics
+    path's (its CC-keeping stream).  Returns its line of the kernel
+    table."""
+    import torch
+    from repro_torch.core import connected_components
+    from repro_torch.kernels.cc_union import (
+        union_find_labels, union_find_labels_plain)
+
+    what = "cc_union"
+    gen = torch.Generator(device=dev).manual_seed(2)
+    N, Cd = g.N, g.Cd
+    shuffled = g.nbr.gather(
+        1, torch.rand((N, Cd), generator=gen, device=dev).argsort(dim=1))
+    e_nbr, e_deg = _symmetric_rows(_edge_rows(dev)[0])
+    e_mask = torch.ones(e_nbr.shape[0], dtype=torch.bool, device=dev)
+    e_shuf = e_nbr.gather(1, torch.rand(e_nbr.shape, generator=gen,
+                                        device=dev).argsort(dim=1))
+    cases = {"ds1": (g.nbr, g.deg, g.node_mask),
+             "ds1/shuffled": (shuffled, g.deg, g.node_mask),
+             "ds1/holes": (_holes(g.nbr, g.deg), g.deg, g.node_mask),
+             "edge_sym": (e_nbr, e_deg, e_mask),
+             "edge_sym/shuffled": (e_shuf, e_deg, e_mask),
+             "edge_sym/holes": (_holes(e_nbr, e_deg), e_deg, e_mask)}
+    want = connected_components(g)
+    err, components = 0, {}
+    union_find_labels.launches = 0
+    for name, (nb, d, m) in cases.items():
+        plain = union_find_labels_plain(nb, d, m)
+        if name.startswith("ds1") and not torch.equal(plain, want):
+            raise AssertionError(f"{what}: plain != connected_components "
+                                 f"on {name}")
+        for _ in range(20):
+            got = union_find_labels(nb, d, m)
+            e = int((got.long() - plain.long()).abs().max())
+            err = max(err, e)
+            if e or not torch.equal(got, plain):
+                raise AssertionError(f"{what} differs from plain on {name}")
+        components[name] = int(torch.unique(plain[m]).numel())
+    if union_find_labels.launches != 20 * len(cases):
+        raise AssertionError(f"{what}: {union_find_labels.launches} launches")
+    args = (g.nbr, g.deg, g.node_mask)
+    ms, plain_ms = _time_pair(lambda: union_find_labels(*args),
+                              lambda: union_find_labels_plain(*args),
+                              plain_reps=5)
+    nbytes = 4 * int(g.deg.sum()) + 3 * 4 * N
+    emit(phase=what, cases=sorted(cases), components=components,
+         edge_sym_Cd=int(e_nbr.shape[1]), max_abs_err=err, ms=ms,
+         plain_ms=plain_ms, bound_bytes=nbytes, bound_ms=_bound_ms(nbytes),
+         launches=launches.get(what, 0))
+    return {"name": what, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{what}.cu",
+            "replaces": KERNELS[what][1], "launches": launches.get(what, 0),
+            "parity": "bit-equal", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": _bound_ms(nbytes),
+            "bound_by": "bytes", "bound_bytes": nbytes}
 
 
 def combine_parity(g, core, dev):

@@ -129,6 +129,9 @@ HOST_BOUNDARIES: Dict[str, FrozenSet[str]] = {
     # a caller asks for it (`int(hindex_mirror.wide_groups)`), never on a
     # run's path
     "repro_torch/kernels/mirror_hindex.py": frozenset({"__int__"}),
+    # the plain union-find's test of each round, on CPU tensors only (a
+    # CUDA tensor launches the kernel, which reads nothing back)
+    "repro_torch/kernels/cc_union.py": frozenset({"union_find_labels_plain"}),
     # reference oracles are host-side by design
     "repro_torch/kernels/ref.py": frozenset({"*"}),
     # host build and ctypes loading: launches pass addresses and read no

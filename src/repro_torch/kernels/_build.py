@@ -67,6 +67,9 @@ SOURCES = {
     # nbr, deg, field, ldeg, grp_rows, offsets, order, nbig, out, wide,
     # n_groups, ld, stream (the h-index merge of a hub-split graph)
     "mirror_hindex": (_P,) * 10 + (_L, _I, _P),
+    # nbr, deg, node_mask, parent (scratch), out, n_rows, ld, stream (CC
+    # labels by union-find)
+    "cc_union": (_P,) * 5 + (_L, _I, _P),
 }
 
 

@@ -25,9 +25,12 @@ results cross to the host, in one transfer per window.
 
 With `cc_labels=` the session also keeps connected-component labels
 exact, window by window, on the post-window graph: a window with a delete
-or a migration recomputes them (`connected_components`), an insert-only
-window merges them (`merge_labels`, inserts only join components).
-`StreamSession.cc_steps` counts the recomputes' supersteps.
+or a migration recomputes them, an insert-only window merges them
+(`merge_labels`, inserts only join components).  On one device the
+recompute is one union-find pass (`kernels.cc_union.union_find_labels`,
+its plain version on the plain backend); on the mesh it is
+`connected_components`.  `StreamSession.cc_steps` counts 1 a union-find
+recompute and the supersteps of a mesh one.
 
 The stream is elastic:
 
@@ -87,9 +90,10 @@ from ..core.graph import (
 )
 from ..core.updates import validate_updates
 from ..device import DeviceLike, resolve_device
+from ..kernels.cc_union import union_find_labels, union_find_labels_plain
 from ..kernels.ops import SPMD_BACKEND
 from ..tracing import (
-    CC, LOCAL, MIRROR_REFRESH, MIRROR_WINDOW, SYNC, WINDOW, span,
+    CC, LOCAL, MIRROR_REFRESH, MIRROR_WINDOW, SYNC, WINDOW, settle, span,
 )
 from .halo import _pow2_ceil
 
@@ -247,7 +251,8 @@ class StreamSession:
     `cc_labels` (optional) arms CC maintenance: the canonical labels of
     the graph at open, as `core.algorithms.connected_components` returns
     them; `.labels` then stays equal to a recompute after every window,
-    and `cc_steps` counts the supersteps of those recomputes.
+    and `cc_steps` counts those recomputes' passes over the slots (see
+    `cc_steps`).
     `rebalance_threshold` arms the §4.2 protocol after every window (None
     disables it), moving at most `rebalance_max_moves` vertices a round.
     `auto_grow` grows the capacities instead of raising `CapacityError`.
@@ -329,14 +334,27 @@ class StreamSession:
 
     @property
     def cc_steps(self) -> int:
-        """Supersteps of every CC label recompute since open (the count
-        `connected_components(..., with_steps=True)` gives each; 0 where
-        labels are not kept)."""
+        """Passes over the slots of every CC label recompute since open: 1
+        a recompute on one device (the union-find's hook pass; its init
+        and finalize read no slot), the supersteps
+        `connected_components(..., with_steps=True)` gives on the mesh; 0
+        where labels are not kept.  The port's own count: the JAX package
+        keeps none."""
         return self._cc_steps
 
     def _recompute_labels(self, g: GraphBlocks) -> None:
-        self.labels, steps = connected_components(
-            g, backend=self.backend, executor=self.executor, with_steps=True)
+        """Canonical labels of `g`: by union-find on one device (its plain
+        version on the plain backend, "torch", as every kernel there), by
+        `connected_components` on the mesh."""
+        if self.executor is None:
+            find = (union_find_labels_plain if self.backend == "torch"
+                    else union_find_labels)
+            self.labels = find(g.nbr, g.deg, g.node_mask)
+            steps = 1
+        else:
+            self.labels, steps = connected_components(
+                g, backend=self.backend, executor=self.executor,
+                with_steps=True)
         self._cc_recomputes += 1
         self._cc_steps += steps
 
@@ -435,7 +453,7 @@ class StreamSession:
             # CC labels on the post-window graph: inserts only ever JOIN
             # components, so an insert-only window is an on-device label merge;
             # a delete may split one, and a migration renames the padded ids
-            # the canonical labels are, so such a window re-propagates
+            # the canonical labels are, so such a window recomputes them
             if self.labels is not None:
                 with span(CC):
                     ins = valid & (ops_ > 0)
@@ -446,6 +464,9 @@ class StreamSession:
                             self.labels, us_d, vs_d,
                             torch.as_tensor(ins, device=dev))
                         self._cc_merges += int(ins.sum())
+                    # the upkeep reads nothing back: under a profiler the
+                    # span waits for its kernels, so that it holds them
+                    settle(dev)
             self.g, self.core = g, core
 
     # ---- elastic growth / recovery surface ------------------------------
@@ -535,7 +556,7 @@ class StreamSession:
         """Execute an explicit vertex migration (caller-chosen moves).
         Same machinery as the §4.2 rebalance: a node-axis permutation
         composed into the id map, a plan rebuild on the mesh, and one CC
-        re-propagation when labels are kept.  Returns the permutation
+        recompute when labels are kept.  Returns the permutation
         (host int64)."""
         g, perm, core = migrate_vertices(self.g, moves, self.core)
         self.g, self.core = g, core
@@ -738,10 +759,10 @@ def run_stream(
     stacked-frontier axis of the batched candidate search).  `backend` is
     any of `kernels.ops.BACKENDS` or "auto" (the default); "dense" builds
     its (N, N) bfloat16 adjacency once per candidate search and once per
-    recompute, and keeps CC labels with the dense combines.  The final
-    coreness equals sequential per-update maintenance — under live
-    rebalancing up to the node-axis permutation, i.e. equal when read
-    through `orig_id`.  `g` is updated in place until a migration or grow
+    recompute (CC labels are recomputed by union-find on every
+    single-device backend).  The final coreness equals sequential
+    per-update maintenance — under live rebalancing up to the node-axis
+    permutation, i.e. equal when read through `orig_id`.  `g` is updated in place until a migration or grow
     replaces it; use the returned graph.  With ``backend="ell_spmd"``
     every superstep runs on the worker mesh through ONE long-lived
     executor (`executor`, to thread one across calls, or one of `W`

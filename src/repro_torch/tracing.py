@@ -52,7 +52,9 @@ LOCAL = "bladyg.local"
 #: that keeps them (`StreamSession.apply_window`: the label merge of an
 #: insert-only window or the recompute of any other;
 #: `MirrorStream._refresh`: the recompute); kept out of `SPANS`, and the
-#: benchmark's `cc_ms_per_window` reads it by name
+#: benchmark's `cc_ms_per_window` reads it by name.  The session's upkeep
+#: reads nothing back, so under a profiler the span waits for its kernels
+#: before it closes (`settle`)
 CC = "bladyg.cc"
 
 #: the span names of the stream session and the analytics, with the layer
@@ -76,3 +78,15 @@ def span(name: str):
     if torch.autograd._profiler_enabled():
         return torch._C._profiler._RecordFunctionFast(name)
     return _OFF
+
+
+def settle(device) -> None:
+    """While a profiler runs, wait for the work queued on `device`'s
+    current stream, so that the span this is called in closes after that
+    work on the device's timeline.  For a span whose work reads nothing
+    back to the host: it would close while its kernels still wait in the
+    queue, and the kernel time inside it would miss them.  With no
+    profiler running, or on the CPU, it does nothing."""
+    device = torch.device(device)
+    if torch.autograd._profiler_enabled() and device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()

@@ -411,7 +411,8 @@ def test_cuda_kernel_rule_is_clean_on_the_tree():
     assert port.scan_tree(SRC_ROOT, rules=["cuda-kernel"]) == []
     from repro_torch.kernels import _build
 
-    assert len(_build.SOURCES) == 11  # the ten ports and mirror_hindex
+    # the ten ports, mirror_hindex and cc_union
+    assert len(_build.SOURCES) == 12
 
 
 @pytest.mark.parametrize("name", sorted(_MUTATIONS))
